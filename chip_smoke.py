@@ -20,19 +20,37 @@ the run with a non-zero exit and no result line:
                 run and read just after;
   5. parity  -- one training step at batch 8 from the same init and the
                 same batch on the card (kernels, bf16), on the card's
-                plain-op path (cuDNN, bf16) and on the CPU (plain, f32).
+                plain-op path (cuDNN, bf16) and on the CPU (plain, f32);
+  6. flash   -- the flash-attention forward kernel against its plain
+                version at the LM's shape (B 8, L 2048, H 8, D 64, causal),
+                the same with random documents as segment ids, Lq 256
+                against Lk 1024 with a kv-only mask (the decode mode's
+                structure) and a ragged L of 1000, then the D = 128
+                instantiations at a small shape;
+  7. flash_grad -- dQ, dK, dV of the FlashAttention Function (the dK/dV
+                and dQ kernels) against autograd through the plain forward,
+                at the LM's shape with and without segment ids;
+  8. lm_train -- the port's BenchmarkCNN on transformer_lm (vocab 32768,
+                L 2048, d 512, 6 layers, 8 heads, batch 8, bf16, SGD) with
+                KF_TRANSFORMER_LM_ATTN=flash, 5 warmup + 20 timed steps,
+                the launch counts set to 0 just before and read just after;
+  9. lm_parity -- one LM step at batch 2 from one init and one batch on the
+                card (flash kernels, bf16), the card's tiled plain ops
+                (bf16) and the CPU (plain, f32), and one packed forward.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
 last line is {"ok": true, "device": {...}}. ``--phases=build,conv`` runs a
 subset (the result line is printed only when every phase ran);
-``--phases=build,profile`` traces three training steps with
-torch.profiler and prints the kernel-time table.
+``--phases=build,profile`` traces three ResNet-50 training steps with
+torch.profiler and prints the kernel-time table, ``--phases=build,
+lm_profile`` three transformer_lm steps.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -43,8 +61,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-ALL_PHASES = ("build", "conv", "unit", "train", "parity")
-EXTRA_PHASES = ("profile",)
+ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
+              "flash_grad", "lm_train", "lm_parity")
+EXTRA_PHASES = ("profile", "lm_profile")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -56,18 +75,53 @@ PEAK_BYTES_PER_S = 3.35e12
 STAGES = (("stage2", 256, 56, 56, 64), ("stage3", 256, 28, 28, 128),
           ("stage4", 256, 14, 14, 256), ("stage5", 256, 7, 7, 512),
           ("stage5_b8", 8, 7, 7, 512))
-PROBE_STAGE = "stage3"  # the TPU probes' own shape
+# (name, B, Lq, Lk, causal, mask): the flash phase's shapes. "docs" gives
+# q and kv the same random-length documents as segment ids; "kv" gives q
+# ids of 1 and kv ids marking each row's valid keys (the decode mode's
+# SegmentIds(q=1, kv=kpos <= pos[b]), sequence.py:664-677).
+LM_B, LM_L, LM_H, LM_D = 8, 2048, 8, 64
+FLASH_SHAPES = (("lm_causal", LM_B, LM_L, LM_L, True, None),
+                ("lm_segments", LM_B, LM_L, LM_L, True, "docs"),
+                ("decode_kv_mask", LM_B, 256, 1024, False, "kv"),
+                ("ragged_1000", LM_B, 1000, 1000, True, None))
 
+# The shape each kernel's headline numbers come from: the TPU probes' own
+# shape for the conv kernels, the LM's for the attention kernels.
+HEADLINE = {"conv3x3_same": "stage3", "bn_relu_conv3x3_stats": "stage3",
+            "flash_attention_fwd": "lm_causal",
+            "flash_attention_bwd_dkv": "lm_causal",
+            "flash_attention_bwd_dq": "lm_causal"}
+
+_FA_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNELS = {
     "conv3x3_same": {
         "route": "cuda",
         "source": "kf_benchmarks_tpu_torch/csrc/conv3x3_same.cu",
-        "replaces": "experiments/pallas_conv_probe.py:34",
+        "replaces": "experiments/pallas_conv_probe.py:35",
     },
     "bn_relu_conv3x3_stats": {
         "route": "cuda",
         "source": "kf_benchmarks_tpu_torch/csrc/bn_relu_conv3x3_stats.cu",
-        "replaces": "experiments/pallas_fused_chain_probe.py:128",
+        "replaces": "experiments/pallas_fused_chain_probe.py:129 and "
+                    "experiments/pallas_stage2_probe.py:112",
+    },
+    "flash_attention_fwd": {
+        "route": "cuda",
+        "source": "kf_benchmarks_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": f"{_FA_LIB}:589 (_flash_attention_impl, pallas_call "
+                    ":758), via kf_benchmarks_tpu/parallel/sequence.py:763",
+    },
+    "flash_attention_bwd_dkv": {
+        "route": "cuda",
+        "source": "kf_benchmarks_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": f"{_FA_LIB}:941 (_flash_attention_bwd_dkv, pallas_call "
+                    ":1121), via kf_benchmarks_tpu/parallel/sequence.py:763",
+    },
+    "flash_attention_bwd_dq": {
+        "route": "cuda",
+        "source": "kf_benchmarks_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": f"{_FA_LIB}:1287 (_flash_attention_bwd_dq, pallas_call "
+                    ":1456), via kf_benchmarks_tpu/parallel/sequence.py:763",
     },
 }
 
@@ -102,6 +156,13 @@ def conv_cost(n, h, w, c, co, extra_bytes=0):
   flops = 2.0 * n * h * w * 9 * c * co
   nbytes = 2.0 * (n * h * w * c + 9 * c * co + n * h * w * co) + extra_bytes
   return bound(flops, nbytes)
+
+
+def reset_launches() -> None:
+  """Every hand-written kernel's launch count to 0."""
+  from kf_benchmarks_tpu_torch.ops import conv_bn, flash_attention
+  conv_bn.reset_launches()
+  flash_attention.reset_launches()
 
 
 def check(ok: bool, what: str) -> None:
@@ -261,10 +322,10 @@ def phase_train(res):
       num_batches=20, num_warmup_batches=5, display_every=5, device="gpu")
   bench = benchmark.BenchmarkCNN(params)
   torch.cuda.reset_peak_memory_stats()
-  conv_bn.reset_launches()
+  reset_launches()
   stats = bench.run()
-  counts = dict(conv_bn.LAUNCHES)
-  res["counts"] = counts
+  counts = benchmark.kernel_launches()
+  res["counts"].update({k: counts[k] for k in conv_bn.LAUNCHES})
   res["train"] = stats
   steps = stats["steps_run"]
   log(f"train: {steps} steps (5 warmup + 20 timed), kernel launches "
@@ -272,7 +333,7 @@ def phase_train(res):
       f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
       f"{stats['images_per_sec']:.2f} images/sec")
   check(np.isfinite(stats["last_average_loss"]), "train: loss not finite")
-  for name in KERNELS:
+  for name in conv_bn.LAUNCHES:
     check(counts[name] == 13 * steps,
           f"train: {name} launched {counts[name]} times in {steps} steps, "
           f"want 13 per step")
@@ -355,16 +416,11 @@ def phase_parity(res):
         ", ".join(parts))
 
 
-def phase_profile(res):
-  """Not in the default run: torch.profiler over 3 steps of the main path,
-  printed as a table of kernel time by name."""
+def profile_steps(label, step, images, labels):
+  """torch.profiler over 3 steps after 3 warm ones, printed as a table of
+  kernel time by name, with the busy share against the wall time of the
+  same 3 steps run without the profiler."""
   from torch.profiler import ProfilerActivity, profile
-  from kf_benchmarks_tpu_torch import benchmark
-  from kf_benchmarks_tpu_torch import params as params_lib
-  params = params_lib.make_params(
-      model="resnet50", batch_size=256, use_fp16=True, optimizer="momentum",
-      device="gpu")
-  _, step, images, labels = benchmark.BenchmarkCNN(params).build()
   for _ in range(3):
     step(images, labels)
   torch.cuda.synchronize()
@@ -372,7 +428,7 @@ def phase_profile(res):
   for _ in range(3):
     step(images, labels)
   torch.cuda.synchronize()
-  wall = time.time() - t0  # the same 3 steps without the profiler
+  wall = time.time() - t0
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     for _ in range(3):
       step(images, labels)
@@ -381,11 +437,404 @@ def phase_profile(res):
                                     row_limit=40)
   device_us = sum(e.self_device_time_total for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-  log(f"profile: 3 steps, wall without the profiler {wall * 1e3:.1f} ms, "
+  log(f"{label}: 3 steps, wall without the profiler {wall * 1e3:.1f} ms, "
       f"kernel time under it {device_us / 1e3:.1f} ms (busy share "
       f"{device_us / 1e6 / wall:.3f})")
   for line in table.splitlines():
-    log("profile: " + line)
+    log(f"{label}: " + line)
+
+
+def phase_profile(res):
+  """Not in the default run: torch.profiler over 3 steps of the ResNet-50
+  path."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import params as params_lib
+  params = params_lib.make_params(
+      model="resnet50", batch_size=256, use_fp16=True, optimizer="momentum",
+      device="gpu")
+  _, step, images, labels = benchmark.BenchmarkCNN(params).build()
+  profile_steps("profile", step, images, labels)
+
+
+# -- flash attention -------------------------------------------------------------
+
+def attn_segments(b, lq, lk, mask, seed):
+  """(q_seg, kv_seg) int32 on the card for a FLASH_SHAPES mask kind, made
+  with numpy from ``seed``."""
+  if mask is None:
+    return None, None
+  rng = np.random.default_rng(seed)
+  if mask == "docs":  # contiguous random-length documents, padding 0 last
+    seg = np.zeros((b, lq), np.int32)
+    for row in range(b):
+      pos, doc = 0, 1
+      while pos < lq - 64:
+        n = int(rng.integers(16, 512))
+        seg[row, pos:pos + n] = doc
+        pos, doc = pos + n, doc + 1
+    seg = torch.from_numpy(seg).to("cuda")
+    return seg, seg
+  last = rng.integers(lk // 4, lk, size=b)  # each row's last valid key
+  kv = (np.arange(lk)[None, :] <= last[:, None]).astype(np.int32)
+  return (torch.ones(b, lq, dtype=torch.int32, device="cuda"),
+          torch.from_numpy(kv).to("cuda"))
+
+
+def attn_inputs(b, lq, lk, seed, h=LM_H, d=LM_D):
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  mk = lambda n: torch.randn(b, n, h, d, generator=g,
+                             device="cuda").to(torch.bfloat16)
+  return mk(lq), mk(lk), mk(lk), mk(lq)
+
+
+def admissible_pairs(b, lq, lk, causal, q_seg, kv_seg):
+  """(query, key) pairs the mask admits, over the batch: the work this
+  run's data needs."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  mask = fa.admissible(lq, lk, causal, q_seg, kv_seg, device="cuda")
+  if mask is None:
+    return b * lq * lk
+  return int(mask.expand(b, 1, lq, lk).sum())
+
+
+def sdpa_mask(b, lq, lk, causal, q_seg, kv_seg):
+  """(attn_mask, is_causal) for F.scaled_dot_product_attention."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  if q_seg is None:
+    return None, causal
+  return fa.admissible(lq, lk, causal, q_seg, kv_seg, device="cuda"), False
+
+
+def phase_flash(res):
+  """The forward kernel against its plain version; times against its
+  bound, the plain version and F.scaled_dot_product_attention."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  shapes = []
+  for i, (stage, b, lq, lk, causal, mask) in enumerate(FLASH_SHAPES):
+    q, k, v, _ = attn_inputs(b, lq, lk, seed=50 + i)
+    q_seg, kv_seg = attn_segments(b, lq, lk, mask, seed=60 + i)
+    scale = LM_D ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, q_seg, kv_seg)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal, scale,
+                                                  q_seg, kv_seg)
+    torch.cuda.synchronize()
+    err, ok = bf16_close(o, o_ref)
+    check(ok, f"flash_attention_fwd {stage}: o max abs err {err}")
+    # lse: f32 sums of the same exponentials in another order; relative to
+    # max(|lse|, 1), as a row's lse may be near 0.
+    lse_err = float(((lse - lse_ref).abs() /
+                     lse_ref.abs().clamp_min(1.0)).max())
+    check(lse_err <= 1e-3, f"flash_attention_fwd {stage}: lse rel err "
+          f"{lse_err} > 1e-3")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    am, is_causal = sdpa_mask(b, lq, lk, causal, q_seg, kv_seg)
+    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal, scale,
+                                                q_seg, kv_seg))
+    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal, scale, q_seg, kv_seg), iters=5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=am, is_causal=is_causal, scale=scale))
+    pairs = admissible_pairs(b, lq, lk, causal, q_seg, kv_seg)
+    seg_bytes = 0 if q_seg is None else 4.0 * b * (lq + lk)
+    b_ms, b_by = bound(4.0 * pairs * LM_H * LM_D,
+                       2.0 * LM_H * LM_D * b * (2 * lq + 2 * lk) +
+                       4.0 * b * LM_H * lq + seg_bytes)
+    shapes.append(dict(stage=stage, shape=[b, lq, lk, LM_H, LM_D],
+                       causal=causal, mask=mask, max_abs_err=err,
+                       lse_rel_err=lse_err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       library="F.scaled_dot_product_attention"))
+    log(f"flash: {stage} q[{b},{lq},{LM_H},{LM_D}] kv len {lk} "
+        f"causal={causal} mask={mask}: o max abs err {err:.3g} (tol one "
+        f"bf16 ulp + 1e-3 max|ref|), lse rel err {lse_err:.2g} (tol 1e-3) "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by})")
+    del q, k, v, o, o_ref
+  res["flash_attention_fwd"] = shapes
+  check_head_dim_128()
+
+
+def check_head_dim_128():
+  """The kernels' D = 128 instantiations (the TPU kernel takes D <= 128;
+  the LM runs 64): forward and gradients against the plain versions at a
+  small ragged shape with segment ids. Checked, not timed."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  b, t, h, d = 2, 300, 2, 128
+  q, k, v, do = attn_inputs(b, t, t, seed=80, h=h, d=d)
+  seg, _ = attn_segments(b, t, t, "docs", seed=81)
+  o, _ = fa.flash_attention_fwd(q, k, v, True, d ** -0.5, seg, seg)
+  o_ref, _ = fa.flash_attention_fwd_plain(q, k, v, True, d ** -0.5, seg, seg)
+  err, ok = bf16_close(o, o_ref)
+  check(ok, f"flash_attention_fwd D=128: o max abs err {err}")
+
+  def grads(fn):
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    return torch.autograd.grad(fn(*leaves), leaves, do)
+
+  got = grads(lambda *x: fa.flash_attention(*x, causal=True, q_seg=seg,
+                                            kv_seg=seg))
+  ref = grads(lambda *x: fa.flash_attention_fwd_plain(*x, True, None, seg,
+                                                      seg)[0])
+  errs = []
+  for label, a, r in zip(("dq", "dk", "dv"), got, ref):
+    e = float((a.float() - r.float()).abs().max())
+    m = float(r.float().abs().max())
+    check(e <= 3e-2 * m, f"flash D=128 {label}: err {e} > 3e-2 * {m}")
+    errs.append(f"{label} {e:.3g} of {m:.3g}")
+  log(f"flash: D=128 q[{b},{t},{h},{d}] causal, docs: o max abs err "
+      f"{err:.3g}; grads max abs err {', '.join(errs)} (tol 3e-2 of max)")
+
+
+def phase_flash_grad(res):
+  """The Function's gradients (dK/dV and dQ kernels) against autograd
+  through the plain forward; the two backward kernels timed against their
+  bounds, their plain versions and the SDPA backward."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  dkv_rows, dq_rows = [], []
+  for i, (stage, b, lq, lk, causal, mask) in enumerate(FLASH_SHAPES[:2]):
+    q, k, v, do = attn_inputs(b, lq, lk, seed=70 + i)
+    q_seg, kv_seg = attn_segments(b, lq, lk, mask, seed=60 + i)
+    scale = LM_D ** -0.5
+
+    def grads(fn):
+      leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+      return torch.autograd.grad(fn(*leaves), leaves, do)
+
+    got = grads(lambda *x: fa.flash_attention(*x, causal=causal,
+                                              scale=scale, q_seg=q_seg,
+                                              kv_seg=kv_seg))
+    ref = grads(lambda *x: fa.flash_attention_fwd_plain(
+        *x, causal, scale, q_seg, kv_seg)[0])
+    errs = {}
+    # 3e-2 of each gradient's largest magnitude: the two paths round P and
+    # dS to bf16 at other places (the plain autograd rounds neither).
+    for label, a, r in zip(("dq", "dk", "dv"), got, ref):
+      e = float((a.float() - r.float()).abs().max())
+      m = float(r.float().abs().max())
+      errs[label] = e
+      check(e <= 3e-2 * m, f"flash_grad {stage} {label}: err {e} > 3e-2 * "
+            f"{m}")
+      log(f"flash_grad: {stage} {label}: max abs err {e:.3g} (max |ref| "
+          f"{m:.3g}, tol 3e-2 of it)")
+    del got, ref
+
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, q_seg, kv_seg)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, di, causal, scale, q_seg, kv_seg)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    am, is_causal = sdpa_mask(b, lq, lk, causal, q_seg, kv_seg)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                         is_causal=is_causal, scale=scale)
+    do_t = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), do_t,
+                                                 retain_graph=True))
+    pairs = admissible_pairs(b, lq, lk, causal, q_seg, kv_seg)
+    elems = LM_H * LM_D * b
+    in_bytes = 2.0 * elems * (2 * lq + 2 * lk) + 8.0 * b * LM_H * lq
+    for name, rows, fn, plain, products, out_bytes in (
+        ("flash_attention_bwd_dkv", dkv_rows, fa.flash_attention_bwd_dkv,
+         fa.flash_attention_bwd_dkv_plain, 4, 4.0 * elems * lk),
+        ("flash_attention_bwd_dq", dq_rows, fa.flash_attention_bwd_dq,
+         fa.flash_attention_bwd_dq_plain, 3, 2.0 * elems * lq)):
+      ms = time_ms(lambda: fn(*args))
+      plain_ms = time_ms(lambda: plain(*args), iters=5)
+      # The kernel's own products: S, dP and dV, dK (dK/dV) or dQ (dQ).
+      b_ms, b_by = bound(2.0 * products * pairs * LM_H * LM_D,
+                         in_bytes + out_bytes)
+      rows.append(dict(stage=stage, shape=[b, lq, lk, LM_H, LM_D],
+                       causal=causal, mask=mask,
+                       max_abs_err=errs["dq"] if name.endswith("dq") else
+                       max(errs["dk"], errs["dv"]), ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms,
+                       library="SDPA backward (dQ, dK and dV together)"))
+      log(f"flash_grad: {stage} {name}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, SDPA backward {lib_ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by})")
+    # The backward as one function: five products over the admissible
+    # pairs (S, dP, dV, dK, dQ), 2.5 x the forward's work.
+    both_ms, both_by = bound(10.0 * pairs * LM_H * LM_D, in_bytes +
+                             2.0 * elems * (lq + 2 * lk))
+    log(f"flash_grad: {stage} backward (dK/dV + dQ) kernels "
+        f"{dkv_rows[-1]['ms'] + dq_rows[-1]['ms']:.3f} ms, bound "
+        f"{both_ms:.3f} ms ({both_by})")
+    del out, qt, kt, vt
+  res["flash_attention_bwd_dkv"] = dkv_rows
+  res["flash_attention_bwd_dq"] = dq_rows
+
+
+# -- transformer LM ----------------------------------------------------------------
+
+@contextlib.contextmanager
+def lm_attention(impl):
+  """KF_TRANSFORMER_LM_ATTN set to ``impl`` inside the block."""
+  saved = os.environ.get("KF_TRANSFORMER_LM_ATTN")
+  os.environ["KF_TRANSFORMER_LM_ATTN"] = impl
+  try:
+    yield
+  finally:
+    if saved is None:
+      os.environ.pop("KF_TRANSFORMER_LM_ATTN", None)
+    else:
+      os.environ["KF_TRANSFORMER_LM_ATTN"] = saved
+
+
+def lm_params(**kw):
+  from kf_benchmarks_tpu_torch import params as params_lib
+  return params_lib.make_params(model="transformer_lm", use_fp16=True,
+                                device="gpu", **kw)
+
+
+def phase_lm_train(res):
+  """The LM's training path as a user runs it (flash attention), with every
+  launch count set to 0 just before and read just after."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch.models import transformer_lm as lm
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  with lm_attention("flash"):
+    bench = benchmark.BenchmarkCNN(lm_params(
+        num_batches=20, num_warmup_batches=5, display_every=5))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    stats = bench.run()
+    counts = benchmark.kernel_launches()
+  res["counts"].update({k: counts[k] for k in fa.LAUNCHES})
+  res["lm_train"] = stats
+  steps = stats["steps_run"]
+  seq_per_s = stats["images_per_sec"]
+  log(f"lm_train: {steps} steps (5 warmup + 20 timed), kernel launches "
+      f"{counts}, peak memory "
+      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+      f"{seq_per_s:.2f} sequences/sec, {seq_per_s * lm.SEQ_LEN:.0f} "
+      f"tokens/sec, step {stats['average_wall_time'] * 1e3:.2f} ms")
+  check(np.isfinite(stats["last_average_loss"]), "lm_train: loss not finite")
+  # Per step: 6 forward launches, 6 more when each block's checkpoint
+  # recomputes it in the backward, and one dK/dV and one dQ per layer.
+  want = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 6,
+          "flash_attention_bwd_dq": 6, "conv3x3_same": 0,
+          "bn_relu_conv3x3_stats": 0}
+  for name, per_step in want.items():
+    check(counts[name] == per_step * steps,
+          f"lm_train: {name} launched {counts[name]} times in {steps} "
+          f"steps, want {per_step} per step")
+
+
+def lm_batch(b, seed, packed=False):
+  """Tokens (or the packed (B, 3, T) stack) and next-token labels, numpy."""
+  from kf_benchmarks_tpu_torch.models import transformer_lm as lm
+  rng = np.random.default_rng(seed)
+  tokens = rng.integers(0, lm.VOCAB, (b, lm.SEQ_LEN))
+  if not packed:
+    return tokens, np.roll(tokens, -1, axis=1)
+  seg = np.zeros((b, lm.SEQ_LEN), np.int64)
+  pos = np.zeros((b, lm.SEQ_LEN), np.int64)
+  for row in range(b):
+    at, doc = 0, 1
+    while at < lm.SEQ_LEN - 100:
+      n = min(int(rng.integers(50, 700)), lm.SEQ_LEN - 100 - at)
+      seg[row, at:at + n] = doc
+      pos[row, at:at + n] = np.arange(n)
+      at, doc = at + n, doc + 1
+  labels = np.where(seg == np.roll(seg, -1, axis=1),
+                    np.roll(tokens, -1, axis=1), 0)
+  return np.stack([tokens, seg, pos], axis=1), labels
+
+
+def phase_lm_parity(res):
+  """One LM step at batch 2, full width and depth, from one init and one
+  batch: the card with the flash kernels (bf16), the card's tiled plain
+  ops (bf16) and the CPU with the plain versions (f32); then one packed
+  forward on the card against the CPU."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch.models import transformer_lm as lm
+  model = lm.TransformerLMModel()
+  with lm_attention("flash"):
+    init = model.make_module(0, torch.float32, torch.Generator().manual_seed(
+        5)).state_dict()
+  tokens, labels = lm_batch(2, seed=11)
+  out = {}
+  for arm, device, dtype, impl in (("card", "cuda", torch.bfloat16, "flash"),
+                                   ("card_plain", "cuda", torch.bfloat16,
+                                    "tiled"),
+                                   ("cpu", "cpu", torch.float32, "flash")):
+    with lm_attention(impl):
+      module = model.make_module(0, dtype).to(device)
+    module.load_state_dict(init)
+    before = benchmark.kernel_launches()
+    loss = model.loss_function(module(torch.from_numpy(tokens).to(device)),
+                               torch.from_numpy(labels).to(device))
+    names, leaves = zip(*module.named_parameters())
+    grads = torch.autograd.grad(loss, leaves)
+    launched = {k: v - before[k] for k, v in benchmark.kernel_launches().items()}
+    out[arm] = (float(loss.detach()), {n: g.detach().float().cpu()
+                              for n, g in zip(names, grads)}, launched)
+    del module, grads
+  check(out["card"][2] == {"conv3x3_same": 0, "bn_relu_conv3x3_stats": 0,
+                           "flash_attention_fwd": 12,
+                           "flash_attention_bwd_dkv": 6,
+                           "flash_attention_bwd_dq": 6},
+        f"lm_parity: card step launched {out['card'][2]}")
+  check(sum(out["card_plain"][2].values()) == 0,
+        "lm_parity: tiled arm launched a kernel")
+  # Loss: bf16 activations through 6 blocks and a 32768-way softmax.
+  for ref in ("cpu", "card_plain"):
+    rel = abs(out["card"][0] - out[ref][0]) / abs(out[ref][0])
+    log(f"lm_parity: cross-entropy card {out['card'][0]:.5f} {ref} "
+        f"{out[ref][0]:.5f} (rel {rel:.2g}, tol 2e-2)")
+    check(rel <= 2e-2, f"lm_parity: loss differs from {ref}")
+  for key in ("lm_head", "embed.weight", "pos_embedding", "blocks.0.qkv.weight",
+              "blocks.5.attn_out.weight", "blocks.5.mlp_down.weight",
+              "ln_f.weight"):
+    a = out["card"][1][key].double()  # f64: a cosine over 16.8M terms
+    parts = []
+    for ref in ("cpu", "card_plain"):
+      r = out[ref][1][key].double()
+      n_rel = abs(float(a.norm()) - float(r.norm())) / float(r.norm())
+      cos = float((a * r).sum() / (a.norm() * r.norm()))
+      parts.append(f"{ref} {float(r.norm()):.4g} (rel {n_rel:.2g}, "
+                   f"cosine {cos:.4f})")
+      if key in ("lm_head", "embed.weight"):
+        check(n_rel <= 5e-2 and cos >= 0.98,
+              f"lm_parity: gradient {key} differs from {ref}")
+    log(f"lm_parity: grad norm {key}: card {float(a.norm()):.4g}, " +
+        ", ".join(parts))
+
+  # One packed forward (numpy documents and positions): the kernels with
+  # segment ids on the card against the plain versions on the CPU.
+  packed, plabels = lm_batch(2, seed=12, packed=True)
+  losses = {}
+  for arm, device, dtype in (("card", "cuda", torch.bfloat16),
+                             ("cpu", "cpu", torch.float32)):
+    with lm_attention("flash"):
+      module = model.make_module(0, dtype).to(device)
+    module.load_state_dict(init)
+    before = benchmark.kernel_launches()
+    with torch.no_grad():
+      losses[arm] = float(model.loss_function(
+          module(torch.from_numpy(packed).to(device)),
+          torch.from_numpy(plabels).to(device)))
+    fwd = benchmark.kernel_launches()["flash_attention_fwd"] - \
+        before["flash_attention_fwd"]
+    if device == "cuda":
+      check(fwd == 6, f"lm_parity: packed forward launched {fwd} forward "
+            "kernels, want 6")
+    del module
+  rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+  log(f"lm_parity: packed forward cross-entropy card {losses['card']:.5f} "
+      f"cpu {losses['cpu']:.5f} (rel {rel:.2g}, tol 2e-2)")
+  check(rel <= 2e-2, "lm_parity: packed loss differs from the CPU")
+
+
+def phase_lm_profile(res):
+  """Not in the default run: torch.profiler over 3 LM training steps
+  (flash attention), printed as a table of kernel time by name."""
+  from kf_benchmarks_tpu_torch import benchmark
+  with lm_attention("flash"):
+    _, step, tokens, labels = benchmark.BenchmarkCNN(lm_params()).build()
+  profile_steps("lm_profile", step, tokens, labels)
+
+
 
 
 # -- main ----------------------------------------------------------------------
@@ -401,7 +850,7 @@ def kernels_line(res, counts):
   rows = []
   for name, meta in KERNELS.items():
     shapes = res.get(name, [])
-    probe = next((s for s in shapes if s["stage"] == PROBE_STAGE), None)
+    probe = next((s for s in shapes if s["stage"] == HEADLINE[name]), None)
     row = {"name": name, **meta, "launches": counts.get(name)}
     for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library"):
@@ -433,7 +882,9 @@ def main(argv=None) -> int:
   res = {"counts": {}}
   table = {"build": phase_build, "conv": phase_conv, "unit": phase_unit,
            "train": phase_train, "parity": phase_parity,
-           "profile": phase_profile}
+           "flash": phase_flash, "flash_grad": phase_flash_grad,
+           "lm_train": phase_lm_train, "lm_parity": phase_lm_parity,
+           "profile": phase_profile, "lm_profile": phase_lm_profile}
   for name in phases:
     t0 = time.time()
     log(f"== phase {name}")

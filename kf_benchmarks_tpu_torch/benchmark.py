@@ -3,7 +3,9 @@
 The port's counterpart of the training path of kf_benchmarks_tpu/
 benchmark.py (BenchmarkCNN, :340-910): the same banner, the reference's
 step lines (``N\\timages/sec: ... loss``) every --display_every steps and
-the ``total images/sec`` line, and a stats dict.
+the ``total images/sec`` line, and a stats dict. The runtime is the same
+for every model: for transformer_lm an "image" is one sequence, as in the
+JAX package (tokens/sec = images/sec x the sequence length).
 
 Timing: the device runs asynchronously, so every timing boundary is a
 ``torch.cuda.synchronize()``: one before the timed loop, and the read of
@@ -25,9 +27,15 @@ from kf_benchmarks_tpu_torch import train_step as train_step_lib
 from kf_benchmarks_tpu_torch import validation
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.ops import conv_bn
+from kf_benchmarks_tpu_torch.ops import flash_attention
 from kf_benchmarks_tpu_torch.utils import log as log_util
 
 log_fn = log_util.log_fn
+
+
+def kernel_launches() -> Dict[str, int]:
+  """Launch counts of every hand-written kernel, by name."""
+  return {**conv_bn.LAUNCHES, **flash_attention.LAUNCHES}
 
 
 def _sync(device: torch.device) -> None:
@@ -44,7 +52,7 @@ class BenchmarkCNN:
     self.params = params
     self.device = torch.device("cuda" if params.device == "gpu" else "cpu")
     self.nclass = model_config.IMAGENET_NUM_CLASSES
-    self.model = model_config.get_model_config(params.model)
+    self.model = model_config.get_model_config(params.model, params)
     if params.batch_size:
       self.model.set_batch_size(params.batch_size)
     self.batch_size = self.model.get_batch_size()
@@ -62,7 +70,7 @@ class BenchmarkCNN:
     log_fn("TensorFlow:   n/a (kf_benchmarks_tpu_torch, PyTorch %s)" %
            torch.__version__)
     log_fn("Model:       %s" % self.model.get_name())
-    log_fn("Dataset:     imagenet (synthetic)")
+    log_fn("Dataset:     %s (synthetic)" % self.model.data_name)
     log_fn("Mode:        training")
     log_fn("Batch size:  %d global" % self.batch_size)
     log_fn("             %d per device" % self.batch_size)
@@ -84,7 +92,6 @@ class BenchmarkCNN:
     with torch.device(self.device):
       module = self.model.make_module(self.nclass, self.compute_dtype,
                                       generator=gen)
-    module = module.to(memory_format=torch.channels_last)
     opt = optimizers.get_optimizer(p, module.parameters())
     lr_fn = learning_rate.make_learning_rate_fn(self.model, self.batch_size)
     step = train_step_lib.TrainStep(self.model, module, opt, lr_fn,
@@ -98,7 +105,7 @@ class BenchmarkCNN:
     return self._benchmark_train()
 
   def _benchmark_train(self) -> Dict[str, Any]:
-    launches_before = dict(conv_bn.LAUNCHES)
+    launches_before = kernel_launches()
     t0 = time.time()
     _, step, images, labels = self.build()
     log_fn("Running warm up")
@@ -138,6 +145,6 @@ class BenchmarkCNN:
         "last_average_loss": loss,
         "device": str(self.device),
         "kernel_launches": {k: v - launches_before[k]
-                            for k, v in conv_bn.LAUNCHES.items()},
+                            for k, v in kernel_launches().items()},
         "steps_run": self.num_warmup_batches + self.num_batches,
     }

@@ -10,25 +10,36 @@ other names. Leaves:
   dense  ``kernel`` (in, out)  -> ``weight`` (out, in); ``bias`` as is
   BN     params ``scale``/``bias``, batch_stats ``mean``/``var`` as is
 
-``flax_to_state_dict`` maps every flax leaf exactly once onto every entry of
-the module's state_dict, and raises on any leaf left over or missing. The
-inputs are numpy arrays (``jax.device_get`` of the flax tree), so this
-module needs no JAX.
+The transformer LM's tree is nested (``lm_leaf_of``): ``embed/embedding``,
+``pos_embedding``, ``ln_f``, ``lm_head`` (kept (d_model, vocab)) and the
+blocks, either as the scanned ``blocks/<sub>/<leaf>`` stack with a leading
+layer axis or as the loop layout's ``block_<i>/<sub>/<leaf>``, both onto the
+port's ``blocks.<i>.<sub>``. LayerNorm ``scale``/``bias`` become
+``weight``/``bias``; Dense kernels are transposed as above.
+
+``flax_to_state_dict`` maps every flax leaf (every layer of a stacked one)
+exactly once onto every entry of the module's state_dict, and raises on any
+leaf left over or missing. The inputs are numpy arrays (``jax.device_get``
+of the flax tree), so this module needs no JAX.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from kf_benchmarks_tpu_torch.models import transformer_lm
+
 _PORT_BLOCK = re.compile(r"^blocks\.(\d+)\.(\w+)$")
 
 # (collection, flax layer name, leaf name, layout kind)
 FlaxLeaf = Tuple[str, str, str, str]
+# (flax path, layout kind, layer index into a stacked leaf or None)
+FlaxSource = Tuple[Tuple[str, ...], str, Optional[int]]
 
 
 def flax_layer_name(port_name: str) -> str:
@@ -64,12 +75,47 @@ def to_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
   return value
 
 
-def _flatten(variables: Mapping) -> Dict[Tuple[str, str, str], np.ndarray]:
+def lm_leaf_of(key: str, scanned: bool) -> FlaxSource:
+  """The flax leaf a transformer LM state_dict entry comes from."""
+  parts = key.split(".")
+  if parts[0] == "embed":
+    return ("params", "embed", "embedding"), "copy", None
+  if parts[0] in ("pos_embedding", "lm_head"):
+    return ("params", parts[0]), "copy", None
+  index = None
+  if parts[0] == "blocks":
+    i = int(parts[1])
+    prefix = ("params", "blocks") if scanned else ("params", f"block_{i}")
+    index = i if scanned else None
+    parts = parts[2:]
+  else:
+    prefix = ("params",)
+  sub, attr = parts
+  if sub.startswith("ln"):  # LayerNorm: scale / bias
+    return prefix + (sub, "scale" if attr == "weight" else "bias"), "copy", \
+        index
+  if attr == "weight":  # Dense
+    return prefix + (sub, "kernel"), "dense", index
+  return prefix + (sub, attr), "copy", index
+
+
+def flax_source(key: str, tensor: torch.Tensor,
+                module: nn.Module) -> FlaxSource:
+  """The flax leaf (and layer, for a stacked one) of a state_dict entry."""
+  if isinstance(module, transformer_lm.TransformerLM):
+    return lm_leaf_of(key, module.scan_layers)
+  collection, layer, leaf, kind = leaf_of(key, tensor)
+  return (collection, layer, leaf), kind, None
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
+             ) -> Dict[Tuple[str, ...], np.ndarray]:
   flat = {}
-  for collection, layers in variables.items():
-    for layer, leaves in layers.items():
-      for leaf, value in leaves.items():
-        flat[(collection, layer, leaf)] = np.asarray(value)
+  for name, value in tree.items():
+    if isinstance(value, Mapping):
+      flat.update(_flatten(value, prefix + (name,)))
+    else:
+      flat[prefix + (name,)] = np.asarray(value)
   return flat
 
 
@@ -80,20 +126,28 @@ def flax_to_state_dict(variables: Mapping, module: nn.Module
   used = set()
   out = {}
   for key, ref in module.state_dict().items():
-    collection, layer, leaf, kind = leaf_of(key, ref)
-    src = (collection, layer, leaf)
-    if src not in flat:
-      raise KeyError(f"{key}: no flax leaf {'/'.join(src)}")
-    if src in used:
-      raise KeyError(f"{key}: flax leaf {'/'.join(src)} mapped twice")
-    used.add(src)
-    value = to_port_layout(flat[src], kind)
+    path, kind, index = flax_source(key, ref, module)
+    name = "/".join(path) + ("" if index is None else f"[{index}]")
+    if path not in flat or (index is not None and
+                            index >= flat[path].shape[0]):
+      raise KeyError(f"{key}: no flax leaf {name}")
+    if (path, index) in used:
+      raise KeyError(f"{key}: flax leaf {name} mapped twice")
+    used.add((path, index))
+    value = flat[path] if index is None else flat[path][index]
+    value = to_port_layout(value, kind)
     if tuple(value.shape) != tuple(ref.shape):
-      raise ValueError(f"{key}: flax {'/'.join(src)} has shape "
-                       f"{value.shape} in the port's layout, want "
-                       f"{tuple(ref.shape)}")
+      raise ValueError(f"{key}: flax {name} has shape {value.shape} in the "
+                       f"port's layout, want {tuple(ref.shape)}")
     out[key] = torch.from_numpy(np.array(value)).to(ref.dtype)
-  left = sorted("/".join(k) for k in flat if k not in used)
+  left = []
+  for path, value in flat.items():
+    layers = {i for p, i in used if p == path}
+    if not layers:
+      left.append("/".join(path))
+    elif layers != {None} and layers != set(range(value.shape[0])):
+      left.append(f"{'/'.join(path)} layers "
+                  f"{sorted(set(range(value.shape[0])) - layers)}")
   if left:
-    raise KeyError(f"flax leaves with no place in the port: {left}")
+    raise KeyError(f"flax leaves with no place in the port: {sorted(left)}")
   return out

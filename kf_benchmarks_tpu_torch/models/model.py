@@ -16,17 +16,24 @@ import torch.nn.functional as F
 from kf_benchmarks_tpu_torch.ops.conv_bn import accum
 
 
-class CNNModel:
-  """Convolutional model base (model.py:134-312 of the JAX package)."""
+class Model:
+  """Model base (model.py:32 of the JAX package): name, batch size,
+  learning rate, input shapes, synthetic inputs and the network.
 
-  def __init__(self, name: str, image_size: int, batch_size: int,
-               learning_rate: float, layer_counts=None, depth: int = 3):
+  ``data_name`` names the synthetic data on the benchmark's banner.
+  ``bf16_kernels()`` names the hand-written kernels the model's path
+  launches that have no f32 variant yet ("" when there are none), so
+  validation can refuse an f32 run on the card.
+  """
+
+  data_name = "synthetic"
+
+  def __init__(self, name: str, batch_size: int, learning_rate: float,
+               params=None):
     self.name = name
-    self.image_size = image_size
     self.batch_size = batch_size
     self.learning_rate = learning_rate
-    self.layer_counts = layer_counts
-    self.depth = depth
+    self.params = params
 
   def get_name(self) -> str:
     return self.name
@@ -40,6 +47,37 @@ class CNNModel:
   def get_learning_rate(self, global_step: int, batch_size: int) -> float:
     del global_step, batch_size
     return self.learning_rate
+
+  def bf16_kernels(self) -> str:
+    return ""
+
+  def get_input_shapes(self, subset: str) -> List[List[int]]:
+    raise NotImplementedError
+
+  def get_synthetic_inputs(self, generator: torch.Generator, nclass: int,
+                           device: torch.device):
+    raise NotImplementedError
+
+  def make_module(self, nclass: int, dtype: torch.dtype = torch.float32,
+                  generator: torch.Generator = None) -> nn.Module:
+    raise NotImplementedError
+
+  def loss_function(self, logits, labels: torch.Tensor) -> torch.Tensor:
+    raise NotImplementedError
+
+
+class CNNModel(Model):
+  """Convolutional model base (model.py:134-312 of the JAX package)."""
+
+  data_name = "imagenet"
+
+  def __init__(self, name: str, image_size: int, batch_size: int,
+               learning_rate: float, layer_counts=None, depth: int = 3,
+               params=None):
+    super().__init__(name, batch_size, learning_rate, params=params)
+    self.image_size = image_size
+    self.layer_counts = layer_counts
+    self.depth = depth
 
   def get_input_shapes(self, subset: str) -> List[List[int]]:
     del subset
@@ -59,11 +97,6 @@ class CNNModel:
     labels = torch.randint(0, nclass, label_shape, generator=generator,
                            device=device)
     return images, labels
-
-  def make_module(self, nclass: int,
-                  generator: torch.Generator = None) -> nn.Module:
-    """The network: NHWC images in the compute dtype -> f32 logits."""
-    raise NotImplementedError
 
   def loss_function(self, logits: torch.Tensor,
                     labels: torch.Tensor) -> torch.Tensor:

@@ -105,12 +105,19 @@ class ResNet(nn.Module):
 class ResnetModel(model.CNNModel):
   """ImageNet ResNet v1.5; ``resnet50`` is v1.5 as in the JAX package."""
 
-  def __init__(self, model_name: str, layer_counts):
+  def __init__(self, model_name: str, layer_counts, params=None):
     # Default batch 64 and base rate 0.1 (resnet_model.py:132-140).
-    super().__init__(model_name, 224, 64, 0.1, layer_counts=layer_counts)
+    super().__init__(model_name, 224, 64, 0.1, layer_counts=layer_counts,
+                     params=params)
 
   def make_module(self, nclass, dtype=torch.float32, generator=None):
-    return ResNet(self.layer_counts, nclass, dtype, generator)
+    """The network, its convolutions in channels_last memory."""
+    return ResNet(self.layer_counts, nclass, dtype, generator).to(
+        memory_format=torch.channels_last)
+
+  def bf16_kernels(self) -> str:
+    return ("the fused BN-ReLU-conv3x3 kernel (csrc/bn_relu_conv3x3_stats.cu) "
+            "and the conv3x3 kernel")
 
   def get_learning_rate(self, global_step, batch_size) -> float:
     """0.1 scaled by batch/256, piecewise at epochs 30/60/80/90, after a
@@ -128,9 +135,9 @@ class ResnetModel(model.CNNModel):
     return lr
 
 
-def create_resnet50_model():
-  return ResnetModel("resnet50", (3, 4, 6, 3))
+def create_resnet50_model(params=None):
+  return ResnetModel("resnet50", (3, 4, 6, 3), params=params)
 
 
-def create_resnet50_v15_model():
-  return ResnetModel("resnet50_v1.5", (3, 4, 6, 3))
+def create_resnet50_v15_model(params=None):
+  return ResnetModel("resnet50_v1.5", (3, 4, 6, 3), params=params)

@@ -1,0 +1,264 @@
+"""Transformer language model: the zoo's decoder-only LM.
+
+The port's counterpart of kf_benchmarks_tpu/models/transformer_lm.py: the
+training branch of ``_Block`` (:169-207), ``_TransformerLMModule.__call__``
+(:276-384) without the decode, FSDP and overlap hooks, and
+``TransformerLMModel``. Pre-LN blocks, learned positions, one Dense(3d)
+for q, k and v, the fused chunked LM head (ops/fused_loss.py).
+
+    python -m kf_benchmarks_tpu_torch.cli --model=transformer_lm --use_fp16
+
+Switches, read when the module is made (names and defaults of the JAX
+package):
+
+* ``KF_TRANSFORMER_LM_ATTN`` -- ``tiled`` (default): ``blockwise_attention``
+  in plain PyTorch ops; ``flash``: the hand-written CUDA flash-attention
+  kernels (ops/flash_attention.py), their plain versions on the CPU.
+* ``KF_TRANSFORMER_LM_HEAD`` -- ``fused`` (default): the module returns a
+  ``FusedLMHead`` and the loss reduces it chunk-wise; ``dense``: logits.
+* ``KF_TRANSFORMER_LM_LAYERS`` -- ``scan`` (default): every block under
+  ``torch.utils.checkpoint`` (the JAX package's ``nn.remat`` per scanned
+  block; the backward recomputes the block); ``loop``: no checkpoint.
+
+Precision follows flax's ``dtype=``/``param_dtype=`` split: parameters are
+f32; each Dense casts its input and parameters to the compute dtype; the
+LayerNorms compute in f32 (eps 1e-6) and the block casts back; the
+embedding and position rows are cast to the compute dtype. ``gelu`` is the
+tanh approximation (flax's ``nn.gelu`` default).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils import checkpoint
+
+from kf_benchmarks_tpu_torch.data import packing
+from kf_benchmarks_tpu_torch.models import model as model_lib
+from kf_benchmarks_tpu_torch.ops import fused_loss
+from kf_benchmarks_tpu_torch.parallel import sequence
+
+VOCAB = 32768
+SEQ_LEN = 2048
+D_MODEL = 512
+N_LAYERS = 6
+N_HEADS = 8
+D_FF = 2048
+ATTN_BLOCK = 512
+ATTN_Q_BLOCK = 512
+
+
+def _env(name: str, default: str, choices) -> str:
+  value = os.environ.get(name, default)
+  if value not in choices:
+    raise ValueError(f"{name} must be {' or '.join(repr(c) for c in choices)}"
+                     f", got {value!r}")
+  return value
+
+
+def attn_impl() -> str:
+  """KF_TRANSFORMER_LM_ATTN: 'tiled' (default) or 'flash'."""
+  return _env("KF_TRANSFORMER_LM_ATTN", "tiled", ("tiled", "flash"))
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
+  """flax's lecun_normal: truncated normal, std 1/sqrt(fan_in)."""
+  std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+  with torch.no_grad():
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+class Dense(nn.Module):
+  """flax ``nn.Dense(dtype=...)``: input, weight and bias cast to the compute
+  dtype. ``weight`` is (out, in), the flax kernel transposed."""
+
+  def __init__(self, d_in: int, d_out: int, bias: bool, dtype: torch.dtype,
+               generator=None):
+    super().__init__()
+    self.dtype = dtype
+    self.weight = nn.Parameter(torch.empty(d_out, d_in))
+    _lecun_normal_(self.weight, d_in, generator)
+    self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    bias = None if self.bias is None else self.bias.to(self.dtype)
+    return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class LayerNorm(nn.Module):
+  """flax ``nn.LayerNorm(dtype=float32)``: eps 1e-6, computed and returned in
+  the parameters' dtype (f32)."""
+
+  def __init__(self, d: int):
+    super().__init__()
+    self.weight = nn.Parameter(torch.ones(d))
+    self.bias = nn.Parameter(torch.zeros(d))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x.to(self.weight.dtype), self.weight.shape,
+                        self.weight, self.bias, 1e-6)
+
+
+class Block(nn.Module):
+  """One pre-LN decoder block (the training branch of ``_Block``)."""
+
+  def __init__(self, d_model: int, n_heads: int, d_ff: int, attn_block: int,
+               attn_q_block: int, impl: str, dtype: torch.dtype,
+               generator=None):
+    super().__init__()
+    self.n_heads = n_heads
+    self.attn_block = attn_block
+    self.attn_q_block = attn_q_block
+    self.impl = impl
+    self.dtype = dtype
+    g = generator
+    self.ln1 = LayerNorm(d_model)
+    self.qkv = Dense(d_model, 3 * d_model, False, dtype, g)
+    self.attn_out = Dense(d_model, d_model, True, dtype, g)
+    self.ln2 = LayerNorm(d_model)
+    self.mlp_up = Dense(d_model, d_ff, True, dtype, g)
+    self.mlp_down = Dense(d_ff, d_model, True, dtype, g)
+
+  def forward(self, x: torch.Tensor,
+              seg: Optional[torch.Tensor]) -> torch.Tensor:
+    b, t, d = x.shape
+    h = self.ln1(x).to(self.dtype)
+    qkv = self.qkv(h).reshape(b, t, 3, self.n_heads, d // self.n_heads)
+    q, k, v = qkv.unbind(2)
+    blk = min(self.attn_block, t)
+    if self.impl == "flash":
+      att = sequence.pallas_flash_attention(q, k, v, causal=True, block=blk,
+                                            segment_ids=seg)
+    else:
+      att = sequence.blockwise_attention(
+          q, k, v, block_size=blk, causal=True,
+          q_block_size=min(self.attn_q_block, t), segment_ids=seg)
+    x = x + self.attn_out(att.reshape(b, t, d))
+    h = self.ln2(x).to(self.dtype)
+    h = F.gelu(self.mlp_up(h), approximate="tanh")
+    return x + self.mlp_down(h)
+
+
+class TransformerLM(nn.Module):
+  """Tokens (B, T), or the packed (B, 3, T) stack [tokens, segment_ids,
+  positions], -> (FusedLMHead or (B, T, V) logits, per-token loss weights
+  or None). The input's shape is the mode switch, as in the JAX module."""
+
+  def __init__(self, vocab: int, d_model: int, n_layers: int, n_heads: int,
+               d_ff: int, attn_block: int, attn_q_block: int, impl: str,
+               scan_layers: bool, fused_head: bool, max_len: int,
+               dtype: torch.dtype, generator=None):
+    super().__init__()
+    self.dtype = dtype
+    self.scan_layers = scan_layers
+    self.fused_head = fused_head
+    g = generator
+    self.embed = nn.Embedding(vocab, d_model)
+    self.pos_embedding = nn.Parameter(torch.empty(max_len, d_model))
+    with torch.no_grad():
+      # flax: Embed's variance_scaling(1, fan_in, normal) and normal(0.02).
+      self.embed.weight.normal_(0.0, d_model ** -0.5, generator=g)
+      self.pos_embedding.normal_(0.0, 0.02, generator=g)
+    self.blocks = nn.ModuleList(
+        Block(d_model, n_heads, d_ff, attn_block, attn_q_block, impl, dtype,
+              g) for _ in range(n_layers))
+    self.ln_f = LayerNorm(d_model)
+    self.lm_head = nn.Parameter(torch.empty(d_model, vocab))
+    _lecun_normal_(self.lm_head, d_model, g)
+
+  def forward(self, tokens: torch.Tensor):
+    seg = positions = None
+    if tokens.dim() == 3:
+      tokens, seg, positions = tokens[:, 0], tokens[:, 1], tokens[:, 2]
+    t = tokens.shape[1]
+    x = self.embed(tokens.long()).to(self.dtype)
+    pos = (self.pos_embedding[:t] if positions is None
+           else self.pos_embedding[positions.long()])
+    x = x + pos.to(self.dtype)
+    for block in self.blocks:
+      if self.scan_layers and torch.is_grad_enabled():
+        x = checkpoint.checkpoint(block, x, seg, use_reentrant=False)
+      else:
+        x = block(x, seg)
+    hidden = self.ln_f(x).to(self.dtype)
+    aux = None if seg is None else packing.token_weights_from_segments(seg)
+    if self.fused_head:
+      return fused_loss.FusedLMHead(hidden=hidden, kernel=self.lm_head), aux
+    return hidden @ self.lm_head.to(self.dtype), aux
+
+
+def _head(module_output):
+  """(hidden, kernel, weights) of the module's output; the dense head's
+  logits come with kernel None (the loss then reduces them chunk-wise)."""
+  out, weights = module_output
+  if isinstance(out, fused_loss.FusedLMHead):
+    return out.hidden, out.kernel, weights
+  return out, None, weights
+
+
+class TransformerLMModel(model_lib.Model):
+  """Decoder-only LM over synthetic token streams: batch 8, rate 0.05,
+  sequences of SEQ_LEN; throughput prints as sequences/sec on the
+  reference's images/sec line."""
+
+  data_name = "token stream"
+  # Sequence chunk of the loss: one (B, chunk, V) f32 softmax at a time.
+  LOSS_CHUNK = 256
+
+  def __init__(self, params=None):
+    super().__init__("transformer_lm", batch_size=8, learning_rate=0.05,
+                     params=params)
+
+  def bf16_kernels(self) -> str:
+    if attn_impl() == "flash":
+      return ("the flash-attention kernels (csrc/flash_attention_fwd.cu, "
+              "csrc/flash_attention_bwd.cu)")
+    return ""
+
+  def make_module(self, nclass, dtype=torch.float32, generator=None):
+    del nclass
+    impl = attn_impl()
+    head = _env("KF_TRANSFORMER_LM_HEAD", "fused", ("fused", "dense"))
+    layers = _env("KF_TRANSFORMER_LM_LAYERS", "scan", ("scan", "loop"))
+    # --attn_block sets both the K/V block and the matched q block.
+    attn_block = getattr(self.params, "attn_block", None) or ATTN_BLOCK
+    attn_q_block = getattr(self.params, "attn_block", None) or ATTN_Q_BLOCK
+    return TransformerLM(VOCAB, D_MODEL, N_LAYERS, N_HEADS, D_FF, attn_block,
+                         attn_q_block, impl, layers == "scan",
+                         head == "fused", SEQ_LEN, dtype, generator)
+
+  def get_input_shapes(self, subset: str):
+    del subset
+    n = self.get_batch_size()
+    return [[n, SEQ_LEN], [n, SEQ_LEN]]
+
+  def get_synthetic_inputs(self, generator: torch.Generator, nclass: int,
+                           device: torch.device):
+    """Uniform token ids and their next-token labels (the shifted stream,
+    so the objective is the real LM objective), int64 on ``device``."""
+    del nclass
+    shape, _ = self.get_input_shapes("train")
+    tokens = torch.randint(0, VOCAB, shape, generator=generator,
+                           device=device)
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+  def loss_function(self, logits, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL of the module's (head, weights) output."""
+    hidden, kernel, weights = _head(logits)
+    return fused_loss.fused_softmax_xent(hidden, kernel, labels,
+                                         chunk_size=self.LOSS_CHUNK,
+                                         weights=weights)
+
+  def accuracy_function(self, logits, labels: torch.Tensor):
+    hidden, kernel, weights = _head(logits)
+    return fused_loss.fused_top_k_accuracy(hidden, kernel, labels,
+                                           chunk_size=self.LOSS_CHUNK,
+                                           weights=weights)
+
+
+def create_transformer_lm_model(params=None):
+  return TransformerLMModel(params=params)

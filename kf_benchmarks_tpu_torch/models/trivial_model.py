@@ -30,8 +30,8 @@ class TrivialNet(nn.Module):
 
 class TrivialModel(model.CNNModel):
 
-  def __init__(self):
-    super().__init__("trivial", 224 + 3, 32, 0.005)
+  def __init__(self, params=None):
+    super().__init__("trivial", 224 + 3, 32, 0.005, params=params)
 
   def make_module(self, nclass, dtype=torch.float32, generator=None):
     return TrivialNet(self.image_size, nclass, dtype, generator)

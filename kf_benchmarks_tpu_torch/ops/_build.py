@@ -29,8 +29,21 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# Shape, strides, scale, causal flag and stream of the attention kernels:
+# (B, H, Lq, Lk, D), the batch and position strides of q, k and v, the
+# softmax scale (a C float: without c_float ctypes would pass an int).
+_ATTN_TAIL = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 6 +
+              [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
 # C signatures of the exported functions, by library.
 _SIGNATURES = {
+    "flash_attention_fwd": {
+        "flash_attention_fwd_bf16": [ctypes.c_void_p] * 7 + _ATTN_TAIL,
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_dkv_bf16": [ctypes.c_void_p] * 10 + _ATTN_TAIL,
+        "flash_attention_bwd_dq_bf16": [ctypes.c_void_p] * 9 + _ATTN_TAIL,
+    },
     "conv3x3_same": {
         "conv3x3_same_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
                              [ctypes.c_void_p],

@@ -1,0 +1,153 @@
+"""Single-device attention schedules over (B, L, H, D).
+
+The port's counterpart of the single-device half of
+kf_benchmarks_tpu/parallel/sequence.py:
+
+* ``full_attention`` -- the O(L^2) reference (sequence.py:54);
+* ``_block_update`` / ``blockwise_attention`` -- the online-softmax schedule
+  over K/V blocks, one- or two-level (sequence.py:114, :405): the LM's
+  ``tiled`` attention, in plain PyTorch ops;
+* ``pallas_flash_attention`` -- the LM's ``flash`` attention
+  (sequence.py:763): here the hand-written CUDA kernels of
+  ops/flash_attention.py, with the plain versions on the CPU.
+
+Masking follows the JAX package: ``_NEG`` in place of -inf, a causal mask
+aligned at the top left (``arange(lq)[:, None] >= arange(lk)``), segment
+ids compared by equality (padding id 0 attends padding, so no row of a
+packed batch is ever fully masked). The ring, zigzag and Ulysses schedules
+(sequence parallelism across devices) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from kf_benchmarks_tpu_torch.ops import flash_attention as flash_lib
+from kf_benchmarks_tpu_torch.ops.conv_bn import accum
+
+# Finite stand-in for -inf: exp(_NEG - _NEG) stays defined (= 1, zeroed by
+# the explicit mask on p) where a fully masked row would give inf - inf.
+_NEG = -1e30
+
+
+def full_attention(q, k, v, causal: bool = False,
+                   scale: Optional[float] = None, segment_ids=None):
+  """Plain O(L^2) multi-head attention in the accumulation dtype; result in
+  q's dtype. ``segment_ids`` (B, L): a query attends only keys of its
+  segment."""
+  scale = flash_lib.default_scale(q) if scale is None else scale
+  s = torch.einsum("bqhd,bkhd->bhqk", accum(q), accum(k)) * scale
+  mask = flash_lib.admissible(q.shape[1], k.shape[1], causal, segment_ids,
+                              segment_ids, device=q.device)
+  if mask is not None:
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+  p = torch.softmax(s, dim=-1)
+  out = torch.einsum("bhqk,bkhd->bqhd", p, accum(v))
+  return out.to(q.dtype)
+
+
+def _block_update(q, k, v, m, l, o, scale, mask):
+  """One online-softmax step over a K/V block.
+
+  q (B,Tq,H,D); k, v (B,Tk,H,D); running max m and denominator l (B,H,Tq);
+  running unnormalised output o (B,Tq,H,D) in the accumulation dtype. The
+  products take the input dtype with sums in the accumulation dtype; the
+  probability tile is cast to v's dtype for the PV product
+  (sequence.py:114-145)."""
+  s = torch.einsum("bqhd,bkhd->bhqk", accum(q), accum(k)) * scale
+  if mask is not None:
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+  m_new = torch.maximum(m, s.amax(-1))
+  corr = torch.exp(m - m_new)
+  p = torch.exp(s - m_new[..., None])
+  if mask is not None:
+    # A fully masked row has m_new == _NEG and exp(s - m_new) == 1.
+    p = torch.where(mask, p, torch.zeros_like(p))
+  l_new = l * corr + p.sum(-1)
+  pv = torch.einsum("bhqk,bkhd->bqhd", accum(p.to(v.dtype)), accum(v))
+  o_new = o * corr.transpose(1, 2)[..., None] + pv
+  return m_new, l_new, o_new
+
+
+def _tile_mask(q_off, tq, k_off, tk, causal, seg_q, seg_k, device):
+  """Mask of one (q block, K/V block) tile, broadcastable to
+  (B, H, Tq, Tk), or None."""
+  mask = None
+  if causal:
+    qpos = q_off + torch.arange(tq, device=device)
+    kpos = k_off + torch.arange(tk, device=device)
+    mask = (qpos[:, None] >= kpos[None, :])
+  if seg_q is not None:
+    seg = (seg_q[:, None, :, None] == seg_k[:, None, None, :])
+    mask = seg if mask is None else (mask & seg)
+  return mask
+
+
+def _finish(o, l, dtype):
+  return (o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(dtype)
+
+
+def blockwise_attention(q, k, v, block_size: int, causal: bool = False,
+                        scale: Optional[float] = None,
+                        q_block_size: Optional[int] = None,
+                        segment_ids=None):
+  """Flash-style attention as an online softmax over K/V blocks of
+  ``block_size``; with ``q_block_size`` also over q blocks (two-level
+  tiling), where under ``causal`` the K/V blocks wholly in a q block's
+  future are skipped. Exact: every query attends every admissible key.
+
+  The JAX package also skips tiles that are fully cross-segment for every
+  batch row (a data-dependent ``lax.cond``); such a tile is an exact no-op
+  of the update, and in eager PyTorch the test would cost a host sync, so
+  the port runs it. Autograd keeps each tile's intermediates (the JAX
+  package rematerialises them per block); the LM's per-block checkpoint
+  bounds that to one layer at a time.
+
+  (B, L, H, D) -> (B, L, H, D); L % block_size == 0.
+  """
+  b, seq, h, d = q.shape
+  if seq % block_size != 0:
+    raise ValueError(f"seq len {seq} not divisible by block {block_size}")
+  scale = flash_lib.default_scale(q) if scale is None else scale
+  nblk = seq // block_size
+  acc_dtype = accum(q).dtype
+  q_block = seq if q_block_size is None else q_block_size
+  if seq % q_block != 0:
+    raise ValueError(f"seq len {seq} not divisible by q block {q_block}")
+  outs = []
+  for qi in range(seq // q_block):
+    q0 = qi * q_block
+    qb = q[:, q0:q0 + q_block]
+    sq = None if segment_ids is None else segment_ids[:, q0:q0 + q_block]
+    m = torch.full((b, h, q_block), _NEG, dtype=acc_dtype, device=q.device)
+    l = torch.zeros((b, h, q_block), dtype=acc_dtype, device=q.device)
+    o = torch.zeros((b, q_block, h, d), dtype=acc_dtype, device=q.device)
+    for j in range(nblk):
+      k0 = j * block_size
+      if causal and q_block_size is not None and k0 > q0 + q_block - 1:
+        break  # this and every later K/V block lie in the q block's future
+      sk = None if segment_ids is None else \
+          segment_ids[:, k0:k0 + block_size]
+      mask = _tile_mask(q0, q_block, k0, block_size, causal, sq, sk,
+                        q.device)
+      m, l, o = _block_update(qb, k[:, k0:k0 + block_size],
+                              v[:, k0:k0 + block_size], m, l, o, scale, mask)
+    outs.append(_finish(o, l, q.dtype))
+  return torch.cat(outs, dim=1)
+
+
+def pallas_flash_attention(q, k, v, causal: bool = False,
+                           scale: Optional[float] = None,
+                           block: Optional[int] = None, segment_ids=None):
+  """Flash attention over (B, L, H, D) through ops/flash_attention.py: the
+  hand-written CUDA kernels on the card, their plain versions on the CPU.
+
+  ``block`` is the JAX package's uniform Pallas tile (sequence.py:797-805);
+  it is accepted so callers keep their signature and does not set the CUDA
+  kernels' tile, which the kernels choose themselves. ``segment_ids``
+  (B, L) serves as both the q and the kv segment ids."""
+  del block
+  return flash_lib.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   q_seg=segment_ids, kv_seg=segment_ids)

@@ -1,9 +1,9 @@
-"""The parameters this slice of the port reads, and the Params object.
+"""The parameters the port reads so far, and the Params object.
 
 A subset of kf_benchmarks_tpu/params.py (ref: benchmark_cnn.py:114-636):
-ResNet-50 training on synthetic ImageNet on one card. Names, defaults and
-meanings follow the JAX package, except ``device``, which defaults to the
-card. validation.py rejects every value outside the slice.
+ResNet-50 and transformer_lm training on synthetic data on one card. Names,
+defaults and meanings follow the JAX package, except ``device``, which
+defaults to the card. validation.py rejects every value outside the port.
 """
 
 from __future__ import annotations
@@ -42,6 +42,14 @@ flags.DEFINE_integer("display_every", 10, "Print step stats every N steps.",
 flags.DEFINE_enum("data_format", "NHWC", ("NHWC",),
                   "Tensor layout at the model's boundary (NHWC only; "
                   "convolutions run channels_last).")
+flags.DEFINE_integer("attn_block", None,
+                     "Attention K/V block size of the transformer_lm "
+                     "family's tiled attention (parallel/sequence.py "
+                     "blockwise_attention; the q-block is matched to it). "
+                     "None = the model default (models/transformer_lm."
+                     "ATTN_BLOCK). Must divide the model's sequence length "
+                     "(validation.py). The flash kernels choose their own "
+                     "tile.", lower_bound=8)
 flags.DEFINE_integer("tf_random_seed", 1234, "Seed of the weights and of "
                      "the synthetic batch.")
 

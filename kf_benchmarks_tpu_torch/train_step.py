@@ -41,9 +41,10 @@ def l2_loss(module: nn.Module) -> torch.Tensor:
 class TrainStep:
   """One training step over a fixed module/optimizer pair.
 
-  A call takes NHWC images and int64 labels on the module's device and
-  returns the step's losses as tensors on that device (reading them
-  synchronises with the device; the caller decides when) and its rate.
+  A call takes the model's inputs (NHWC images, or token ids) and int64
+  labels on the module's device and returns the step's losses as tensors
+  on that device (reading them synchronises with the device; the caller
+  decides when) and its rate.
   """
 
   def __init__(self, model, module: nn.Module,

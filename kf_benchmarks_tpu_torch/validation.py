@@ -1,8 +1,9 @@
-"""Cross-flag validation: reject every configuration outside the slice.
+"""Cross-flag validation: reject every configuration the port does not run.
 
-The port's counterpart of kf_benchmarks_tpu/validation.py. This slice runs
-ResNet-50 (and the trivial model) training on synthetic ImageNet on one
-device; anything else fails here with the reason, before any work starts.
+The port's counterpart of kf_benchmarks_tpu/validation.py. The port runs
+ResNet-50 (and the trivial model) and transformer_lm training on synthetic
+data on one device; anything else fails here with the reason, before any
+work starts.
 """
 
 from __future__ import annotations
@@ -10,29 +11,42 @@ from __future__ import annotations
 import torch
 
 from kf_benchmarks_tpu_torch.models import model_config
+from kf_benchmarks_tpu_torch.models import transformer_lm
 
 
 class ParamError(ValueError):
-  """A flag value or combination this slice of the port does not run."""
+  """A flag value or combination the port does not run."""
 
 
 def validate_cross_flags(params) -> None:
   if params.model not in model_config.list_models():
     raise ParamError(
-        f"--model={params.model} is not ported yet; this slice runs "
+        f"--model={params.model} is not ported yet; the port runs "
         f"{', '.join(model_config.list_models())}")
   if params.num_devices != 1:
     raise ParamError(
-        f"--num_devices={params.num_devices}: this slice runs one device; "
+        f"--num_devices={params.num_devices}: the port runs one device; "
         "data-parallel training is not ported yet")
+  if params.attn_block:
+    if params.model != "transformer_lm":
+      raise ParamError(
+          "--attn_block sizes the transformer_lm attention tiling "
+          f"(parallel/sequence.py); got --model={params.model}, which has "
+          "no attention blocks to tile")
+    if transformer_lm.SEQ_LEN % params.attn_block:
+      raise ParamError(
+          f"--attn_block={params.attn_block} must divide the transformer_lm "
+          f"sequence length {transformer_lm.SEQ_LEN} (blockwise_attention "
+          "tiles the K/V axis in whole blocks)")
   if params.device == "gpu":
     if not torch.cuda.is_available():
       raise ParamError(
           "--device=gpu but no CUDA device is available "
           "(torch.cuda.is_available() is False); pass --device=cpu to run "
           "the plain PyTorch versions on the CPU")
-    if not params.use_fp16:
+    kernels = model_config.get_model_config(params.model,
+                                            params).bf16_kernels()
+    if kernels and not params.use_fp16:
       raise ParamError(
-          "--device=gpu needs --use_fp16: the fused BN-ReLU-conv3x3 kernel "
-          "(csrc/bn_relu_conv3x3_stats.cu) and the conv3x3 kernel have no "
-          "f32 variant yet")
+          f"--device=gpu needs --use_fp16 for --model={params.model}: "
+          f"{kernels} have no f32 variant yet")

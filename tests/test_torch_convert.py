@@ -92,3 +92,67 @@ def test_missing_and_extra_leaves_raise():
     ("affine0", "affine0")])
 def test_layer_names(port, flax):
   assert convert.flax_layer_name(port) == flax
+
+
+def _lm_pair(scan):
+  from kf_benchmarks_tpu.models import transformer_lm as jax_lm
+  from kf_benchmarks_tpu_torch.models import transformer_lm as port_lm
+  jmodule = jax_lm._TransformerLMModule(
+      vocab=64, d_model=16, n_layers=3, n_heads=2, d_ff=32, attn_block=8,
+      max_len=16, scan_layers=scan)
+  shapes = jax.eval_shape(jmodule.init, jax.random.PRNGKey(0),
+                          jnp.zeros((1, 16), jnp.int32))
+  rng = np.random.default_rng(1)
+  tree = jax.tree.map(lambda s: rng.normal(size=s.shape).astype(np.float32),
+                      shapes)
+  module = port_lm.TransformerLM(64, 16, 3, 2, 32, 8, 8, "tiled", scan,
+                                 True, 16, torch.float32)
+  return tree, module
+
+
+@pytest.mark.parametrize("scan", [True, False], ids=["scan", "loop"])
+def test_lm_every_flax_leaf_maps_exactly_once(scan):
+  """The scanned stack (leading layer axis) and the loop layout's block_<i>
+  both land on blocks.<i>.<sub>; LayerNorm scale/bias -> weight/bias,
+  Dense kernels transposed, embed/pos_embedding/lm_head as they are."""
+  tree, module = _lm_pair(scan)
+  state = convert.flax_to_state_dict(tree, module)
+  module.load_state_dict(state)  # strict: every key, every shape
+  flat = convert._flatten(tree)
+  n_leaves = sum(v.shape[0] if scan and p[1] == "blocks" else 1
+                 for p, v in flat.items())
+  assert len(state) == n_leaves
+  for key, value in module.state_dict().items():
+    path, kind, index = convert.flax_source(key, value, module)
+    ref = flat[path] if index is None else flat[path][index]
+    np.testing.assert_array_equal(
+        convert.to_flax_layout(value.numpy(), kind), ref)
+  p = tree["params"]
+  blk = (lambda i, sub: jax.tree.map(lambda a: a[i], p["blocks"][sub])) \
+      if scan else (lambda i, sub: p[f"block_{i}"][sub])
+  np.testing.assert_array_equal(state["blocks.2.qkv.weight"].numpy(),
+                                blk(2, "qkv")["kernel"].T)
+  np.testing.assert_array_equal(state["blocks.1.ln2.weight"].numpy(),
+                                blk(1, "ln2")["scale"])
+  np.testing.assert_array_equal(state["embed.weight"].numpy(),
+                                p["embed"]["embedding"])
+  assert state["lm_head"].shape == (16, 64)  # (d_model, vocab), as in flax
+
+
+def test_lm_missing_layer_and_extra_leaf_raise():
+  tree, module = _lm_pair(True)
+  short = jax.tree.map(lambda a: a, tree)
+  short["params"]["blocks"]["mlp_up"]["bias"] = \
+      tree["params"]["blocks"]["mlp_up"]["bias"][:2]
+  with pytest.raises(KeyError, match="mlp_up/bias\\[2\\]"):
+    convert.flax_to_state_dict(short, module)
+  extra = jax.tree.map(lambda a: a, tree)
+  extra["params"]["blocks"]["mlp_up"]["bias"] = np.concatenate(
+      [tree["params"]["blocks"]["mlp_up"]["bias"],
+       np.zeros((1, 32), np.float32)])
+  with pytest.raises(KeyError, match="mlp_up/bias layers \\[3\\]"):
+    convert.flax_to_state_dict(extra, module)
+  extra = jax.tree.map(lambda a: a, tree)
+  extra["params"]["head_bias"] = np.zeros(64, np.float32)
+  with pytest.raises(KeyError, match="head_bias"):
+    convert.flax_to_state_dict(extra, module)
