@@ -36,7 +36,28 @@ the run with a non-zero exit and no result line:
                 the launch counts set to 0 just before and read just after;
   9. lm_parity -- one LM step at batch 2 from one init and one batch on the
                 card (flash kernels, bf16), the card's tiled plain ops
-                (bf16) and the CPU (plain, f32), and one packed forward.
+                (bf16) and the CPU (plain, f32), and one packed forward;
+ 10. decode  -- the decode-attention kernels (flash_decode_partial and
+                flash_decode_combine) against their plain versions at the
+                serving LM's ring (T 2048, H 8, D 64, bf16) for B 1, 16, 64
+                and 256, seeded positions from [0, 2T) with 0 and T-1, NaN in
+                every slot past pos invisible (bit-identical output), timed
+                against the bound, the plain versions and SDPA with the
+                boolean kpos <= pos mask; then D = 128 at a small ring;
+ 11. serve   -- the port's ServingEngine at the zoo LM's full size (bf16
+                over f32 params, flash attention, ladder 1/4/16/64/256):
+                warm(), then two replays of the seeded poisson_workload, 128
+                requests with 32 new tokens each, at 16 requests/s (the JAX
+                bench's chip configuration) and at 1000/s with a queue of
+                128 (capacity), each with the launch counts set to 0 just
+                before and read just after: every request completes, none is
+                shed, each decode kernel launches 6 x the decode steps and
+                the forward kernel 6 x the prefill waves;
+ 12. serve_parity -- two seeded 64-token prompts packed and prefilled, then
+                16 teacher-forced decode steps at full size: the card with
+                the kernels (bf16), the card's tiled plain ops (bf16) and
+                the CPU (plain, f32), and the card's decode logits against
+                the rows of its full forward (the KV-cache oracle).
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -44,7 +65,8 @@ last line is {"ok": true, "device": {...}}. ``--phases=build,conv`` runs a
 subset (the result line is printed only when every phase ran);
 ``--phases=build,profile`` traces three ResNet-50 training steps with
 torch.profiler and prints the kernel-time table, ``--phases=build,
-lm_profile`` three transformer_lm steps.
+lm_profile`` three transformer_lm steps, ``--phases=build,serve_profile``
+20 serving decode steps at bucket 64.
 """
 
 from __future__ import annotations
@@ -52,6 +74,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -62,8 +85,9 @@ import torch
 import torch.nn.functional as F
 
 ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
-              "flash_grad", "lm_train", "lm_parity")
-EXTRA_PHASES = ("profile", "lm_profile")
+              "flash_grad", "lm_train", "lm_parity", "decode", "serve",
+              "serve_parity")
+EXTRA_PHASES = ("profile", "lm_profile", "serve_profile")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -90,7 +114,11 @@ FLASH_SHAPES = (("lm_causal", LM_B, LM_L, LM_L, True, None),
 HEADLINE = {"conv3x3_same": "stage3", "bn_relu_conv3x3_stats": "stage3",
             "flash_attention_fwd": "lm_causal",
             "flash_attention_bwd_dkv": "lm_causal",
-            "flash_attention_bwd_dq": "lm_causal"}
+            "flash_attention_bwd_dq": "lm_causal",
+            "flash_decode_partial": "b64", "flash_decode_combine": "b64"}
+# The decode phase: the serving LM's ring length and decode batches.
+DECODE_T = 2048
+DECODE_BATCHES = (1, 16, 64, 256)
 
 _FA_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNELS = {
@@ -122,6 +150,20 @@ KERNELS = {
         "source": "kf_benchmarks_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": f"{_FA_LIB}:1287 (_flash_attention_bwd_dq, pallas_call "
                     ":1456), via kf_benchmarks_tpu/parallel/sequence.py:763",
+    },
+    "flash_decode_partial": {
+        "route": "cuda",
+        "source": "kf_benchmarks_tpu_torch/csrc/flash_decode.cu",
+        "replaces": f"{_FA_LIB}:589 (_flash_attention_impl, pallas_call "
+                    ":758) in decode mode, via kf_benchmarks_tpu/parallel/"
+                    "sequence.py:554 decode_attention (:664-677)",
+    },
+    "flash_decode_combine": {
+        "route": "cuda",
+        "source": "kf_benchmarks_tpu_torch/csrc/flash_decode.cu",
+        "replaces": f"{_FA_LIB}:589 (_flash_attention_impl, pallas_call "
+                    ":758) in decode mode: the merge of the key splits, "
+                    "which the TPU kernel's sequential grid did in scratch",
     },
 }
 
@@ -326,6 +368,7 @@ def phase_train(res):
   stats = bench.run()
   counts = benchmark.kernel_launches()
   res["counts"].update({k: counts[k] for k in conv_bn.LAUNCHES})
+  res.setdefault("counts_by_path", {})["train"] = counts
   res["train"] = stats
   steps = stats["steps_run"]
   log(f"train: {steps} steps (5 warmup + 20 timed), kernel launches "
@@ -416,28 +459,28 @@ def phase_parity(res):
         ", ".join(parts))
 
 
-def profile_steps(label, step, images, labels):
-  """torch.profiler over 3 steps after 3 warm ones, printed as a table of
-  kernel time by name, with the busy share against the wall time of the
-  same 3 steps run without the profiler."""
+def profile_steps(label, step, n=3):
+  """torch.profiler over n calls of step() after n warm ones, printed as a
+  table of kernel time by name, with the busy share against the wall time
+  of the same n calls run without the profiler."""
   from torch.profiler import ProfilerActivity, profile
-  for _ in range(3):
-    step(images, labels)
+  for _ in range(n):
+    step()
   torch.cuda.synchronize()
   t0 = time.time()
-  for _ in range(3):
-    step(images, labels)
+  for _ in range(n):
+    step()
   torch.cuda.synchronize()
   wall = time.time() - t0
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    for _ in range(3):
-      step(images, labels)
+    for _ in range(n):
+      step()
     torch.cuda.synchronize()
   table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=40)
   device_us = sum(e.self_device_time_total for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-  log(f"{label}: 3 steps, wall without the profiler {wall * 1e3:.1f} ms, "
+  log(f"{label}: {n} steps, wall without the profiler {wall * 1e3:.1f} ms, "
       f"kernel time under it {device_us / 1e3:.1f} ms (busy share "
       f"{device_us / 1e6 / wall:.3f})")
   for line in table.splitlines():
@@ -453,10 +496,10 @@ def phase_profile(res):
       model="resnet50", batch_size=256, use_fp16=True, optimizer="momentum",
       device="gpu")
   _, step, images, labels = benchmark.BenchmarkCNN(params).build()
-  profile_steps("profile", step, images, labels)
+  profile_steps("profile", lambda: step(images, labels))
 
 
-# -- flash attention -------------------------------------------------------------
+# -- flash attention -----------------------------------------------------------
 
 def attn_segments(b, lq, lk, mask, seed):
   """(q_seg, kv_seg) int32 on the card for a FLASH_SHAPES mask kind, made
@@ -664,7 +707,7 @@ def phase_flash_grad(res):
   res["flash_attention_bwd_dq"] = dq_rows
 
 
-# -- transformer LM ----------------------------------------------------------------
+# -- transformer LM ------------------------------------------------------------
 
 @contextlib.contextmanager
 def lm_attention(impl):
@@ -700,6 +743,7 @@ def phase_lm_train(res):
     stats = bench.run()
     counts = benchmark.kernel_launches()
   res["counts"].update({k: counts[k] for k in fa.LAUNCHES})
+  res.setdefault("counts_by_path", {})["lm_train"] = counts
   res["lm_train"] = stats
   steps = stats["steps_run"]
   seq_per_s = stats["images_per_sec"]
@@ -713,7 +757,8 @@ def phase_lm_train(res):
   # recomputes it in the backward, and one dK/dV and one dQ per layer.
   want = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 6,
           "flash_attention_bwd_dq": 6, "conv3x3_same": 0,
-          "bn_relu_conv3x3_stats": 0}
+          "bn_relu_conv3x3_stats": 0, "flash_decode_partial": 0,
+          "flash_decode_combine": 0}
   for name, per_step in want.items():
     check(counts[name] == per_step * steps,
           f"lm_train: {name} launched {counts[name]} times in {steps} "
@@ -773,7 +818,9 @@ def phase_lm_parity(res):
   check(out["card"][2] == {"conv3x3_same": 0, "bn_relu_conv3x3_stats": 0,
                            "flash_attention_fwd": 12,
                            "flash_attention_bwd_dkv": 6,
-                           "flash_attention_bwd_dq": 6},
+                           "flash_attention_bwd_dq": 6,
+                           "flash_decode_partial": 0,
+                           "flash_decode_combine": 0},
         f"lm_parity: card step launched {out['card'][2]}")
   check(sum(out["card_plain"][2].values()) == 0,
         "lm_parity: tiled arm launched a kernel")
@@ -826,15 +873,397 @@ def phase_lm_parity(res):
   check(rel <= 2e-2, "lm_parity: packed loss differs from the CPU")
 
 
+# -- decode attention ----------------------------------------------------------
+
+def decode_inputs(b, t, seed, h=LM_H, d=LM_D):
+  """q (B, 1, H, D) as a view of a (B, 1, 3, H, D) projection, the layers of
+  (L, B, T, H, D) K and V caches (as many as make up > 2x the 50 MB L2, so
+  timings that cycle through them find each layer cold, as a decode step
+  does), and pos (B,) int32 drawn from [0, 2T) with 0 (for B > 1) and
+  T - 1 included: both unwrapped and wrapped rings."""
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  per_layer = 2 * b * t * h * d * 2
+  layers = max(2, -(-100 * 2**20 // per_layer))
+  qkv = torch.randn(b, 1, 3, h, d, generator=g, device="cuda").to(
+      torch.bfloat16)
+  ck = torch.randn(layers, b, t, h, d, generator=g, device="cuda").to(
+      torch.bfloat16)
+  cv = torch.randn(layers, b, t, h, d, generator=g, device="cuda").to(
+      torch.bfloat16)
+  rng = np.random.default_rng(seed)
+  pos = rng.integers(0, 2 * t, b)
+  pos[-1] = t - 1
+  if b > 1:
+    pos[0] = 0
+  pos = torch.from_numpy(pos.astype(np.int32)).to("cuda")
+  return qkv[:, :, 0], ck, cv, pos
+
+
+def time_layers_ms(fn, layers, iters=24):
+  """time_ms of fn(layer) cycling through the cache layers."""
+  it = [0]
+
+  def step():
+    fn(it[0] % layers)
+    it[0] += 1
+
+  return time_ms(step, iters=iters)
+
+
+def check_decode_case(label, q, k, v, pos, scale):
+  """flash_decode against its plain version, and with NaN in every slot
+  past pos bit-identical to the clean run. Returns (o, max abs err)."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  o = fa.flash_decode(q, k, v, pos, scale)
+  o_ref = fa.flash_decode_plain(q, k, v, pos, scale)
+  torch.cuda.synchronize()
+  err, ok = bf16_close(o, o_ref)
+  check(ok, f"flash_decode {label}: o max abs err {err} out of tolerance")
+  stale = ~fa.decode_admitted(pos, k.shape[1])
+  k2, v2 = k.clone(), v.clone()
+  k2[stale] = float("nan")
+  v2[stale] = float("nan")
+  o2 = fa.flash_decode(q, k2, v2, pos, scale)
+  torch.cuda.synchronize()
+  check(torch.equal(o, o2), f"flash_decode {label}: NaN past pos changed "
+        "the output")
+  del k2, v2
+  return o, err
+
+
+def phase_decode(res):
+  """The decode kernels against their plain versions at the serving LM's
+  ring (T 2048, H 8, D 64) for B in DECODE_BATCHES, NaN past pos invisible;
+  times against the bound, the plain versions and SDPA with the boolean
+  kpos <= pos mask. Then the D = 128 instantiation at a small shape."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+  partial_rows, combine_rows = [], []
+  scale = LM_D ** -0.5
+  t, h, d = DECODE_T, LM_H, LM_D
+  for i, b in enumerate(DECODE_BATCHES):
+    q, ck, cv, pos = decode_inputs(b, t, seed=90 + i)
+    layers = ck.shape[0]
+    k, v = ck[1], cv[1]
+    stage = f"b{b}"
+    o, err = check_decode_case(stage, q, k, v, pos, scale)
+    splits = fa.decode_splits(b, h, t, n_sm)
+    m, l, op = fa.flash_decode_partial(q, k, v, pos, scale)
+    m_ref, l_ref, op_ref = fa.flash_decode_partial_plain(q, k, v, pos, scale,
+                                                         splits)
+    torch.cuda.synchronize()
+    # Partials: f32 sums of the same products in another order. m to 1e-5
+    # of max(1, |m|) (and -inf exactly where a split is empty), l to 1e-4
+    # relative, the split's normalised output o / l to 1e-4 absolute
+    # (|v| <= ~5).
+    empty = m_ref == -math.inf
+    check(torch.equal(m == -math.inf, empty), f"decode {stage}: empty splits "
+          "differ")
+    fin = ~empty
+    m_err = float(((m - m_ref).abs() / m_ref.abs().clamp_min(1.0))[fin].max())
+    l_err = float(((l - l_ref).abs() / l_ref)[fin].max())
+    on = (op / l[..., None])[fin]
+    on_ref = (op_ref / l_ref[..., None])[fin]
+    p_err = float((on - on_ref).abs().max())
+    check(m_err <= 1e-5 and l_err <= 1e-4 and p_err <= 1e-4,
+          f"flash_decode_partial {stage}: m err {m_err}, l rel err {l_err}, "
+          f"o/l err {p_err}")
+    oc = fa.flash_decode_combine(m, l, op)
+    oc_ref = fa.flash_decode_combine_plain(m, l, op, torch.bfloat16)
+    torch.cuda.synchronize()
+    c_err, c_ok = bf16_close(oc, oc_ref)
+    check(c_ok, f"flash_decode_combine {stage}: max abs err {c_err}")
+    check(torch.equal(oc, o), f"flash_decode {stage}: not the composition of "
+          "its two kernels")
+
+    kl = lambda j: (ck[j], cv[j])
+    ms = time_layers_ms(lambda j: fa.flash_decode(q, *kl(j), pos, scale),
+                        layers)
+    part_ms = time_layers_ms(
+        lambda j: fa.flash_decode_partial(q, *kl(j), pos, scale), layers)
+    comb_ms = time_ms(lambda: fa.flash_decode_combine(m, l, op))
+    plain_ms = time_layers_ms(
+        lambda j: fa.flash_decode_plain(q, *kl(j), pos, scale), layers,
+        iters=6)
+    part_plain_ms = time_layers_ms(
+        lambda j: fa.flash_decode_partial_plain(q, *kl(j), pos, scale,
+                                                splits), layers, iters=6)
+    comb_plain_ms = time_ms(
+        lambda: fa.flash_decode_combine_plain(m, l, op, torch.bfloat16),
+        iters=6)
+    qt = q.transpose(1, 2)
+    mask = fa.decode_admitted(pos, t)[:, None, None, :]
+    lib_ms = time_layers_ms(lambda j: F.scaled_dot_product_attention(
+        qt, ck[j].transpose(1, 2), cv[j].transpose(1, 2), attn_mask=mask,
+        scale=scale), layers)
+    # The work this run's data needs: the admitted slots only.
+    admitted = int(torch.clamp(pos.long() + 1, max=t).sum())
+    qo_bytes = 2.0 * 2 * b * h * d + 4.0 * b
+    kv_bytes = 2.0 * 2 * admitted * h * d
+    part_bytes = 4.0 * b * h * splits * (d + 2)
+    flops = 4.0 * admitted * h * d
+    f_ms, f_by = bound(flops, qo_bytes + kv_bytes)
+    p_ms, p_by = bound(flops, qo_bytes / 2 + kv_bytes + part_bytes)
+    c_ms, c_by = bound(3.0 * b * h * splits * d,
+                       part_bytes + 2.0 * b * h * d)
+    shape = [b, t, h, d]
+    partial_rows.append(dict(
+        stage=stage, shape=shape, splits=splits, max_abs_err=p_err,
+        m_err=m_err, l_rel_err=l_err, ms=part_ms, plain_ms=part_plain_ms,
+        bound_ms=p_ms, bound_by=p_by, library_ms=lib_ms,
+        library="F.scaled_dot_product_attention, boolean kpos <= pos mask "
+                "(the whole decode attention, both kernels)",
+        function=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=f_ms, bound_by=f_by, library_ms=lib_ms)))
+    combine_rows.append(dict(
+        stage=stage, shape=shape, splits=splits, max_abs_err=c_err,
+        ms=comb_ms, plain_ms=comb_plain_ms, bound_ms=c_ms, bound_by=c_by,
+        library_ms=None, library=None))
+    log(f"decode: B {b} T {t} H {h} D {d} (S {splits}, {admitted} admitted "
+        f"slots): o max abs err {err:.3g} (tol one bf16 ulp + 1e-3 "
+        f"max|ref|), NaN past pos invisible; flash_decode {ms:.4f} ms "
+        f"(partial {part_ms:.4f} + combine {comb_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {f_ms:.4f} ms "
+        f"({f_by}); partials: m err {m_err:.2g}, l rel err {l_err:.2g}, o/l "
+        f"err {p_err:.2g}; combine max abs err {c_err:.3g}")
+    del q, ck, cv, k, v, m, l, op, m_ref, l_ref, op_ref
+  res["flash_decode_partial"] = partial_rows
+  res["flash_decode_combine"] = combine_rows
+  # D = 128 at a small ragged ring, both kernels through the wrapper.
+  q, ck, cv, pos = decode_inputs(4, 300, seed=99, h=2, d=128)
+  _, err = check_decode_case("D=128", q, ck[1], cv[1], pos, 128 ** -0.5)
+  log(f"decode: D=128 q[4,1,2,128] ring 300, pos {pos.tolist()}: o max abs "
+      f"err {err:.3g}, NaN past pos invisible")
+
+
 def phase_lm_profile(res):
   """Not in the default run: torch.profiler over 3 LM training steps
   (flash attention), printed as a table of kernel time by name."""
   from kf_benchmarks_tpu_torch import benchmark
   with lm_attention("flash"):
     _, step, tokens, labels = benchmark.BenchmarkCNN(lm_params()).build()
-  profile_steps("lm_profile", step, tokens, labels)
+  profile_steps("lm_profile", lambda: step(tokens, labels))
 
 
+
+# -- serving -------------------------------------------------------------------
+
+# The serving phases' LM: the zoo transformer_lm at full size (vocab 32768,
+# d 512, 6 layers, 8 heads, d_ff 2048, ring 2048), bf16 over f32 params,
+# flash attention, the default ladder (1, 4, 16, 64, 256).
+SERVE_REQUESTS, SERVE_MAX_NEW = 128, 32
+# (label, offered requests/s, queue bound): the JAX bench's own chip
+# configuration (bench.py:336), and the capacity replay, which offers the
+# same requests at once with a queue that sheds none.
+SERVE_REPLAYS = (("offered", 16.0, 64), ("capacity", 1000.0, 128))
+
+
+def serve_spec(impl="flash", dtype=torch.bfloat16):
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  return decode_lib.LMSpec(attn_impl=impl, dtype=dtype)
+
+
+def phase_serve(res):
+  """The port's serving engine as the serving bench drives it: warm() over
+  the ladder, then each replay of the seeded poisson_workload with every
+  launch count set to 0 just before and read just after."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import metrics as metrics_lib
+  from kf_benchmarks_tpu_torch import tracing
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  from kf_benchmarks_tpu_torch.serving import engine as engine_lib
+  spec = serve_spec()
+  variables = decode_lib.init_variables(spec, seed=0)
+  res["serve"] = {}
+  for label, rate, depth in SERVE_REPLAYS:
+    cfg = engine_lib.EngineConfig(spec=spec, max_new_tokens=SERVE_MAX_NEW,
+                                  max_queue_depth=depth)
+    workload = engine_lib.poisson_workload(SERVE_REQUESTS, rate, spec,
+                                           seed=0,
+                                           max_new_tokens=SERVE_MAX_NEW)
+    trace = tracing.activate(tracing.RunTrace(keep_spans=True))
+    metrics_lib.activate(metrics_lib.MetricRegistry())
+    try:
+      engine = engine_lib.ServingEngine(cfg, variables=variables,
+                                        device="cuda")
+      t0 = time.time()
+      n_warm = engine.warm()
+      warm_s = time.time() - t0
+      torch.cuda.reset_peak_memory_stats()
+      reset_launches()
+      t0 = time.time()
+      results = engine.replay(workload)
+      wall = time.time() - t0
+      counts = benchmark.kernel_launches()
+      stats = engine.stats()
+    finally:
+      tracing.deactivate()
+      metrics_lib.deactivate()
+    waves = [s for s in trace.spans
+             if (s["sub"], s["name"]) == ("serving", "prefill")]
+    steps = stats["serving/decode_steps"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res.setdefault("counts_by_path", {})[f"serve_{label}"] = counts
+    res["serve"][label] = dict(stats=stats, waves=len(waves),
+                               warm_s=warm_s, wall_s=wall, peak_gib=peak)
+    log(f"serve: {label}: {SERVE_REQUESTS} requests at {rate:g}/s, "
+        f"max_new_tokens {SERVE_MAX_NEW}, queue bound {depth}: warm() "
+        f"prepared {n_warm} programs in {warm_s:.1f} s; replay {wall:.2f} s, "
+        f"completed {stats['serving/completed']}, shed "
+        f"{stats['serving/shed']}, {stats['serving/tokens_per_sec']:.1f} "
+        f"tokens/sec, TTFT p50 {stats['serving/ttft_p50'] * 1e3:.1f} ms p99 "
+        f"{stats['serving/ttft_p99'] * 1e3:.1f} ms, token latency p50 "
+        f"{stats['serving/token_latency_p50'] * 1e3:.2f} ms p99 "
+        f"{stats['serving/token_latency_p99'] * 1e3:.2f} ms, decode steps "
+        f"{steps}, prefill waves {len(waves)} (pack buckets "
+        f"{sorted(set(w['args']['bucket'] for w in waves))}), batch fill "
+        f"{stats['serving/batch_fill_fraction']:.3f}, peak memory "
+        f"{peak:.2f} GiB; launches {counts}")
+    check(stats["serving/completed"] == SERVE_REQUESTS and
+          stats["serving/shed"] == 0,
+          f"serve {label}: {stats['serving/completed']} completed, "
+          f"{stats['serving/shed']} shed")
+    for r in results:
+      check(r.status == "ok" and len(r.tokens) == SERVE_MAX_NEW and
+            all(0 <= t < spec.vocab for t in r.tokens),
+            f"serve {label}: request {r.rid} gave {r.status} {r.tokens}")
+    # 6 layers: each decode step launches both decode kernels once a layer,
+    # each prefill wave the forward kernel once a layer; nothing else.
+    want = {"flash_decode_partial": 6 * steps,
+            "flash_decode_combine": 6 * steps,
+            "flash_attention_fwd": 6 * len(waves)}
+    for name, n in counts.items():
+      check(n == want.get(name, 0), f"serve {label}: {name} launched {n} "
+            f"times, want {want.get(name, 0)} ({steps} decode steps, "
+            f"{len(waves)} prefill waves)")
+  res["counts"].update({k: res["counts_by_path"]["serve_offered"][k]
+                        for k in ("flash_decode_partial",
+                                  "flash_decode_combine")})
+
+
+def serve_logits(spec, variables, device, prompts, forced):
+  """(first tokens (2,), per-step decode logits (2, 16, V) f32 on the CPU,
+  the launch counts of the run): the two prompts packed into one row and
+  prefilled, then the forced tokens decoded one step at a time."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch.data import packing
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  module = decode_lib.load_module(spec, variables, device)
+  images, placements = packing.pack_prompts(list(prompts), spec.max_len, 2)
+  rows = torch.tensor([p[0] for p in placements], dtype=torch.int32)
+  offsets = torch.tensor([p[1] for p in placements], dtype=torch.int32)
+  lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+  before = benchmark.kernel_launches()
+  first, ek, ev = decode_lib.prefill_fn(spec)(
+      module, torch.from_numpy(images).to(device), rows,
+      offsets + lengths - 1, offsets)
+  cache = decode_lib.install_prefill(
+      decode_lib.init_cache(spec, 2, device), ek, ev, first, lengths,
+      torch.arange(2, dtype=torch.int32))
+  del ek, ev
+  steps = []
+  with torch.no_grad():
+    for j in range(forced.shape[1]):
+      tok = torch.from_numpy(forced[:, j]).to(device)
+      logits, _ = module.decode(tok, cache.k, cache.v, cache.pos)
+      steps.append(logits[:, 0].float().cpu())
+      cache.pos.add_(1)
+  launched = {k: v - before[k] for k, v in benchmark.kernel_launches().items()}
+  return first.cpu(), torch.stack(steps, 1), launched, module
+
+
+def logit_gap(a, r):
+  """(max |a - r| / max |r|, cosine) over all logits, in f64."""
+  a, r = a.double(), r.double()
+  rel = float((a - r).abs().max() / r.abs().max())
+  cos = float((a * r).sum() / (a.norm() * r.norm()))
+  return rel, cos
+
+
+def phase_serve_parity(res):
+  """Two seeded 64-token prompts, packed and prefilled, then 16
+  teacher-forced decode steps at full size: the card with the kernels
+  (bf16), the card with the tiled plain ops (bf16) and the CPU (f32, plain)
+  from one init; and the card's decode logits against the matching rows of
+  the card's full forward (the KV-cache oracle)."""
+  from kf_benchmarks_tpu_torch.models import transformer_lm as lm
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  rng = np.random.default_rng(21)
+  prompts = rng.integers(0, lm.VOCAB, (2, 64)).astype(np.int32)
+  forced = rng.integers(0, lm.VOCAB, (2, 16)).astype(np.int32)
+  variables = decode_lib.init_variables(serve_spec(), seed=3)
+  out = {}
+  for arm, device, spec in (
+      ("card", "cuda", serve_spec()),
+      ("card_tiled", "cuda", serve_spec("tiled")),
+      ("cpu", "cpu", serve_spec("flash", torch.float32))):
+    first, logits, launched, module = serve_logits(spec, variables, device,
+                                                   prompts, forced)
+    out[arm] = (first, logits, launched)
+    if arm == "card":
+      seq = np.zeros((2, spec.max_len), np.int32)
+      seq[:, :64], seq[:, 64:80] = prompts, forced
+      module.fused_head = False
+      with torch.no_grad():
+        full, _ = module(torch.from_numpy(seq).to(device))
+      oracle = full[:, 64:80].float().cpu()
+      del full
+    del module
+  check(out["card"][2] == {"conv3x3_same": 0, "bn_relu_conv3x3_stats": 0,
+                           "flash_attention_fwd": 6,
+                           "flash_attention_bwd_dkv": 0,
+                           "flash_attention_bwd_dq": 0,
+                           "flash_decode_partial": 6 * 16,
+                           "flash_decode_combine": 6 * 16},
+        f"serve_parity: card run launched {out['card'][2]}")
+  check(sum(out["card_tiled"][2].values()) == 0,
+        "serve_parity: tiled arm launched a kernel")
+  # bf16 activations through 6 blocks and a 32768-wide head against f32 (or
+  # another bf16 rounding order): max |delta| within 5e-2 of max |logit|,
+  # cosine >= 0.999 over the 2 x 16 x 32768 logits.
+  card = out["card"][1]
+  for ref, r in (("cpu", out["cpu"][1]), ("card_tiled", out["card_tiled"][1]),
+                 ("full_forward", oracle)):
+    rel, cos = logit_gap(card, r)
+    log(f"serve_parity: decode logits card vs {ref}: max |delta| / max "
+        f"|logit| {rel:.3g} (max |logit| {float(r.abs().max()):.3g}), cosine "
+        f"{cos:.6f} (tol 5e-2, 0.999)")
+    check(rel <= 5e-2 and cos >= 0.999, f"serve_parity: card vs {ref}")
+  agree = {arm: float((out[arm][1].argmax(-1) == card.argmax(-1)).double()
+                      .mean()) for arm in ("cpu", "card_tiled")}
+  log(f"serve_parity: prefill first tokens card {out['card'][0].tolist()} "
+      f"cpu {out['cpu'][0].tolist()} card_tiled "
+      f"{out['card_tiled'][0].tolist()}; greedy agreement of the 32 decode "
+      f"steps with the card's: {agree}")
+
+
+def phase_serve_profile(res):
+  """Not in the default run: torch.profiler over 20 decode steps at bucket
+  64, every slot decoding, with positions drawn like the workload's prompt
+  lengths; printed as a kernel-time table and the busy share."""
+  from kf_benchmarks_tpu_torch.data import packing
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  spec = serve_spec()
+  module = decode_lib.load_module(
+      spec, decode_lib.init_variables(spec, seed=0), "cuda")
+  cache = decode_lib.init_cache(spec, 64, "cuda")
+  g = torch.Generator(device="cuda").manual_seed(0)
+  cache.k.normal_(generator=g)
+  cache.v.normal_(generator=g)
+  lengths = packing.sample_document_lengths(
+      np.random.default_rng(0), 64, spec.max_len, mean_fraction=0.2)
+  cache.pos.copy_(torch.from_numpy(lengths.astype(np.int32)))
+  step = decode_lib.decode_fn(spec)
+  active = torch.ones(64, dtype=torch.bool, device="cuda")
+  state = {"tok": cache.tok, "pos": cache.pos}
+
+  def one_step():
+    nxt, _, _, pos = step(module, cache.k, cache.v, state["pos"],
+                          state["tok"], active)
+    nxt.cpu()  # the engine's value fetch
+    state["tok"], state["pos"] = nxt, pos
+
+  profile_steps("serve_profile", one_step, n=20)
 
 
 # -- main ----------------------------------------------------------------------
@@ -851,7 +1280,9 @@ def kernels_line(res, counts):
   for name, meta in KERNELS.items():
     shapes = res.get(name, [])
     probe = next((s for s in shapes if s["stage"] == HEADLINE[name]), None)
-    row = {"name": name, **meta, "launches": counts.get(name)}
+    row = {"name": name, **meta, "launches": counts.get(name),
+           "launches_by_path": {path: c.get(name) for path, c in
+                                res.get("counts_by_path", {}).items()}}
     for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library"):
       row[key] = probe[key] if probe else None
@@ -884,6 +1315,9 @@ def main(argv=None) -> int:
            "train": phase_train, "parity": phase_parity,
            "flash": phase_flash, "flash_grad": phase_flash_grad,
            "lm_train": phase_lm_train, "lm_parity": phase_lm_parity,
+           "decode": phase_decode, "serve": phase_serve,
+           "serve_parity": phase_serve_parity,
+           "serve_profile": phase_serve_profile,
            "profile": phase_profile, "lm_profile": phase_lm_profile}
   for name in phases:
     t0 = time.time()

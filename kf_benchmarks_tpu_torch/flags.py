@@ -56,8 +56,8 @@ def DEFINE_integer(name, default, help, lower_bound=None):  # noqa: N802
   _define(name, "integer", default, help, lower_bound=lower_bound)
 
 
-def DEFINE_float(name, default, help):  # noqa: N802
-  _define(name, "float", default, help)
+def DEFINE_float(name, default, help, lower_bound=None):  # noqa: N802
+  _define(name, "float", default, help, lower_bound=lower_bound)
 
 
 def DEFINE_enum(name, default, enum_values, help):  # noqa: N802

@@ -1,10 +1,13 @@
 """Transformer language model: the zoo's decoder-only LM.
 
 The port's counterpart of kf_benchmarks_tpu/models/transformer_lm.py: the
-training branch of ``_Block`` (:169-207), ``_TransformerLMModule.__call__``
-(:276-384) without the decode, FSDP and overlap hooks, and
-``TransformerLMModel``. Pre-LN blocks, learned positions, one Dense(3d)
-for q, k and v, the fused chunked LM head (ops/fused_loss.py).
+training branch of ``_Block`` (:169-207) with its ``return_kv`` outputs,
+the dense-ring decode branch (:139-168), ``_TransformerLMModule.__call__``
+(:276-384) and ``_decode_call`` (:386-451) without the paged, FSDP and
+overlap hooks, and ``TransformerLMModel``. Pre-LN blocks, learned
+positions, one Dense(3d) for q, k and v, the fused chunked LM head
+(ops/fused_loss.py). The forward and the decode step share every parameter,
+so one module (and one weight bridge, convert.py) serves both.
 
     python -m kf_benchmarks_tpu_torch.cli --model=transformer_lm --use_fp16
 
@@ -108,13 +111,14 @@ class Block(nn.Module):
 
   def __init__(self, d_model: int, n_heads: int, d_ff: int, attn_block: int,
                attn_q_block: int, impl: str, dtype: torch.dtype,
-               generator=None):
+               generator=None, decode_exact: bool = False):
     super().__init__()
     self.n_heads = n_heads
     self.attn_block = attn_block
     self.attn_q_block = attn_q_block
     self.impl = impl
     self.dtype = dtype
+    self.decode_exact = decode_exact
     g = generator
     self.ln1 = LayerNorm(d_model)
     self.qkv = Dense(d_model, 3 * d_model, False, dtype, g)
@@ -123,8 +127,17 @@ class Block(nn.Module):
     self.mlp_up = Dense(d_model, d_ff, True, dtype, g)
     self.mlp_down = Dense(d_ff, d_model, True, dtype, g)
 
-  def forward(self, x: torch.Tensor,
-              seg: Optional[torch.Tensor]) -> torch.Tensor:
+  def _mlp(self, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+    x = x + self.attn_out(att.reshape(x.shape))
+    h = self.ln2(x).to(self.dtype)
+    h = F.gelu(self.mlp_up(h), approximate="tanh")
+    return x + self.mlp_down(h)
+
+  def forward(self, x: torch.Tensor, seg: Optional[torch.Tensor],
+              return_kv: bool = False):
+    """x (B, T, d) -> x; with ``return_kv`` also this layer's per-position
+    K and V projections (B, T, H, Dh), the arrays a decode step would have
+    written at those positions (the packed-prefill cache source)."""
     b, t, d = x.shape
     h = self.ln1(x).to(self.dtype)
     qkv = self.qkv(h).reshape(b, t, 3, self.n_heads, d // self.n_heads)
@@ -137,10 +150,29 @@ class Block(nn.Module):
       att = sequence.blockwise_attention(
           q, k, v, block_size=blk, causal=True,
           q_block_size=min(self.attn_q_block, t), segment_ids=seg)
-    x = x + self.attn_out(att.reshape(b, t, d))
-    h = self.ln2(x).to(self.dtype)
-    h = F.gelu(self.mlp_up(h), approximate="tanh")
-    return x + self.mlp_down(h)
+    x = self._mlp(x, att)
+    return (x, k, v) if return_kv else x
+
+  def decode(self, x: torch.Tensor, pos: torch.Tensor, ck: torch.Tensor,
+             cv: torch.Tensor) -> torch.Tensor:
+    """One token per slot over this layer's KV ring: x (B, 1, d), pos (B,)
+    absolute positions, ck/cv (B, T, H, Dh) ring buffers. The token's K/V
+    are written into the ring at pos % T in place (an indexed copy of B
+    rows; the JAX package selects over the whole ring), then it attends
+    over the slots s <= pos (parallel/sequence.py decode_attention)."""
+    b, _, d = x.shape
+    t = ck.shape[1]
+    h = self.ln1(x).to(self.dtype)
+    qkv = self.qkv(h).reshape(b, 1, 3, self.n_heads, d // self.n_heads)
+    slot = pos.long() % t
+    batch = torch.arange(b, device=x.device)
+    ck[batch, slot] = qkv[:, 0, 1].to(ck.dtype)
+    cv[batch, slot] = qkv[:, 0, 2].to(cv.dtype)
+    att = sequence.decode_attention(
+        qkv[:, :, 0], ck, cv, pos, block=min(self.attn_block, t),
+        impl=self.impl, exact=self.decode_exact,
+        q_block=min(self.attn_q_block, t))
+    return self._mlp(x, att)
 
 
 class TransformerLM(nn.Module):
@@ -151,9 +183,11 @@ class TransformerLM(nn.Module):
   def __init__(self, vocab: int, d_model: int, n_layers: int, n_heads: int,
                d_ff: int, attn_block: int, attn_q_block: int, impl: str,
                scan_layers: bool, fused_head: bool, max_len: int,
-               dtype: torch.dtype, generator=None):
+               dtype: torch.dtype, generator=None,
+               decode_exact: bool = False):
     super().__init__()
     self.dtype = dtype
+    self.max_len = max_len
     self.scan_layers = scan_layers
     self.fused_head = fused_head
     g = generator
@@ -165,12 +199,15 @@ class TransformerLM(nn.Module):
       self.pos_embedding.normal_(0.0, 0.02, generator=g)
     self.blocks = nn.ModuleList(
         Block(d_model, n_heads, d_ff, attn_block, attn_q_block, impl, dtype,
-              g) for _ in range(n_layers))
+              g, decode_exact) for _ in range(n_layers))
     self.ln_f = LayerNorm(d_model)
     self.lm_head = nn.Parameter(torch.empty(d_model, vocab))
     _lecun_normal_(self.lm_head, d_model, g)
 
-  def forward(self, tokens: torch.Tensor):
+  def forward(self, tokens: torch.Tensor, return_kv: bool = False):
+    """``return_kv``: also return the stacked per-layer K and V projections,
+    each (L, B, T, H, Dh), as a third output (the packed prefill's cache
+    source)."""
     seg = positions = None
     if tokens.dim() == 3:
       tokens, seg, positions = tokens[:, 0], tokens[:, 1], tokens[:, 2]
@@ -179,16 +216,42 @@ class TransformerLM(nn.Module):
     pos = (self.pos_embedding[:t] if positions is None
            else self.pos_embedding[positions.long()])
     x = x + pos.to(self.dtype)
+    ks, vs = [], []
     for block in self.blocks:
-      if self.scan_layers and torch.is_grad_enabled():
+      if return_kv:
+        x, k, v = block(x, seg, return_kv=True)
+        ks.append(k)
+        vs.append(v)
+      elif self.scan_layers and torch.is_grad_enabled():
         x = checkpoint.checkpoint(block, x, seg, use_reentrant=False)
       else:
         x = block(x, seg)
     hidden = self.ln_f(x).to(self.dtype)
     aux = None if seg is None else packing.token_weights_from_segments(seg)
     if self.fused_head:
-      return fused_loss.FusedLMHead(hidden=hidden, kernel=self.lm_head), aux
-    return hidden @ self.lm_head.to(self.dtype), aux
+      out = fused_loss.FusedLMHead(hidden=hidden, kernel=self.lm_head)
+    else:
+      out = hidden @ self.lm_head.to(self.dtype)
+    if return_kv:
+      return out, aux, (torch.stack(ks), torch.stack(vs))
+    return out, aux
+
+  def decode(self, tokens: torch.Tensor, cache_k: torch.Tensor,
+             cache_v: torch.Tensor, pos: torch.Tensor):
+    """The single-token KV-ring decode step: ``tokens`` (B,) is each slot's
+    current token at absolute position ``pos`` (B,); its K/V are written
+    into the (L, B, T, H, Dh) caches at ``pos % T`` in place, and the
+    returned (B, 1, V) logits (always the dense head) predict position
+    ``pos + 1``. Returns (logits, (cache_k, cache_v)). The position row is
+    ``pos % max_len``, the row the full forward adds at that position;
+    past the ring's length attention covers the trailing window."""
+    x = self.embed(tokens.long().reshape(-1, 1)).to(self.dtype)
+    x = x + self.pos_embedding[pos.long() % self.max_len][:, None].to(
+        self.dtype)
+    for i, block in enumerate(self.blocks):
+      x = block.decode(x, pos, cache_k[i], cache_v[i])
+    hidden = self.ln_f(x).to(self.dtype)
+    return hidden @ self.lm_head.to(self.dtype), (cache_k, cache_v)
 
 
 def _head(module_output):
@@ -216,7 +279,7 @@ class TransformerLMModel(model_lib.Model):
   def bf16_kernels(self) -> str:
     if attn_impl() == "flash":
       return ("the flash-attention kernels (csrc/flash_attention_fwd.cu, "
-              "csrc/flash_attention_bwd.cu)")
+              "csrc/flash_attention_bwd.cu, csrc/flash_decode.cu)")
     return ""
 
   def make_module(self, nclass, dtype=torch.float32, generator=None):

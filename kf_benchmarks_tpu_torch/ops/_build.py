@@ -44,6 +44,17 @@ _SIGNATURES = {
         "flash_attention_bwd_dkv_bf16": [ctypes.c_void_p] * 10 + _ATTN_TAIL,
         "flash_attention_bwd_dq_bf16": [ctypes.c_void_p] * 9 + _ATTN_TAIL,
     },
+    "flash_decode": {
+        # q, k, v, pos, m, l, o; B, H, T, D, S; the batch stride of q and
+        # the batch and position strides of k and v; scale; stream.
+        "flash_decode_partial_bf16": [ctypes.c_void_p] * 7 +
+                                     [ctypes.c_int] * 5 +
+                                     [ctypes.c_longlong] * 5 +
+                                     [ctypes.c_float, ctypes.c_void_p],
+        # m, l, o_part, o; B, H, D, S; stream.
+        "flash_decode_combine_bf16": [ctypes.c_void_p] * 4 +
+                                     [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    },
     "conv3x3_same": {
         "conv3x3_same_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
                              [ctypes.c_void_p],

@@ -9,7 +9,12 @@ JAX package reaches through parallel/sequence.py ``pallas_flash_attention``:
 * ``flash_attention_bwd_dkv`` (``csrc/flash_attention_bwd.cu``) replaces
   ``_flash_attention_bwd_dkv``;
 * ``flash_attention_bwd_dq`` (the same source) replaces
-  ``_flash_attention_bwd_dq``.
+  ``_flash_attention_bwd_dq``;
+* ``flash_decode`` (``csrc/flash_decode.cu``: ``flash_decode_partial`` and
+  ``flash_decode_combine``) replaces ``_flash_attention_impl`` in the
+  decode mode that parallel/sequence.py ``decode_attention(impl='flash')``
+  calls: one query row over a (B, T, H, D) KV ring, key slot s admitted
+  iff s <= pos[b].
 
 Layout: q, k, v are (B, L, H, D), the JAX package's layout at its public
 attention functions. Mask: under ``causal`` query row r sees keys c <= r
@@ -38,7 +43,9 @@ from kf_benchmarks_tpu_torch.ops.conv_bn import accum
 
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dkv": 0,
-                            "flash_attention_bwd_dq": 0}
+                            "flash_attention_bwd_dq": 0,
+                            "flash_decode_partial": 0,
+                            "flash_decode_combine": 0}
 
 # Head dims the kernels are instantiated for (the TPU kernel takes D <= 128;
 # the LM runs 64).
@@ -46,6 +53,9 @@ KERNEL_HEAD_DIMS = (64, 128)
 # Keys per tile of the forward kernel's online softmax
 # (csrc/flash_attention.cuh BKV).
 KEY_TILE = 64
+# A split of the decode kernel takes a multiple of this many keys
+# (csrc/flash_decode.cu SPLIT_ALIGN).
+DECODE_SPLIT_ALIGN = 64
 
 
 def reset_launches() -> None:
@@ -334,3 +344,176 @@ def flash_attention(q, k, v, causal: bool = False,
   """Differentiable attention over (B, L, H, D) through ``FlashAttention``."""
   scale = default_scale(q) if scale is None else scale
   return FlashAttention.apply(q, k, v, causal, scale, q_seg, kv_seg)
+
+
+# -- decode: one query row over a KV ring --------------------------------------
+
+def decode_admitted(pos: torch.Tensor, t: int) -> torch.Tensor:
+  """(B, T) bool: key slot s takes part for row b iff s <= pos[b]."""
+  return torch.arange(t, device=pos.device)[None, :] <= pos.long()[:, None]
+
+
+def decode_splits(b: int, h: int, t: int, n_sm: int) -> int:
+  """The decode kernel's split count S: B*H*S blocks cover the SMs twice
+  where the ring allows, with at least DECODE_SPLIT_ALIGN keys a split."""
+  want = -(-2 * n_sm // (b * h))
+  return max(1, min(want, -(-t // DECODE_SPLIT_ALIGN)))
+
+
+def decode_split_bounds(n: torch.Tensor, splits: int, s: int):
+  """(k0, k1) per row: split s's keys of a row with n admitted keys (the
+  kernel's split_range)."""
+  align = DECODE_SPLIT_ALIGN
+  per = align * torch.div(n + align * splits - 1, align * splits,
+                          rounding_mode="floor")
+  k0 = torch.minimum(n, s * per)
+  return k0, torch.minimum(n, k0 + per)
+
+
+def flash_decode_plain(q, k, v, pos, scale: Optional[float] = None):
+  """o (B, 1, H, D): the masked softmax over the admitted slots in the
+  accumulation dtype, rounded once to q's dtype. V is zeroed at the other
+  slots before the P V product, so a non-finite stale value there cannot
+  reach the result through 0 * NaN."""
+  scale = default_scale(q) if scale is None else scale
+  admitted = decode_admitted(pos, k.shape[1])
+  s = torch.einsum("bqhd,bkhd->bhqk", accum(q), accum(k)) * scale
+  s = s.masked_fill(~admitted[:, None, None, :], -math.inf)
+  p = torch.softmax(s, dim=-1)
+  vz = torch.where(admitted[:, :, None, None], accum(v),
+                   torch.zeros((), dtype=accum(v).dtype, device=v.device))
+  return torch.einsum("bhqk,bkhd->bqhd", p, vz).to(q.dtype)
+
+
+def flash_decode_partial_plain(q, k, v, pos, scale: Optional[float] = None,
+                               splits: int = 1):
+  """(m, l (B, H, S), o (B, H, S, D)) in the accumulation dtype: per split
+  of the admitted keys (``decode_split_bounds``), the max score, the sum of
+  exp(score - m) and the unnormalised output; an empty split gives -inf, 0
+  and 0."""
+  scale = default_scale(q) if scale is None else scale
+  t = k.shape[1]
+  n = torch.clamp(pos.long() + 1, 0, t)
+  kpos = torch.arange(t, device=q.device)
+  sc = torch.einsum("bhd,bkhd->bhk", accum(q[:, 0]), accum(k)) * scale
+  ms, ls, os_ = [], [], []
+  for s_i in range(splits):
+    k0, k1 = decode_split_bounds(n, splits, s_i)
+    take = (kpos[None, :] >= k0[:, None]) & (kpos[None, :] < k1[:, None])
+    masked = sc.masked_fill(~take[:, None, :], -math.inf)
+    m = masked.amax(-1)
+    p = torch.exp(masked - _exp_base(m)[..., None])
+    vz = torch.where(take[:, :, None, None], accum(v),
+                     torch.zeros((), dtype=sc.dtype, device=v.device))
+    ms.append(m)
+    ls.append(p.sum(-1))
+    os_.append(torch.einsum("bhk,bkhd->bhd", p, vz))
+  return (torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(os_, -2))
+
+
+def flash_decode_combine_plain(m, l, o, dtype) -> torch.Tensor:
+  """o (B, 1, H, D) in ``dtype``: the S partials merged against their max,
+  divided by the merged sum (0 where no key was admitted)."""
+  w = torch.exp(m - _exp_base(m.amax(-1))[..., None])
+  lsum = (l * w).sum(-1)
+  acc = (o * w[..., None]).sum(-2)
+  inv = torch.where(lsum > 0, 1.0 / lsum, torch.zeros_like(lsum))
+  return (acc * inv[..., None])[:, None].to(dtype)
+
+
+def _check_decode(name: str, q, k, v, pos) -> None:
+  if q.device.type != "cuda":
+    raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
+                     f"got {q.device}")
+  if q.dim() != 4 or q.shape[1] != 1:
+    raise ValueError(f"{name}: want q (B, 1, H, D), got {tuple(q.shape)}")
+  b, _, h, d = q.shape
+  if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or \
+      k.shape[2:] != q.shape[2:]:
+    raise ValueError(f"{name}: want k and v (B, T, H, D) = ({b}, T, {h}, "
+                     f"{d}), got {tuple(k.shape)} and {tuple(v.shape)}")
+  if d not in KERNEL_HEAD_DIMS:
+    raise ValueError(f"{name}: the kernel takes head dim in "
+                     f"{KERNEL_HEAD_DIMS}, got {d}")
+  for label, x in (("q", q), ("k", k), ("v", v)):
+    if x.device != q.device:
+      raise ValueError(f"{name}: q on {q.device}, {label} on {x.device}")
+    if x.dtype != torch.bfloat16:
+      raise ValueError(f"{name}: the CUDA kernel takes bf16 q, k, v, got "
+                       f"{label} {x.dtype} (no f32 variant yet)")
+    # 16-byte loads: D contiguous, heads adjacent, strides and base aligned
+    # to 8 elements.
+    if x.stride(3) != 1 or x.stride(2) != d or x.stride(0) % 8 or \
+        (label != "q" and x.stride(1) % 8) or x.data_ptr() % 16:
+      raise ValueError(f"{name}: {label} needs D contiguous, heads adjacent "
+                       f"and 16-byte aligned rows, got strides {x.stride()}")
+  _check_rows(name, "pos", pos, (b,), torch.int32, q.device)
+
+
+def flash_decode_partial(q, k, v, pos, scale: Optional[float] = None):
+  """(m, l (B, H, S) f32, o (B, H, S, D) f32): the split partials of the
+  decode attention, S = ``decode_splits`` of the card (one split on the
+  CPU)."""
+  scale = default_scale(q) if scale is None else scale
+  if q.device.type == "cpu":
+    return flash_decode_partial_plain(q, k, v, pos, scale)
+  pos = pos.to(torch.int32).contiguous()
+  _check_decode("flash_decode_partial", q, k, v, pos)
+  b, _, h, d = q.shape
+  t = k.shape[1]
+  n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+  splits = decode_splits(b, h, t, n_sm)
+  lib = _build.load("flash_decode")
+  with torch.cuda.device(q.device):
+    m = torch.empty(b, h, splits, dtype=torch.float32, device=q.device)
+    l = torch.empty(b, h, splits, dtype=torch.float32, device=q.device)
+    o = torch.empty(b, h, splits, d, dtype=torch.float32, device=q.device)
+    err = lib.flash_decode_partial_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        m.data_ptr(), l.data_ptr(), o.data_ptr(), b, h, t, d, splits,
+        q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+  _raise_on_error("flash_decode_partial", err)
+  LAUNCHES["flash_decode_partial"] += 1
+  return m, l, o
+
+
+def flash_decode_combine(m, l, o, dtype=torch.bfloat16) -> torch.Tensor:
+  """o (B, 1, H, D) in ``dtype`` from ``flash_decode_partial``'s partials."""
+  if m.device.type == "cpu":
+    return flash_decode_combine_plain(m, l, o, dtype)
+  name = "flash_decode_combine"
+  if m.device.type != "cuda":
+    raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
+                     f"got {m.device}")
+  if dtype != torch.bfloat16:
+    raise ValueError(f"{name}: the CUDA kernel writes bf16, got {dtype}")
+  b, h, splits = m.shape
+  d = o.shape[-1]
+  if d not in KERNEL_HEAD_DIMS:
+    raise ValueError(f"{name}: the kernel takes head dim in "
+                     f"{KERNEL_HEAD_DIMS}, got {d}")
+  _check_rows(name, "m", m, (b, h, splits), torch.float32, m.device)
+  _check_rows(name, "l", l, (b, h, splits), torch.float32, m.device)
+  _check_rows(name, "o", o, (b, h, splits, d), torch.float32, m.device)
+  lib = _build.load("flash_decode")
+  with torch.cuda.device(m.device):
+    out = torch.empty(b, 1, h, d, dtype=dtype, device=m.device)
+    err = lib.flash_decode_combine_bf16(
+        m.data_ptr(), l.data_ptr(), o.data_ptr(), out.data_ptr(), b, h, d,
+        splits, torch.cuda.current_stream(m.device).cuda_stream)
+  _raise_on_error(name, err)
+  LAUNCHES[name] += 1
+  return out
+
+
+def flash_decode(q, k, v, pos, scale: Optional[float] = None) -> torch.Tensor:
+  """Decode attention o (B, 1, H, D) of q (B, 1, H, D) over the ring
+  k, v (B, T, H, D): key slot s takes part iff s <= pos[b]. On a CUDA tensor
+  the two kernels (split partials, then their merge); on a CPU tensor
+  ``flash_decode_plain``."""
+  scale = default_scale(q) if scale is None else scale
+  if q.device.type == "cpu":
+    return flash_decode_plain(q, k, v, pos, scale)
+  m, l, o = flash_decode_partial(q, k, v, pos, scale)
+  return flash_decode_combine(m, l, o, q.dtype)

@@ -9,13 +9,18 @@ kf_benchmarks_tpu/parallel/sequence.py:
   ``tiled`` attention, in plain PyTorch ops;
 * ``pallas_flash_attention`` -- the LM's ``flash`` attention
   (sequence.py:763): here the hand-written CUDA kernels of
-  ops/flash_attention.py, with the plain versions on the CPU.
+  ops/flash_attention.py, with the plain versions on the CPU;
+* ``decode_attention`` -- single-query attention over the serving KV ring
+  (sequence.py:554), dense ring only: ``flash`` onto the decode kernels of
+  ops/flash_attention.py, ``tiled`` the ``_block_update`` online softmax,
+  ``exact`` the full-sequence oracle.
 
 Masking follows the JAX package: ``_NEG`` in place of -inf, a causal mask
 aligned at the top left (``arange(lq)[:, None] >= arange(lk)``), segment
 ids compared by equality (padding id 0 attends padding, so no row of a
 packed batch is ever fully masked). The ring, zigzag and Ulysses schedules
-(sequence parallelism across devices) are not ported yet.
+(sequence parallelism across devices) and the paged KV decode are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -151,3 +156,74 @@ def pallas_flash_attention(q, k, v, causal: bool = False,
   del block
   return flash_lib.flash_attention(q, k, v, causal=causal, scale=scale,
                                    q_seg=segment_ids, kv_seg=segment_ids)
+
+
+def decode_attention(q, k, v, pos, block: Optional[int] = None,
+                     impl: str = "tiled", scale: Optional[float] = None,
+                     exact: bool = False, q_block: Optional[int] = None,
+                     page_table=None):
+  """Single-query attention over a KV ring buffer: the serving decode
+  step's core (sequence.py:554-708, dense ring).
+
+  ``q`` (B, 1, H, D) is the current token's query; ``k``/``v`` are the
+  (B, T, H, D) ring buffers with the current token's K/V already written;
+  ``pos`` (B,) is each slot's absolute position. Key slot ``s`` takes part
+  iff ``s <= pos[b]``, so every slot does once the ring has wrapped; the
+  other slots contribute exactly zero whatever they hold.
+
+  * ``impl='flash'``: ops/flash_attention.py ``flash_decode`` -- the
+    hand-written decode kernels on a CUDA tensor, their plain masked
+    softmax on a CPU tensor.
+  * ``impl='tiled'``: the ``_block_update`` online softmax over
+    ``block``-sized key blocks, masked per block. V is zeroed at the
+    slots past ``pos`` first, so that a non-finite stale value there cannot
+    reach the P V product (0 * NaN).
+  * ``exact=True``: the oracle mode. q is scattered into a zero q tile of
+    the ring's length T at row ``min(pos, T - 1)`` and run through the
+    full-sequence program (``full_attention`` for flash,
+    ``blockwise_attention`` for tiled) with the causal mask; that row is
+    returned. Below the wrap this is the full forward's row; past it the
+    causal mask at row T - 1 admits every slot, the fast path's windowed
+    semantics.
+
+  ``page_table`` (the paged KV pool) is not ported yet and raises.
+  """
+  if page_table is not None:
+    raise NotImplementedError(
+        "decode_attention: paged KV (page_table) is not ported yet "
+        "(ROADMAP Queue 1 item 15); the port serves the dense ring")
+  if impl not in ("tiled", "flash"):
+    raise ValueError(f"impl must be 'tiled' or 'flash', got {impl!r}")
+  b, tq, h, d = q.shape
+  t = k.shape[1]
+  scale = flash_lib.default_scale(q) if scale is None else scale
+  if exact:
+    rows = torch.clamp(pos.long(), max=t - 1)
+    batch = torch.arange(b, device=q.device)
+    qfull = torch.zeros((b, t, h, d), dtype=q.dtype, device=q.device)
+    qfull[batch, rows] = q[:, 0]
+    if impl == "flash":
+      out = full_attention(qfull, k, v, causal=True, scale=scale)
+    else:
+      blk = min(block or t, t)
+      out = blockwise_attention(qfull, k, v, block_size=blk, causal=True,
+                                scale=scale,
+                                q_block_size=min(q_block or blk, t))
+    return out[batch, rows][:, None]
+  if impl == "flash":
+    return flash_lib.flash_decode(q, k, v, pos, scale)
+  blk = min(block or t, t)
+  if t % blk != 0:
+    raise ValueError(f"cache length {t} not divisible by block {blk}")
+  admitted = flash_lib.decode_admitted(pos, t)
+  v = torch.where(admitted[:, :, None, None], v,
+                  torch.zeros((), dtype=v.dtype, device=v.device))
+  acc_dtype = accum(q).dtype
+  m = torch.full((b, h, tq), _NEG, dtype=acc_dtype, device=q.device)
+  l = torch.zeros((b, h, tq), dtype=acc_dtype, device=q.device)
+  o = torch.zeros((b, tq, h, d), dtype=acc_dtype, device=q.device)
+  for k0 in range(0, t, blk):
+    mask = admitted[:, None, None, k0:k0 + blk]
+    m, l, o = _block_update(q, k[:, k0:k0 + blk], v[:, k0:k0 + blk], m, l, o,
+                            scale, mask)
+  return _finish(o, l, q.dtype)

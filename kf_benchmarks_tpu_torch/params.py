@@ -1,9 +1,12 @@
 """The parameters the port reads so far, and the Params object.
 
 A subset of kf_benchmarks_tpu/params.py (ref: benchmark_cnn.py:114-636):
-ResNet-50 and transformer_lm training on synthetic data on one card. Names,
-defaults and meanings follow the JAX package, except ``device``, which
-defaults to the card. validation.py rejects every value outside the port.
+ResNet-50 and transformer_lm training on synthetic data on one card, and
+the transformer_lm serving bench (serving/bench.py). Names, defaults and
+meanings follow the JAX package (the serving bench's ``--serving_requests``,
+``--serving_rate`` and ``--serving_tenants`` are arguments of the JAX
+package's bench.py), except ``device``, which defaults to the card.
+validation.py rejects every value outside the port.
 """
 
 from __future__ import annotations
@@ -52,6 +55,45 @@ flags.DEFINE_integer("attn_block", None,
                      "tile.", lower_bound=8)
 flags.DEFINE_integer("tf_random_seed", 1234, "Seed of the weights and of "
                      "the synthetic batch.")
+# Serving engine (serving/engine.py, serving/bench.py). None = the engine's
+# or the bench's own default.
+flags.DEFINE_integer("serving_requests", None,
+                     "Requests in the serving bench's seeded workload "
+                     "(None = 128).", lower_bound=1)
+flags.DEFINE_float("serving_rate", None,
+                   "Offered load of the serving bench in requests/s "
+                   "(exponential inter-arrivals; None = 16).",
+                   lower_bound=0.0)
+flags.DEFINE_integer("serving_tenants", None,
+                     "Tenants of the serving bench's workload, round-robin "
+                     "(None = one, 'default').", lower_bound=1)
+flags.DEFINE_string("serving_bucket_ladder", None,
+                    "Comma-separated ascending batch buckets the serving "
+                    "engine prepares its decode and prefill programs at "
+                    "(e.g. '1,4,16,64'); the ladder bounds the program "
+                    "set. None = the engine default (1,4,16,64,256).")
+flags.DEFINE_string("serving_batching", None,
+                    "Serving batch policy: 'continuous' (freed decode "
+                    "slots refill from the queue every step) or 'static' "
+                    "(admit a wave, decode it to completion, then admit "
+                    "again). None = continuous.")
+flags.DEFINE_integer("serving_max_new_tokens", None,
+                     "Default per-request generation cap of the serving "
+                     "engine. None = the bench default (32).",
+                     lower_bound=1)
+flags.DEFINE_integer("serving_queue_depth", None,
+                     "Admission queue bound: a submit beyond it is rejected "
+                     "(a shed result, never an exception). None = the "
+                     "engine default (64).", lower_bound=1)
+flags.DEFINE_float("serving_ttft_slo_ms", None,
+                   "TTFT objective in ms: a queued request older than this "
+                   "at coalesce time is expired instead of prefilled. None "
+                   "= no deadline.", lower_bound=0.0)
+flags.DEFINE_float("serving_tenant_tokens_per_s", None,
+                   "Per-tenant token budget (prompt + generated tokens "
+                   "charged at submit against a token bucket); an "
+                   "over-budget request is rejected. None = unmetered.",
+                   lower_bound=0.0)
 
 Params = collections.namedtuple("Params", list(flags.param_specs.keys()))
 

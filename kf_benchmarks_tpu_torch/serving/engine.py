@@ -1,0 +1,735 @@
+"""Request-driven serving engine: continuous batching and admission control.
+
+The port's counterpart of kf_benchmarks_tpu/serving/engine.py on its
+non-variant paths (the INT8, paged-KV, speculative and tensor-parallel
+variants, and the ``/metrics`` endpoint, are not ported yet):
+
+* **Bounded program set** -- decode and prefill run only at bucket-ladder
+  batch widths (default 1/4/16/64/256). Each (program, bucket) is one
+  prepared callable, made once, run once on dummy inputs when it is made
+  (the first kernel launch builds the kernels; cuBLAS and the caching
+  allocator warm up) and cached; that first run's wall time lands in the
+  run trace's compile ledger, keyed on ``config_fingerprint_key``. At most
+  ``len(ladder)`` callables exist per program family.
+* **Continuous in-flight batching** -- freed slots refill from the queue
+  every decode step (``batching='continuous'``); ``'static'`` admits a
+  wave, decodes it to completion and only then admits again.
+* **SLO-aware admission** -- queue-depth rejection at submit, TTFT-deadline
+  expiry at coalesce time, a per-tenant token bucket, and SLO burn-rate
+  monitoring (metrics.SLOMonitor); sheds are results and ``serving/*``
+  metrics, never exceptions.
+* **Observability** -- request spans on the active RunTrace ("serving"
+  lane), TTFT and per-token latency samples, ``serving/*`` keys in the
+  port's metrics.SCHEMA.
+
+Timing: TTFT and token latency are read on the engine's clock once a
+program's values have reached the host. On the card the fetch of the next
+tokens (``.cpu()``) is the synchronisation, as ``np.asarray(nxt)`` is in the
+JAX engine; the loop adds no ``torch.cuda.synchronize()``.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+import json
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from kf_benchmarks_tpu_torch import metrics as metrics_lib
+from kf_benchmarks_tpu_torch import tracing as tracing_lib
+from kf_benchmarks_tpu_torch.data import packing as packing_lib
+from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+
+DEFAULT_BUCKET_LADDER = (1, 4, 16, 64, 256)
+
+
+def bucket_for(n: int, ladder: Sequence[int]) -> int:
+  """Smallest ladder bucket >= n (the top bucket when n overflows)."""
+  for b in ladder:
+    if n <= b:
+      return b
+  return ladder[-1]
+
+
+def config_fingerprint_key(config: Dict[str, Any],
+                           program: str = "serving_decode") -> str:
+  """Short stable key (sha256 hex, 16 chars) of a program shape: the
+  config's non-None fields, the program name and the torch version (a new
+  torch may run other kernels). The local counterpart of the JAX package's
+  analysis/baseline.config_fingerprint_key, which keys on the jax
+  version."""
+  shape = {k: v for k, v in config.items() if v is not None}
+  payload = {"config": shape, "program": program, "torch": torch.__version__}
+  canon = json.dumps(payload, sort_keys=True, default=str)
+  return hashlib.sha256(canon.encode("utf-8")).hexdigest()[:16]
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+  spec: decode_lib.LMSpec = dataclasses.field(
+      default_factory=decode_lib.LMSpec)
+  bucket_ladder: Tuple[int, ...] = DEFAULT_BUCKET_LADDER
+  batching: str = "continuous"       # or "static" (batch-and-drain)
+  max_new_tokens: int = 32           # default per-request cap
+  max_queue_depth: int = 64          # submit-time rejection bound
+  ttft_slo_s: Optional[float] = None  # default TTFT deadline (expiry)
+  tenant_tokens_per_s: Optional[float] = None  # None = unmetered
+  tenant_burst_s: float = 4.0        # token-bucket burst window
+  # SLO burn-rate monitoring: objectives ttft_deadline (first token within
+  # its deadline) and shed_fraction (admitted at all); target = good
+  # fraction.
+  slo_target: float = 0.99
+  slo_fast_window_s: float = 15.0
+  slo_slow_window_s: float = 60.0
+  slo_burn_threshold: float = 2.0
+
+  def __post_init__(self):
+    ladder = tuple(sorted(set(int(b) for b in self.bucket_ladder)))
+    if not ladder or ladder[0] < 1:
+      raise ValueError(f"bucket ladder must be positive ints, got "
+                       f"{self.bucket_ladder}")
+    object.__setattr__(self, "bucket_ladder", ladder)
+    if self.batching not in ("continuous", "static"):
+      raise ValueError(f"batching must be 'continuous' or 'static', "
+                       f"got {self.batching!r}")
+
+  def fingerprint_config(self, bucket: int, program: str) -> dict:
+    """The program-cache / compile-ledger key payload: the served model's
+    shape plus the bucket."""
+    return {**self.spec.config(), "bucket": int(bucket),
+            "serving_program": program}
+
+
+@dataclasses.dataclass
+class Request:
+  rid: Any
+  prompt: Any                         # 1-D int32 token array
+  max_new_tokens: Optional[int] = None
+  tenant: str = "default"
+  deadline_s: Optional[float] = None  # TTFT deadline (engine default
+                                      # applies when None)
+  enqueue_t: Optional[float] = None   # stamped by submit()
+
+
+@dataclasses.dataclass
+class RequestResult:
+  rid: Any
+  tenant: str
+  status: str                         # ok | rejected | expired
+  tokens: List[int] = dataclasses.field(default_factory=list)
+  ttft_s: Optional[float] = None
+  total_s: Optional[float] = None
+  shed_reason: Optional[str] = None
+
+
+class ServingEngine:
+  """One-process serving loop over the decode.py programs.
+
+  Synchronous: callers drive it with ``submit`` + ``drain`` or
+  ``replay(workload)`` (wall-clock arrival offsets). ``variables`` is the
+  served module's state_dict (default: ``init_variables(spec, seed)``);
+  ``device`` is the card unless the caller asks for the CPU.
+  """
+
+  _SLO_BURN_KEYS = {
+      "ttft_deadline": ("serving/slo_ttft_burn_fast",
+                        "serving/slo_ttft_burn_slow"),
+      "shed_fraction": ("serving/slo_shed_burn_fast",
+                        "serving/slo_shed_burn_slow"),
+  }
+
+  def __init__(self, config: EngineConfig, variables=None, seed: int = 0,
+               time_fn: Callable[[], float] = time.monotonic,
+               sleep_fn: Callable[[float], None] = time.sleep,
+               recorder=None, device="cuda"):
+    self.cfg = config
+    self.spec = config.spec
+    self.device = torch.device(device)
+    self._time = time_fn
+    self._sleep = sleep_fn
+    self.variables = (variables if variables is not None
+                      else decode_lib.init_variables(self.spec, seed))
+    self.module = decode_lib.load_module(self.spec, self.variables,
+                                         self.device)
+    self._queue: collections.deque = collections.deque()
+    self._results: Dict[Any, RequestResult] = {}
+    self._order: List[Any] = []
+    self._bucket = 0
+    self._cache: Optional[decode_lib.CacheState] = None
+    self._slots: List[Optional[dict]] = []
+    self._decode_exes: Dict[int, Callable] = {}
+    self._prefill_exes: Dict[int, Callable] = {}
+    self._arrivals = 0
+    self._shed = 0
+    self._completed = 0
+    self._decode_steps = 0
+    self._tokens_out = 0
+    self._fill_sum = 0.0
+    self._queue_depth_sum = 0.0
+    self._ticks = 0
+    self._ttfts: List[float] = []
+    self._token_lat: List[float] = []
+    self._tenant_allowance: Dict[str, float] = {}
+    self._tenant_last: Dict[str, float] = {}
+    self._tenant_ttfts: Dict[str, List[float]] = {}
+    self._tenant_token_lat: Dict[str, List[float]] = {}
+    self._tenant_tokens: Dict[str, int] = {}
+    self._tenant_arrivals: Dict[str, int] = {}
+    self._tenant_completed: Dict[str, int] = {}
+    self._tenant_shed: Dict[Tuple[str, str], int] = {}
+    self.slo = metrics_lib.SLOMonitor(
+        objectives={"ttft_deadline": config.slo_target,
+                    "shed_fraction": config.slo_target},
+        fast_window_s=config.slo_fast_window_s,
+        slow_window_s=config.slo_slow_window_s,
+        burn_threshold=config.slo_burn_threshold,
+        time_fn=time_fn, recorder=recorder)
+    self._t_serve0: Optional[float] = None
+    self._t_serve1: Optional[float] = None
+    self.state = "idle"
+
+  # -- admission ---------------------------------------------------------------
+
+  def submit(self, req: Request) -> bool:
+    """Enqueue one request; False when admission shed it (queue depth,
+    prompt length, tenant budget). A pre-stamped ``enqueue_t`` is honoured
+    (replay stamps the scheduled arrival, so TTFT includes any wait behind
+    an in-flight step)."""
+    now = self._time()
+    if req.enqueue_t is None:
+      req.enqueue_t = now
+    self._arrivals += 1
+    tenant = req.tenant
+    self._tenant_arrivals[tenant] = self._tenant_arrivals.get(tenant, 0) + 1
+    reg = metrics_lib.active()
+    reg.inc("serving/requests")
+    reg.inc("serving/requests", labels={"tenant": tenant})
+    if len(self._queue) >= self.cfg.max_queue_depth:
+      self._shed_request(req, "queue_depth")
+      return False
+    prompt_len = int(np.asarray(req.prompt).size)
+    if prompt_len < 1:
+      self._shed_request(req, "empty_prompt")
+      return False
+    if prompt_len > self.spec.max_len:
+      self._shed_request(req, "prompt_too_long")
+      return False
+    if not self._tenant_admit(tenant, prompt_len + self._max_new(req), now):
+      self._shed_request(req, "tenant_budget")
+      return False
+    tracing_lib.active().instant("serving", "enqueue", rid=str(req.rid),
+                                 tenant=tenant)
+    self._queue.append(req)
+    return True
+
+  def _max_new(self, req: Request) -> int:
+    return int(req.max_new_tokens or self.cfg.max_new_tokens)
+
+  def _deadline(self, req: Request) -> Optional[float]:
+    return (req.deadline_s if req.deadline_s is not None
+            else self.cfg.ttft_slo_s)
+
+  def _tenant_admit(self, tenant: str, tokens: int, now: float) -> bool:
+    rate = self.cfg.tenant_tokens_per_s
+    if rate is None:
+      return True
+    burst = rate * self.cfg.tenant_burst_s
+    allowance = self._tenant_allowance.get(tenant, burst)
+    last = self._tenant_last.get(tenant, now)
+    allowance = min(burst, allowance + (now - last) * rate)
+    self._tenant_last[tenant] = now
+    if tokens > allowance:
+      self._tenant_allowance[tenant] = allowance
+      return False
+    self._tenant_allowance[tenant] = allowance - tokens
+    return True
+
+  def _shed_request(self, req: Request, reason: str,
+                    status: str = "rejected") -> None:
+    self._shed += 1
+    tenant = req.tenant
+    self._tenant_shed[(tenant, reason)] = \
+        self._tenant_shed.get((tenant, reason), 0) + 1
+    reg = metrics_lib.active()
+    reg.inc("serving/shed")
+    reg.inc("serving/shed", labels={"tenant": tenant, "shed_reason": reason})
+    # A shed is a bad event on the shed-fraction objective, and on the TTFT
+    # objective when the request carried a deadline.
+    self.slo.observe("shed_fraction", tenant, good=False)
+    if self._deadline(req) is not None:
+      self.slo.observe("ttft_deadline", tenant, good=False)
+    self._publish_slo(tenant)
+    tracing_lib.active().instant("serving", "shed", rid=str(req.rid),
+                                 reason=reason)
+    self._record(RequestResult(rid=req.rid, tenant=tenant, status=status,
+                               shed_reason=reason))
+
+  def _publish_slo(self, tenant: str) -> None:
+    reg = metrics_lib.active()
+    for objective, (fast_key, slow_key) in self._SLO_BURN_KEYS.items():
+      burns = self.slo.burn(objective, tenant)
+      if burns["fast"] is not None:
+        reg.set(fast_key, burns["fast"], labels={"tenant": tenant})
+      if burns["slow"] is not None:
+        reg.set(slow_key, burns["slow"], labels={"tenant": tenant})
+
+  def _note_first_token(self, req: Request, now: float) -> float:
+    ttft = now - req.enqueue_t
+    tenant = req.tenant
+    self._ttfts.append(ttft)
+    self._tenant_ttfts.setdefault(tenant, []).append(ttft)
+    tracing_lib.active().add_sample("serving/ttft", ttft)
+    metrics_lib.active().observe("serving/ttft_s", ttft,
+                                 labels={"tenant": tenant})
+    deadline = self._deadline(req)
+    if deadline is not None:
+      self.slo.observe("ttft_deadline", tenant, good=ttft <= deadline)
+      self._publish_slo(tenant)
+    return ttft
+
+  def _record(self, result: RequestResult) -> None:
+    if result.rid not in self._results:
+      self._order.append(result.rid)
+    self._results[result.rid] = result
+
+  # -- prepared programs (the bounded set) -------------------------------------
+
+  def _prepare(self, kind: str, bucket: int, fn: Callable,
+               dummy_args: Tuple) -> Callable:
+    """Run ``fn`` once on dummy inputs of the bucket's shapes and record
+    that run's wall time (kernel builds and first-use set-up included) in
+    the compile ledger. The value fetch ends the run."""
+    key = config_fingerprint_key(self.cfg.fingerprint_config(bucket, kind),
+                                 program=kind)
+    t0 = time.monotonic()
+    fn(*dummy_args)[0].cpu()
+    tracing_lib.active().note_compile(key, kind, time.monotonic() - t0,
+                                      bucket=bucket)
+    return fn
+
+  def _decode_exe(self, bucket: int) -> Callable:
+    if bucket not in self._decode_exes:
+      step = decode_lib.decode_fn(self.spec)
+      module = self.module
+      fn = lambda *args: step(module, *args)
+      dummy = decode_lib.init_cache(self.spec, bucket, self.device)
+      self._decode_exes[bucket] = self._prepare(
+          "serving_decode", bucket, fn,
+          (dummy.k, dummy.v, dummy.pos, dummy.tok,
+           torch.ones(bucket, dtype=torch.bool, device=self.device)))
+    return self._decode_exes[bucket]
+
+  def _prefill_exe(self, bucket: int) -> Callable:
+    # Keyed on the PACK bucket (the wave's size), independent of the decode
+    # bucket.
+    if bucket not in self._prefill_exes:
+      prefill = decode_lib.prefill_fn(self.spec)
+      module = self.module
+      fn = lambda *args: prefill(module, *args)
+      packed = torch.zeros((bucket, 3, self.spec.max_len), dtype=torch.int32,
+                           device=self.device)
+      idx = torch.zeros(bucket, dtype=torch.int32)
+      self._prefill_exes[bucket] = self._prepare(
+          "serving_prefill", bucket, fn, (packed, idx, idx, idx))
+    return self._prefill_exes[bucket]
+
+  def warm(self, buckets: Optional[Sequence[int]] = None) -> int:
+    """Prepare the decode and prefill callables for ``buckets`` (default:
+    the whole ladder) before serving, so the first wave's TTFT measures
+    the system and not first-use set-up. Returns how many were made."""
+    n = 0
+    for b in (buckets if buckets is not None else self.cfg.bucket_ladder):
+      b = bucket_for(int(b), self.cfg.bucket_ladder)
+      before = len(self._decode_exes) + len(self._prefill_exes)
+      self._decode_exe(b)
+      self._prefill_exe(b)
+      n += len(self._decode_exes) + len(self._prefill_exes) - before
+    return n
+
+  # -- the serving loop --------------------------------------------------------
+
+  def _active_count(self) -> int:
+    return sum(1 for s in self._slots if s is not None)
+
+  def _ensure_bucket(self, target: int) -> None:
+    want = bucket_for(target, self.cfg.bucket_ladder)
+    if want <= self._bucket:
+      return
+    if self._cache is None:
+      self._cache = decode_lib.init_cache(self.spec, want, self.device)
+    else:
+      self._cache = decode_lib.grow_cache(self._cache, self.spec, want)
+    self._slots.extend([None] * (want - self._bucket))
+    self._bucket = want
+    metrics_lib.active().set("serving/decode_bucket", want)
+
+  def _maybe_shrink(self) -> None:
+    """Compact the decode batch DOWN the ladder when occupancy fits a
+    strictly lower bucket; an empty engine drops its cache."""
+    if self._bucket == 0:
+      return
+    active_idx = [i for i, s in enumerate(self._slots) if s is not None]
+    if not active_idx:
+      self._bucket = 0
+      self._cache = None
+      self._slots = []
+      metrics_lib.active().set("serving/decode_bucket", 0)
+      return
+    target = bucket_for(len(active_idx), self.cfg.bucket_ladder)
+    if target >= self._bucket:
+      return
+    # Pad rows duplicate slot 0's cache; they carry active=False, so their
+    # contents are never read and their writes land on the pad row only.
+    keep = torch.tensor(active_idx + [0] * (target - len(active_idx)),
+                        dtype=torch.long, device=self.device)
+    cache = self._cache
+    self._cache = decode_lib.CacheState(
+        k=cache.k[:, keep], v=cache.v[:, keep], pos=cache.pos[keep],
+        tok=cache.tok[keep])
+    self._slots = ([self._slots[i] for i in active_idx]
+                   + [None] * (target - len(active_idx)))
+    self._bucket = target
+    metrics_lib.active().set("serving/decode_bucket", target)
+
+  def _coalesce(self, now: float) -> List[Request]:
+    """Pop this wave's work: expired requests shed here, live ones admitted
+    up to the ladder headroom left by in-flight slots."""
+    headroom = self.cfg.bucket_ladder[-1] - self._active_count()
+    wave: List[Request] = []
+    while self._queue and len(wave) < headroom:
+      req = self._queue.popleft()
+      deadline = self._deadline(req)
+      if deadline is not None and now - req.enqueue_t > deadline:
+        self._shed_request(req, "ttft_deadline", status="expired")
+        continue
+      wave.append(req)
+    return wave
+
+  def _prefill_wave(self, wave: List[Request]) -> None:
+    self._ensure_bucket(self._active_count() + len(wave))
+    free = [i for i, s in enumerate(self._slots) if s is None]
+    # Pack bucket = the wave's own ladder size (every prompt fits a row).
+    pack_bucket = bucket_for(len(wave), self.cfg.bucket_ladder)
+    prompts = [np.asarray(r.prompt, np.int32) for r in wave]
+    packed_np, placements = packing_lib.pack_prompts(
+        prompts, self.spec.max_len, pack_bucket)
+    placed: List[Tuple[Request, np.ndarray, Tuple[int, int]]] = []
+    overflow: List[Request] = []
+    for req, prm, place in zip(wave, prompts, placements):
+      if place is None or len(placed) >= min(len(free), pack_bucket):
+        overflow.append(req)
+      else:
+        placed.append((req, prm, place))
+    # Requests that did not fit go back to the queue head, in order.
+    for req in reversed(overflow):
+      self._queue.appendleft(req)
+    if not placed:
+      return
+    rows = np.zeros((pack_bucket,), np.int32)
+    offsets = np.zeros((pack_bucket,), np.int32)
+    last_pos = np.zeros((pack_bucket,), np.int32)
+    lengths = np.zeros((pack_bucket,), np.int32)
+    slots = np.full((pack_bucket,), self._bucket, np.int32)  # pad: dropped
+    for i, (req, prm, (row, off)) in enumerate(placed):
+      rows[i], offsets[i] = row, off
+      lengths[i] = prm.size
+      last_pos[i] = off + prm.size - 1
+      slots[i] = free[i]
+    exe = self._prefill_exe(pack_bucket)
+    trace = tracing_lib.active()
+    with trace.span("serving", "prefill", requests=len(placed),
+                    bucket=pack_bucket):
+      first, ek, ev = exe(torch.from_numpy(packed_np).to(self.device),
+                          torch.from_numpy(rows), torch.from_numpy(last_pos),
+                          torch.from_numpy(offsets))
+      self._cache = decode_lib.install_prefill(
+          self._cache, ek, ev, first, torch.from_numpy(lengths),
+          torch.from_numpy(slots))
+      del ek, ev
+      first_np = first.cpu().numpy()  # the value fetch = completion
+    now = self._time()
+    for i, (req, _prm, _place) in enumerate(placed):
+      ttft = self._note_first_token(req, now)
+      slot = {"req": req, "tokens": [int(first_np[i])], "t_first": now,
+              "ttft": ttft}
+      self._slots[free[i]] = slot
+      if len(slot["tokens"]) >= self._max_new(req):
+        self._complete(free[i], now)
+      self._tokens_out += 1
+
+  def _run_decode_exe(self, active_np: np.ndarray) -> np.ndarray:
+    """One batched decode step; updates the cache in place and returns the
+    sampled tokens."""
+    exe = self._decode_exe(self._bucket)
+    cache = self._cache
+    active = torch.from_numpy(active_np).to(self.device)
+    nxt, k, v, pos = exe(cache.k, cache.v, cache.pos, cache.tok, active)
+    nxt_np = nxt.cpu().numpy()  # the value fetch = completion
+    self._cache = decode_lib.CacheState(k=k, v=v, pos=pos, tok=nxt)
+    self._decode_steps += 1
+    reg = metrics_lib.active()
+    reg.inc("serving/decode_steps")
+    reg.inc("serving/decode_steps", labels={"bucket": str(self._bucket)})
+    return nxt_np
+
+  def _decode_step(self) -> None:
+    bucket = self._bucket
+    active_np = np.array([s is not None for s in self._slots], np.bool_)
+    n_active = int(active_np.sum())
+    trace = tracing_lib.active()
+    t0 = self._time()
+    with trace.span("serving", "decode_step", active=n_active,
+                    bucket=bucket):
+      nxt_np = self._run_decode_exe(active_np)
+    now = self._time()
+    step_wall = now - t0
+    self._fill_sum += n_active / max(bucket, 1)
+    self._tokens_out += n_active
+    trace.add_sample("serving/token_latency", step_wall)
+    self._token_lat.append(step_wall)
+    reg = metrics_lib.active()
+    reg.observe("serving/token_latency_s", step_wall)
+    reg.set("serving/active", n_active)
+    for i, slot in enumerate(self._slots):
+      if slot is None:
+        continue
+      slot["tokens"].append(int(nxt_np[i]))
+      if len(slot["tokens"]) >= self._max_new(slot["req"]):
+        self._complete(i, now)
+
+  def _complete(self, slot_idx: int, now: float) -> None:
+    slot = self._slots[slot_idx]
+    self._slots[slot_idx] = None
+    req = slot["req"]
+    tenant = req.tenant
+    self._completed += 1
+    self._tenant_completed[tenant] = \
+        self._tenant_completed.get(tenant, 0) + 1
+    self._tenant_tokens[tenant] = \
+        self._tenant_tokens.get(tenant, 0) + len(slot["tokens"])
+    reg = metrics_lib.active()
+    reg.inc("serving/completed")
+    reg.inc("serving/completed", labels={"tenant": tenant})
+    result = RequestResult(rid=req.rid, tenant=tenant, status="ok",
+                           tokens=list(slot["tokens"]), ttft_s=slot["ttft"],
+                           total_s=now - req.enqueue_t)
+    # Per-tenant token latency: the request's own mean decode interval.
+    if len(result.tokens) > 1 and result.ttft_s is not None:
+      per_tok = (result.total_s - result.ttft_s) / (len(result.tokens) - 1)
+      self._tenant_token_lat.setdefault(tenant, []).append(per_tok)
+      reg.observe("serving/token_latency_s", per_tok,
+                  labels={"tenant": tenant})
+    self.slo.observe("shed_fraction", tenant, good=True)
+    self._publish_slo(tenant)
+    self._record(result)
+    trace = tracing_lib.active()
+    trace.add_span("serving", "request", trace.now() - result.total_s,
+                   result.total_s,
+                   {"rid": str(req.rid), "status": "ok",
+                    "ttft_s": round(result.ttft_s, 6),
+                    "tokens": len(result.tokens)})
+
+  def _tick(self) -> None:
+    self._ticks += 1
+    self._queue_depth_sum += len(self._queue)
+    metrics_lib.active().set("serving/queue_depth", len(self._queue))
+    self._maybe_shrink()
+    now = self._time()
+    admit = bool(self._queue) and (
+        self.cfg.batching == "continuous" or self._active_count() == 0)
+    if admit:
+      wave = self._coalesce(now)
+      if wave:
+        self._prefill_wave(wave)
+    if self._active_count():
+      self._decode_step()
+
+  def drain(self) -> List[RequestResult]:
+    """Serve until queue and slots are empty; every result so far in
+    submission order."""
+    self.state = "running"
+    if self._t_serve0 is None:
+      self._t_serve0 = self._time()
+    while self._queue or self._active_count():
+      self._tick()
+    self._t_serve1 = self._time()
+    self.state = "drained"
+    self._publish()
+    return self.results()
+
+  def replay(self, workload: Sequence[Tuple[float, Request]]
+             ) -> List[RequestResult]:
+    """Replay (arrival_offset_s, request) pairs in wall time: requests
+    become visible at their offsets, the loop decodes in between, idle gaps
+    sleep until the next arrival."""
+    self.state = "running"
+    pending = collections.deque(sorted(workload, key=lambda pair: pair[0]))
+    start = self._time()
+    self._t_serve0 = start
+    while pending or self._queue or self._active_count():
+      now = self._time() - start
+      while pending and pending[0][0] <= now:
+        offset, req = pending.popleft()
+        # The scheduled arrival is the enqueue time (no coordinated
+        # omission behind an in-flight step).
+        req.enqueue_t = start + offset
+        self.submit(req)
+      if not self._queue and not self._active_count() and pending:
+        self._sleep(max(0.0, pending[0][0] - (self._time() - start)))
+        continue
+      self._tick()
+    self._t_serve1 = self._time()
+    self.state = "drained"
+    self._publish()
+    return self.results()
+
+  def results(self) -> List[RequestResult]:
+    return [self._results[rid] for rid in self._order]
+
+  # -- reporting ---------------------------------------------------------------
+
+  def healthz(self) -> Dict[str, Any]:
+    """Engine liveness: "burning" while any SLO stream fires."""
+    slo = self.slo.state()
+    return {
+        "status": slo["status"],
+        "serving": {
+            "state": self.state,
+            "active": self._active_count(),
+            "queue_depth": len(self._queue),
+            "bucket": self._bucket,
+            "completed": self._completed,
+            "shed": self._shed,
+            "decode_steps": self._decode_steps,
+        },
+        "slo": slo,
+    }
+
+  def _wall(self) -> Optional[float]:
+    if self._t_serve0 is None or self._t_serve1 is None:
+      return None
+    return max(self._t_serve1 - self._t_serve0, 1e-9)
+
+  def stats(self) -> Dict[str, Any]:
+    """Flat registered-key stats of the run so far (the serving bench's
+    JSON payload). The decode-cost variant keys (paged KV, speculative) are
+    None, as the JAX engine reports them with the variants off."""
+    wall = self._wall()
+    pct = tracing_lib.percentile
+    out = {
+        "serving/requests": self._arrivals,
+        "serving/completed": self._completed,
+        "serving/shed": self._shed,
+        "serving/shed_fraction": (self._shed / self._arrivals
+                                  if self._arrivals else 0.0),
+        "serving/decode_steps": self._decode_steps,
+        "serving/decode_bucket": self._bucket,
+        "serving/batch_fill_fraction": (
+            self._fill_sum / self._decode_steps
+            if self._decode_steps else None),
+        "serving/queue_depth": (self._queue_depth_sum / self._ticks
+                                if self._ticks else None),
+        "serving/tokens_per_sec": (self._tokens_out / wall
+                                   if wall else None),
+    }
+    for q in (50, 90, 99):
+      out[f"serving/ttft_p{q}"] = pct(self._ttfts, q)
+    for q in (50, 90, 99):
+      out[f"serving/token_latency_p{q}"] = pct(self._token_lat, q)
+    for key in ("serving/kv_pages_in_use", "serving/kv_page_fraction",
+                "serving/spec_rounds", "serving/draft_tokens",
+                "serving/accepted_tokens", "serving/accept_len_p50",
+                "serving/accept_len_p90", "serving/accept_len_p99"):
+      out[key] = None
+    out["serving/slo_alerts"] = float(len(self.slo.alerts))
+    for objective, keys in self._SLO_BURN_KEYS.items():
+      for key, window in zip(keys, ("fast", "slow")):
+        # The aggregate burn is the worst tenant's.
+        out[key] = self._agg_burn(objective, window)
+    out["serving_tenants"] = self.tenant_stats()
+    return out
+
+  def _agg_burn(self, objective: str, window: str) -> Optional[float]:
+    burns = [self.slo.burn(objective, t)[window]
+             for t in self._tenants_seen()]
+    burns = [b for b in burns if b is not None]
+    return max(burns) if burns else None
+
+  def _tenants_seen(self) -> List[str]:
+    seen = set(self._tenant_arrivals)
+    seen.update(t for (t, _r) in self._tenant_shed)
+    return sorted(seen)
+
+  def tenant_stats(self) -> Dict[str, Dict[str, Any]]:
+    """Per-tenant stats keyed on registered metric names."""
+    pct = tracing_lib.percentile
+    wall = self._wall()
+    out: Dict[str, Dict[str, Any]] = {}
+    for tenant in self._tenants_seen():
+      ttfts = self._tenant_ttfts.get(tenant, [])
+      lats = self._tenant_token_lat.get(tenant, [])
+      sheds = {reason: n for (t, reason), n in
+               sorted(self._tenant_shed.items()) if t == tenant}
+      ttft_burn = self.slo.burn("ttft_deadline", tenant)
+      shed_burn = self.slo.burn("shed_fraction", tenant)
+      block = {
+          "serving/requests": self._tenant_arrivals.get(tenant, 0),
+          "serving/completed": self._tenant_completed.get(tenant, 0),
+          "serving/shed": sheds or None,
+          "serving/tokens_per_sec": (
+              self._tenant_tokens.get(tenant, 0) / wall if wall else None),
+      }
+      for q in (50, 90, 99):
+        block[f"serving/ttft_p{q}"] = pct(ttfts, q)
+      for q in (50, 90, 99):
+        block[f"serving/token_latency_p{q}"] = pct(lats, q)
+      block.update({
+          "serving/slo_ttft_burn_fast": ttft_burn["fast"],
+          "serving/slo_ttft_burn_slow": ttft_burn["slow"],
+          "serving/slo_shed_burn_fast": shed_burn["fast"],
+          "serving/slo_shed_burn_slow": shed_burn["slow"],
+      })
+      out[tenant] = block
+    return out
+
+  def _publish(self) -> None:
+    reg = metrics_lib.active()
+    for key, value in metrics_lib.flatten_stats(self.stats()).items():
+      base, labels = metrics_lib.parse_labeled_key(key)
+      if metrics_lib.SCHEMA[base].kind in ("counter", "histogram"):
+        continue  # published live
+      reg.set(base, value, labels=labels or None)
+
+
+# -- replayable workloads ------------------------------------------------------
+
+def poisson_workload(n: int, rate_per_s: float, spec: decode_lib.LMSpec,
+                     seed: int = 0, max_new_tokens: int = 16,
+                     mean_prompt_fraction: float = 0.2,
+                     tenants: Sequence[str] = ("default",)
+                     ) -> List[Tuple[float, Request]]:
+  """A seeded, replayable open-loop arrival trace: exponential
+  inter-arrivals at ``rate_per_s``, lognormal prompt lengths capped so
+  prompt + generation fit the ring, tenants round-robin. Same seed, same
+  workload (the JAX package's, draw for draw)."""
+  rng = np.random.default_rng(seed)
+  cap = max(1, spec.max_len - max_new_tokens - 1)
+  lengths = np.minimum(
+      packing_lib.sample_document_lengths(
+          rng, n, spec.max_len, mean_fraction=mean_prompt_fraction),
+      cap)
+  gaps = rng.exponential(1.0 / max(rate_per_s, 1e-9), size=n)
+  t = np.cumsum(gaps)
+  out = []
+  for i in range(n):
+    prompt = rng.integers(0, spec.vocab, size=int(lengths[i]),
+                          dtype=np.int32)
+    out.append((float(t[i]), Request(
+        rid=i, prompt=prompt, max_new_tokens=max_new_tokens,
+        tenant=tenants[i % len(tenants)])))
+  return out

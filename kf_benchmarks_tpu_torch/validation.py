@@ -2,8 +2,8 @@
 
 The port's counterpart of kf_benchmarks_tpu/validation.py. The port runs
 ResNet-50 (and the trivial model) and transformer_lm training on synthetic
-data on one device; anything else fails here with the reason, before any
-work starts.
+data on one device, and the transformer_lm serving bench; anything else
+fails here with the reason, before any work starts.
 """
 
 from __future__ import annotations
@@ -16,6 +16,23 @@ from kf_benchmarks_tpu_torch.models import transformer_lm
 
 class ParamError(ValueError):
   """A flag value or combination the port does not run."""
+
+
+def parse_bucket_ladder(ladder: str):
+  """'1,4,16,64' -> (1, 4, 16, 64): strictly ascending positive ints
+  (ParamError otherwise)."""
+  parts = [s.strip() for s in str(ladder).split(",") if s.strip()]
+  try:
+    buckets = tuple(int(v) for v in parts)
+  except ValueError:
+    buckets = ()
+  if not buckets or any(b < 1 for b in buckets) or \
+      list(buckets) != sorted(set(buckets)):
+    raise ParamError(
+        f"--serving_bucket_ladder={ladder!r}: expected strictly ascending "
+        "positive integers (e.g. '1,4,16,64'); the ladder bounds the "
+        "serving engine's program set")
+  return buckets
 
 
 def validate_cross_flags(params) -> None:
@@ -38,6 +55,12 @@ def validate_cross_flags(params) -> None:
           f"--attn_block={params.attn_block} must divide the transformer_lm "
           f"sequence length {transformer_lm.SEQ_LEN} (blockwise_attention "
           "tiles the K/V axis in whole blocks)")
+  if params.serving_bucket_ladder is not None:
+    parse_bucket_ladder(params.serving_bucket_ladder)
+  if params.serving_batching not in (None, "continuous", "static"):
+    raise ParamError(
+        f"--serving_batching={params.serving_batching!r}: expected "
+        "'continuous' or 'static'")
   if params.device == "gpu":
     if not torch.cuda.is_available():
       raise ParamError(

@@ -156,3 +156,30 @@ def test_lm_missing_layer_and_extra_leaf_raise():
   extra["params"]["head_bias"] = np.zeros(64, np.float32)
   with pytest.raises(KeyError, match="head_bias"):
     convert.flax_to_state_dict(extra, module)
+
+
+@pytest.mark.parametrize("scan", [True, False], ids=["scan", "loop"])
+def test_serving_tree_maps_onto_the_served_module(scan):
+  """The serving weights (serving/decode.py ``init_variables``: the
+  ``_TransformerLMModule`` tree, scanned ``blocks`` or ``block_<i>``) load
+  strictly into the port's served module, which runs both the forward and
+  the decode step from the same parameters."""
+  from kf_benchmarks_tpu.serving import decode as jax_decode
+  from kf_benchmarks_tpu_torch.serving import decode as port_decode
+  kw = dict(vocab=97, d_model=32, n_layers=3, n_heads=4, d_ff=64,
+            max_len=16, attn_block=8, scan_layers=scan)
+  variables = jax.device_get(
+      jax_decode.init_variables(jax_decode.LMSpec(**kw), seed=2))
+  module = port_decode.forward_module(port_decode.LMSpec(**kw))
+  state = convert.flax_to_state_dict(variables, module)
+  module.load_state_dict(state)  # strict: every key, every shape
+  p = variables["params"]
+  qkv = (p["blocks"]["qkv"]["kernel"][2] if scan
+         else p["block_2"]["qkv"]["kernel"])
+  np.testing.assert_array_equal(state["blocks.2.qkv.weight"].numpy(),
+                                np.asarray(qkv).T)
+  np.testing.assert_array_equal(state["pos_embedding"].numpy(),
+                                p["pos_embedding"])
+  # embed, pos_embedding, ln_f (2), lm_head; 11 a block (ln1 2, qkv 1,
+  # attn_out 2, ln2 2, mlp_up 2, mlp_down 2).
+  assert len(state) == 5 + 3 * 11
