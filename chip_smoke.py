@@ -7,7 +7,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printed on its own line and none guarded -- any failure ends
 the run with a non-zero exit and no result line:
 
-  1. build   -- compile csrc/*.cu (one nvcc per source, in parallel);
+  1. build   -- compile csrc/*.cu (one nvcc per source, in parallel),
+                print ptxas's registers, shared memory and spills of every
+                kernel, and for the two wgmma/TMA kernels (K-A and the
+                flash forward) their HGMMA, UTMALDG and LDGSTS SASS counts
+                read with cuobjdump (each must have wgmma and async copies);
   2. conv    -- K-A conv3x3_same against its plain version at the four
                 ResNet-50 stage shapes (stage 3 is the TPU probe's own)
                 and one with a ragged last tile;
@@ -25,8 +29,10 @@ the run with a non-zero exit and no result line:
                 version at the LM's shape (B 8, L 2048, H 8, D 64, causal),
                 the same with random documents as segment ids, Lq 256
                 against Lk 1024 with a kv-only mask (the decode mode's
-                structure) and a ragged L of 1000, then the D = 128
-                instantiations at a small shape;
+                structure), a ragged L of 1000, and the LM's shape through
+                the qkv.unbind(2) views of one packed projection
+                (lm_causal_strided), then the D = 128 instantiations at a
+                small shape;
   7. flash_grad -- dQ, dK, dV of the FlashAttention Function (the dK/dV
                 and dQ kernels) against autograd through the plain forward,
                 at the LM's shape with and without segment ids;
@@ -66,7 +72,8 @@ subset (the result line is printed only when every phase ran);
 ``--phases=build,profile`` traces three ResNet-50 training steps with
 torch.profiler and prints the kernel-time table, ``--phases=build,
 lm_profile`` three transformer_lm steps, ``--phases=build,serve_profile``
-20 serving decode steps at bucket 64.
+20 serving decode steps at bucket 64, and ``--phases=build,conv_tiles``
+times K-A at every tile shape at every STAGES shape.
 """
 
 from __future__ import annotations
@@ -87,7 +94,7 @@ import torch.nn.functional as F
 ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
               "serve_parity")
-EXTRA_PHASES = ("profile", "lm_profile", "serve_profile")
+EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -107,7 +114,11 @@ LM_B, LM_L, LM_H, LM_D = 8, 2048, 8, 64
 FLASH_SHAPES = (("lm_causal", LM_B, LM_L, LM_L, True, None),
                 ("lm_segments", LM_B, LM_L, LM_L, True, "docs"),
                 ("decode_kv_mask", LM_B, 256, 1024, False, "kv"),
-                ("ragged_1000", LM_B, 1000, 1000, True, None))
+                ("ragged_1000", LM_B, 1000, 1000, True, None),
+                ("lm_causal_strided", LM_B, LM_L, LM_L, True, None))
+# FLASH_SHAPES cases whose q, k and v are the qkv.unbind(2) views of one
+# packed (B, L, 3, H, D) projection, as the LM passes them.
+PACKED_QKV = ("lm_causal_strided",)
 
 # The shape each kernel's headline numbers come from: the TPU probes' own
 # shape for the conv kernels, the LM's for the attention kernels.
@@ -235,6 +246,33 @@ def bf16_close(out, ref):
 
 # -- phases --------------------------------------------------------------------
 
+# The kernels redesigned for Hopper's wgmma and TMA: the build phase reads
+# their SASS and holds each to at least one HGMMA and one async copy.
+SM90_KERNELS = ("conv3x3_same", "flash_attention_fwd")
+
+
+def sass_counts(so_path):
+  """{function: {instruction: count}} of HGMMA, UTMALDG and LDGSTS in a
+  built library, read with the cuobjdump beside nvcc; None when there is
+  no cuobjdump."""
+  from kf_benchmarks_tpu_torch.ops import _build
+  tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+  if not os.path.exists(tool):
+    return None
+  out = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                       text=True, check=True).stdout
+  counts, fn = {}, None
+  for line in out.splitlines():
+    if "Function :" in line:
+      fn = line.split("Function :", 1)[1].strip()
+      counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 0}
+    elif fn is not None:
+      for op in counts[fn]:
+        if op + "." in line or op + " " in line:
+          counts[fn][op] += 1
+  return counts
+
+
 def phase_build(res):
   from kf_benchmarks_tpu_torch.ops import _build
   t0 = time.time()
@@ -245,15 +283,31 @@ def phase_build(res):
   for name in sorted(_build._SIGNATURES):
     with open(os.path.join(out_dir, name + ".log")) as f:
       for line in f:
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or (
+            name in SM90_KERNELS and "warning" in line):
           log(f"build: {name}: {line.strip()}")
+  for name in SM90_KERNELS:
+    counts = sass_counts(os.path.join(out_dir, name + ".so"))
+    if counts is None:
+      log(f"build: {name}: sass: no cuobjdump beside nvcc, SASS not read")
+      continue
+    for fn, c in counts.items():
+      log(f"build: {name}: sass {fn}: HGMMA {c['HGMMA']}, UTMALDG "
+          f"{c['UTMALDG']}, LDGSTS {c['LDGSTS']}")
+    total = {op: sum(c[op] for c in counts.values())
+             for op in ("HGMMA", "UTMALDG", "LDGSTS")}
+    check(total["HGMMA"] > 0 and total["UTMALDG"] + total["LDGSTS"] > 0,
+          f"build: {name} has no wgmma or no async copy in its SASS: {total}")
 
 
 def phase_conv(res):
+  """K-A against its plain version; timed, as the main path calls it, on
+  the K-major weights (the backward makes them), beside F.conv2d."""
   from kf_benchmarks_tpu_torch.ops import conv_bn
   shapes = []
   for i, (stage, n, h, w, c) in enumerate(STAGES):
     x, wt, _, _ = inputs(n, h, w, c, c, seed=10 + i)
+    w_k = conv_bn.kmajor(wt)
     y = conv_bn.conv3x3_same(x, wt)
     ref = conv_bn.conv3x3_same_plain(x, wt)
     torch.cuda.synchronize()
@@ -263,7 +317,7 @@ def phase_conv(res):
     x_nchw = x.permute(0, 3, 1, 2)
     w_oihw = wt.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
-    ms = time_ms(lambda: conv_bn.conv3x3_same(x, wt))
+    ms = time_ms(lambda: conv_bn.conv3x3_same_kmajor(x, w_k))
     plain_ms = time_ms(lambda: conv_bn.conv3x3_same_plain(x, wt), iters=5)
     lib_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1))
     b_ms, b_by = conv_cost(n, h, w, c, c)
@@ -275,8 +329,43 @@ def phase_conv(res):
         f"{err:.3g} (rel {rel:.2g}; tol 2^-7|ref| + 1e-3 max|ref|) "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv2d "
         f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-    del x, wt, y, ref
+    del x, wt, w_k, y, ref
   res["conv3x3_same"] = shapes
+
+
+def phase_conv_tiles(res):
+  """Not in the default run: K-A at every tile shape it instantiates, each
+  with the A box the cost model gives it, at every STAGES shape, beside the
+  shape's pick and F.conv2d -- the data conv_bn.conv_tile's cost is fitted
+  to."""
+  from kf_benchmarks_tpu_torch.ops import conv_bn
+  all_tiles = conv_bn.CONV_TILES
+  for i, (stage, n, h, w, c) in enumerate(STAGES):
+    x, wt, _, _ = inputs(n, h, w, c, c, seed=10 + i)
+    w_k = conv_bn.kmajor(wt)
+    ref = conv_bn.conv3x3_same_plain(x, wt)
+    x_nchw = x.permute(0, 3, 1, 2)
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    lib_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1))
+    pick = tuple(conv_bn.conv_tile(n, h, w, c, 132))[:5]
+    parts = [f"F.conv2d {lib_ms:.4f} ms", f"pick {pick}"]
+    for bm, bn in all_tiles:
+      if c % bn:
+        continue
+      conv_bn.CONV_TILES = ((bm, bn),)
+      conv_bn.conv_tile.cache_clear()
+      t = conv_bn.conv_tile(n, h, w, c, 132)
+      y = conv_bn.conv3x3_same_kmajor(x, w_k)
+      torch.cuda.synchronize()
+      err, ok = bf16_close(y, ref)
+      check(ok, f"conv_tiles {stage} {bm}x{bn}: max abs err {err}")
+      ms = time_ms(lambda: conv_bn.conv3x3_same_kmajor(x, w_k))
+      parts.append(f"{bm}x{bn} box {t.wb}x{t.hb}x{t.nb} {ms:.4f} ms")
+    conv_bn.CONV_TILES = all_tiles
+    conv_bn.conv_tile.cache_clear()
+    log(f"conv_tiles: {stage}: " + " | ".join(parts))
+    del x, wt, w_k, ref
 
 
 def _bn_relu_stats_library(x_nchw, w_oihw, sc, sh):
@@ -554,7 +643,13 @@ def phase_flash(res):
   from kf_benchmarks_tpu_torch.ops import flash_attention as fa
   shapes = []
   for i, (stage, b, lq, lk, causal, mask) in enumerate(FLASH_SHAPES):
-    q, k, v, _ = attn_inputs(b, lq, lk, seed=50 + i)
+    if stage in PACKED_QKV:
+      g = torch.Generator(device="cuda").manual_seed(50 + i)
+      qkv = torch.randn(b, lq, 3, LM_H, LM_D, generator=g,
+                        device="cuda").to(torch.bfloat16)
+      q, k, v = qkv.unbind(2)
+    else:
+      q, k, v, _ = attn_inputs(b, lq, lk, seed=50 + i)
     q_seg, kv_seg = attn_segments(b, lq, lk, mask, seed=60 + i)
     scale = LM_D ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, q_seg, kv_seg)
@@ -1318,6 +1413,7 @@ def main(argv=None) -> int:
            "decode": phase_decode, "serve": phase_serve,
            "serve_parity": phase_serve_parity,
            "serve_profile": phase_serve_profile,
+           "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}
   for name in phases:
     t0 = time.time()

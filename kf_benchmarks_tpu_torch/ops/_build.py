@@ -11,6 +11,11 @@ The libraries go to ``build/kernels/<hash>/`` at the repository root, where
 kernel is rebuilt and an unchanged one is loaded as it is. ``nvcc`` is
 needed only here, when a kernel is first launched; importing the package
 never needs it.
+
+The libraries link the CUDA runtime only: the kernels that load by TMA
+(``csrc/sm90.cuh``) look ``cuTensorMapEncodeTiled`` up in
+``libcuda.so.1``, which the runtime has loaded, with ``dlsym`` at run
+time, so no ``-lcuda`` is needed.
 """
 
 from __future__ import annotations
@@ -56,7 +61,9 @@ _SIGNATURES = {
                                      [ctypes.c_int] * 4 + [ctypes.c_void_p],
     },
     "conv3x3_same": {
-        "conv3x3_same_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
+        # x, w, y; N, H, W, C, CO; tile rows and columns; the A box's
+        # width, height and images; grid; stream.
+        "conv3x3_same_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 +
                              [ctypes.c_void_p],
     },
     "bn_relu_conv3x3_stats": {

@@ -4,7 +4,8 @@ The counterpart of the three ``pl.pallas_call``s of JAX's library TPU flash
 attention (jax/experimental/pallas/ops/tpu/flash_attention.py), which the
 JAX package reaches through parallel/sequence.py ``pallas_flash_attention``:
 
-* ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``) replaces
+* ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``: wgmma, TMA
+  loads of q, k and v through 4-D tensor maps) replaces
   ``_flash_attention_impl``;
 * ``flash_attention_bwd_dkv`` (``csrc/flash_attention_bwd.cu``) replaces
   ``_flash_attention_bwd_dkv``;
@@ -169,6 +170,24 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal: bool = False,
 
 # -- kernel wrappers -----------------------------------------------------------
 
+def qkv_layout_error(label: str, shape, stride, data_ptr: int):
+  """Why the kernels cannot read a (B, L, H, D) q, k or v of this shape,
+  element strides and address, or None when they can: D contiguous and
+  heads adjacent (the forward's tensor maps walk D, H, L, B), the
+  position and batch strides and the base 16-byte aligned, and each
+  stride below a tensor map's 2^40 bytes."""
+  if len(shape) != 4:
+    return f"want {label} (B, L, H, D), got {tuple(shape)}"
+  d = shape[3]
+  if stride[3] != 1 or stride[2] != d or stride[0] % 8 or stride[1] % 8 \
+      or data_ptr % 16:
+    return (f"{label} needs D contiguous, heads adjacent and 16-byte "
+            f"aligned rows, got strides {tuple(stride)}")
+  if max(stride[0], stride[1]) * 2 >= 2 ** 40:
+    return f"{label} strides {tuple(stride)} exceed a tensor map's 2^40 bytes"
+  return None
+
+
 def _check_qkv(name: str, q, k, v, q_seg, kv_seg) -> None:
   if q.device.type != "cuda":
     raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
@@ -179,16 +198,9 @@ def _check_qkv(name: str, q, k, v, q_seg, kv_seg) -> None:
     if x.dtype != torch.bfloat16:
       raise ValueError(f"{name}: the CUDA kernel takes bf16 q, k, v, got "
                        f"{label} {x.dtype} (no f32 variant yet)")
-    if x.dim() != 4:
-      raise ValueError(f"{name}: want {label} (B, L, H, D), got "
-                       f"{tuple(x.shape)}")
-    d = x.shape[3]
-    # 16-byte row loads: D contiguous, heads adjacent, strides and base
-    # aligned to 8 elements.
-    if x.stride(3) != 1 or x.stride(2) != d or x.stride(0) % 8 or \
-        x.stride(1) % 8 or x.data_ptr() % 16:
-      raise ValueError(f"{name}: {label} needs D contiguous, heads adjacent "
-                       f"and 16-byte aligned rows, got strides {x.stride()}")
+    err = qkv_layout_error(label, x.shape, x.stride(), x.data_ptr())
+    if err:
+      raise ValueError(f"{name}: {err}")
   b, lq, h, d = q.shape
   if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
     raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} and "
@@ -245,6 +257,11 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     return flash_attention_fwd_plain(q, k, v, causal, scale, q_seg, kv_seg)
   q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
   _check_qkv("flash_attention_fwd", q, k, v, q_seg, kv_seg)
+  if not scale > 0:
+    # The kernel keeps the running max of the unscaled scores, which is
+    # the max of the scaled ones only for a positive scale.
+    raise ValueError(f"flash_attention_fwd: the kernel takes a positive "
+                     f"scale, got {scale}")
   b, lq, h, d = q.shape
   lib = _build.load("flash_attention_fwd")
   with torch.cuda.device(q.device):

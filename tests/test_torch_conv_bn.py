@@ -253,6 +253,73 @@ def test_wrappers_reject_other_devices():
                                   torch.zeros(32, device="meta"), w)
 
 
+@pytest.mark.parametrize("x_shape,w_shape,c_align,kmajor,error", [
+    ((2, 7, 7, 64), (3, 3, 64, 128), 64, False, None),
+    ((2, 7, 7, 64), (128, 3, 3, 64), 64, True, None),
+    ((2, 7, 7, 32), (3, 3, 32, 64), 32, False, None),
+    ((2, 7, 7, 32), (3, 3, 32, 64), 64, False, "C % 64 == 0"),
+    ((2, 7, 7, 32), (64, 3, 3, 32), 64, True, "C % 64 == 0"),
+    ((2, 7, 7, 64), (3, 3, 64, 96), 64, False, "CO % 64 == 0"),
+    ((2, 7, 7, 1024), (3, 3, 1024, 64), 64, False, "C <= 512"),
+    ((2, 7, 7, 64), (3, 3, 32, 64), 64, False, "want x"),
+    ((2, 7, 7, 64), (3, 3, 64, 128), 64, True, "want x"),
+    ((7, 7, 64), (3, 3, 64, 64), 64, False, "want x"),
+    ((1024, 512, 512, 64), (3, 3, 64, 64), 64, False, "32-bit"),
+], ids=["ka", "ka_kmajor", "kb", "ka_c32", "ka_kmajor_c32", "co96",
+        "c1024", "c_mismatch", "hwio_as_kmajor", "rank3", "too_large"])
+def test_kernel_shape_acceptance(x_shape, w_shape, c_align, kmajor, error):
+  """The shapes the wrappers refuse before a launch: K-A's wgmma stage
+  reads 64 input channels (one tap), K-B's 32."""
+  got = conv_bn.kernel_shape_error("k", x_shape, w_shape, c_align, kmajor)
+  if error is None:
+    assert got is None
+  else:
+    assert got is not None and error in got
+
+
+@pytest.mark.parametrize("shape,sms,want", [
+    ((256, 56, 56, 64), 132, (256, 64, 56, 4, 1, 132)),
+    ((256, 28, 28, 128), 132, (256, 128, 28, 4, 2, 132)),
+    ((256, 14, 14, 256), 132, (128, 128, 14, 2, 4, 132)),
+    ((256, 7, 7, 512), 132, (128, 256, 7, 7, 2, 132)),
+    ((8, 7, 7, 512), 132, (128, 64, 7, 1, 8, 56)),   # one wave: small tiles
+    ((3, 7, 7, 64), 132, (128, 64, 7, 1, 3, 7)),     # fewer tiles than SMs
+    ((2, 5, 300, 64), 132, (128, 64, 128, 1, 1, 30)),  # W wider than a box
+], ids=["stage2", "stage3", "stage4", "stage5", "stage5_b8", "tiny",
+        "wide"])
+def test_conv_tile_choice(shape, sms, want):
+  """K-A's tile, A box and persistent grid for the ResNet-50 stage shapes:
+  waves x (L2 rows a stage + tensor-core cycles a stage)."""
+  n, h, w, co = shape
+  t = conv_bn.conv_tile(n, h, w, co, sms)
+  assert tuple(t) == want
+  assert (t.bm, t.bn) in conv_bn.CONV_TILES and co % t.bn == 0
+  # The box fits the tile's rows and the tensor map's 256-element limit,
+  # and the boxes cover the batch.
+  assert t.wb * t.hb * t.nb <= t.bm and max(t.wb, t.hb, t.nb) <= 256
+  tiles = (-(-w // t.wb) * -(-h // t.hb) * -(-n // t.nb)) * (co // t.bn)
+  assert t.grid == min(tiles, sms)
+
+
+def test_conv_tile_needs_a_dividing_tile():
+  with pytest.raises(ValueError, match="no tile divides"):
+    conv_bn.conv_tile(4, 5, 50, 96, 132)
+
+
+def test_kmajor_entry_matches_hwio_entry():
+  """conv3x3_same_kmajor on the K-major weights is conv3x3_same on HWIO,
+  and the backward's K-major flipped weights are kmajor() of the HWIO
+  flip-and-swap it stands for."""
+  rng = np.random.default_rng(4)
+  x = torch.from_numpy(rng.normal(size=(2, 5, 6, 8)).astype(np.float32))
+  w = torch.from_numpy(rng.normal(size=(3, 3, 8, 16)).astype(np.float32))
+  torch.testing.assert_close(conv_bn.conv3x3_same_kmajor(x, conv_bn.kmajor(w)),
+                             conv_bn.conv3x3_same(x, w), rtol=0, atol=0)
+  w_t = w.flip(0, 1).transpose(2, 3)
+  assert torch.equal(w.flip(0, 1).permute(2, 0, 1, 3).contiguous(),
+                     conv_bn.kmajor(w_t))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
   """K-A and K-B against their plain versions on the card (chip_smoke.py
@@ -276,3 +343,18 @@ def test_kernels_match_plain_on_card():
     assert bool(((out - r).abs() <=
                  2 ** -7 * r.abs() + 1e-3 * r.abs().max()).all())
   torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-2)
+  # K-A at a ragged M (N*H*W = 3*7*7 = 147, not a multiple of the 128-pixel
+  # tile) with CO = 64 and CO = 128, on HWIO and on K-major weights, and an
+  # image wider than one A box (W = 150 > 128: two boxes along W).
+  for (n, h, wd), c, co in (((3, 7, 7), 64, 64), ((3, 7, 7), 128, 128),
+                            ((3, 7, 7), 64, 128), ((1, 3, 150), 64, 64)):
+    x = torch.randn(n, h, wd, c, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(3, 3, c, co, generator=g, device="cuda") * 0.05
+         ).bfloat16()
+    r = conv_bn.conv3x3_same_plain(x, w).float()
+    for out in (conv_bn.conv3x3_same(x, w),
+                conv_bn.conv3x3_same_kmajor(x, conv_bn.kmajor(w))):
+      torch.cuda.synchronize()
+      assert out.shape == (n, h, wd, co)
+      assert bool(((out.float() - r).abs() <=
+                   2 ** -7 * r.abs() + 1e-3 * r.abs().max()).all())

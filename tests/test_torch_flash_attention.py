@@ -244,6 +244,30 @@ def test_wrappers_reject_other_devices():
     fa.flash_attention_bwd_dq(x, x, x, x, lse, lse, True)
 
 
+@pytest.mark.parametrize("shape,stride,ptr,error", [
+    ((2, 64, 4, 64), (64 * 4 * 64, 4 * 64, 64, 1), 256, None),
+    # qkv.unbind(2) of a packed (B, L, 3, H, D) projection, as the LM
+    # passes them: position stride 3 H D.
+    ((2, 64, 4, 64), (64 * 3 * 4 * 64, 3 * 4 * 64, 64, 1), 256 + 512,
+     None),
+    ((2, 64, 4, 64), (64 * 4 * 64, 4 * 64, 64, 1), 8, "16-byte aligned"),
+    ((2, 64, 4, 64), (64, 2 * 64 * 4, 1, 4), 256, "D contiguous"),
+    ((2, 64, 4, 64), (64 * 4 * 64, 4 * 64 + 4, 64, 1), 256,
+     "16-byte aligned"),
+    ((2, 64, 4, 64), (2 ** 40, 4 * 64, 64, 1), 256, "2^40"),
+    ((64, 4, 64), (256, 64, 1), 256, "(B, L, H, D)"),
+], ids=["contiguous", "packed_view", "base_8", "heads_last", "row_pad_4",
+        "stride_2^40", "rank3"])
+def test_qkv_layout_acceptance(shape, stride, ptr, error):
+  """The q/k/v layouts the wrappers refuse before a launch: the forward
+  reads them through 4-D TMA tensor maps (D, H, L, B)."""
+  got = fa.qkv_layout_error("q", shape, stride, ptr)
+  if error is None:
+    assert got is None
+  else:
+    assert got is not None and error in got
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
   """The three kernels against their plain versions on the card, causal
@@ -281,3 +305,28 @@ def test_kernels_match_plain_on_card():
   for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
     err = (got.float() - ref.float()).abs().max()
     assert float(err) <= 3e-2 * float(ref.float().abs().max())
+  # The forward at Lq != Lk (causal top-left, and a kv-only mask) and at
+  # D = 128 with a ragged length and segment ids.
+  for b, lq, lk, h, d, causal, with_seg in ((2, 100, 300, 2, 64, True, False),
+                                            (2, 300, 100, 2, 64, True, False),
+                                            (2, 130, 257, 2, 64, False, True),
+                                            (2, 200, 200, 2, 128, True, True),
+                                            (1, 333, 333, 1, 128, False,
+                                             False)):
+    q = torch.randn(b, lq, h, d, generator=g, device="cuda").bfloat16()
+    k = torch.randn(b, lk, h, d, generator=g, device="cuda").bfloat16()
+    v = torch.randn(b, lk, h, d, generator=g, device="cuda").bfloat16()
+    qs = ks = None
+    if with_seg:
+      qs = torch.from_numpy(_segments(b, lq, seed=2)).cuda()
+      ks = torch.from_numpy(_segments(b, lk, seed=2)).cuda()
+      if lq != lk:  # the decode mode's mask: q ids 1, kv 1 on valid keys
+        qs = torch.ones_like(qs)
+        ks = (ks > 0).int()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, d ** -0.5, qs, ks)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal, d ** -0.5,
+                                                  qs, ks)
+    torch.cuda.synchronize()
+    tol = 2 ** -7 * o_ref.float().abs() + 1e-3 * o_ref.float().abs().max()
+    assert bool(((o.float() - o_ref.float()).abs() <= tol).all()), (lq, lk, d)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
