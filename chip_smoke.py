@@ -9,9 +9,11 @@ the run with a non-zero exit and no result line:
 
   1. build   -- compile csrc/*.cu (one nvcc per source, in parallel),
                 print ptxas's registers, shared memory and spills of every
-                kernel, and for the two wgmma/TMA kernels (K-A and the
-                flash forward) their HGMMA, UTMALDG and LDGSTS SASS counts
-                read with cuobjdump (each must have wgmma and async copies);
+                kernel, and for the wgmma/TMA kernels (K-A, the flash
+                forward, the flash backward's dK/dV and dQ) their HGMMA,
+                UTMALDG and LDGSTS SASS counts read with cuobjdump (each
+                kernel function must have HGMMA and UTMALDG, and none may
+                spill);
   2. conv    -- K-A conv3x3_same against its plain version at the four
                 ResNet-50 stage shapes (stage 3 is the TPU probe's own)
                 and one with a ragged last tile;
@@ -34,8 +36,10 @@ the run with a non-zero exit and no result line:
                 (lm_causal_strided), then the D = 128 instantiations at a
                 small shape;
   7. flash_grad -- dQ, dK, dV of the FlashAttention Function (the dK/dV
-                and dQ kernels) against autograd through the plain forward,
-                at the LM's shape with and without segment ids;
+                and dQ kernels) against autograd through the plain forward
+                at every flash shape (the packed one through its views),
+                two launches bitwise equal; the two kernels timed at the
+                LM's shape beside the plain di op;
   8. lm_train -- the port's BenchmarkCNN on transformer_lm (vocab 32768,
                 L 2048, d 512, 6 layers, 8 heads, batch 8, bf16, SGD) with
                 KF_TRANSFORMER_LM_ATTN=flash, 5 warmup + 20 timed steps,
@@ -83,6 +87,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -246,9 +251,10 @@ def bf16_close(out, ref):
 
 # -- phases --------------------------------------------------------------------
 
-# The kernels redesigned for Hopper's wgmma and TMA: the build phase reads
-# their SASS and holds each to at least one HGMMA and one async copy.
-SM90_KERNELS = ("conv3x3_same", "flash_attention_fwd")
+# The libraries redesigned for Hopper's wgmma and TMA: the build phase
+# reads their SASS and holds every kernel function in them to at least one
+# HGMMA and one TMA load, and ptxas to no spills.
+SM90_KERNELS = ("conv3x3_same", "flash_attention_fwd", "flash_attention_bwd")
 
 
 def sass_counts(so_path):
@@ -284,7 +290,8 @@ def phase_build(res):
     with open(os.path.join(out_dir, name + ".log")) as f:
       for line in f:
         if "registers" in line or "spill" in line or (
-            name in SM90_KERNELS and "warning" in line):
+            name in SM90_KERNELS and ("warning" in line or
+                                      "Compiling entry" in line)):
           log(f"build: {name}: {line.strip()}")
   for name in SM90_KERNELS:
     counts = sass_counts(os.path.join(out_dir, name + ".so"))
@@ -294,10 +301,15 @@ def phase_build(res):
     for fn, c in counts.items():
       log(f"build: {name}: sass {fn}: HGMMA {c['HGMMA']}, UTMALDG "
           f"{c['UTMALDG']}, LDGSTS {c['LDGSTS']}")
-    total = {op: sum(c[op] for c in counts.values())
-             for op in ("HGMMA", "UTMALDG", "LDGSTS")}
-    check(total["HGMMA"] > 0 and total["UTMALDG"] + total["LDGSTS"] > 0,
-          f"build: {name} has no wgmma or no async copy in its SASS: {total}")
+    lacking = {fn: c for fn, c in counts.items()
+               if c["HGMMA"] == 0 or c["UTMALDG"] == 0}
+    check(counts and not lacking,
+          f"build: {name}: kernels without wgmma or TMA loads: {lacking}")
+  for name in SM90_KERNELS:
+    with open(os.path.join(out_dir, name + ".log")) as f:
+      spills = [line.strip() for line in f if re.search(
+          r"[1-9]\d* bytes spill (stores|loads)", line)]
+    check(not spills, f"build: {name} spills: {spills}")
 
 
 def phase_conv(res):
@@ -723,18 +735,35 @@ def check_head_dim_128():
       f"{err:.3g}; grads max abs err {', '.join(errs)} (tol 3e-2 of max)")
 
 
+def flash_grad_inputs(i, stage, b, lq, lk):
+  """(q, k, v, do, qkv): seeded inputs of FLASH_SHAPES case i; for a
+  PACKED_QKV case q, k, v are the qkv.unbind(2) views of one packed
+  (B, L, 3, H, D) projection (qkv, else None), as the LM passes them."""
+  q, k, v, do = attn_inputs(b, lq, lk, seed=70 + i)
+  if stage not in PACKED_QKV:
+    return q, k, v, do, None
+  qkv = torch.stack((q, k, v), dim=2)
+  return (*qkv.unbind(2), do, qkv)
+
+
 def phase_flash_grad(res):
   """The Function's gradients (dK/dV and dQ kernels) against autograd
-  through the plain forward; the two backward kernels timed against their
-  bounds, their plain versions and the SDPA backward."""
+  through the plain forward at every FLASH_SHAPES case; two launches on
+  the same inputs bitwise equal; at the headline shape the two backward
+  kernels timed against their bounds, their plain versions and the SDPA
+  backward, beside the plain di op."""
   from kf_benchmarks_tpu_torch.ops import flash_attention as fa
   dkv_rows, dq_rows = [], []
-  for i, (stage, b, lq, lk, causal, mask) in enumerate(FLASH_SHAPES[:2]):
-    q, k, v, do = attn_inputs(b, lq, lk, seed=70 + i)
+  for i, (stage, b, lq, lk, causal, mask) in enumerate(FLASH_SHAPES):
+    q, k, v, do, qkv = flash_grad_inputs(i, stage, b, lq, lk)
     q_seg, kv_seg = attn_segments(b, lq, lk, mask, seed=60 + i)
     scale = LM_D ** -0.5
 
     def grads(fn):
+      if qkv is not None:  # through the views, as the LM's backward runs
+        leaf = qkv.clone().requires_grad_()
+        return torch.autograd.grad(fn(*leaf.unbind(2)), leaf,
+                                   do)[0].unbind(2)
       leaves = [t.clone().requires_grad_() for t in (q, k, v)]
       return torch.autograd.grad(fn(*leaves), leaves, do)
 
@@ -750,15 +779,35 @@ def phase_flash_grad(res):
       e = float((a.float() - r.float()).abs().max())
       m = float(r.float().abs().max())
       errs[label] = e
-      check(e <= 3e-2 * m, f"flash_grad {stage} {label}: err {e} > 3e-2 * "
-            f"{m}")
+      check(math.isfinite(e) and e <= 3e-2 * m,
+            f"flash_grad {stage} {label}: err {e} > 3e-2 * {m}")
       log(f"flash_grad: {stage} {label}: max abs err {e:.3g} (max |ref| "
           f"{m:.3g}, tol 3e-2 of it)")
     del got, ref
 
     o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, q_seg, kv_seg)
-    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    di_op = lambda: (o.float() * do.float()).sum(-1).transpose(
+        1, 2).contiguous()
+    di = di_op()
     args = (q, k, v, do, lse, di, causal, scale, q_seg, kv_seg)
+    # No atomics: each block owns its output rows, so two launches on the
+    # same inputs give the same bits.
+    first = (*fa.flash_attention_bwd_dkv(*args), fa.flash_attention_bwd_dq(
+        *args))
+    again = (*fa.flash_attention_bwd_dkv(*args), fa.flash_attention_bwd_dq(
+        *args))
+    for label, a, r in zip(("dk", "dv", "dq"), first, again):
+      check(torch.equal(a, r), f"flash_grad {stage} {label}: two launches "
+            f"differ")
+    log(f"flash_grad: {stage}: dK, dV, dQ of two launches bitwise equal")
+    del first, again
+    base = dict(stage=stage, shape=[b, lq, lk, LM_H, LM_D], causal=causal,
+                mask=mask)
+    if stage != HEADLINE["flash_attention_bwd_dkv"]:
+      dkv_rows.append(dict(base, max_abs_err=max(errs["dk"], errs["dv"])))
+      dq_rows.append(dict(base, max_abs_err=errs["dq"]))
+      continue
+
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     am, is_causal = sdpa_mask(b, lq, lk, causal, q_seg, kv_seg)
@@ -767,6 +816,7 @@ def phase_flash_grad(res):
     do_t = do.transpose(1, 2)
     lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), do_t,
                                                  retain_graph=True))
+    di_ms = time_ms(di_op)
     pairs = admissible_pairs(b, lq, lk, causal, q_seg, kv_seg)
     elems = LM_H * LM_D * b
     in_bytes = 2.0 * elems * (2 * lq + 2 * lk) + 8.0 * b * LM_H * lq
@@ -780,8 +830,7 @@ def phase_flash_grad(res):
       # The kernel's own products: S, dP and dV, dK (dK/dV) or dQ (dQ).
       b_ms, b_by = bound(2.0 * products * pairs * LM_H * LM_D,
                          in_bytes + out_bytes)
-      rows.append(dict(stage=stage, shape=[b, lq, lk, LM_H, LM_D],
-                       causal=causal, mask=mask,
+      rows.append(dict(base,
                        max_abs_err=errs["dq"] if name.endswith("dq") else
                        max(errs["dk"], errs["dv"]), ms=ms,
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -794,8 +843,10 @@ def phase_flash_grad(res):
     # pairs (S, dP, dV, dK, dQ), 2.5 x the forward's work.
     both_ms, both_by = bound(10.0 * pairs * LM_H * LM_D, in_bytes +
                              2.0 * elems * (lq + 2 * lk))
+    pair_ms = dkv_rows[-1]["ms"] + dq_rows[-1]["ms"]
     log(f"flash_grad: {stage} backward (dK/dV + dQ) kernels "
-        f"{dkv_rows[-1]['ms'] + dq_rows[-1]['ms']:.3f} ms, bound "
+        f"{pair_ms:.3f} ms ({pair_ms / lib_ms:.2f}x the SDPA backward "
+        f"{lib_ms:.3f} ms), plain di op {di_ms:.3f} ms, bound "
         f"{both_ms:.3f} ms ({both_by})")
     del out, qt, kt, vt
   res["flash_attention_bwd_dkv"] = dkv_rows

@@ -14,289 +14,526 @@
 //   dS = scale * P o (dO V^T - di)
 //   dK = dS^T Q,  dQ = dS K     (dS rounded to bf16, as the library does)
 //
-// dK/dV: one block per (64-row key tile, head, batch) loops over the q tiles
-// on or below the diagonal, with dK and dV in registers. dQ: one block per
-// (64-row q tile, head, batch) loops over the key tiles, with dQ in
-// registers. The TPU kernels carry these sums in VMEM scratch across their
-// sequential grid; here each block owns its output rows, so neither kernel
-// needs atomics and the gradients are the same from run to run. The
-// library's `ds` output is the gradient of an attention bias this repository
-// never passes, and is not computed.
+// The TPU kernels carry these sums in VMEM scratch across their sequential
+// grid; here each block owns its output rows and loops over the other axis
+// itself, so neither kernel needs atomics and the gradients are the same
+// from run to run. The library's `ds` output is the gradient of an
+// attention bias this repository never passes, and is not computed.
 //
-// Bound on an H100 SXM at the LM's shape (B 8, H 8, L 2048, D 64, causal):
-// the backward's work is five products over the L(L+1)/2 admissible pairs,
-// 2.5 x the forward's, 86 GFLOP = 0.087 ms (operations); this design does
-// seven (each kernel recomputes S and dP).
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense) at the LM's shape (B 8,
+// H 8, L 2048, D 64, causal): the backward's work is five products over the
+// L(L+1)/2 admissible pairs, 2.5 x the forward's, 86 GFLOP = 0.087 ms
+// (operations); these two kernels do seven (each recomputes S and dP):
+// dK/dV four, 0.070 ms, and dQ three, 0.052 ms.
+//
+// Design (flash_attention.cuh's shape, on sm90.cuh's building blocks): a
+// producer warpgroup whose warp 0 loads by TMA into a ring of 3 stages,
+// and two or three consumer warpgroups on `wgmma`, each owning 64 output
+// rows; the producer hands its registers to the consumers (`setmaxnreg`).
+//   * dK/dV: one block per (128 keys at D = 64, 64 at D = 128; b * h),
+//     key tile 0 first (under `causal` it reaches the most q tiles). K and
+//     V are loaded once; the ring carries, per 64-row q tile from the
+//     first that reaches the block's keys, the Q and dO tiles (TMA) and
+//     the tile's -lse * log2(e), di and q segment ids (plain loads by the
+//     producer warp while the tiles' copies fly: a (B, H, Lq) f32 row is
+//     16-byte aligned only when Lq % 4 == 0, so no bulk copy).
+//     A consumer computes S^T = K Q^T and dP^T = V dO^T (ss, all four
+//     operands K-major as stored), P^T = 2^(S^T scale log2(e) - lse
+//     log2(e)) selected to exactly 0 on inadmissible pairs (only on tiles
+//     that may hold one), dS^T = P^T o (dP^T - di) scale, rounds both to
+//     bf16 A fragments in registers and adds dV += P^T dO and dK += dS^T Q
+//     (rs, dO and Q MN-major as stored). At D = 64 the products are
+//     software-pipelined: S^T, dP^T of q tile i go to the tensor cores
+//     with dV, dK of tile i - 1, whose fragments stay live meanwhile. At
+//     D = 128 the two warpgroups share 64 keys, take one column half of dK
+//     and dV each and run unpipelined (DkvLayout says why). A warpgroup
+//     whose keys no q tile reaches writes zeros.
+//   * dQ: the forward's structure. One block per (192 q rows at D = 64,
+//     128 at D = 128; b * h), the longest q tiles first (the grid's slow
+//     axis counts down); Q and dO loaded once, lse and di per row in
+//     registers; the ring carries K, V and the key tile's segment ids.
+//     S = Q K^T and dP = dO V^T (ss), dS in registers, dQ += dS K (rs, K
+//     MN-major), pipelined as the forward is.
 
 #include "flash_attention.cuh"
 
 namespace kfattn {
 
+// Ring stages of both kernels: with each stage's copies started before its
+// small vectors are loaded, more stages gained nothing at the LM's shape
+// on an H100, and two left the consumers waiting.
+constexpr int STAGES = 3;
+constexpr int CW = 2;                  // consumer warpgroups a dK/dV block
+constexpr int THREADS = 128 * (CW + 1);
+// Registers a consumer thread takes from the producer warpgroup, which
+// keeps 32: 128 x (168 - 32) >= 256 x (232 - 168).
+constexpr int CONSUMER_REGS = 232;
+
+// A dK/dV consumer warpgroup accumulates 64 keys x 64 columns of dK and of
+// dV (64 f32 registers a thread): at D = 64 the two warpgroups take 64 keys
+// each; at D = 128 both take the block's 64 keys, one column half each,
+// and each computes the full-depth S^T and dP^T itself (1.5 x the
+// products), unpipelined: with m64n128 dK and dV accumulators ptxas spills
+// past the 232 registers a consumer thread has even unpipelined, and with
+// column halves it still spills pipelined.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const int* __restrict__ q_seg,
-                     const int* __restrict__ kv_seg,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int Lq, int Lk, Strides st,
-                     float scale, int causal) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BKV * P;
-  bf16* sQ = sV + BKV * P;
-  bf16* sO = sQ + BQ * P;  // dO
-  float* sLse = reinterpret_cast<float*>(sO + BQ * P);
-  float* sDi = sLse + BQ;
-  int* sQs = reinterpret_cast<int*>(sDi + BQ);
-  int* sKs = sQs + BQ;
+struct DkvLayout {
+  static constexpr bool PIPE = D == 64;
+  static constexpr int DH = D / 64;     // 64-wide column blocks of a row
+  static constexpr int KG = CW / DH;    // 64-key groups a block
+  static constexpr int KEYS = 64 * KG;  // keys a block
+  static constexpr int K_OFF = 0;       // [KG][DH][64][64]
+  static constexpr int V_OFF = K_OFF + KG * DH * SUB;
+  static constexpr int Q_OFF = V_OFF + KG * DH * SUB;  // [STAGES][DH][64][64]
+  static constexpr int O_OFF = Q_OFF + STAGES * DH * SUB;  // dO, the same
+  // [STAGES][3][64]: -lse * log2(e), di (f32) and q segment ids (int32).
+  static constexpr int VEC_OFF = O_OFF + STAGES * DH * SUB;
+  static constexpr int BAR_OFF = VEC_OFF + STAGES * 3 * TILE * 4;
+  // full[STAGES], empty[STAGES], K and V's barrier; + 1024 to align the
+  // base to the swizzle atom.
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+};
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int k0 = blockIdx.x * BKV;
-  const int warp = threadIdx.x / 32;
+// dQ: three consumer warpgroups at D = 64, as the forward (192 q rows a
+// block, faster than two at the LM's shape on an H100), two at D = 128.
+template <int D>
+struct DqLayout {
+  static constexpr int CW = D == 64 ? 3 : 2;
+  static constexpr int ROWS = TILE * CW;  // q rows a block
+  static constexpr int THREADS = 128 * (CW + 1);
+  // 128 x (128 - 32) = 384 x (160 - 128) with three consumer warpgroups.
+  static constexpr int CONSUMER_REGS = CW == 3 ? 160 : 232;
+  static constexpr int DH = D / 64;
+  static constexpr int Q_OFF = 0;  // [CW][DH][64][64]
+  static constexpr int O_OFF = Q_OFF + CW * DH * SUB;  // dO, the same
+  static constexpr int K_OFF = O_OFF + CW * DH * SUB;  // [STAGES][DH][64][64]
+  static constexpr int V_OFF = K_OFF + STAGES * DH * SUB;
+  static constexpr int SEG_OFF = V_OFF + STAGES * DH * SUB;  // [STAGES][64]
+  static constexpr int BAR_OFF = SEG_OFF + STAGES * TILE * 4;
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+};
+
+// A consumer warpgroup's loop over ring tiles [first, last): scores(j)
+// starts the two ss products of tile j (S and dP, or their transposes),
+// math(j) turns them into the score-shaped A operands in place, pack()
+// rounds those to bf16 fragments, accum(j) starts the rs products that
+// add them into the output accumulators. fence_scores / fence_acc /
+// fence_frags pin the registers of the three groups around each wgmma
+// launch and wait. With PIPE, a software pipeline: tile j's scores go to
+// the tensor cores together with tile j - 1's accumulation (groups
+// complete in order, so waiting for all but the newest waits for the
+// scores), and math(j) runs while the accumulation does; the fragments of
+// tile j - 1 stay live meanwhile. A tile is released once its
+// accumulation is done.
+template <bool PIPE, class Scores, class Math, class Pack, class Accum,
+          class FenceScores, class FenceAcc, class FenceFrags>
+__device__ __forceinline__ void run_tiles(uint64_t* full, uint64_t* empty,
+                                          int first, int last,
+                                          Scores scores, Math math, Pack pack,
+                                          Accum accum,
+                                          FenceScores fence_scores,
+                                          FenceAcc fence_acc,
+                                          FenceFrags fence_frags) {
+  if (first >= last) return;
+  auto accumulate = [&](int j) {
+    fence_acc();
+    sm90::wgmma_fence();
+    accum(j);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_frags();
+    fence_acc();
+    ring_release<STAGES>(empty, j);
+  };
+  ring_wait<STAGES>(full, first);
+  fence_scores();
+  sm90::wgmma_fence();
+  scores(first);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  fence_scores();
+  math(first);
+  pack();
+  if constexpr (!PIPE) accumulate(first);
+  for (int j = first + 1; j < last; ++j) {
+    ring_wait<STAGES>(full, j);
+    fence_scores();
+    fence_acc();
+    sm90::wgmma_fence();
+    scores(j);
+    sm90::wgmma_commit();
+    if constexpr (PIPE) {
+      accum(j - 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the scores are done; accum(j - 1) runs on
+      fence_scores();
+      math(j);
+      sm90::wgmma_wait<0>();
+      // The fragments and accumulators were operands of the product just
+      // waited for: keep the compiler from reusing or touching their
+      // registers before here.
+      fence_frags();
+      fence_acc();
+      ring_release<STAGES>(empty, j - 1);
+      pack();
+    } else {
+      sm90::wgmma_wait<0>();
+      fence_scores();
+      math(j);
+      pack();
+      accumulate(j);
+    }
+  }
+  if constexpr (PIPE) accumulate(last - 1);
+}
+
+// -- dK, dV ----------------------------------------------------------------------
+
+// One consumer warpgroup: its 64 keys and 64 columns of dK and dV (see
+// DkvLayout), over the block's q tiles i0 .. n_q - 1.
+template <int D>
+__device__ __forceinline__ void dkv_consume(
+    unsigned char* smem, const int* __restrict__ kv_seg,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lk, float scale,
+    int causal, bool seg, int b, int h, int k0, int i0, int n_q) {
+  using L = DkvLayout<D>;
+  const float* vec = reinterpret_cast<const float*>(smem + L::VEC_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+  const int cw = threadIdx.x / 128 - 1;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
+  const int warp = (threadIdx.x % 128) / 32;
   const int t = lane % 4;
-  const bool seg = q_seg != nullptr;
-
-  const bf16* qp = q + b * st.q_b + (long long)h * D;
-  const bf16* kp = k + b * st.k_b + (long long)h * D;
-  const bf16* vp = v + b * st.v_b + (long long)h * D;
-  const bf16* op = dout + (long long)b * Lq * H * D + (long long)h * D;
-  const float* lp = lse + ((long long)b * H + h) * Lq;
-  const float* dp = di + ((long long)b * H + h) * Lq;
-  const int* qs = seg ? q_seg + (long long)b * Lq : nullptr;
-  const int* ks = seg ? kv_seg + (long long)b * Lk : nullptr;
-
-  load_tile<D>(sK, kp, k0, Lk, st.k_l);
-  load_tile<D>(sV, vp, k0, Lk, st.v_l);
-  load_seg(sKs, ks, k0, Lk);
-  __syncthreads();
-
-  // This lane's key rows of the tile: local rl and rl + 8.
-  const int rl = warp * 16 + g;
-  const int krow[2] = {k0 + rl, k0 + rl + 8};
-  const int sk[2] = {sKs[rl], sKs[rl + 8]};
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  const int kc0 = k0 + (cw / L::DH) * 64;  // this warpgroup's first key
+  const int cb = cw % L::DH;                // its 64-column block
+  // The first q tile these keys reach: under `causal`, the one holding row
+  // kc0 (q tile i covers rows 64i..64i+63). Keys at or past Lk reach none.
+  const int first =
+      kc0 >= Lk ? n_q : causal ? min(kc0 / TILE, n_q) : i0;
+  const int krow[2] = {kc0 + warp * 16 + lane / 4,
+                       kc0 + warp * 16 + lane / 4 + 8};
+  int sk[2] = {0, 0};
+  if (seg) {
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  // Under `causal` the q tiles before this key tile's diagonal hold no
-  // admissible pair (BQ == BKV).
-  const int n_q = (Lq + BQ - 1) / BQ;
-  for (int i = causal ? k0 / BQ : 0; i < n_q; ++i) {
-    const int q0 = i * BQ;
-    __syncthreads();  // every warp is done with the previous q tile
-    load_tile<D>(sQ, qp, q0, Lq, st.q_l);
-    load_tile<D>(sO, op, q0, Lq, (long long)H * D);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      const bool in = q0 + r < Lq;
-      sLse[r] = in ? lp[q0 + r] : 0.f;
-      sDi[r] = in ? dp[q0 + r] : 0.f;
-    }
-    load_seg(sQs, qs, q0, Lq);
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 key rows.
-    float s[NT][4], d[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = d[nt][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t ak[4], av[4];
-      frag_a<P>(ak, sK, warp * 16, kc * 16, g, t);
-      frag_a<P>(av, sV, warp * 16, kc * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        frag_b_nk<P>(b0, b1, sQ, nt * 8, kc * 16, g, t);
-        mma16816(s[nt], ak, b0, b1);
-        frag_b_nk<P>(b0, b1, sO, nt * 8, kc * 16, g, t);
-        mma16816(d[nt], av, b0, b1);
-      }
-    }
-    // P^T and dS^T in place of S^T and dP^T.
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ri = e / 2;
-        const int cl = nt * 8 + 2 * t + (e & 1);
-        const int qc = q0 + cl;
-        const bool ok = qc < Lq && krow[ri] < Lk &&
-                        (!causal || krow[ri] <= qc) &&
-                        (!seg || sQs[cl] == sk[ri]);
-        const float p = ok ? __expf(s[nt][e] * scale - sLse[cl]) : 0.f;
-        s[nt][e] = p;
-        d[nt][e] = ok ? (d[nt][e] - sDi[cl]) * p * scale : 0.f;
-      }
-    }
-    // dV += P^T dO, dK += dS^T Q (depth: this q tile's 64 rows).
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      uint32_t ap[4], ad[4];
-      frag_a_from_acc(ap, s, kc);
-      frag_a_from_acc(ad, d, kc);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        frag_b_kn<P>(b0, b1, sO, kc * 16, dt * 8, g, t);
-        mma16816(dv_acc[dt], ap, b0, b1);
-        frag_b_kn<P>(b0, b1, sQ, kc * 16, dt * 8, g, t);
-        mma16816(dk_acc[dt], ad, b0, b1);
-      }
-    }
+    for (int ri = 0; ri < 2; ++ri)
+      if (krow[ri] < Lk) sk[ri] = kv_seg[(long long)b * Lk + krow[ri]];
   }
+  const float scale_log2 = scale * LOG2E;
+  const unsigned char* sK = smem + L::K_OFF + (cw / L::DH) * L::DH * SUB;
+  const unsigned char* sV = smem + L::V_OFF + (cw / L::DH) * L::DH * SUB;
+  // Ring tile j holds q tile i0 + j.
+  auto sQ = [&](int j) { return smem + L::Q_OFF + (j % STAGES) * L::DH * SUB; };
+  auto sO = [&](int j) { return smem + L::O_OFF + (j % STAGES) * L::DH * SUB; };
 
+  float dk_acc[32], dv_acc[32];
 #pragma unroll
-  for (int ri = 0; ri < 2; ++ri) {
-    if (krow[ri] >= Lk) continue;
-    const long long off = (((long long)b * Lk + krow[ri]) * H + h) * D;
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float st[32], dpt[32];         // S^T then P^T; dP^T then dS^T
+  uint32_t pa[4][4], da[4][4];   // P^T and dS^T as bf16 A fragments
+
+  auto scores = [&](int j) {
+    start_abt<D>(st, sK, sQ(j));
+    start_abt<D>(dpt, sV, sO(j));
+  };
+  auto math = [&](int j) {
+    const int q0 = (i0 + j) * TILE;
+    const float* nl = vec + (j % STAGES) * 3 * TILE;  // -lse * log2(e)
+    const float* dis = nl + TILE;                     // di
+    const int* qs = reinterpret_cast<const int*>(nl + 2 * TILE);
+    if (tile_needs_mask(q0, kc0, Lk, causal, seg)) {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8 + 2 * t) =
-          pack_f32(dk_acc[dt][2 * ri], dk_acc[dt][2 * ri + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8 + 2 * t) =
-          pack_f32(dv_acc[dt][2 * ri], dv_acc[dt][2 * ri + 1]);
+      for (int e = 0; e < 32; ++e) {
+        const int ri = acc_half(e);
+        const int cl = acc_col(e, t);
+        const bool ok = krow[ri] < Lk && (!causal || krow[ri] <= q0 + cl) &&
+                        (!seg || qs[cl] == sk[ri]);
+        // A select, never a branch; a masked pair's exponent may overflow
+        // to inf before it is dropped, but never reaches dS.
+        const float p = ok ? ex2(fmaf(st[e], scale_log2, nl[cl])) : 0.f;
+        st[e] = p;
+        dpt[e] = (dpt[e] - dis[cl]) * p * scale;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int cl = acc_col(e, t);
+        const float p = ex2(fmaf(st[e], scale_log2, nl[cl]));
+        st[e] = p;
+        dpt[e] = (dpt[e] - dis[cl]) * p * scale;
+      }
     }
+  };
+  auto pack = [&]() {
+    pack_frags(pa, st);
+    pack_frags(da, dpt);
+  };
+  auto accum = [&](int j) {
+    start_ab<64>(dv_acc, pa, sO(j) + cb * SUB);
+    start_ab<64>(dk_acc, da, sQ(j) + cb * SUB);
+  };
+  auto fence_scores = [&]() {
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+  };
+  auto fence_acc = [&]() {
+    sm90::fence_regs(dk_acc);
+    sm90::fence_regs(dv_acc);
+  };
+  auto fence_frags = [&]() {
+    sm90::fence_regs_u32(pa);
+    sm90::fence_regs_u32(da);
+  };
+
+  sm90::mbar_wait(kvbar, 0);
+  // q tiles before this warpgroup's diagonal were loaded for the block's
+  // other keys: released unread.
+  for (int j = 0; j < first - i0; ++j) {
+    ring_wait<STAGES>(full, j);
+    ring_release<STAGES>(empty, j);
   }
+  run_tiles<L::PIPE>(full, empty, first - i0, n_q - i0, scores, math, pack,
+                     accum, fence_scores, fence_acc, fence_frags);
+  const float one[2] = {1.f, 1.f};
+  store_rows<D, 64>(dk, dk_acc, krow, one, Lk, H, b, h, t, cb * 64);
+  store_rows<D, 64>(dv, dv_acc, krow, one, Lk, H, b, h, t, cb * 64);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ q_seg,
-                    const int* __restrict__ kv_seg,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, bf16* __restrict__ dq, int H,
-                    int Lq, int Lk, Strides st, float scale, int causal) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + BQ * P;  // dO
-  bf16* sK = sO + BQ * P;
-  bf16* sV = sK + BKV * P;
-  int* sQs = reinterpret_cast<int*>(sV + BKV * P);
-  int* sKs = sQs + BQ;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const int* __restrict__ q_seg,
+                     const int* __restrict__ kv_seg,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ di, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Lq, int Lk,
+                     float scale, int causal) {
+  using L = DkvLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* vec = reinterpret_cast<float*>(smem + L::VEC_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int k0 = blockIdx.y * L::KEYS;  // key tile 0 first: the longest
+  const int n_q = (Lq + TILE - 1) / TILE;
+  // The block's first q tile: under `causal`, the one holding row k0.
+  const int i0 = causal ? min(k0 / TILE, n_q) : 0;
   const bool seg = q_seg != nullptr;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
 
-  const bf16* qp = q + b * st.q_b + (long long)h * D;
-  const bf16* kp = k + b * st.k_b + (long long)h * D;
-  const bf16* vp = v + b * st.v_b + (long long)h * D;
-  const bf16* op = dout + (long long)b * Lq * H * D + (long long)h * D;
-  const int* qs = seg ? q_seg + (long long)b * Lq : nullptr;
-  const int* ks = seg ? kv_seg + (long long)b * Lk : nullptr;
-
-  load_tile<D>(sQ, qp, q0, Lq, st.q_l);
-  load_tile<D>(sO, op, q0, Lq, (long long)H * D);
-  load_seg(sQs, qs, q0, Lq);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 32);
+      sm90::mbar_init(&empty[s], 4 * CW);
+    }
+    sm90::mbar_init(kvbar, 1);
+    sm90::mbar_fence_init();
+  }
   __syncthreads();
 
-  const int rl = warp * 16 + g;
-  const int row[2] = {q0 + rl, q0 + rl + 8};
-  const int sq[2] = {sQs[rl], sQs[rl + 8]};
-  float lse_r[2], di_r[2];
+  if (wg == 0) {
+    sm90::regs_dealloc<32>();
+    if (threadIdx.x >= 32) return;
+    // K and V are loaded even when no q tile reaches them: the consumers
+    // wait for them, so no copy is in flight when the block ends.
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(kvbar, 2 * L::KG * L::DH * SUB);
+      load_rows<L::DH>(smem + L::K_OFF, &k_map, kvbar, L::KG, h, k0, b);
+      load_rows<L::DH>(smem + L::V_OFF, &v_map, kvbar, L::KG, h, k0, b);
+    }
+    const long long bh = ((long long)b * H + h) * Lq;
+    for (int i = i0; i < n_q; ++i) {
+      const int q0 = i * TILE;
+      produce_stage<L::DH, STAGES>(
+          smem + L::Q_OFF, smem + L::O_OFF, full, empty, &q_map, &do_map,
+          i - i0, h, q0, b, [&](int s) {
+            float* nl = vec + s * 3 * TILE;
+            int* qs = reinterpret_cast<int*>(nl + 2 * TILE);
+            for (int r = lane; r < TILE; r += 32) {
+              // Rows past Lq: lse = +inf, so P = 2^-inf = 0 there.
+              const bool in = q0 + r < Lq;
+              nl[r] = in ? -lse[bh + q0 + r] * LOG2E : -INFINITY;
+              nl[TILE + r] = in ? di[bh + q0 + r] : 0.f;
+              if (seg) qs[r] = in ? q_seg[(long long)b * Lq + q0 + r] : 0;
+            }
+          });
+    }
+  } else {
+    sm90::regs_alloc<CONSUMER_REGS>();
+    dkv_consume<D>(smem, kv_seg, dk, dv, H, Lk, scale, causal, seg, b, h,
+                   k0, i0, n_q);
+  }
+}
+
+// -- dQ --------------------------------------------------------------------------
+
+// One consumer warpgroup: the 64 q rows q0 + 64 * (warpgroup - 1), over
+// the key tiles they reach of the block's n_kv, then dQ.
+template <int D>
+__device__ __forceinline__ void dq_consume(
+    unsigned char* smem, const int* __restrict__ q_seg,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    bf16* __restrict__ dq, int H, int Lq, int Lk, float scale, int causal,
+    bool seg, int b, int h, int q0, int n_kv) {
+  using L = DqLayout<D>;
+  const int* sseg = reinterpret_cast<const int*>(smem + L::SEG_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  const int cw = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int t = lane % 4;
+  const int q0w = q0 + cw * 64;  // this warpgroup's first row
+  const int n_mine = q0w < Lq ? kv_tiles(q0w, 64, Lk, causal) : 0;
+  const int row[2] = {q0w + warp * 16 + lane / 4,
+                      q0w + warp * 16 + lane / 4 + 8};
+  int sq[2] = {0, 0};
+  float nl[2], dr[2];  // -lse * log2(e) and di of the two rows
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     const bool in = row[ri] < Lq;
     const long long at = ((long long)b * H + h) * Lq + row[ri];
-    lse_r[ri] = in ? lse[at] : 0.f;
-    di_r[ri] = in ? di[at] : 0.f;
+    nl[ri] = in ? -lse[at] * LOG2E : -INFINITY;
+    dr[ri] = in ? di[at] : 0.f;
+    if (seg && in) sq[ri] = q_seg[(long long)b * Lq + row[ri]];
   }
-  uint32_t qf[D / 16][4], of[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    frag_a<P>(qf[kc], sQ, warp * 16, kc * 16, g, t);
-    frag_a<P>(of[kc], sO, warp * 16, kc * 16, g, t);
-  }
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+  const unsigned char* sQ = smem + L::Q_OFF + cw * L::DH * SUB;
+  const unsigned char* sO = smem + L::O_OFF + cw * L::DH * SUB;
+  auto sK = [&](int j) { return smem + L::K_OFF + (j % STAGES) * L::DH * SUB; };
+  auto sV = [&](int j) { return smem + L::V_OFF + (j % STAGES) * L::DH * SUB; };
 
-  const int n_kv = kv_tiles(q0, Lk, causal);
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BKV;
-    __syncthreads();
-    load_tile<D>(sK, kp, k0, Lk, st.k_l);
-    load_tile<D>(sV, vp, k0, Lk, st.v_l);
-    load_seg(sKs, ks, k0, Lk);
-    __syncthreads();
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  float s[32], dp[32];   // S; dP then dS
+  uint32_t da[4][4];     // dS as bf16 A fragments
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 q rows.
-    float s[NT][4], d[NT][4];
+  auto scores = [&](int j) {
+    start_abt<D>(s, sQ, sK(j));
+    start_abt<D>(dp, sO, sV(j));
+  };
+  auto math = [&](int j) {
+    const int k0 = j * TILE;
+    if (tile_needs_mask(q0w, k0, Lk, causal, seg)) {
+      const int* ks = sseg + (j % STAGES) * TILE;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = d[nt][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        frag_b_nk<P>(b0, b1, sK, nt * 8, kc * 16, g, t);
-        mma16816(s[nt], qf[kc], b0, b1);
-        frag_b_nk<P>(b0, b1, sV, nt * 8, kc * 16, g, t);
-        mma16816(d[nt], of[kc], b0, b1);
-      }
-    }
-    // dS in place of dP.
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ri = e / 2;
-        const int cl = nt * 8 + 2 * t + (e & 1);
+      for (int e = 0; e < 32; ++e) {
+        const int ri = acc_half(e);
+        const int cl = acc_col(e, t);
         const int col = k0 + cl;
-        const bool ok = row[ri] < Lq && col < Lk &&
-                        (!causal || col <= row[ri]) &&
-                        (!seg || sKs[cl] == sq[ri]);
-        const float p = ok ? __expf(s[nt][e] * scale - lse_r[ri]) : 0.f;
-        d[nt][e] = ok ? (d[nt][e] - di_r[ri]) * p * scale : 0.f;
+        const bool ok = col < Lk && (!causal || col <= row[ri]) &&
+                        (!seg || ks[cl] == sq[ri]);
+        const float p = ok ? ex2(fmaf(s[e], scale_log2, nl[ri])) : 0.f;
+        dp[e] = (dp[e] - dr[ri]) * p * scale;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int ri = acc_half(e);
+        const float p = ex2(fmaf(s[e], scale_log2, nl[ri]));
+        dp[e] = (dp[e] - dr[ri]) * p * scale;
       }
     }
-    // dQ += dS K (depth: this key tile's 64 rows).
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc) {
-      uint32_t a[4];
-      frag_a_from_acc(a, d, kc);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        frag_b_kn<P>(b0, b1, sK, kc * 16, dt * 8, g, t);
-        mma16816(dq_acc[dt], a, b0, b1);
-      }
-    }
-  }
+  };
+  auto pack = [&]() { pack_frags(da, dp); };
+  auto accum = [&](int j) { start_ab<D>(dq_acc, da, sK(j)); };
+  auto fence_scores = [&]() {
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+  };
+  auto fence_acc = [&]() { sm90::fence_regs(dq_acc); };
+  auto fence_frags = [&]() { sm90::fence_regs_u32(da); };
 
-#pragma unroll
-  for (int ri = 0; ri < 2; ++ri) {
-    if (row[ri] >= Lq) continue;
-    bf16* out = dq + (((long long)b * Lq + row[ri]) * H + h) * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(out + dt * 8 + 2 * t) =
-          pack_f32(dq_acc[dt][2 * ri], dq_acc[dt][2 * ri + 1]);
+  sm90::mbar_wait(qbar, 0);
+  run_tiles<true>(full, empty, 0, n_mine, scores, math, pack, accum,
+                  fence_scores, fence_acc, fence_frags);
+  // Key tiles past this warpgroup's diagonal were loaded for the block's
+  // later rows: released unread.
+  for (int j = n_mine; j < n_kv; ++j) {
+    ring_wait<STAGES>(full, j);
+    ring_release<STAGES>(empty, j);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq, dq_acc, row, one, Lq, H, b, h, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqLayout<D>::THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const int* __restrict__ q_seg,
+                    const int* __restrict__ kv_seg,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ di, bf16* __restrict__ dq,
+                    int H, int Lq, int Lk, float scale, int causal) {
+  using L = DqLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  int* sseg = reinterpret_cast<int*>(smem + L::SEG_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::ROWS;  // longest tiles first
+  const int n_kv = kv_tiles(q0, L::ROWS, Lk, causal);
+  const bool seg = q_seg != nullptr;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 32);
+      sm90::mbar_init(&empty[s], 4 * L::CW);
+    }
+    sm90::mbar_init(qbar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    sm90::regs_dealloc<32>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(qbar, 2 * L::CW * L::DH * SUB);
+      load_rows<L::DH>(smem + L::Q_OFF, &q_map, qbar, L::CW, h, q0, b);
+      load_rows<L::DH>(smem + L::O_OFF, &do_map, qbar, L::CW, h, q0, b);
+    }
+    for (int j = 0; j < n_kv; ++j) {
+      const int k0 = j * TILE;
+      produce_stage<L::DH, STAGES>(
+          smem + L::K_OFF, smem + L::V_OFF, full, empty, &k_map, &v_map, j,
+          h, k0, b, [&](int s) {
+            if (seg) {
+              for (int c = lane; c < TILE; c += 32)
+                sseg[s * TILE + c] =
+                    k0 + c < Lk ? kv_seg[(long long)b * Lk + k0 + c] : 0;
+            }
+          });
+    }
+  } else {
+    sm90::regs_alloc<L::CONSUMER_REGS>();
+    dq_consume<D>(smem, q_seg, lse, di, dq, H, Lq, Lk, scale, causal, seg,
+                  b, h, q0, n_kv);
   }
 }
+
+// -- host ------------------------------------------------------------------------
 
 struct BwdArgs {
   const void *q, *k, *v, *q_seg, *kv_seg, *dout, *lse, *di;
@@ -307,35 +544,50 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
+// Tensor maps over q, k, v (strided views) and dO (contiguous).
+template <int D>
+int bwd_maps(const BwdArgs& a, CUtensorMap* qm, CUtensorMap* km,
+             CUtensorMap* vm, CUtensorMap* om) {
+  int err = qkv_map<D>(qm, a.q, a.B, a.Lq, a.H, a.st.q_b, a.st.q_l);
+  if (err == 0) err = qkv_map<D>(km, a.k, a.B, a.Lk, a.H, a.st.k_b, a.st.k_l);
+  if (err == 0) err = qkv_map<D>(vm, a.v, a.B, a.Lk, a.H, a.st.v_b, a.st.v_l);
+  if (err == 0)
+    err = qkv_map<D>(om, a.dout, a.B, a.Lq, a.H, (long long)a.Lq * a.H * D,
+                     (long long)a.H * D);
+  return err;
+}
+
 template <int D>
 int launch_dkv(const BwdArgs& a, void* dk, void* dv) {
-  const size_t smem = 4 * 64 * (D + 8) * sizeof(bf16) +
-                      2 * 64 * sizeof(float) + 2 * 64 * sizeof(int);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.Lk + BKV - 1) / BKV, a.H, a.B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.q_seg),
-      static_cast<const int*>(a.kv_seg), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H, a.Lq, a.Lk, a.st,
-      a.scale, a.causal);
+  CUtensorMap qm, km, vm, om;
+  int err = bwd_maps<D>(a, &qm, &km, &vm, &om);
+  if (err != 0) return err;
+  using L = DkvLayout<D>;
+  cudaError_t e = sm90::allow_smem(flash_bwd_dkv_kernel<D>, L::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(a.B * a.H, (a.Lk + L::KEYS - 1) / L::KEYS);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, L::SMEM, a.stream>>>(
+      qm, km, vm, om, static_cast<const int*>(a.q_seg),
+      static_cast<const int*>(a.kv_seg), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.di), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), a.H, a.Lq, a.Lk, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const BwdArgs& a, void* dq) {
-  const size_t smem = 4 * 64 * (D + 8) * sizeof(bf16) + 2 * 64 * sizeof(int);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.q_seg),
-      static_cast<const int*>(a.kv_seg), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(dq), a.H, a.Lq, a.Lk, a.st, a.scale, a.causal);
+  CUtensorMap qm, km, vm, om;
+  int err = bwd_maps<D>(a, &qm, &km, &vm, &om);
+  if (err != 0) return err;
+  using L = DqLayout<D>;
+  cudaError_t e = sm90::allow_smem(flash_bwd_dq_kernel<D>, L::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(a.B * a.H, (a.Lq + L::ROWS - 1) / L::ROWS);
+  flash_bwd_dq_kernel<D><<<grid, L::THREADS, L::SMEM, a.stream>>>(
+      qm, km, vm, om, static_cast<const int*>(a.q_seg),
+      static_cast<const int*>(a.kv_seg), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.di), static_cast<bf16*>(dq), a.H, a.Lq,
+      a.Lk, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -53,20 +53,13 @@
 //     the last wave.
 
 #include "flash_attention.cuh"
-#include "sm90.cuh"
 
-namespace kfattn90 {
-
-using kfattn::bf16;
-using kfattn::Strides;
+namespace kfattn {
 
 // Keys a step: ops/flash_attention.py KEY_TILE, the tile the plain version
 // rounds P at (128 with two consumer warpgroups measured slower on an H100).
-constexpr int BKV = 64;
+constexpr int BKV = TILE;
 constexpr int STAGES = 3;
-constexpr int SUB = 64 * 128;  // bytes of a [64 rows][64] swizzled sub-tile
-
-static_assert(BKV == 64, "S is an m64n64 tile of 64 rows and 64 keys");
 
 // Consumer warpgroups a block: three at D = 64 (a 192-row q tile in 512
 // threads; the kernel needs ~106 registers a thread, under the 128 that
@@ -95,32 +88,6 @@ struct FwdLayout {
   // base to the swizzle atom.
   static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
 };
-
-// Key tiles a q tile reaches: under `causal`, those whose first key is at or
-// before the tile's last row.
-__device__ __forceinline__ int kv_tiles(int q0, int rows, int Lk,
-                                        int causal) {
-  int n = (Lk + BKV - 1) / BKV;
-  if (causal) n = min(n, (q0 + rows - 1) / BKV + 1);
-  return n;
-}
-
-// 2^x (ex2.approx: 2^-inf = 0), the exponential __expf is built on.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (D == 64)
-    sm90::wgmma_rs_m64n64<1>(o, a, db, 1);
-  else
-    sm90::wgmma_rs_m64n128<1>(o, a, db, 1);
-}
 
 // One consumer warpgroup: the 64 q rows q0 + 64 * (warpgroup - 1) of the
 // block's tile, over the block's n_kv key tiles, then o and lse.
@@ -157,33 +124,11 @@ __device__ __forceinline__ void consume(unsigned char* smem,
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
   float l[2] = {0.f, 0.f};
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
   const unsigned char* sQ = smem + L::Q_OFF + cw * L::DH * SUB;
+  auto sK = [&](int j) { return smem + L::K_OFF + (j % STAGES) * L::DH * SUB; };
+  auto sV = [&](int j) { return smem + L::V_OFF + (j % STAGES) * L::DH * SUB; };
 
-  // S = Q K_j^T, started: D/16 products of 16 deep; +32 bytes (2
-  // descriptor units) per step within a 64-wide column block.
-  auto start_s = [&](int j, float (&sc)[BKV / 2]) {
-    const unsigned char* sK =
-        smem + L::K_OFF + (j % STAGES) * L::DH * SUB;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint64_t da = sm90::desc_sw128(sQ + (kk / 4) * SUB) + 2 * (kk % 4);
-      const uint64_t db =
-          sm90::desc_sw128(sK + (kk / 4) * SUB) + 2 * (kk % 4);
-      sm90::wgmma_ss_m64n64<0>(sc, da, db, kk > 0 ? 1 : 0);
-    }
-  };
-  // O += P_j V_j, started: P as the A fragment of keys 16kc..16kc+15
-  // (n-tiles 2kc and 2kc+1 of S), V MN-major: +16 rows (2048 bytes) per
-  // step, the 64-wide column blocks of D = 128 LBO = SUB apart.
-  auto start_pv = [&](int j, const uint32_t (&pa)[BKV / 16][4]) {
-    const unsigned char* sV =
-        smem + L::V_OFF + (j % STAGES) * L::DH * SUB;
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc)
-      pv_product<D>(acc, pa[kc],
-                    sm90::desc_sw128(sV, SUB) + kc * (2048 >> 4));
-  };
   // The online softmax of S_j in place (sc becomes P, f32), m and l
   // updated; alpha gets each row's rescale factor of the accumulator. The
   // running max is kept in unscaled scores (scale > 0 commutes with max)
@@ -194,12 +139,12 @@ __device__ __forceinline__ void consume(unsigned char* smem,
   auto softmax = [&](int j, float (&sc)[BKV / 2], float (&alpha)[2]) {
     const int k0 = j * BKV;
     float mx[2] = {-INFINITY, -INFINITY};
-    if (seg || k0 + BKV > Lk || (causal && k0 + BKV - 1 > q0w)) {
+    if (tile_needs_mask(q0w, k0, Lk, causal, seg)) {
       const int* ks = sseg + (j % STAGES) * BKV;
 #pragma unroll
       for (int i = 0; i < BKV / 2; ++i) {
-        const int ri = (i / 2) % 2;
-        const int cl = (i / 4) * 8 + 2 * t + (i & 1);
+        const int ri = acc_half(i);
+        const int cl = acc_col(i, t);
         const int col = k0 + cl;
         const bool ok = col < Lk && (!causal || col <= row[ri]) &&
                         (!seg || ks[cl] == sq[ri]);
@@ -209,12 +154,12 @@ __device__ __forceinline__ void consume(unsigned char* smem,
     } else {
 #pragma unroll
       for (int i = 0; i < BKV / 2; ++i)
-        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+        mx[acc_half(i)] = fmaxf(mx[acc_half(i)], sc[i]);
     }
     float nb[2];  // -(exponent base) * scale * log2(e)
 #pragma unroll
     for (int ri = 0; ri < 2; ++ri) {
-      const float m_new = fmaxf(m[ri], kfattn::quad_max(mx[ri]));
+      const float m_new = fmaxf(m[ri], quad_max(mx[ri]));
       nb[ri] = m_new == -INFINITY ? 0.f : -m_new * scale_log2;
       alpha[ri] = ex2(fmaf(m[ri], scale_log2, nb[ri]));  // 0 for -inf
       m[ri] = m_new;
@@ -222,55 +167,40 @@ __device__ __forceinline__ void consume(unsigned char* smem,
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < BKV / 2; ++i) {
-      sc[i] = ex2(fmaf(sc[i], scale_log2, nb[(i / 2) % 2]));  // 2^-inf = 0
-      rs[(i / 2) % 2] += sc[i];
+      sc[i] = ex2(fmaf(sc[i], scale_log2, nb[acc_half(i)]));  // 2^-inf = 0
+      rs[acc_half(i)] += sc[i];
     }
 #pragma unroll
     for (int ri = 0; ri < 2; ++ri)
-      l[ri] = l[ri] * alpha[ri] + kfattn::quad_sum(rs[ri]);
-  };
-  auto pack = [&](uint32_t (&pa)[BKV / 16][4], const float (&sc)[BKV / 2]) {
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pa[kc][r] =
-            kfattn::pack_f32(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
-  };
-  auto wait_full = [&](int j) {
-    sm90::mbar_wait(&full[j % STAGES], (j / STAGES) & 1);
-  };
-  auto release = [&](int j) {
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&empty[j % STAGES]);
+      l[ri] = l[ri] * alpha[ri] + quad_sum(rs[ri]);
   };
 
   sm90::mbar_wait(qbar, 0);
   if (n_mine > 0) {
     // A software pipeline over the key tiles: the tensor cores compute
-    // S_j and then P_{j-1} V_{j-1} while this warpgroup's threads run the
-    // softmax of S_j (wgmma groups complete in order, so waiting for all
-    // but the newest group waits for S_j).
+    // S_j = Q K_j^T and then P_{j-1} V_{j-1} while this warpgroup's
+    // threads run the softmax of S_j (wgmma groups complete in order, so
+    // waiting for all but the newest group waits for S_j).
     float sc[BKV / 2];
     uint32_t pa[BKV / 16][4];
     float alpha[2];
-    wait_full(0);
+    ring_wait<STAGES>(full, 0);
     sm90::fence_regs(sc);
     sm90::wgmma_fence();
-    start_s(0, sc);
+    start_abt<D>(sc, sQ, sK(0));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
     softmax(0, sc, alpha);
-    pack(pa, sc);
+    pack_frags(pa, sc);
     for (int j = 1; j < n_mine; ++j) {
-      wait_full(j);
+      ring_wait<STAGES>(full, j);
       sm90::fence_regs(sc);
       sm90::fence_regs(acc);
       sm90::wgmma_fence();
-      start_s(j, sc);
+      start_abt<D>(sc, sQ, sK(j));
       sm90::wgmma_commit();
-      start_pv(j - 1, pa);
+      start_ab<D>(acc, pa, sV(j - 1));
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may run on
       sm90::fence_regs(sc);
@@ -280,40 +210,35 @@ __device__ __forceinline__ void consume(unsigned char* smem,
       // compiler from reusing or touching their registers before here.
       sm90::fence_regs_u32(pa);
       sm90::fence_regs(acc);
-      release(j - 1);
+      ring_release<STAGES>(empty, j - 1);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
-      pack(pa, sc);
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[acc_half(i)];
+      pack_frags(pa, sc);
     }
     sm90::fence_regs(acc);
     sm90::wgmma_fence();
-    start_pv(n_mine - 1, pa);
+    start_ab<D>(acc, pa, sV(n_mine - 1));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs_u32(pa);
     sm90::fence_regs(acc);
-    release(n_mine - 1);
+    ring_release<STAGES>(empty, n_mine - 1);
   }
   // Key tiles past this warpgroup's diagonal were loaded for the block's
   // later rows: released unread.
   for (int j = n_mine; j < n_kv; ++j) {
-    wait_full(j);
-    release(j);
+    ring_wait<STAGES>(full, j);
+    ring_release<STAGES>(empty, j);
   }
 
+  const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
+                        l[1] > 0.f ? 1.f / l[1] : 0.f};
+  store_rows<D>(o, acc, row, inv, Lq, H, b, h, t);
 #pragma unroll
-  for (int ri = 0; ri < 2; ++ri) {
-    if (row[ri] >= Lq) continue;
-    const float inv = l[ri] > 0.f ? 1.f / l[ri] : 0.f;
-    bf16* op = o + (((long long)b * Lq + row[ri]) * H + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t) = kfattn::pack_f32(
-          acc[4 * n + 2 * ri] * inv, acc[4 * n + 2 * ri + 1] * inv);
-    if (t == 0)
+  for (int ri = 0; ri < 2; ++ri)
+    if (row[ri] < Lq && t == 0)
       lse[((long long)b * H + h) * Lq + row[ri]] =
           l[ri] > 0.f ? m[ri] * scale + logf(l[ri]) : INFINITY;
-  }
 }
 
 template <int D>
@@ -359,31 +284,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x >= 32) return;
     if (lane == 0) {
       sm90::mbar_arrive_expect_tx(qbar, L::CW * L::DH * SUB);
-      for (int half = 0; half < L::CW; ++half)
-        for (int dh = 0; dh < L::DH; ++dh)
-          sm90::tma_load_4d(smem + L::Q_OFF + (half * L::DH + dh) * SUB,
-                            &q_map, qbar, dh * 64, h, q0 + half * 64, b);
+      load_rows<L::DH>(smem + L::Q_OFF, &q_map, qbar, L::CW, h, q0, b);
     }
     for (int j = 0; j < n_kv; ++j) {
-      const int s = j % STAGES;
       const int k0 = j * BKV;
-      sm90::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-      if (seg) {
-        for (int c = lane; c < BKV; c += 32)
-          sseg[s * BKV + c] =
-              k0 + c < Lk ? kv_seg[(long long)b * Lk + k0 + c] : 0;
-      }
-      if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * L::DH * SUB);
-        for (int dh = 0; dh < L::DH; ++dh) {
-          sm90::tma_load_4d(smem + L::K_OFF + (s * L::DH + dh) * SUB,
-                            &k_map, &full[s], dh * 64, h, k0, b);
-          sm90::tma_load_4d(smem + L::V_OFF + (s * L::DH + dh) * SUB,
-                            &v_map, &full[s], dh * 64, h, k0, b);
-        }
-      } else {
-        sm90::mbar_arrive(&full[s]);
-      }
+      produce_stage<L::DH, STAGES>(
+          smem + L::K_OFF, smem + L::V_OFF, full, empty, &k_map, &v_map, j,
+          h, k0, b, [&](int s) {
+            if (seg) {
+              for (int c = lane; c < BKV; c += 32)
+                sseg[s * BKV + c] =
+                    k0 + c < Lk ? kv_seg[(long long)b * Lk + k0 + c] : 0;
+            }
+          });
     }
   } else {
     sm90::regs_alloc<L::CONSUMER_REGS>();
@@ -392,29 +305,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// A tensor map over one of q, k, v: (B, L, H, D) with element strides st_b,
-// st_l between batches and positions, heads adjacent and D contiguous;
-// boxes of `rows` positions x 64 columns of one head.
-template <int D>
-int qkv_map(CUtensorMap* map, const void* base, int B, int L, int H,
-            long long st_b, long long st_l, int rows) {
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)L,
-                            (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)st_l * 2,
-                               (uint64_t)st_b * 2};
-  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-  return sm90::encode_bf16_sw128(map, base, 4, dims, strides, box);
-}
-
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* q_seg,
                const void* kv_seg, void* o, void* lse, int B, int H, int Lq,
                int Lk, Strides st, float scale, int causal,
                cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  int err = qkv_map<D>(&qm, q, B, Lq, H, st.q_b, st.q_l, 64);
-  if (err == 0) err = qkv_map<D>(&km, k, B, Lk, H, st.k_b, st.k_l, BKV);
-  if (err == 0) err = qkv_map<D>(&vm, v, B, Lk, H, st.v_b, st.v_l, BKV);
+  int err = qkv_map<D>(&qm, q, B, Lq, H, st.q_b, st.q_l);
+  if (err == 0) err = qkv_map<D>(&km, k, B, Lk, H, st.k_b, st.k_l);
+  if (err == 0) err = qkv_map<D>(&vm, v, B, Lk, H, st.v_b, st.v_l);
   if (err != 0) return err;
   using L = FwdLayout<D>;
   cudaError_t e = sm90::allow_smem(flash_fwd_kernel<D>, L::SMEM);
@@ -427,7 +326,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* q_seg,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace kfattn90
+}  // namespace kfattn
 
 // Returns the cudaError_t of the launch (0 on success). q_seg and kv_seg
 // are both null (no segment mask) or both (B, Lq) / (B, Lk) int32.
@@ -439,10 +338,10 @@ extern "C" int flash_attention_fwd_bf16(
   const kfattn::Strides st{q_sb, q_sl, k_sb, k_sl, v_sb, v_sl};
   auto s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return kfattn90::launch_fwd<64>(q, k, v, q_seg, kv_seg, o, lse, B, H, Lq,
-                                    Lk, st, scale, causal, s);
+    return kfattn::launch_fwd<64>(q, k, v, q_seg, kv_seg, o, lse, B, H, Lq,
+                                  Lk, st, scale, causal, s);
   if (D == 128)
-    return kfattn90::launch_fwd<128>(q, k, v, q_seg, kv_seg, o, lse, B, H,
-                                     Lq, Lk, st, scale, causal, s);
+    return kfattn::launch_fwd<128>(q, k, v, q_seg, kv_seg, o, lse, B, H,
+                                   Lq, Lk, st, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

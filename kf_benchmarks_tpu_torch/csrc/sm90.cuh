@@ -2,10 +2,12 @@
 //
 //   conv3x3_sm90.cuh         K-A, the implicit-GEMM 3x3 convolution
 //   flash_attention_fwd.cu   the flash-attention forward
+//   flash_attention_bwd.cu   its dK/dV and dQ kernels
 //
 // What is here, and the conventions the kernels rely on:
 //   * mbarriers in shared memory: init, arrive, arrive with an expected
-//     transaction count, and a parity wait (a wait on parity p returns
+//     transaction count, an expected count without an arrival, and a
+//     parity wait (a wait on parity p returns
 //     once the barrier's phase differs from p);
 //   * TMA tile loads (`cp.async.bulk.tensor`, 2-D and 4-D) completing on an
 //     mbarrier, from a CUtensorMap passed as a `__grid_constant__` kernel
@@ -65,6 +67,15 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Adds `bytes` to the transactions the current phase waits for, without
+// an arrival.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
                "r"(bytes)
                : "memory");

@@ -7,10 +7,11 @@ JAX package reaches through parallel/sequence.py ``pallas_flash_attention``:
 * ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``: wgmma, TMA
   loads of q, k and v through 4-D tensor maps) replaces
   ``_flash_attention_impl``;
-* ``flash_attention_bwd_dkv`` (``csrc/flash_attention_bwd.cu``) replaces
-  ``_flash_attention_bwd_dkv``;
-* ``flash_attention_bwd_dq`` (the same source) replaces
-  ``_flash_attention_bwd_dq``;
+* ``flash_attention_bwd_dkv`` (``csrc/flash_attention_bwd.cu``: wgmma,
+  TMA loads of K and V once and of the Q and dO tiles through a ring)
+  replaces ``_flash_attention_bwd_dkv``;
+* ``flash_attention_bwd_dq`` (the same source: the forward's structure)
+  replaces ``_flash_attention_bwd_dq``;
 * ``flash_decode`` (``csrc/flash_decode.cu``: ``flash_decode_partial`` and
   ``flash_decode_combine``) replaces ``_flash_attention_impl`` in the
   decode mode that parallel/sequence.py ``decode_attention(impl='flash')``
@@ -51,9 +52,10 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
 # Head dims the kernels are instantiated for (the TPU kernel takes D <= 128;
 # the LM runs 64).
 KERNEL_HEAD_DIMS = (64, 128)
-# Keys per tile of the forward kernel's online softmax
-# (csrc/flash_attention.cuh BKV).
+# Keys per tile of the forward kernel's online softmax, and the key and q
+# rows of a tile of the backward kernels (csrc/flash_attention.cuh TILE).
 KEY_TILE = 64
+Q_TILE = 64
 # A split of the decode kernel takes a multiple of this many keys
 # (csrc/flash_decode.cu SPLIT_ALIGN).
 DECODE_SPLIT_ALIGN = 64
@@ -168,6 +170,37 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal: bool = False,
   return dq.to(q.dtype)
 
 
+def backward_tiles(lq: int, lk: int, causal: bool, q_tile: int = Q_TILE,
+                   key_tile: int = KEY_TILE):
+  """The (q tile, key tile) pairs each backward kernel computes, as its
+  loops visit them (csrc/flash_attention_bwd.cu):
+
+  * ``"dkv"``: the dK/dV kernel's warpgroup of key tile c visits q tiles
+    from the one holding row c * key_tile (under ``causal``; the first
+    otherwise) to the last;
+  * ``"dq"``: the dQ kernel's warpgroup of q tile r visits key tiles from
+    the first to the last whose first key is at or before the tile's last
+    row (under ``causal``; all otherwise);
+  * ``"zero_key_tiles"``: the key tiles the dK/dV kernel visits with no q
+    tile, whose dK and dV it writes as zeros.
+  """
+  n_q = -(-lq // q_tile)
+  n_k = -(-lk // key_tile)
+  dkv, zero = [], []
+  for c in range(n_k):
+    first = min(c * key_tile // q_tile, n_q) if causal else 0
+    dkv += [(r, c) for r in range(first, n_q)]
+    if first == n_q:
+      zero.append(c)
+  dq = []
+  for r in range(n_q):
+    last = n_k
+    if causal:
+      last = min(n_k, (r * q_tile + q_tile - 1) // key_tile + 1)
+    dq += [(r, c) for c in range(last)]
+  return {"dkv": dkv, "dq": dq, "zero_key_tiles": zero}
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
 def qkv_layout_error(label: str, shape, stride, data_ptr: int):
@@ -226,6 +259,15 @@ def _check_rows(name: str, label: str, x, shape, dtype, device) -> None:
                      f"{tuple(shape)} tensor on {device}")
 
 
+def _check_scale(name: str, scale: float) -> None:
+  if not scale > 0:
+    # The forward kernel keeps the running max of the unscaled scores,
+    # which is the max of the scaled ones only for a positive scale; the
+    # backward kernels read that kernel's lse and hold the same contract.
+    raise ValueError(f"{name}: the kernel takes a positive scale, got "
+                     f"{scale}")
+
+
 def _raise_on_error(name: str, err: int) -> None:
   if err != 0:
     raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
@@ -256,12 +298,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
   if q.device.type == "cpu":
     return flash_attention_fwd_plain(q, k, v, causal, scale, q_seg, kv_seg)
   q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
+  _check_scale("flash_attention_fwd", scale)
   _check_qkv("flash_attention_fwd", q, k, v, q_seg, kv_seg)
-  if not scale > 0:
-    # The kernel keeps the running max of the unscaled scores, which is
-    # the max of the scaled ones only for a positive scale.
-    raise ValueError(f"flash_attention_fwd: the kernel takes a positive "
-                     f"scale, got {scale}")
   b, lq, h, d = q.shape
   lib = _build.load("flash_attention_fwd")
   with torch.cuda.device(q.device):
@@ -275,7 +313,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
   return o, lse
 
 
-def _check_bwd(name, q, k, v, do, lse, di, q_seg, kv_seg):
+def _check_bwd(name, q, k, v, do, lse, di, q_seg, kv_seg, scale):
+  _check_scale(name, scale)
   _check_qkv(name, q, k, v, q_seg, kv_seg)
   b, lq, h, _ = q.shape
   _check_rows(name, "do", do, q.shape, q.dtype, q.device)
@@ -293,7 +332,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, causal: bool = False,
     return flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal, scale,
                                          q_seg, kv_seg)
   q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
-  _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, di, q_seg, kv_seg)
+  _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, di, q_seg, kv_seg,
+             scale)
   lib = _build.load("flash_attention_bwd")
   with torch.cuda.device(q.device):
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
@@ -316,7 +356,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, causal: bool = False,
     return flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal, scale,
                                         q_seg, kv_seg)
   q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
-  _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, di, q_seg, kv_seg)
+  _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, di, q_seg, kv_seg,
+             scale)
   lib = _build.load("flash_attention_bwd")
   with torch.cuda.device(q.device):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)

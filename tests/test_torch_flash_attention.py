@@ -244,6 +244,62 @@ def test_wrappers_reject_other_devices():
     fa.flash_attention_bwd_dq(x, x, x, x, lse, lse, True)
 
 
+@pytest.mark.parametrize("name", ["flash_attention_fwd",
+                                  "flash_attention_bwd_dkv",
+                                  "flash_attention_bwd_dq"])
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_wrappers_refuse_a_non_positive_scale(name, scale):
+  """The kernels take a positive scale only (the forward keeps the running
+  max of the unscaled scores; the backward reads its lse): every wrapper
+  refuses another before a launch."""
+  x = torch.zeros(1, 64, 2, 64, device="meta", dtype=torch.bfloat16)
+  lse = torch.zeros(1, 2, 64, device="meta")
+  args = (x, x, x) if name == "flash_attention_fwd" else (x, x, x, x, lse,
+                                                          lse)
+  with pytest.raises(ValueError, match="positive scale"):
+    getattr(fa, name)(*args, True, scale)
+
+
+# (Lq, Lk, causal, q tile, key tile): the kernels' 64 x 64 tiles at equal,
+# shorter and longer q, ragged lengths and the decode mode's Lq < Lk, and
+# other tile sizes for the helper itself.
+BACKWARD_TILES = [
+    (64, 64, True, 64, 64), (64, 64, False, 64, 64),
+    (100, 300, True, 64, 64), (300, 100, True, 64, 64),
+    (130, 257, False, 64, 64), (1000, 1000, True, 64, 64),
+    (256, 1024, False, 64, 64), (40, 200, True, 64, 64),
+    (333, 333, True, 32, 16), (70, 150, True, 16, 32),
+]
+
+
+@pytest.mark.parametrize("lq,lk,causal,qt,kt", BACKWARD_TILES)
+def test_backward_tiles_cover_every_admissible_pair(lq, lk, causal, qt, kt):
+  """Each backward kernel's (q tile, key tile) visits hold every admissible
+  pair, and the key tiles the dK/dV kernel visits with no q tile (written
+  as zeros) hold none; at the kernels' 64 x 64 tiles the visits are
+  exactly the tiles that hold an admissible pair."""
+  tiles = fa.backward_tiles(lq, lk, causal, qt, kt)
+  mask = fa.admissible(lq, lk, causal)
+  if mask is None:
+    mask = torch.ones(lq, lk, dtype=torch.bool)
+  rows, cols = torch.nonzero(mask, as_tuple=True)
+  needed = set(zip((rows // qt).tolist(), (cols // kt).tolist()))
+  for kernel in ("dkv", "dq"):
+    visits = tiles[kernel]
+    assert len(visits) == len(set(visits)), kernel
+    assert needed <= set(visits), kernel
+    if (qt, kt) == (fa.Q_TILE, fa.KEY_TILE):
+      assert set(visits) == needed, kernel
+  visited_keys = {c for _, c in tiles["dkv"]}
+  n_k = -(-lk // kt)
+  assert tiles["zero_key_tiles"] == [c for c in range(n_k)
+                                     if c not in visited_keys]
+  assert not any(c in tiles["zero_key_tiles"] for _, c in needed)
+  if causal and lq < lk and (qt, kt) == (fa.Q_TILE, fa.KEY_TILE):
+    # The key tiles wholly past the last row: no q tile reaches them.
+    assert tiles["zero_key_tiles"] == list(range(-(-lq // kt), n_k))
+
+
 @pytest.mark.parametrize("shape,stride,ptr,error", [
     ((2, 64, 4, 64), (64 * 4 * 64, 4 * 64, 64, 1), 256, None),
     # qkv.unbind(2) of a packed (B, L, 3, H, D) projection, as the LM
@@ -272,8 +328,9 @@ def test_qkv_layout_acceptance(shape, stride, ptr, error):
 def test_kernels_match_plain_on_card():
   """The three kernels against their plain versions on the card, causal
   with segment ids and a ragged length, through strided views of one
-  packed projection as the LM passes them (chip_smoke.py runs the same
-  checks at the LM's shape)."""
+  packed projection as the LM passes them, then at Lq != Lk, a kv-only
+  mask and D = 128 (chip_smoke.py runs the same checks at the LM's
+  shape)."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device: the kernels have no CPU mode")
   g = torch.Generator(device="cuda").manual_seed(0)
@@ -305,8 +362,8 @@ def test_kernels_match_plain_on_card():
   for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
     err = (got.float() - ref.float()).abs().max()
     assert float(err) <= 3e-2 * float(ref.float().abs().max())
-  # The forward at Lq != Lk (causal top-left, and a kv-only mask) and at
-  # D = 128 with a ragged length and segment ids.
+  # The forward and the two backward kernels at Lq != Lk (causal top-left,
+  # and a kv-only mask) and at D = 128 with a ragged length and segment ids.
   for b, lq, lk, h, d, causal, with_seg in ((2, 100, 300, 2, 64, True, False),
                                             (2, 300, 100, 2, 64, True, False),
                                             (2, 130, 257, 2, 64, False, True),
@@ -330,3 +387,16 @@ def test_kernels_match_plain_on_card():
     tol = 2 ** -7 * o_ref.float().abs() + 1e-3 * o_ref.float().abs().max()
     assert bool(((o.float() - o_ref.float()).abs() <= tol).all()), (lq, lk, d)
     torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
+    do = torch.randn(b, lq, h, d, generator=g, device="cuda").bfloat16()
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, di, causal, d ** -0.5, qs, ks)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(*args)
+    dq_ref = fa.flash_attention_bwd_dq_plain(*args)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+      err = (got.float() - ref.float()).abs().max()
+      assert float(err) <= 3e-2 * float(ref.float().abs().max()), (lq, lk, d)
+    if causal and lq < lk:  # keys no row reaches: written as exact zeros
+      assert not dk[:, lq:].any() and not dv[:, lq:].any()
