@@ -30,7 +30,8 @@ extern "C" int conv3x3_same_bf16(const void* x, const void* w, void* y, int N,
                                  int H, int W, int C, int CO, int bm, int bn,
                                  int wb, int hb, int nb, int grid,
                                  void* stream) {
-  return kfconv90::launch<kfconv90::StoreY>(x, w, y, N, H, W, C, CO, bm, bn,
-                                            wb, hb, nb, grid,
-                                            static_cast<cudaStream_t>(stream));
+  return kfconv90::launch<kfconv90::Identity, kfconv90::StoreY>(
+      x, w, y, N, H, W, C, CO, bm, bn, wb, hb, nb, grid,
+      kfconv90::UnitArgs{nullptr, nullptr, nullptr},
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
 // flash_decode: single-query attention over a KV ring buffer, bf16 in and
-// out, f32 softmax -- the serving decode step's attention.
+// out, f32 softmax -- the serving decode step's attention, in one launch.
 //
 //   o[b, 0, h] = sum_{s <= pos[b]} softmax_s(scale * q[b,0,h] . k[b,s,h])
 //                                  * v[b,s,h]
@@ -15,51 +15,59 @@
 // kf_benchmarks_tpu/parallel/sequence.py `decode_attention(impl='flash')`
 // (:664-677): q length 1, causal=False, SegmentIds(q = 1,
 // kv = kpos <= pos[b]). The TPU kernel walks every key block of the ring in
-// its sequential grid and masks; it has one q row per (b, h).
+// its sequential grid and carries m, l and the accumulator in scratch.
 //
 // Bound on an H100 SXM: decode reads each admitted K and V element once
 // and does 2 multiply-adds per element pair, ~1 FLOP per byte against the
-// card's ~295 FLOP/byte ridge (bf16) or ~20 (f32 CUDA cores): bound by
-// bytes (3.35 TB/s). At the LM's shape (B 64, T 2048, H 8, D 64, full
-// ring) the admitted K and V are 268 MB, ~0.080 ms. The only lever is to
-// read the admitted bytes once with enough blocks in flight, so the design
-// splits the keys (flash-decoding):
+// card's ~295 FLOP/byte ridge (bf16): bound by bytes (3.35 TB/s). At the
+// LM's shape (B 64, T 2048, H 8, D 64) the admitted K and V of the decode
+// phase's positions are ~194 MB, ~0.058 ms. What the design does about it:
 //
-// * flash_decode_partial: grid (B*H, S). Split s of row b takes keys
-//   [s*chunk, min((s+1)*chunk, n)), chunk = 64*ceil(n / (64*S)), n the
-//   admitted count, and never a slot past pos[b]. 128 threads; D/8 threads
-//   own one key (16-byte loads, neighbouring threads on neighbouring D
-//   elements), so a block has 1024/D keys in flight. Each key group keeps
-//   its own online softmax (running max m, sum l, unnormalised output) in
-//   f32 registers on the CUDA cores -- P stays f32, no tensor core is needed
-//   at one query row -- and the groups merge in shared memory. The split
-//   writes f32 partials m, l (B, H, S) and o (B, H, S, D). A split with no
-//   admitted key writes m = -inf, l = 0, o = 0 and contributes exactly 0.
-// * flash_decode_combine: grid (B*H), D threads; merges the S partials in a
-//   fixed order (no atomics: the result is the same run to run) and rounds
-//   once to bf16.
+// * Enough blocks, few keys each. The keys of a row (b, h) are split S ways
+//   (flash-decoding), S chosen by the wrapper (ops/flash_attention.py
+//   `decode_plan`) so that a block walks at most ~256 keys even at B 64-256
+//   and the blocks cover the SMs at B 1-16. Split s takes keys
+//   [s*per, min((s+1)*per, n)), per = 64*ceil(n / (64*S)), n the row's
+//   admitted count: a short row spreads over all S blocks too.
+// * Enough bytes in flight. 128 threads; D/8 threads own a key (16-byte
+//   loads, neighbouring threads on neighbouring D elements), so a pass
+//   covers 1024/D keys, and each thread issues the K and V loads of
+//   U = 64 / (1024/D) keys of a 64-key tile before it uses any: 16 KB of
+//   loads in flight a block (Little's law at 3.35 TB/s and ~1 us of DRAM
+//   latency wants ~25 KB an SM; several blocks share an SM).
+// * One launch. The S blocks of a row form a thread-block cluster. Each
+//   block merges its key groups' online softmax (f32 m, l and output,
+//   exp2 of log2e-scaled scores) into f32 (m, l, o[D]) in its shared
+//   memory; after cluster.sync() the cluster's rank 0 reads its peers'
+//   partials through distributed shared memory in rank order, divides once
+//   and rounds once to bf16. No partials in global memory, no atomics, no
+//   second launch: the result is the same run to run. A split with no
+//   admitted key holds m = -inf, l = 0, o = 0 and contributes exactly 0.
 //
-// The wrapper (ops/flash_attention.py flash_decode) chooses S so that
-// B*H*S covers the SMs twice where the ring allows. k and v may be strided
-// views (one layer of the (L, B, T, H, D) cache): the kernel takes batch and
-// position strides; heads are adjacent and D contiguous. Left for later:
-// cp.async/TMA pipelining of the key loads and a fused single-pass combine.
+// k and v may be strided views (one layer of the (L, B, T, H, D) cache):
+// the kernel takes batch and position strides; heads are adjacent and D
+// contiguous.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace kfdecode {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 128;
+constexpr int TILE = 64;          // keys a block takes per pass of its loop
 constexpr int SPLIT_ALIGN = 64;   // a split's keys are a multiple of this
+constexpr int MAX_SPLITS = 16;    // the largest (non-portable) cluster
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -77,27 +85,35 @@ __device__ __forceinline__ void split_range(int n, int S, int s, int& k0,
   k1 = min(n, k0 + per);
 }
 
+// One block's merged partial, read by the cluster's rank 0.
+template <int D>
+struct Partial {
+  float m, l;
+  float o[D];
+};
+
+// Grid: S * B * H blocks in clusters of S along x; block x takes split
+// x % S (its rank in the cluster) of row x / S = b * H + h.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_decode_partial_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const int* __restrict__ pos,
-                            float* __restrict__ m_out,
-                            float* __restrict__ l_out,
-                            float* __restrict__ o_out, int H, int T, int S,
-                            long long q_b, long long k_b, long long k_t,
-                            long long v_b, long long v_t, float scale) {
+flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ pos,
+                    bf16* __restrict__ o_out, int H, int T, int S,
+                    long long q_b, long long k_b, long long k_t,
+                    long long v_b, long long v_t, float scale_log2) {
   constexpr int TPK = D / 8;         // threads per key
-  constexpr int G = THREADS / TPK;   // keys in flight per block
+  constexpr int G = THREADS / TPK;   // key groups: keys a pass covers
+  constexpr int U = TILE / G;        // keys a group takes per tile
   __shared__ float sm_m[G];
   __shared__ float sm_l[G];
   __shared__ float sm_o[G][D];
+  __shared__ Partial<D> part;
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int s = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / S;  // b * H + h
+  const int b = row / H;
+  const int h = row % H;
   const int grp = threadIdx.x / TPK;
   const int lane = threadIdx.x % TPK;
 
@@ -106,7 +122,11 @@ flash_decode_partial_kernel(const bf16* __restrict__ q,
   split_range(n, S, s, k0, k1);
 
   float qf[8];
-  load8(q + b * q_b + (long long)h * D + lane * 8, qf);
+  unpack8(*reinterpret_cast<const uint4*>(q + b * q_b + (long long)h * D +
+                                          lane * 8),
+          qf);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) qf[i] *= scale_log2;
   const bf16* kp = k + b * k_b + (long long)h * D + lane * 8;
   const bf16* vp = v + b * v_b + (long long)h * D + lane * 8;
 
@@ -115,34 +135,57 @@ flash_decode_partial_kernel(const bf16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.f;
 
-  // Every lane runs the same trip count (the shuffles below need the whole
-  // warp); a lane whose key lies past k1 loads nothing and updates nothing.
-  for (int j0 = k0; j0 < k1; j0 += G) {
-    const int j = j0 + grp;
-    const bool live = j < k1;
-    float kf[8], vf[8];
-    if (live) {
-      load8(kp + j * k_t, kf);
-      load8(vp + j * v_t, vf);
-    } else {
+  // Every lane runs the same trip count (the shuffles need the whole warp);
+  // a key past k1 is neither loaded nor counted.
+  for (int j0 = k0; j0 < k1; j0 += TILE) {
+    uint4 kr[U], vr[U];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) kf[i] = vf[i] = 0.f;
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * G + grp;
+      if (j < k1) {
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kp + j * k_t));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vp + j * v_t));
+      } else {
+        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      }
     }
-    float dot = 0.f;
+    float sc[U];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dot = fmaf(qf[i], kf[i], dot);
+    for (int u = 0; u < U; ++u) {
+      float kf[8];
+      unpack8(kr[u], kf);
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dot = fmaf(qf[i], kf[i], dot);
+      sc[u] = dot;
+    }
 #pragma unroll
     for (int off = TPK / 2; off > 0; off >>= 1)
-      dot += __shfl_xor_sync(FULL, dot, off);
-    if (live) {
-      const float sc = dot * scale;
-      const float m_new = fmaxf(m, sc);
-      const float alpha = expf(m - m_new);  // 0 at a group's first key
-      const float p = expf(sc - m_new);
-      l = l * alpha + p;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(p, vf[i], acc[i] * alpha);
-      m = m_new;
+      for (int u = 0; u < U; ++u) sc[u] += __shfl_xor_sync(FULL, sc[u], off);
+    // The group's online softmax over its live keys of the tile (the same
+    // values on each of its TPK lanes).
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (j0 + u * G + grp < k1) mx = fmaxf(mx, sc[u]);
+    if (mx != -INFINITY) {
+      const float alpha = exp2f(m - mx);  // 0 at the group's first key
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + u * G + grp < k1) {
+          const float p = exp2f(sc[u] - mx);
+          float vf[8];
+          unpack8(vr[u], vf);
+          l += p;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+        }
+      }
+      m = mx;
     }
   }
 
@@ -154,94 +197,99 @@ flash_decode_partial_kernel(const bf16* __restrict__ q,
   for (int i = 0; i < 8; ++i) sm_o[grp][lane * 8 + i] = acc[i];
   __syncthreads();
 
-  // Merge the G key groups, one output element per thread.
-  for (int d = threadIdx.x; d < D; d += THREADS) {
-    float mx = -INFINITY;
+  // The block's G key groups, in group order, one output element a thread.
+  if (threadIdx.x < D) {
+    const int d = threadIdx.x;
+    float mb = -INFINITY;
 #pragma unroll
-    for (int g = 0; g < G; ++g) mx = fmaxf(mx, sm_m[g]);
-    const float base = mx == -INFINITY ? 0.f : mx;  // no key: weights 0
+    for (int g = 0; g < G; ++g) mb = fmaxf(mb, sm_m[g]);
+    const float base = mb == -INFINITY ? 0.f : mb;  // no key: weights 0
     float lsum = 0.f, o = 0.f;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float w = expf(sm_m[g] - base);
+      const float w = exp2f(sm_m[g] - base);
       lsum = fmaf(sm_l[g], w, lsum);
       o = fmaf(sm_o[g][d], w, o);
     }
-    const long long row = (long long)bh * S + s;
-    o_out[row * D + d] = o;
+    part.o[d] = o;
     if (d == 0) {
-      m_out[row] = mx;
-      l_out[row] = lsum;
+      part.m = mb;
+      part.l = lsum;
     }
   }
-}
+  cluster.sync();  // every split's partial is written and visible
 
-__global__ void flash_decode_combine_kernel(const float* __restrict__ m,
-                                            const float* __restrict__ l,
-                                            const float* __restrict__ o_part,
-                                            bf16* __restrict__ o, int S,
-                                            int D) {
-  const int bh = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* mp = m + (long long)bh * S;
-  const float* lp = l + (long long)bh * S;
-  const float* op = o_part + (long long)bh * S * D;
-  float mx = -INFINITY;
-  for (int s = 0; s < S; ++s) mx = fmaxf(mx, mp[s]);
-  const float base = mx == -INFINITY ? 0.f : mx;
-  float lsum = 0.f, acc = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float w = expf(mp[s] - base);
-    lsum = fmaf(lp[s], w, lsum);
-    acc = fmaf(op[(long long)s * D + d], w, acc);
+  // Rank 0 merges the S splits, in rank order, from distributed shared
+  // memory; one division and one rounding to bf16.
+  if (s == 0 && threadIdx.x < D) {
+    const int d = threadIdx.x;
+    float mc = -INFINITY;
+    for (int r = 0; r < S; ++r)
+      mc = fmaxf(mc, cluster.map_shared_rank(&part, r)->m);
+    const float base = mc == -INFINITY ? 0.f : mc;
+    float lsum = 0.f, o = 0.f;
+    for (int r = 0; r < S; ++r) {
+      const Partial<D>* p = cluster.map_shared_rank(&part, r);
+      const float w = exp2f(p->m - base);
+      lsum = fmaf(p->l, w, lsum);
+      o = fmaf(p->o[d], w, o);
+    }
+    o_out[(long long)row * D + d] =
+        __float2bfloat16(lsum > 0.f ? o / lsum : 0.f);
   }
-  o[(long long)bh * D + d] = __float2bfloat16(lsum > 0.f ? acc / lsum : 0.f);
+  cluster.sync();  // peers keep their shared memory until rank 0 is done
 }
 
 template <int D>
-int launch_partial(const void* q, const void* k, const void* v,
-                   const void* pos, void* m, void* l, void* o, int B, int H,
-                   int T, int S, long long q_b, long long k_b, long long k_t,
-                   long long v_b, long long v_t, float scale,
-                   cudaStream_t stream) {
-  dim3 grid(B * H, S);
-  flash_decode_partial_kernel<D><<<grid, THREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+int launch(const void* q, const void* k, const void* v, const void* pos,
+           void* o, int B, int H, int T, int S, long long q_b, long long k_b,
+           long long k_t, long long v_b, long long v_t, float scale,
+           cudaStream_t stream) {
+  auto kernel = flash_decode_kernel<D>;
+  // Clusters of more than 8 blocks are an opt-in of the H100 (up to 16).
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(S) * B * H);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(pos),
-      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(o),
-      H, T, S, q_b, k_b, k_t, v_b, v_t, scale);
+      static_cast<bf16*>(o), H, T, S, q_b, k_b, k_t, v_b, v_t,
+      scale * LOG2E);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace kfdecode
 
 // q (B, 1, H, D) with batch stride q_b; k and v (B, T, H, D) with batch and
-// position strides; pos (B,) int32; m, l (B, H, S) and o (B, H, S, D) f32
-// contiguous. Returns the cudaError_t of the launch (0 on success).
-extern "C" int flash_decode_partial_bf16(
-    const void* q, const void* k, const void* v, const void* pos, void* m,
-    void* l, void* o, int B, int H, int T, int D, int S, long long q_b,
-    long long k_b, long long k_t, long long v_b, long long v_t, float scale,
-    void* stream) {
+// position strides; pos (B,) int32; o (B, 1, H, D) bf16 contiguous; S the
+// split count (the cluster size, 1..16). Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
+                                 const void* pos, void* o, int B, int H,
+                                 int T, int D, int S, long long q_b,
+                                 long long k_b, long long k_t, long long v_b,
+                                 long long v_t, float scale, void* stream) {
+  if (S < 1 || S > kfdecode::MAX_SPLITS || B < 1 || H < 1 || T < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return kfdecode::launch_partial<64>(q, k, v, pos, m, l, o, B, H, T, S,
-                                        q_b, k_b, k_t, v_b, v_t, scale, st);
+    return kfdecode::launch<64>(q, k, v, pos, o, B, H, T, S, q_b, k_b, k_t,
+                                v_b, v_t, scale, st);
   if (D == 128)
-    return kfdecode::launch_partial<128>(q, k, v, pos, m, l, o, B, H, T, S,
-                                         q_b, k_b, k_t, v_b, v_t, scale, st);
+    return kfdecode::launch<128>(q, k, v, pos, o, B, H, T, S, q_b, k_b, k_t,
+                                 v_b, v_t, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// m, l (B, H, S) and o_part (B, H, S, D) f32 from flash_decode_partial_bf16;
-// o (B, 1, H, D) bf16 contiguous.
-extern "C" int flash_decode_combine_bf16(const void* m, const void* l,
-                                         const void* o_part, void* o, int B,
-                                         int H, int D, int S, void* stream) {
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  kfdecode::flash_decode_combine_kernel<<<B * H, D, 0,
-                                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(o_part), static_cast<__nv_bfloat16*>(o), S, D);
-  return static_cast<int>(cudaGetLastError());
 }

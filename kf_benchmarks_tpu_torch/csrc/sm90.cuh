@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma/TMA kernels:
 //
-//   conv3x3_sm90.cuh         K-A, the implicit-GEMM 3x3 convolution
+//   conv3x3_sm90.cuh         K-A, the implicit-GEMM 3x3 convolution, and
+//                            K-B, the same with its BN-apply/ReLU prologue
+//                            and statistics epilogue
 //   flash_attention_fwd.cu   the flash-attention forward
 //   flash_attention_bwd.cu   its dK/dV and dQ kernels
 //
@@ -125,6 +127,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Four 8 x 8 b16 matrices from shared memory: lanes 8j..8j+7 give the row
+// addresses of matrix j, and lane l receives row l / 4, columns
+// 2 (l % 4) .. + 1 of each matrix in r[j] -- with matrices (rows 0-7, k
+// 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15) the
+// m16n8k16 A fragment an rs wgmma takes.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
       : "memory");
 }
 

@@ -50,15 +50,11 @@ _SIGNATURES = {
         "flash_attention_bwd_dq_bf16": [ctypes.c_void_p] * 9 + _ATTN_TAIL,
     },
     "flash_decode": {
-        # q, k, v, pos, m, l, o; B, H, T, D, S; the batch stride of q and
-        # the batch and position strides of k and v; scale; stream.
-        "flash_decode_partial_bf16": [ctypes.c_void_p] * 7 +
-                                     [ctypes.c_int] * 5 +
-                                     [ctypes.c_longlong] * 5 +
-                                     [ctypes.c_float, ctypes.c_void_p],
-        # m, l, o_part, o; B, H, D, S; stream.
-        "flash_decode_combine_bf16": [ctypes.c_void_p] * 4 +
-                                     [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        # q, k, v, pos, o; B, H, T, D, S; the batch stride of q and the
+        # batch and position strides of k and v; scale; stream.
+        "flash_decode_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
+                             [ctypes.c_longlong] * 5 +
+                             [ctypes.c_float, ctypes.c_void_p],
     },
     "conv3x3_same": {
         # x, w, y; N, H, W, C, CO; tile rows and columns; the A box's
@@ -67,8 +63,10 @@ _SIGNATURES = {
                              [ctypes.c_void_p],
     },
     "bn_relu_conv3x3_stats": {
+        # x, sc, sh, w_k, y, partial, stats; N, H, W, C, CO; tile rows and
+        # columns; the A box's width, height and images; grid; stream.
         "bn_relu_conv3x3_stats_bf16": [ctypes.c_void_p] * 7 +
-                                      [ctypes.c_int] * 5 +
+                                      [ctypes.c_int] * 11 +
                                       [ctypes.c_void_p],
     },
 }

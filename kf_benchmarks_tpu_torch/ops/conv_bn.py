@@ -7,9 +7,11 @@ The counterpart of the three Pallas probes in ``experiments/``:
   ``pallas_conv`` of experiments/pallas_conv_probe.py:34. The kernel
   reads K-major [CO,3,3,C] weights; ``conv3x3_same`` permutes the HWIO
   tensor, and ``conv3x3_same_kmajor`` takes that layout as it is;
-* ``bn_relu_conv3x3_stats`` (K-B, ``csrc/bn_relu_conv3x3_stats.cu``)
-  replaces ``pallas_unit`` of experiments/pallas_fused_chain_probe.py:128
-  and experiments/pallas_stage2_probe.py:111.
+* ``bn_relu_conv3x3_stats`` (K-B, ``csrc/bn_relu_conv3x3_stats.cu``: the
+  same kernel with a BN-apply/ReLU prologue in registers and a statistics
+  epilogue) replaces ``pallas_unit`` of
+  experiments/pallas_fused_chain_probe.py:128 and
+  experiments/pallas_stage2_probe.py:111.
 
 Each wrapper takes NHWC activations and HWIO weights, the JAX package's
 layouts. On a CPU tensor it computes its plain PyTorch version (below it);
@@ -34,10 +36,6 @@ import torch.nn.functional as F
 from kf_benchmarks_tpu_torch.ops import _build
 
 LAUNCHES: Dict[str, int] = {"conv3x3_same": 0, "bn_relu_conv3x3_stats": 0}
-
-# Tile height of K-B's implicit GEMM (csrc/conv3x3_igemm.cuh BM), which
-# sizes its per-tile statistics partials.
-_BM = 128
 
 
 def accum(t: torch.Tensor) -> torch.Tensor:
@@ -94,9 +92,9 @@ def bn_relu_conv3x3_stats_plain(x: torch.Tensor, sc: torch.Tensor,
 def kernel_shape_error(name: str, x_shape, w_shape, c_align: int,
                        kmajor: bool = False):
   """Why a kernel does not take x [N,H,W,C] and w (HWIO [3,3,C,CO], or
-  the K-major [CO,3,3,C] when ``kmajor``), or None when it does. K-A's
-  implicit GEMM reads 64 input channels a stage (``c_align`` 64), K-B's
-  32; both tile the output channels by 64."""
+  the K-major [CO,3,3,C] when ``kmajor``), or None when it does. Both
+  kernels' implicit GEMM reads 64 input channels a stage (``c_align`` 64)
+  and tiles the output channels by 64."""
   if kmajor:
     ok = len(w_shape) == 4 and tuple(w_shape[1:3]) == (3, 3)
     c, co = (w_shape[3], w_shape[0]) if ok else (None, None)
@@ -120,6 +118,15 @@ def kernel_shape_error(name: str, x_shape, w_shape, c_align: int,
 # K-A's output tiles (rows BM, columns BN) that csrc/conv3x3_sm90.cuh
 # instantiates.
 CONV_TILES = ((128, 64), (256, 64), (128, 128), (256, 128), (128, 256))
+# K-B's: its statistics epilogue holds BN/2 column sums a thread beside
+# the BN/2 accumulators, which at BN 256 would not fit the registers.
+KB_TILES = ((128, 64), (256, 64), (128, 128), (256, 128))
+# What K-B's prologue (ldmatrix, relu(x*sc + sh), the padding rows
+# zeroed, the copy into the A fragments after each stage's wait) adds to a
+# stage, in the units of conv_tile's cost: a fixed part and a part per A
+# row.
+KB_STAGE = 720.0
+KB_PROLOGUE = 1.5
 
 
 class ConvTile(NamedTuple):
@@ -131,6 +138,28 @@ class ConvTile(NamedTuple):
   hb: int
   nb: int
   grid: int
+
+
+def _pick_tile(name: str, tiles, n: int, h: int, w: int, co: int,
+               sms: int, stage_cost: float, row_cost: float) -> ConvTile:
+  """The tile and box of least waves x (box pixels + BN + BM BN / 32 +
+  stage_cost + row_cost BM) over ``tiles``; ties to the smaller tile, then
+  the taller box."""
+  best = None
+  for bm, bn in tiles:
+    if co % bn:
+      continue
+    wb = min(w, bm, 256)
+    for hb in range(1, min(h, bm // wb, 256) + 1):
+      nb = min(n, bm // (wb * hb), 256)
+      count = (-(-w // wb) * -(-h // hb) * -(-n // nb)) * (co // bn)
+      cost = (-(-count // sms) * (wb * hb * nb + bn + bm * bn / 32 +
+                                  stage_cost + row_cost * bm), bm * bn, -hb)
+      if best is None or cost < best[0]:
+        best = (cost, ConvTile(bm, bn, wb, hb, nb, min(count, sms)))
+  if best is None:
+    raise ValueError(f"{name}: no tile divides CO={co}")
+  return best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,21 +177,23 @@ def conv_tile(n: int, h: int, w: int, co: int, sms: int) -> ConvTile:
   pixels + BN + BM BN / 32); ties go to the smaller tile, whose last wave
   is less ragged, then to the taller box.
   """
-  best = None
-  for bm, bn in CONV_TILES:
-    if co % bn:
-      continue
-    wb = min(w, bm, 256)
-    for hb in range(1, min(h, bm // wb, 256) + 1):
-      nb = min(n, bm // (wb * hb), 256)
-      tiles = (-(-w // wb) * -(-h // hb) * -(-n // nb)) * (co // bn)
-      cost = (-(-tiles // sms) * (wb * hb * nb + bn + bm * bn / 32),
-              bm * bn, -hb)
-      if best is None or cost < best[0]:
-        best = (cost, ConvTile(bm, bn, wb, hb, nb, min(tiles, sms)))
-  if best is None:
-    raise ValueError(f"conv3x3_same: no tile divides CO={co}")
-  return best[1]
+  return _pick_tile("conv3x3_same", CONV_TILES, n, h, w, co, sms, 0.0, 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def kb_tile(n: int, h: int, w: int, co: int, sms: int) -> ConvTile:
+  """K-B's tile and box: K-A's cost over KB_TILES plus the prologue's
+  KB_STAGE + KB_PROLOGUE BM units a stage (fitted, as K-A's, to the times
+  ``chip_smoke.py --phases=build,conv_tiles`` takes of every K-B tile at
+  every stage shape on an H100: the prologue does not hide under the
+  products, so K-B favours the largest tile more than K-A does)."""
+  return _pick_tile("bn_relu_conv3x3_stats", KB_TILES, n, h, w, co, sms,
+                    KB_STAGE, KB_PROLOGUE)
+
+
+def kb_partials_shape(tile: ConvTile, co: int) -> Tuple[int, int, int]:
+  """K-B's statistics partials: one [2, CO] sum a persistent block."""
+  return (tile.grid, 2, co)
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,6 +263,40 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   return conv3x3_same_kmajor(x, kmajor(w))
 
 
+def bn_relu_conv3x3_stats_kmajor(x: torch.Tensor, sc: torch.Tensor,
+                                 sh: torch.Tensor, w_k: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K-B on K-major weights w_k[o,dy,dx,c] = w[dy,dx,c,o]."""
+  if x.device.type == "cpu":
+    return bn_relu_conv3x3_stats_plain(x, sc, sh, w_k.permute(1, 2, 3, 0))
+  name = "bn_relu_conv3x3_stats"
+  _check_cuda(name, x, w_k, c_align=64, kmajor=True)
+  n, h, wd, c = x.shape
+  co = w_k.shape[0]
+  if co > 512:
+    raise ValueError(f"{name}: the kernel's statistics take CO <= 512, got "
+                     f"CO={co}")
+  for t, label in ((sc, "sc"), (sh, "sh")):
+    if t.dtype != torch.float32 or t.shape != (c,) or \
+        not t.is_contiguous() or t.device != x.device:
+      raise ValueError(f"{name}: {label} must be a contiguous f32 [{c}] "
+                       f"tensor on {x.device}")
+  lib = _build.load(name)
+  tile = kb_tile(n, h, wd, co, _sm_count(x.device.index))
+  with torch.cuda.device(x.device):
+    y = torch.empty(n, h, wd, co, dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty(kb_partials_shape(tile, co), dtype=torch.float32,
+                          device=x.device)
+    stats = torch.empty(2, co, dtype=torch.float32, device=x.device)
+    err = lib.bn_relu_conv3x3_stats_bf16(
+        x.data_ptr(), sc.data_ptr(), sh.data_ptr(), w_k.data_ptr(),
+        y.data_ptr(), partial.data_ptr(), stats.data_ptr(),
+        n, h, wd, c, co, *tile, torch.cuda.current_stream().cuda_stream)
+  _raise_on_error(name, err)
+  LAUNCHES[name] += 1
+  return y, stats
+
+
 def bn_relu_conv3x3_stats(x: torch.Tensor, sc: torch.Tensor,
                           sh: torch.Tensor, w: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -241,28 +306,10 @@ def bn_relu_conv3x3_stats(x: torch.Tensor, sc: torch.Tensor,
   """
   if x.device.type == "cpu":
     return bn_relu_conv3x3_stats_plain(x, sc, sh, w)
-  _check_cuda("bn_relu_conv3x3_stats", x, w, c_align=32)
-  n, h, wd, c = x.shape
-  co = w.shape[3]
-  for t, label in ((sc, "sc"), (sh, "sh")):
-    if t.dtype != torch.float32 or t.shape != (c,) or \
-        not t.is_contiguous() or t.device != x.device:
-      raise ValueError(f"bn_relu_conv3x3_stats: {label} must be a "
-                       f"contiguous f32 [{c}] tensor on {x.device}")
-  lib = _build.load("bn_relu_conv3x3_stats")
-  tiles = -(-(n * h * wd) // _BM)
-  with torch.cuda.device(x.device):
-    y = torch.empty(n, h, wd, co, dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty(tiles, 2, co, dtype=torch.float32, device=x.device)
-    stats = torch.empty(2, co, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.bn_relu_conv3x3_stats_bf16(
-        x.data_ptr(), sc.data_ptr(), sh.data_ptr(), w.data_ptr(),
-        y.data_ptr(), partial.data_ptr(), stats.data_ptr(),
-        n, h, wd, c, co, stream)
-  _raise_on_error("bn_relu_conv3x3_stats", err)
-  LAUNCHES["bn_relu_conv3x3_stats"] += 1
-  return y, stats
+  if w.dim() != 4:
+    raise ValueError(f"bn_relu_conv3x3_stats: want w [3,3,C,CO], got "
+                     f"{tuple(w.shape)}")
+  return bn_relu_conv3x3_stats_kmajor(x, sc, sh, kmajor(w))
 
 
 # -- autograd unit -------------------------------------------------------------

@@ -12,11 +12,11 @@ JAX package reaches through parallel/sequence.py ``pallas_flash_attention``:
   replaces ``_flash_attention_bwd_dkv``;
 * ``flash_attention_bwd_dq`` (the same source: the forward's structure)
   replaces ``_flash_attention_bwd_dq``;
-* ``flash_decode`` (``csrc/flash_decode.cu``: ``flash_decode_partial`` and
-  ``flash_decode_combine``) replaces ``_flash_attention_impl`` in the
-  decode mode that parallel/sequence.py ``decode_attention(impl='flash')``
-  calls: one query row over a (B, T, H, D) KV ring, key slot s admitted
-  iff s <= pos[b].
+* ``flash_decode`` (``csrc/flash_decode.cu``: one launch, the key splits
+  of a row merged inside a thread-block cluster) replaces
+  ``_flash_attention_impl`` in the decode mode that parallel/sequence.py
+  ``decode_attention(impl='flash')`` calls: one query row over a
+  (B, T, H, D) KV ring, key slot s admitted iff s <= pos[b].
 
 Layout: q, k, v are (B, L, H, D), the JAX package's layout at its public
 attention functions. Mask: under ``causal`` query row r sees keys c <= r
@@ -41,13 +41,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from kf_benchmarks_tpu_torch.ops import _build
-from kf_benchmarks_tpu_torch.ops.conv_bn import accum
+from kf_benchmarks_tpu_torch.ops.conv_bn import _sm_count, accum
 
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dkv": 0,
                             "flash_attention_bwd_dq": 0,
-                            "flash_decode_partial": 0,
-                            "flash_decode_combine": 0}
+                            "flash_decode": 0}
 
 # Head dims the kernels are instantiated for (the TPU kernel takes D <= 128;
 # the LM runs 64).
@@ -57,8 +56,12 @@ KERNEL_HEAD_DIMS = (64, 128)
 KEY_TILE = 64
 Q_TILE = 64
 # A split of the decode kernel takes a multiple of this many keys
-# (csrc/flash_decode.cu SPLIT_ALIGN).
+# (csrc/flash_decode.cu SPLIT_ALIGN); the splits of a row are one cluster
+# of at most DECODE_MAX_SPLITS blocks (MAX_SPLITS there), and the plan aims
+# at no more than DECODE_BLOCK_KEYS keys a block over a full ring.
 DECODE_SPLIT_ALIGN = 64
+DECODE_MAX_SPLITS = 16
+DECODE_BLOCK_KEYS = 256
 
 
 def reset_launches() -> None:
@@ -411,11 +414,15 @@ def decode_admitted(pos: torch.Tensor, t: int) -> torch.Tensor:
   return torch.arange(t, device=pos.device)[None, :] <= pos.long()[:, None]
 
 
-def decode_splits(b: int, h: int, t: int, n_sm: int) -> int:
-  """The decode kernel's split count S: B*H*S blocks cover the SMs twice
-  where the ring allows, with at least DECODE_SPLIT_ALIGN keys a split."""
-  want = -(-2 * n_sm // (b * h))
-  return max(1, min(want, -(-t // DECODE_SPLIT_ALIGN)))
+def decode_plan(b: int, h: int, t: int, n_sm: int) -> int:
+  """The decode kernel's split count S, the cluster size of a row: enough
+  splits that a block walks at most DECODE_BLOCK_KEYS keys of a full ring,
+  or that the B*H*S blocks cover the SMs twice, whichever is more; at most
+  DECODE_MAX_SPLITS, and at least DECODE_SPLIT_ALIGN keys a split."""
+  by_keys = -(-t // DECODE_BLOCK_KEYS)
+  by_cover = -(-2 * n_sm // (b * h))
+  return max(1, min(max(by_keys, by_cover), DECODE_MAX_SPLITS,
+                    -(-t // DECODE_SPLIT_ALIGN)))
 
 
 def decode_split_bounds(n: torch.Tensor, splits: int, s: int):
@@ -443,12 +450,13 @@ def flash_decode_plain(q, k, v, pos, scale: Optional[float] = None):
   return torch.einsum("bhqk,bkhd->bqhd", p, vz).to(q.dtype)
 
 
-def flash_decode_partial_plain(q, k, v, pos, scale: Optional[float] = None,
-                               splits: int = 1):
+def decode_partials_plain(q, k, v, pos, scale: Optional[float] = None,
+                          splits: int = 1):
   """(m, l (B, H, S), o (B, H, S, D)) in the accumulation dtype: per split
   of the admitted keys (``decode_split_bounds``), the max score, the sum of
   exp(score - m) and the unnormalised output; an empty split gives -inf, 0
-  and 0."""
+  and 0. With ``decode_merge_plain`` the arithmetic of the kernel's
+  cluster: what each block holds in shared memory before rank 0 merges."""
   scale = default_scale(q) if scale is None else scale
   t = k.shape[1]
   n = torch.clamp(pos.long() + 1, 0, t)
@@ -469,9 +477,10 @@ def flash_decode_partial_plain(q, k, v, pos, scale: Optional[float] = None,
   return (torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(os_, -2))
 
 
-def flash_decode_combine_plain(m, l, o, dtype) -> torch.Tensor:
-  """o (B, 1, H, D) in ``dtype``: the S partials merged against their max,
-  divided by the merged sum (0 where no key was admitted)."""
+def decode_merge_plain(m, l, o, dtype) -> torch.Tensor:
+  """o (B, 1, H, D) in ``dtype``: the S partials merged in split order
+  against their max, divided once by the merged sum (0 where no key was
+  admitted) -- the kernel's rank 0."""
   w = torch.exp(m - _exp_base(m.amax(-1))[..., None])
   lsum = (l * w).sum(-1)
   acc = (o * w[..., None]).sum(-2)
@@ -479,7 +488,10 @@ def flash_decode_combine_plain(m, l, o, dtype) -> torch.Tensor:
   return (acc * inv[..., None])[:, None].to(dtype)
 
 
-def _check_decode(name: str, q, k, v, pos) -> None:
+def _check_decode(q, k, v, pos) -> None:
+  """What the kernel's loads rely on: bf16 on one card, D contiguous, heads
+  adjacent, 16-byte aligned rows; pos a contiguous int32 (B,)."""
+  name = "flash_decode"
   if q.device.type != "cuda":
     raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
                      f"got {q.device}")
@@ -499,79 +511,35 @@ def _check_decode(name: str, q, k, v, pos) -> None:
     if x.dtype != torch.bfloat16:
       raise ValueError(f"{name}: the CUDA kernel takes bf16 q, k, v, got "
                        f"{label} {x.dtype} (no f32 variant yet)")
-    # 16-byte loads: D contiguous, heads adjacent, strides and base aligned
-    # to 8 elements.
-    if x.stride(3) != 1 or x.stride(2) != d or x.stride(0) % 8 or \
-        (label != "q" and x.stride(1) % 8) or x.data_ptr() % 16:
+    st = x.stride()
+    if st[3] != 1 or st[2] != d or st[0] % 8 or \
+        (label != "q" and st[1] % 8) or x.data_ptr() % 16:
       raise ValueError(f"{name}: {label} needs D contiguous, heads adjacent "
-                       f"and 16-byte aligned rows, got strides {x.stride()}")
+                       f"and 16-byte aligned rows, got strides {st}")
   _check_rows(name, "pos", pos, (b,), torch.int32, q.device)
-
-
-def flash_decode_partial(q, k, v, pos, scale: Optional[float] = None):
-  """(m, l (B, H, S) f32, o (B, H, S, D) f32): the split partials of the
-  decode attention, S = ``decode_splits`` of the card (one split on the
-  CPU)."""
-  scale = default_scale(q) if scale is None else scale
-  if q.device.type == "cpu":
-    return flash_decode_partial_plain(q, k, v, pos, scale)
-  pos = pos.to(torch.int32).contiguous()
-  _check_decode("flash_decode_partial", q, k, v, pos)
-  b, _, h, d = q.shape
-  t = k.shape[1]
-  n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-  splits = decode_splits(b, h, t, n_sm)
-  lib = _build.load("flash_decode")
-  with torch.cuda.device(q.device):
-    m = torch.empty(b, h, splits, dtype=torch.float32, device=q.device)
-    l = torch.empty(b, h, splits, dtype=torch.float32, device=q.device)
-    o = torch.empty(b, h, splits, d, dtype=torch.float32, device=q.device)
-    err = lib.flash_decode_partial_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        m.data_ptr(), l.data_ptr(), o.data_ptr(), b, h, t, d, splits,
-        q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-  _raise_on_error("flash_decode_partial", err)
-  LAUNCHES["flash_decode_partial"] += 1
-  return m, l, o
-
-
-def flash_decode_combine(m, l, o, dtype=torch.bfloat16) -> torch.Tensor:
-  """o (B, 1, H, D) in ``dtype`` from ``flash_decode_partial``'s partials."""
-  if m.device.type == "cpu":
-    return flash_decode_combine_plain(m, l, o, dtype)
-  name = "flash_decode_combine"
-  if m.device.type != "cuda":
-    raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
-                     f"got {m.device}")
-  if dtype != torch.bfloat16:
-    raise ValueError(f"{name}: the CUDA kernel writes bf16, got {dtype}")
-  b, h, splits = m.shape
-  d = o.shape[-1]
-  if d not in KERNEL_HEAD_DIMS:
-    raise ValueError(f"{name}: the kernel takes head dim in "
-                     f"{KERNEL_HEAD_DIMS}, got {d}")
-  _check_rows(name, "m", m, (b, h, splits), torch.float32, m.device)
-  _check_rows(name, "l", l, (b, h, splits), torch.float32, m.device)
-  _check_rows(name, "o", o, (b, h, splits, d), torch.float32, m.device)
-  lib = _build.load("flash_decode")
-  with torch.cuda.device(m.device):
-    out = torch.empty(b, 1, h, d, dtype=dtype, device=m.device)
-    err = lib.flash_decode_combine_bf16(
-        m.data_ptr(), l.data_ptr(), o.data_ptr(), out.data_ptr(), b, h, d,
-        splits, torch.cuda.current_stream(m.device).cuda_stream)
-  _raise_on_error(name, err)
-  LAUNCHES[name] += 1
-  return out
 
 
 def flash_decode(q, k, v, pos, scale: Optional[float] = None) -> torch.Tensor:
   """Decode attention o (B, 1, H, D) of q (B, 1, H, D) over the ring
   k, v (B, T, H, D): key slot s takes part iff s <= pos[b]. On a CUDA tensor
-  the two kernels (split partials, then their merge); on a CPU tensor
-  ``flash_decode_plain``."""
+  one launch of the kernel (``decode_plan`` splits a row's keys over a
+  cluster of blocks); on a CPU tensor ``flash_decode_plain``."""
   scale = default_scale(q) if scale is None else scale
   if q.device.type == "cpu":
     return flash_decode_plain(q, k, v, pos, scale)
-  m, l, o = flash_decode_partial(q, k, v, pos, scale)
-  return flash_decode_combine(m, l, o, q.dtype)
+  pos = pos.to(torch.int32)
+  _check_decode(q, k, v, pos)
+  b, _, h, d = q.shape
+  t = k.shape[1]
+  splits = decode_plan(b, h, t, _sm_count(q.device.index))
+  lib = _build.load("flash_decode")
+  with torch.cuda.device(q.device):
+    o = torch.empty(b, 1, h, d, dtype=q.dtype, device=q.device)
+    err = lib.flash_decode_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        o.data_ptr(), b, h, t, d, splits, q.stride(0), k.stride(0),
+        k.stride(1), v.stride(0), v.stride(1), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+  _raise_on_error("flash_decode", err)
+  LAUNCHES["flash_decode"] += 1
+  return o

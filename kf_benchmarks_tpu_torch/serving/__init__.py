@@ -7,7 +7,7 @@ single-device path:
   (mixed-length prompts in one pass, riding data/packing.py), the
   single-token decode step (models/transformer_lm.py ``decode``; attention =
   parallel/sequence.py ``decode_attention``, the hand-written decode
-  kernels of csrc/flash_decode.cu under ``attn_impl='flash'``), greedy
+  kernel of csrc/flash_decode.cu under ``attn_impl='flash'``), greedy
   sampling, caches updated in place.
 * ``engine.py`` -- the host-side request engine: a bounded bucket-ladder
   set of prepared programs, continuous in-flight batching vs static

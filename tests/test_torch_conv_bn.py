@@ -256,7 +256,7 @@ def test_wrappers_reject_other_devices():
 @pytest.mark.parametrize("x_shape,w_shape,c_align,kmajor,error", [
     ((2, 7, 7, 64), (3, 3, 64, 128), 64, False, None),
     ((2, 7, 7, 64), (128, 3, 3, 64), 64, True, None),
-    ((2, 7, 7, 32), (3, 3, 32, 64), 32, False, None),
+    ((2, 7, 7, 64), (64, 3, 3, 64), 64, True, None),
     ((2, 7, 7, 32), (3, 3, 32, 64), 64, False, "C % 64 == 0"),
     ((2, 7, 7, 32), (64, 3, 3, 32), 64, True, "C % 64 == 0"),
     ((2, 7, 7, 64), (3, 3, 64, 96), 64, False, "CO % 64 == 0"),
@@ -268,8 +268,9 @@ def test_wrappers_reject_other_devices():
 ], ids=["ka", "ka_kmajor", "kb", "ka_c32", "ka_kmajor_c32", "co96",
         "c1024", "c_mismatch", "hwio_as_kmajor", "rank3", "too_large"])
 def test_kernel_shape_acceptance(x_shape, w_shape, c_align, kmajor, error):
-  """The shapes the wrappers refuse before a launch: K-A's wgmma stage
-  reads 64 input channels (one tap), K-B's 32."""
+  """The shapes the wrappers refuse before a launch: a wgmma stage of K-A
+  and of K-B reads 64 input channels (one tap); K-B takes its weights
+  K-major as K-A does."""
   got = conv_bn.kernel_shape_error("k", x_shape, w_shape, c_align, kmajor)
   if error is None:
     assert got is None
@@ -299,6 +300,68 @@ def test_conv_tile_choice(shape, sms, want):
   assert t.wb * t.hb * t.nb <= t.bm and max(t.wb, t.hb, t.nb) <= 256
   tiles = (-(-w // t.wb) * -(-h // t.hb) * -(-n // t.nb)) * (co // t.bn)
   assert t.grid == min(tiles, sms)
+
+
+@pytest.mark.parametrize("shape", [
+    (256, 56, 56, 64), (256, 28, 28, 128), (256, 14, 14, 256),
+    (256, 7, 7, 512), (8, 7, 7, 512), (3, 7, 7, 64), (2, 5, 300, 64),
+    (32, 28, 28, 128), (1, 1, 1, 192), (64, 56, 56, 320)],
+    ids=["stage2", "stage3", "stage4", "stage5", "stage5_b8", "tiny", "wide",
+         "grad_batch", "one_pixel", "co320"])
+def test_kb_tile_is_one_kb_instantiates(shape):
+  """K-B's tile always has a BN its statistics epilogue holds (64 or 128:
+  no BN 256, whose column sums would not fit the registers beside the
+  accumulators), divides CO, fits its box, and covers the batch on a grid
+  of at most one block an SM."""
+  n, h, w, co = shape
+  for sms in (132, 7):
+    t = conv_bn.kb_tile(n, h, w, co, sms)
+    assert (t.bm, t.bn) in conv_bn.KB_TILES and t.bn in (64, 128)
+    assert co % t.bn == 0
+    assert t.wb * t.hb * t.nb <= t.bm and max(t.wb, t.hb, t.nb) <= 256
+    tiles = (-(-w // t.wb) * -(-h // t.hb) * -(-n // t.nb)) * (co // t.bn)
+    assert t.grid == min(tiles, sms)
+  assert all(bn in (64, 128) for _, bn in conv_bn.KB_TILES)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((256, 56, 56, 64), (256, 64, 56, 4, 1, 132)),
+    ((256, 28, 28, 128), (256, 128, 28, 4, 2, 132)),
+    ((256, 14, 14, 256), (256, 128, 14, 14, 1, 132)),
+    ((256, 7, 7, 512), (256, 128, 7, 7, 5, 132)),
+    ((8, 7, 7, 512), (128, 64, 7, 1, 8, 56)),
+], ids=["stage2", "stage3", "stage4", "stage5", "stage5_b8"])
+def test_kb_tile_choice(shape, want):
+  """K-B's picks at the ResNet-50 stage shapes: the fastest of its tiles
+  in chip_smoke.py's kb_tiles sweep on an H100 at each (larger than K-A's
+  at stage 4, where the prologue's fixed cost a stage favours fewer
+  stages)."""
+  n, h, w, co = shape
+  assert tuple(conv_bn.kb_tile(n, h, w, co, 132)) == want
+
+
+@pytest.mark.parametrize("shape", [(256, 28, 28, 128), (256, 56, 56, 64),
+                                   (8, 7, 7, 512), (3, 7, 7, 64)],
+                         ids=["stage3", "stage2", "stage5_b8", "tiny"])
+def test_kb_partials_are_sized_from_the_grid(shape):
+  """One [2, CO] statistics partial a persistent block of K-B, so the
+  fixed-order second pass adds exactly grid of them."""
+  n, h, w, co = shape
+  t = conv_bn.kb_tile(n, h, w, co, 132)
+  assert conv_bn.kb_partials_shape(t, co) == (t.grid, 2, co)
+  assert 1 <= t.grid <= 132
+
+
+def test_kb_kmajor_entry_matches_hwio_entry():
+  """bn_relu_conv3x3_stats_kmajor on K-major weights is
+  bn_relu_conv3x3_stats on HWIO (the plain versions on the CPU)."""
+  x, w, st_in = _unit_inputs(5)
+  sc, sh = _port_scale_shift(st_in)
+  xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+  y_k, st_k = conv_bn.bn_relu_conv3x3_stats_kmajor(xt, sc, sh,
+                                                   conv_bn.kmajor(wt))
+  y, st = conv_bn.bn_relu_conv3x3_stats(xt, sc, sh, wt)
+  assert torch.equal(y_k, y) and torch.equal(st_k, st)
 
 
 def test_conv_tile_needs_a_dividing_tile():
@@ -335,8 +398,12 @@ def test_kernels_match_plain_on_card():
   before = dict(conv_bn.LAUNCHES)
   y = conv_bn.conv3x3_same(x, w)
   yb, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w)
+  yb2, st2 = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w)
   torch.cuda.synchronize()
   assert conv_bn.LAUNCHES["conv3x3_same"] == before["conv3x3_same"] + 1
+  assert conv_bn.LAUNCHES["bn_relu_conv3x3_stats"] == \
+      before["bn_relu_conv3x3_stats"] + 2
+  assert torch.equal(yb, yb2) and torch.equal(st, st2)
   ref = conv_bn.conv3x3_same_plain(x, w).float()
   refb, st_ref = conv_bn.bn_relu_conv3x3_stats_plain(x, sc, sh, w)
   for out, r in ((y.float(), ref), (yb.float(), refb.float())):
@@ -358,3 +425,19 @@ def test_kernels_match_plain_on_card():
       assert out.shape == (n, h, wd, co)
       assert bool(((out.float() - r).abs() <=
                    2 ** -7 * r.abs() + 1e-3 * r.abs().max()).all())
+  # K-B at the same ragged and wide shapes, with sh > 0 so that a padding
+  # row left at relu(sh) would show.
+  for (n, h, wd), c, co in (((3, 7, 7), 64, 64), ((3, 7, 7), 128, 128),
+                            ((1, 3, 150), 64, 128)):
+    x = torch.randn(n, h, wd, c, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(3, 3, c, co, generator=g, device="cuda") * 0.05
+         ).bfloat16()
+    sc = torch.rand(c, generator=g, device="cuda") + 0.5
+    sh = torch.rand(c, generator=g, device="cuda") + 0.5
+    out, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w)
+    r, st_ref = conv_bn.bn_relu_conv3x3_stats_plain(x, sc, sh, w)
+    torch.cuda.synchronize()
+    assert bool(((out.float() - r.float()).abs() <=
+                 2 ** -7 * r.float().abs() + 1e-3 * r.float().abs().max()
+                 ).all())
+    torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-2)

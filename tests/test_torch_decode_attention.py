@@ -7,9 +7,10 @@ fallback there), ``tiled`` (the ``_block_update`` online softmax) and
 ``pos`` at 0, mid-ring, T - 1 and past T (a wrapped ring). Tolerance: f32
 sums in other orders, rtol 1e-5 and atol 1e-6. Then the masking contract
 torch against torch: stale contents past ``pos`` (NaN, +-1e9) leave the
-output bit-identical. Then the decode kernels' split arithmetic (their
-plain versions) and the wrappers' device rules; the kernels themselves run
-on the card (the ``cuda``-marked test, and chip_smoke.py phase decode).
+output bit-identical. Then the decode kernel's split plan and the plain
+model of its cluster merge, and the wrapper's device rules; the kernel
+itself runs on the card (the ``cuda``-marked test, and chip_smoke.py phase
+decode).
 """
 
 import jax.numpy as jnp
@@ -100,16 +101,16 @@ def test_flash_decode_on_cpu_is_its_plain_version():
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 7])
 def test_split_partials_merge_to_the_plain_version(splits):
-  """The two kernels' arithmetic (their plain versions): per-split partials
-  merged in a fixed order give the masked softmax, in f64 to rounding; a
-  split with no admitted key contributes exactly nothing."""
+  """The kernel's arithmetic (its plain model): per-split partials merged
+  in a fixed order give the masked softmax, in f64 to rounding; a split
+  with no admitted key contributes exactly nothing."""
   q, k, v = (torch.from_numpy(x) for x in _inputs(4, t=300,
                                                   dtype=np.float64))
   pos = torch.tensor([0, 70, 299, 450], dtype=torch.int32)
-  m, l, o = fa.flash_decode_partial_plain(q, k, v, pos, 0.25, splits)
+  m, l, o = fa.decode_partials_plain(q, k, v, pos, 0.25, splits)
   assert m.shape == l.shape == (B, H, splits) and o.shape == (B, H, splits,
                                                               D)
-  got = fa.flash_decode_combine(m, l, o, torch.float64)
+  got = fa.decode_merge_plain(m, l, o, torch.float64)
   ref = fa.flash_decode_plain(q, k, v, pos, 0.25)
   torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
   empty = m == float("-inf")
@@ -131,10 +132,10 @@ def test_split_bounds_cover_the_admitted_keys():
         assert a1 == b0
       sizes = [k1 - k0 for k0, k1 in bounds if k1 > k0]
       assert all(s % fa.DECODE_SPLIT_ALIGN == 0 for s in sizes[:-1])
-  assert fa.decode_splits(1, 8, 2048, 132) == 32    # B*H*S >= 2 x 132
-  assert fa.decode_splits(16, 8, 2048, 132) == 3
-  assert fa.decode_splits(256, 8, 2048, 132) == 1
-  assert fa.decode_splits(1, 8, 100, 132) == 2      # >= 64 keys a split
+  assert fa.decode_plan(1, 8, 2048, 132) == 16     # the largest cluster
+  assert fa.decode_plan(16, 8, 2048, 132) == 8     # <= 256 keys a block
+  assert fa.decode_plan(256, 8, 2048, 132) == 8
+  assert fa.decode_plan(1, 8, 100, 132) == 2       # >= 64 keys a split
 
 
 def test_paged_decode_raises():
@@ -152,17 +153,67 @@ def test_decode_wrappers_reject_other_devices():
   pos = torch.zeros(2, device="meta", dtype=torch.int32)
   with pytest.raises(ValueError, match="CPU or a CUDA device"):
     fa.flash_decode(q, kv, kv, pos)
-  m = torch.zeros(2, 2, 3, device="meta")
   with pytest.raises(ValueError, match="CPU or a CUDA device"):
-    fa.flash_decode_combine(m, m, torch.zeros(2, 2, 3, 64, device="meta"))
+    fa.flash_decode(q, kv, kv, pos.long(), 0.5)
+
+
+def test_launch_counts_name_the_one_decode_kernel():
+  """One decode kernel, one count: the split partials and their merge no
+  longer launch apart."""
+  assert "flash_decode" in fa.LAUNCHES
+  assert not {"flash_decode_partial", "flash_decode_combine"} & \
+      set(fa.LAUNCHES)
+
+
+@pytest.mark.parametrize("b", [1, 16, 64, 256])
+def test_decode_plan_covers_each_admitted_key_once(b):
+  """At the serving ring (T 2048, H 8) on 132 SMs, for pos 0, T - 1 and
+  past T: the plan's splits tile each row's admitted keys [0, n) exactly
+  once, in order, never reach a slot past pos, walk at most
+  DECODE_BLOCK_KEYS keys a block, and fit one cluster."""
+  t, h = 2048, 8
+  splits = fa.decode_plan(b, h, t, 132)
+  assert 1 <= splits <= fa.DECODE_MAX_SPLITS
+  for p in (0, t - 1, t, 3 * t + 7):
+    n = torch.full((b,), min(p + 1, t), dtype=torch.long)
+    seen = torch.zeros(b, t, dtype=torch.int64)
+    kpos = torch.arange(t)
+    for s in range(splits):
+      k0, k1 = fa.decode_split_bounds(n, splits, s)
+      assert bool((k1 - k0 <= fa.DECODE_BLOCK_KEYS).all())
+      seen += ((kpos[None] >= k0[:, None]) & (kpos[None] < k1[:, None])).long()
+    admitted = fa.decode_admitted(torch.full((b,), p, dtype=torch.int32), t)
+    assert torch.equal(seen, admitted.long())
+
+
+@pytest.mark.parametrize("b", [1, 16, 64, 256])
+def test_plain_merge_at_the_plan_matches_the_plain_version(b):
+  """The kernel's fixed-order merge (its plain model) at the plan's split
+  count against flash_decode_plain on bf16 inputs at the serving ring's
+  widths (fewer slots): within one bf16 ulp + 1e-3 of max |ref|, the
+  tolerance chip_smoke.py holds the kernel to."""
+  t, h, d = 512, 8, 64
+  q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+             for x in _inputs(6 + b, b=b, t=t, h=h, d=d))
+  rng = np.random.default_rng(b)
+  pos = torch.from_numpy(rng.integers(0, 2 * t, b).astype(np.int32))
+  pos[-1] = t - 1
+  pos[0] = 0
+  splits = fa.decode_plan(b, h, t, 132)
+  got = fa.decode_merge_plain(
+      *fa.decode_partials_plain(q, k, v, pos, None, splits), torch.bfloat16)
+  ref = fa.flash_decode_plain(q, k, v, pos).float()
+  tol = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
+  assert bool(((got.float() - ref).abs() <= tol).all())
 
 
 @pytest.mark.cuda
 def test_decode_kernels_match_plain_on_card():
-  """Both decode kernels against their plain versions on the card, through
-  a strided layer view of a (L, B, T, H, D) cache as the LM passes it, with
-  NaN past pos invisible (chip_smoke.py phase decode runs the same checks
-  at the serving LM's shapes)."""
+  """The decode kernel against its plain version on the card, through a
+  strided layer view of a (L, B, T, H, D) cache as the LM passes it: one
+  launch, two launches bitwise equal, NaN past pos invisible
+  (chip_smoke.py phase decode runs the same checks at the serving LM's
+  shapes)."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device: the kernels have no CPU mode")
   g = torch.Generator(device="cuda").manual_seed(0)
@@ -175,8 +226,8 @@ def test_decode_kernels_match_plain_on_card():
   o = fa.flash_decode(q, k, v, pos)
   assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
       "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
-      "flash_attention_bwd_dq": 0, "flash_decode_partial": 1,
-      "flash_decode_combine": 1}
+      "flash_attention_bwd_dq": 0, "flash_decode": 1}
+  assert torch.equal(fa.flash_decode(q, k, v, pos), o)
   ref = fa.flash_decode_plain(q, k, v, pos)
   tol = 2 ** -7 * ref.float().abs() + 1e-3 * ref.float().abs().max()
   assert bool(((o.float() - ref.float()).abs() <= tol).all())

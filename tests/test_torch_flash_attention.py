@@ -350,8 +350,7 @@ def test_kernels_match_plain_on_card():
   torch.cuda.synchronize()
   assert {k_: fa.LAUNCHES[k_] - before[k_] for k_ in before} == {
       "flash_attention_fwd": 1, "flash_attention_bwd_dkv": 1,
-      "flash_attention_bwd_dq": 1, "flash_decode_partial": 0,
-      "flash_decode_combine": 0}
+      "flash_attention_bwd_dq": 1, "flash_decode": 0}
   tol = 2 ** -7 * o_ref.float().abs() + 1e-3 * o_ref.float().abs().max()
   assert bool(((o.float() - o_ref.float()).abs() <= tol).all())
   torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)

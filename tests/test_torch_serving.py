@@ -673,4 +673,4 @@ def test_flash_in_f32_on_the_card_is_refused(monkeypatch):
 
 
 def test_launch_counts_name_the_decode_kernels():
-  assert {"flash_decode_partial", "flash_decode_combine"} <= set(fa.LAUNCHES)
+  assert "flash_decode" in fa.LAUNCHES
