@@ -21,7 +21,7 @@ the run with a non-zero exit and no result line:
   3. unit    -- K-B bn_relu_conv3x3_stats against its plain version at the
                 same shapes (half the channels with relu(sh) > 0, so a
                 padding row left non-zero fails), two launches bitwise
-                equal, timed on K-major weights and as the unit calls it;
+                equal, timed through the entry the fused unit calls;
                 then the FusedBnReluConv3x3 gradients against autograd
                 through the plain forward at batch 32;
   4. train   -- the port's BenchmarkCNN: ResNet-50 v1.5, batch 256, bf16,
@@ -401,12 +401,11 @@ def phase_conv_tiles(res):
       conv_bn.KB_TILES = ((bm, bn),)
       conv_bn.kb_tile.cache_clear()
       t = conv_bn.kb_tile(n, h, w, c, 132)
-      y, _ = conv_bn.bn_relu_conv3x3_stats_kmajor(x, sc, sh, w_k)
+      y, _ = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k)
       torch.cuda.synchronize()
       err, ok = bf16_close(y, y_ref)
       check(ok, f"kb_tiles {stage} {bm}x{bn}: max abs err {err}")
-      ms = time_ms(lambda: conv_bn.bn_relu_conv3x3_stats_kmajor(x, sc, sh,
-                                                                w_k))
+      ms = time_ms(lambda: conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k))
       parts.append(f"{bm}x{bn} box {t.wb}x{t.hb}x{t.nb} {ms:.4f} ms")
     conv_bn.KB_TILES = kb_all
     conv_bn.kb_tile.cache_clear()
@@ -427,16 +426,16 @@ def phase_unit(res):
   """K-B against its plain version at every STAGES shape (sh ~ N(0, 0.5):
   about half the channels have relu(sh) > 0, so a padding row left at
   relu(sh) instead of 0 fails the y check), two launches bitwise equal;
-  timed on K-major weights (the kernel alone) and on HWIO weights as the
-  fused unit calls it (with the permute), beside the library composition.
+  timed through the one entry the fused unit calls, on the K-major weights
+  the ResNet builds in its bf16 cast, beside the library composition.
   Then the Function's gradients at batch 32."""
   from kf_benchmarks_tpu_torch.ops import conv_bn
   shapes = []
   for i, (stage, n, h, w, c) in enumerate(STAGES):
     x, wt, sc, sh = inputs(n, h, w, c, c, seed=20 + i)
     w_k = conv_bn.kmajor(wt)
-    y, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, wt)
-    y2, st2 = conv_bn.bn_relu_conv3x3_stats_kmajor(x, sc, sh, w_k)
+    y, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k)
+    y2, st2 = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k)
     y_ref, st_ref = conv_bn.bn_relu_conv3x3_stats_plain(x, sc, sh, wt)
     torch.cuda.synchronize()
     check(torch.equal(y, y2) and torch.equal(st, st2),
@@ -453,23 +452,20 @@ def phase_unit(res):
     x_nchw = x.permute(0, 3, 1, 2)
     w_oihw = wt.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
-    ms = time_ms(lambda: conv_bn.bn_relu_conv3x3_stats_kmajor(x, sc, sh, w_k))
-    hwio_ms = time_ms(lambda: conv_bn.bn_relu_conv3x3_stats(x, sc, sh, wt))
+    ms = time_ms(lambda: conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k))
     plain_ms = time_ms(
         lambda: conv_bn.bn_relu_conv3x3_stats_plain(x, sc, sh, wt), iters=5)
     lib_ms = time_ms(lambda: _bn_relu_stats_library(x_nchw, w_oihw, sc, sh))
     b_ms, b_by = conv_cost(n, h, w, c, c, extra_bytes=4.0 * (2 * c + 2 * c))
     shapes.append(dict(stage=stage, shape=[n, h, w, c, c], max_abs_err=err,
-                       stats_rel_err=st_err, ms=ms, hwio_ms=hwio_ms,
-                       plain_ms=plain_ms,
+                       stats_rel_err=st_err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                        library="F.conv2d (cuDNN) + torch BN-apply, ReLU "
                        "and statistics (no single call computes the unit)"))
     log(f"unit: {stage} x[{n},{h},{w},{c}]: y max abs err {err:.3g}, stats "
         f"rel err {st_err:.2g} (tol 1e-3), two launches bitwise equal; "
         f"tile {tuple(conv_bn.kb_tile(n, h, w, c, 132))}; kernel {ms:.3f} "
-        f"ms (HWIO weights with the permute {hwio_ms:.3f}), plain "
-        f"{plain_ms:.3f} ms, cuDNN conv + torch BN/ReLU/stats {lib_ms:.3f} "
+        f"ms, plain {plain_ms:.3f} ms, cuDNN conv + torch BN/ReLU/stats {lib_ms:.3f} "
         f"ms, bound {b_ms:.3f} ms ({b_by})")
     del x, wt, w_k, y, y2, y_ref
   res["bn_relu_conv3x3_stats"] = shapes
@@ -491,7 +487,8 @@ def phase_unit(res):
       loss = (y.float() * gy.float()).sum() + (st * gs).sum()
       return torch.autograd.grad(loss, leaves)
 
-    got = grads(conv_bn.fused_bn_relu_conv3x3)
+    got = grads(lambda x, sc, sh, w: conv_bn.fused_bn_relu_conv3x3(
+        x, sc, sh, conv_bn.kmajor(w)))
     ref = grads(conv_bn.bn_relu_conv3x3_stats_plain)
     for label, a, b in zip(("x", "sc", "sh", "w"), got, ref):
       e = float((a.float() - b.float()).abs().max())
@@ -591,9 +588,11 @@ def phase_parity(res):
   # record). tests/test_torch_bf16_parity.py holds the port's bf16 path to
   # the JAX package's on the CPU at the (1, 2, 1, 1) net: there each
   # framework's cosines against its own f32 run agree within 0.1 for every
-  # parameter, so the loss is bf16's, not the port's; the JAX package's
-  # cosines at this full size are not measured. The classifier's gradient
-  # is held: norm within 5e-2 and cosine >= 0.98 against both references.
+  # parameter, and a whole-model gradient scale fault fails it, though a
+  # fault local to the early layers hides in bf16 noise at that size; the
+  # JAX package's cosines at this full size are not measured. The
+  # classifier's gradient is held: norm within 5e-2 and cosine >= 0.98
+  # against both references.
   for key in ("conv_stem.weight", "blocks.1.b.weight", "blocks.7.b.weight",
               "blocks.13.b_bn.scale", "blocks.15.c.weight", "affine0.weight",
               "affine0.bias"):

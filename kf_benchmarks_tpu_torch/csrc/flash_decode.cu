@@ -54,6 +54,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace cg = cooperative_groups;
 
 namespace kfdecode {
@@ -64,6 +66,7 @@ constexpr int THREADS = 128;
 constexpr int TILE = 64;          // keys a block takes per pass of its loop
 constexpr int SPLIT_ALIGN = 64;   // a split's keys are a multiple of this
 constexpr int MAX_SPLITS = 16;    // the largest (non-portable) cluster
+constexpr int MAX_DEVICES = 64;   // devices whose cluster opt-in is cached
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -247,9 +250,19 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
            cudaStream_t stream) {
   auto kernel = flash_decode_kernel<D>;
   // Clusters of more than 8 blocks are an opt-in of the H100 (up to 16).
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  // The attribute is the current device's, so it is set once for each
+  // device this instantiation launches on (every launch past MAX_DEVICES).
+  int device = 0;
+  cudaError_t opt_in = cudaGetDevice(&device);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  const bool cached = device < MAX_DEVICES;
+  if (!cached || !opted_in[device].load(std::memory_order_acquire)) {
+    opt_in = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+    if (cached) opted_in[device].store(true, std::memory_order_release);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(S) * B * H);
   cfg.blockDim = dim3(THREADS);

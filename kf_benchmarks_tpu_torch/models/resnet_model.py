@@ -61,8 +61,9 @@ class Bottleneck(nn.Module):
     if self.fused:
       # relu(a_bn(a)) -> conv_b -> b_bn's statistics, in one unit.
       sc, sh = self.a_bn.scale_shift(a)
-      w = self.b.weight.to(a.dtype).permute(2, 3, 1, 0).contiguous()
-      y, sums = conv_bn.fused_bn_relu_conv3x3(builder.nhwc(a), sc, sh, w)
+      # OIHW [CO,C,3,3] -> the K-major [CO,3,3,C] the unit reads.
+      w_k = self.b.weight.to(a.dtype).permute(0, 2, 3, 1).contiguous()
+      y, sums = conv_bn.fused_bn_relu_conv3x3(builder.nhwc(a), sc, sh, w_k)
       b = torch.relu(self.b_bn(builder.nchw(y), sums=sums))
     else:
       b = torch.relu(self.b_bn(self.b(torch.relu(self.a_bn(a)))))

@@ -11,10 +11,12 @@ The counterpart of the three Pallas probes in ``experiments/``:
   same kernel with a BN-apply/ReLU prologue in registers and a statistics
   epilogue) replaces ``pallas_unit`` of
   experiments/pallas_fused_chain_probe.py:128 and
-  experiments/pallas_stage2_probe.py:111.
+  experiments/pallas_stage2_probe.py:111. It takes the K-major weights
+  alone: its one caller, the ResNet's conv_b, builds them from its OIHW
+  parameter in the bf16 cast it makes anyway.
 
-Each wrapper takes NHWC activations and HWIO weights, the JAX package's
-layouts. On a CPU tensor it computes its plain PyTorch version (below it);
+Each wrapper takes NHWC activations, the JAX package's layout. On a CPU
+tensor it computes its plain PyTorch version (below it);
 on a CUDA tensor it launches its hand-written kernel or raises. There is no
 fallback from one to the other. ``LAUNCHES`` counts kernel launches per
 wrapper, so a run can show that its path went through the kernels.
@@ -191,11 +193,6 @@ def kb_tile(n: int, h: int, w: int, co: int, sms: int) -> ConvTile:
                     KB_STAGE, KB_PROLOGUE)
 
 
-def kb_partials_shape(tile: ConvTile, co: int) -> Tuple[int, int, int]:
-  """K-B's statistics partials: one [2, CO] sum a persistent block."""
-  return (tile.grid, 2, co)
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
   return torch.cuda.get_device_properties(index).multi_processor_count
@@ -227,7 +224,8 @@ def _raise_on_error(name: str, err: int) -> None:
 
 
 def kmajor(w: torch.Tensor) -> torch.Tensor:
-  """HWIO [3,3,C,CO] weights as the K-major [CO,3,3,C] array K-A reads."""
+  """HWIO [3,3,C,CO] weights as the K-major [CO,3,3,C] array K-A and K-B
+  read."""
   return w.permute(3, 0, 1, 2).contiguous()
 
 
@@ -263,10 +261,14 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   return conv3x3_same_kmajor(x, kmajor(w))
 
 
-def bn_relu_conv3x3_stats_kmajor(x: torch.Tensor, sc: torch.Tensor,
-                                 sh: torch.Tensor, w_k: torch.Tensor
-                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """K-B on K-major weights w_k[o,dy,dx,c] = w[dy,dx,c,o]."""
+def bn_relu_conv3x3_stats(x: torch.Tensor, sc: torch.Tensor,
+                          sh: torch.Tensor, w_k: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K-B: (y, [sum y, sum y^2]) for y = conv3x3_SAME(relu(x*sc + sh), w),
+  on K-major weights w_k[o,dy,dx,c] = w[dy,dx,c,o].
+
+  x [N,H,W,C] and w_k [CO,3,3,C] bf16 on the card; sc, sh [C] f32.
+  """
   if x.device.type == "cpu":
     return bn_relu_conv3x3_stats_plain(x, sc, sh, w_k.permute(1, 2, 3, 0))
   name = "bn_relu_conv3x3_stats"
@@ -285,7 +287,8 @@ def bn_relu_conv3x3_stats_kmajor(x: torch.Tensor, sc: torch.Tensor,
   tile = kb_tile(n, h, wd, co, _sm_count(x.device.index))
   with torch.cuda.device(x.device):
     y = torch.empty(n, h, wd, co, dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty(kb_partials_shape(tile, co), dtype=torch.float32,
+    # One [2, CO] statistics partial a persistent block.
+    partial = torch.empty(tile.grid, 2, co, dtype=torch.float32,
                           device=x.device)
     stats = torch.empty(2, co, dtype=torch.float32, device=x.device)
     err = lib.bn_relu_conv3x3_stats_bf16(
@@ -297,43 +300,29 @@ def bn_relu_conv3x3_stats_kmajor(x: torch.Tensor, sc: torch.Tensor,
   return y, stats
 
 
-def bn_relu_conv3x3_stats(x: torch.Tensor, sc: torch.Tensor,
-                          sh: torch.Tensor, w: torch.Tensor
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """K-B: (y, [sum y, sum y^2]) for y = conv3x3_SAME(relu(x*sc + sh), w).
-
-  x [N,H,W,C] and w [3,3,C,CO] bf16 on the card; sc, sh [C] f32.
-  """
-  if x.device.type == "cpu":
-    return bn_relu_conv3x3_stats_plain(x, sc, sh, w)
-  if w.dim() != 4:
-    raise ValueError(f"bn_relu_conv3x3_stats: want w [3,3,C,CO], got "
-                     f"{tuple(w.shape)}")
-  return bn_relu_conv3x3_stats_kmajor(x, sc, sh, kmajor(w))
-
-
 # -- autograd unit -------------------------------------------------------------
 
 class FusedBnReluConv3x3(torch.autograd.Function):
-  """(x_raw, sc, sh, w) -> (y_raw, stats) with
+  """(x_raw, sc, sh, w_k) -> (y_raw, stats) with
   y_raw = conv3x3_SAME(relu(x_raw*sc + sh), w), stats = [sum y, sum y^2].
 
   x_raw is the producer conv's raw output, sc/sh the producer's batch norm
   folded to a per-channel scale and shift (f32, built by autograd-tracked
-  ops so gamma, beta and the producer's statistics receive gradients), w
-  HWIO. The same Function runs on both devices: its inner calls take the
+  ops so gamma, beta and the producer's statistics receive gradients), w_k
+  the weights K-major, w_k[o,dy,dx,c] = w[dy,dx,c,o]; its gradient comes
+  back in that layout. The same Function runs on both devices: its inner calls take the
   kernels on the card and the plain versions on the CPU.
   """
 
   @staticmethod
-  def forward(ctx, x, sc, sh, w):
-    y, stats = bn_relu_conv3x3_stats(x, sc, sh, w)
-    ctx.save_for_backward(x, sc, sh, w, y)
+  def forward(ctx, x, sc, sh, w_k):
+    y, stats = bn_relu_conv3x3_stats(x, sc, sh, w_k)
+    ctx.save_for_backward(x, sc, sh, w_k, y)
     return y, stats
 
   @staticmethod
   def backward(ctx, gy, gstats):
-    x, sc, sh, w, y = ctx.saved_tensors
+    x, sc, sh, w_k, y = ctx.saved_tensors
     # d/dy of (y, sum y, sum y^2): one cotangent for the conv output.
     g = accum(torch.zeros_like(y) if gy is None else gy)
     if gstats is not None:
@@ -342,8 +331,8 @@ class FusedBnReluConv3x3(torch.autograd.Function):
     # Input gradient of the SAME conv: the same conv of g with the taps
     # flipped in space and in/out channels swapped, w'[dy,dx,o,c] =
     # w[2-dy,2-dx,c,o], made at once in the K-major layout K-A reads:
-    # w'_k[c,dy,dx,o] = w'[dy,dx,o,c].
-    w_tk = w.flip(0, 1).permute(2, 0, 1, 3).contiguous()
+    # w'_k[c,dy,dx,o] = w'[dy,dx,o,c] = w_k[o,2-dy,2-dx,c].
+    w_tk = w_k.flip(1, 2).permute(3, 1, 2, 0).contiguous()
     gxn = accum(conv3x3_same_kmajor(g, w_tk))
     a = accum(x) * sc + sh
     gxn = gxn * (a > 0)
@@ -352,11 +341,11 @@ class FusedBnReluConv3x3(torch.autograd.Function):
     gsh = gxn.sum((0, 1, 2))
     xn = torch.relu(a).to(x.dtype)
     gw = torch.nn.grad.conv2d_weight(
-        xn.permute(0, 3, 1, 2), (w.shape[3], w.shape[2], 3, 3),
+        xn.permute(0, 3, 1, 2), (w_k.shape[0], w_k.shape[3], 3, 3),
         g.permute(0, 3, 1, 2), padding=1)
-    gw = gw.permute(2, 3, 1, 0).to(w.dtype)
+    gw = gw.permute(0, 2, 3, 1).to(w_k.dtype)
     return gx, gsc, gsh, gw
 
 
-def fused_bn_relu_conv3x3(x, sc, sh, w):
-  return FusedBnReluConv3x3.apply(x, sc, sh, w)
+def fused_bn_relu_conv3x3(x, sc, sh, w_k):
+  return FusedBnReluConv3x3.apply(x, sc, sh, w_k)

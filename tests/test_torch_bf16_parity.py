@@ -16,19 +16,33 @@ flax init and one numpy batch:
 bf16 keeps 8 bits of mantissa, and the two frameworks round at other
 places (the port folds batch norm into x*sc + sh before its fused units,
 XLA fuses casts), so the two bf16 runs are not expected to agree to f32
-precision. Each comparison is therefore calibrated by what bf16 does to
-each framework on its own:
+precision. Every limit is set by what bf16 does to the JAX package alone
+(its bf16 run against its own f32 run), times a constant that stands
+above what this size shows, so no limit widens with a port fault:
 
 * loss within 2e-2 relative (the card-vs-CPU gate of chip_smoke.py);
-  logits within twice the larger of the two frameworks' own bf16-vs-f32
-  logit gaps;
-* every parameter gradient within twice the larger of the two frameworks'
-  own bf16-vs-f32 distances (relative L2 norm);
+* logits: max |port bf16 - JAX bf16| within LOGIT_C times JAX's own
+  max |bf16 - f32| (readings: 0.40x ResNet, 1.31x LM);
+* every parameter gradient: relative L2 distance to JAX's bf16 gradient
+  within GRAD_C times JAX's own bf16-vs-f32 distance (readings: at most
+  0.89x ResNet, 1.69x LM);
+* every parameter gradient's norm within NORM_C times that distance of
+  JAX's bf16 norm: bf16 noise is mostly orthogonal to a gradient, so it
+  moves norms far less than directions (readings: at most 0.22x ResNet,
+  0.28x LM). This is the check that sees a scale fault where bf16 noise
+  is large, as in the ResNet at batch 2;
 * each framework's gradient cosines against its own f32 run agree within
   0.1 for every parameter: where bf16 rounding eats most of a gradient, it
   does so in the JAX package as in the port;
 * the ResNet classifier's gradient (which chip_smoke.py holds on the card)
   to cosine >= 0.98 and norm within 5e-2.
+
+What this resolves: a bf16-only gradient scale of 1.1 (on the logits'
+cotangent) fails the norm check in both models and the distance check in
+the LM, and 1.1 on the MLP branch's cotangent fails the LM. A fault local
+to the ResNet's early layers stays inside the bf16 noise of a batch of 2
+and passes: the fused conv_b units' weight gradients times 1.1, or those
+units run in f32.
 """
 
 import jax
@@ -49,6 +63,9 @@ torch.set_num_threads(2)
 
 VOCAB, D, LAYERS, HEADS, DFF, T, BLOCK = 128, 32, 2, 4, 64, 64, 16
 LOSS_TOL = 2e-2
+LOGIT_C = 2.0
+GRAD_C = 2.5
+NORM_C = 0.5
 COSINE_GAP = 0.1
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -181,26 +198,28 @@ def _cos(a, b):
 @pytest.mark.parametrize("model", ["resnet", "lm"])
 def test_bf16_loss_and_logits_match_jax(model, request):
   runs = _runs(request, model)
-  (j16, p16), (j32, p32) = runs["bf16"], runs["f32"]
+  (j16, p16), (j32, _) = runs["bf16"], runs["f32"]
   assert abs(p16["loss"] - j16["loss"]) <= LOSS_TOL * abs(j16["loss"])
-  own = max(np.abs(j16["logits"] - j32["logits"]).max(),
-            np.abs(p16["logits"] - p32["logits"]).max())
+  own = np.abs(j16["logits"] - j32["logits"]).max()
   gap = np.abs(p16["logits"] - j16["logits"]).max()
-  assert gap <= 2.0 * own, (gap, own)
+  assert gap <= LOGIT_C * own, (gap, own)
 
 
 @pytest.mark.parametrize("model", ["resnet", "lm"])
 def test_bf16_gradients_match_jax(model, request):
-  """Every parameter's bf16 gradient within twice the larger distance bf16
-  puts between either framework and its own f32 gradient."""
+  """Every parameter's bf16 gradient within GRAD_C times the distance bf16
+  puts between JAX's own bf16 and f32 gradients, and its norm within
+  NORM_C times that distance of JAX's bf16 norm."""
   runs = _runs(request, model)
-  (j16, p16), (j32, p32) = runs["bf16"], runs["f32"]
+  (j16, p16), (j32, _) = runs["bf16"], runs["f32"]
   assert set(p16["grads"]) == set(j16["grads"])
   for key, g in p16["grads"].items():
     ref = j16["grads"][key]
     assert g.shape == ref.shape, key
-    own = max(_rel(ref, j32["grads"][key]), _rel(g, p32["grads"][key]))
-    assert _rel(g, ref) <= 2.0 * own, (key, _rel(g, ref), own)
+    own = _rel(ref, j32["grads"][key])
+    assert _rel(g, ref) <= GRAD_C * own, (key, _rel(g, ref), own)
+    n_rel = abs(np.linalg.norm(g) / np.linalg.norm(ref) - 1.0)
+    assert n_rel <= NORM_C * own, (key, n_rel, own)
 
 
 @pytest.mark.parametrize("model", ["resnet", "lm"])

@@ -80,7 +80,7 @@ def _port_unit(x, w, st_in, use_function):
   wt = torch.from_numpy(w).to(torch.bfloat16)
   fn = conv_bn.fused_bn_relu_conv3x3 if use_function else \
       conv_bn.bn_relu_conv3x3_stats
-  y, st = fn(xt, sc, sh, wt)
+  y, st = fn(xt, sc, sh, conv_bn.kmajor(wt))
   return y.float().numpy(), st.numpy()
 
 
@@ -175,8 +175,8 @@ def test_unit_padding_is_zero_after_prologue():
   x = torch.zeros(1, 3, 3, 8)
   sc = torch.ones(8)
   sh = torch.ones(8)
-  w = torch.ones(3, 3, 8, 16)
-  y, _ = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w)
+  w_k = torch.ones(16, 3, 3, 8)
+  y, _ = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k)
   # Interior pixel sees 9 taps of relu(1) = 1 over 8 channels; a corner 4.
   assert float(y[0, 1, 1, 0]) == 72.0
   assert float(y[0, 0, 0, 0]) == 32.0
@@ -219,6 +219,12 @@ def _grad_inputs():
   return x, sc, sh, w, gy, gs
 
 
+def _fused_on_hwio(x, sc, sh, w):
+  """The Function on K-major weights made from HWIO ones, so that autograd
+  hands its K-major weight gradient back in the HWIO layout."""
+  return conv_bn.fused_bn_relu_conv3x3(x, sc, sh, conv_bn.kmajor(w))
+
+
 def _function_grads(fn, x, sc, sh, w, gy, gs):
   leaves = [torch.from_numpy(a).requires_grad_() for a in (x, sc, sh, w)]
   y, st = fn(*leaves)
@@ -229,7 +235,7 @@ def _function_grads(fn, x, sc, sh, w, gy, gs):
 @pytest.mark.parametrize("reference", ["torch_autograd", "jax_grad"])
 def test_function_backward(reference):
   x, sc, sh, w, gy, gs = _grad_inputs()
-  got = _function_grads(conv_bn.fused_bn_relu_conv3x3, x, sc, sh, w, gy, gs)
+  got = _function_grads(_fused_on_hwio, x, sc, sh, w, gy, gs)
   if reference == "torch_autograd":
     ref = _function_grads(conv_bn.bn_relu_conv3x3_stats_plain, x, sc, sh, w,
                           gy, gs)
@@ -250,7 +256,8 @@ def test_wrappers_reject_other_devices():
     conv_bn.conv3x3_same(x, w)
   with pytest.raises(ValueError, match="CPU or a CUDA device"):
     conv_bn.bn_relu_conv3x3_stats(x, torch.zeros(32, device="meta"),
-                                  torch.zeros(32, device="meta"), w)
+                                  torch.zeros(32, device="meta"),
+                                  torch.zeros(64, 3, 3, 32, device="meta"))
 
 
 @pytest.mark.parametrize("x_shape,w_shape,c_align,kmajor,error", [
@@ -340,28 +347,36 @@ def test_kb_tile_choice(shape, want):
   assert tuple(conv_bn.kb_tile(n, h, w, co, 132)) == want
 
 
-@pytest.mark.parametrize("shape", [(256, 28, 28, 128), (256, 56, 56, 64),
-                                   (8, 7, 7, 512), (3, 7, 7, 64)],
-                         ids=["stage3", "stage2", "stage5_b8", "tiny"])
-def test_kb_partials_are_sized_from_the_grid(shape):
-  """One [2, CO] statistics partial a persistent block of K-B, so the
-  fixed-order second pass adds exactly grid of them."""
-  n, h, w, co = shape
-  t = conv_bn.kb_tile(n, h, w, co, 132)
-  assert conv_bn.kb_partials_shape(t, co) == (t.grid, 2, co)
-  assert 1 <= t.grid <= 132
-
-
 def test_kb_kmajor_entry_matches_hwio_entry():
-  """bn_relu_conv3x3_stats_kmajor on K-major weights is
-  bn_relu_conv3x3_stats on HWIO (the plain versions on the CPU)."""
+  """bn_relu_conv3x3_stats on K-major weights is its plain version on the
+  HWIO ones."""
   x, w, st_in = _unit_inputs(5)
   sc, sh = _port_scale_shift(st_in)
   xt, wt = torch.from_numpy(x), torch.from_numpy(w)
-  y_k, st_k = conv_bn.bn_relu_conv3x3_stats_kmajor(xt, sc, sh,
-                                                   conv_bn.kmajor(wt))
-  y, st = conv_bn.bn_relu_conv3x3_stats(xt, sc, sh, wt)
+  y_k, st_k = conv_bn.bn_relu_conv3x3_stats(xt, sc, sh, conv_bn.kmajor(wt))
+  y, st = conv_bn.bn_relu_conv3x3_stats_plain(xt, sc, sh, wt)
   assert torch.equal(y_k, y) and torch.equal(st_k, st)
+
+
+def test_resnet_hands_the_unit_kmajor_weights(monkeypatch):
+  """The bottleneck builds conv_b's K-major weights from its OIHW parameter
+  in the one bf16 cast it makes, and its conv_b output is the unit's on
+  those weights: no layout change sits between the model and K-B."""
+  from kf_benchmarks_tpu_torch.models import resnet_model
+  torch.manual_seed(0)
+  block = resnet_model.Bottleneck(64, 64, 64, 1)
+  seen = []
+  unit = conv_bn.fused_bn_relu_conv3x3
+
+  def spy(x, sc, sh, w_k):
+    seen.append(w_k)
+    return unit(x, sc, sh, w_k)
+
+  monkeypatch.setattr(conv_bn, "fused_bn_relu_conv3x3", spy)
+  block(torch.randn(2, 64, 6, 5).to(memory_format=torch.channels_last))
+  (w_k,) = seen
+  assert w_k.shape == (64, 3, 3, 64) and w_k.is_contiguous()
+  assert torch.equal(w_k, block.b.weight.permute(0, 2, 3, 1))
 
 
 def test_conv_tile_needs_a_dividing_tile():
@@ -397,8 +412,8 @@ def test_kernels_match_plain_on_card():
   sh = torch.randn(64, generator=g, device="cuda") * 0.5
   before = dict(conv_bn.LAUNCHES)
   y = conv_bn.conv3x3_same(x, w)
-  yb, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w)
-  yb2, st2 = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w)
+  yb, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, conv_bn.kmajor(w))
+  yb2, st2 = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, conv_bn.kmajor(w))
   torch.cuda.synchronize()
   assert conv_bn.LAUNCHES["conv3x3_same"] == before["conv3x3_same"] + 1
   assert conv_bn.LAUNCHES["bn_relu_conv3x3_stats"] == \
@@ -434,7 +449,7 @@ def test_kernels_match_plain_on_card():
          ).bfloat16()
     sc = torch.rand(c, generator=g, device="cuda") + 0.5
     sh = torch.rand(c, generator=g, device="cuda") + 0.5
-    out, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w)
+    out, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, conv_bn.kmajor(w))
     r, st_ref = conv_bn.bn_relu_conv3x3_stats_plain(x, sc, sh, w)
     torch.cuda.synchronize()
     assert bool(((out.float() - r.float()).abs() <=
