@@ -75,7 +75,18 @@ the run with a non-zero exit and no result line:
                 16 teacher-forced decode steps at full size: the card with
                 the kernels (bf16), the card's tiled plain ops (bf16) and
                 the CPU (plain, f32), and the card's decode logits against
-                the rows of its full forward (the KV-cache oracle).
+                the rows of its full forward (the KV-cache oracle);
+ 13. dp      -- data parallel: a world-1 NCCL process group and the ResNet-50
+                step of phase 4 (batch 256, bf16, Nesterov) through the rank
+                entry, 3 steps from the seed under replicated, kungfu
+                sync_sgd, sma and async_sgd (losses and weights bitwise equal
+                to the single-device step's, which has no process group) and
+                collective_all_reduce with --all_reduce_spec=psum:32k:rsag
+                (losses within 1e-2: its packed path rides a bf16 wire), 13
+                K-A and 13 K-B launches a step in every run; then 5 warmup +
+                20 timed steps of BenchmarkCNN under each, beside the
+                single-device run's images/sec, and the device time of one
+                reduction of the full gradient set, per tensor and packed.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -106,7 +117,7 @@ import torch.nn.functional as F
 
 ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
-              "serve_parity")
+              "serve_parity", "dp")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -1458,6 +1469,144 @@ def phase_serve_profile(res):
   profile_steps("serve_profile", one_step, n=20)
 
 
+# -- data parallel -------------------------------------------------------------
+
+# (label, --variable_update flags, check against the single-device step:
+# "bitwise", or the largest relative loss difference).
+DP_CASES = (
+    ("replicated", dict(variable_update="replicated"), "bitwise"),
+    ("kungfu_sync_sgd", dict(variable_update="kungfu",
+                             kungfu_option="sync_sgd"), "bitwise"),
+    ("kungfu_sma", dict(variable_update="kungfu", kungfu_option="sma"),
+     "bitwise"),
+    ("kungfu_async_sgd", dict(variable_update="kungfu",
+                              kungfu_option="async_sgd"), "bitwise"),
+    ("collective_psum_32k_rsag",
+     dict(variable_update="collective_all_reduce",
+          all_reduce_spec="psum:32k:rsag"), 1e-2),
+)
+DP_STEPS = 3
+
+
+def dp_params(**flags):
+  from kf_benchmarks_tpu_torch import params as params_lib
+  return params_lib.make_params(
+      model="resnet50", batch_size=256, use_fp16=True, optimizer="momentum",
+      num_batches=20, num_warmup_batches=5, display_every=10, device="gpu",
+      **flags)
+
+
+def dp_steps(params):
+  """DP_STEPS steps of BenchmarkCNN's step from the seed: (losses, flat
+  weights, the module), with the kernel launches of those steps."""
+  from kf_benchmarks_tpu_torch import benchmark
+  module, step, images, labels = benchmark.BenchmarkCNN(params).build()
+  before = benchmark.kernel_launches()
+  losses = [float(step(images, labels)["total_loss"])
+            for _ in range(DP_STEPS)]
+  after = benchmark.kernel_launches()
+  launched = {k: after[k] - before[k] for k in after}
+  weights = torch.cat([q.detach().reshape(-1) for q in module.parameters()])
+  return losses, weights, module, launched
+
+
+def dp_images_per_sec(params):
+  from kf_benchmarks_tpu_torch import benchmark
+  stats = benchmark.BenchmarkCNN(params).run()
+  check(np.isfinite(stats["last_average_loss"]), "dp: loss not finite")
+  return stats
+
+
+def check_dp_launches(label, launched, steps):
+  for name in ("conv3x3_same", "bn_relu_conv3x3_stats"):
+    check(launched.get(name) == 13 * steps,
+          f"dp {label}: {name} launched {launched.get(name)} times in "
+          f"{steps} steps, want 13 a step")
+
+
+def phase_dp(res):
+  """The data-parallel path at world 1 over NCCL against the single-device
+  step of the same seed. Each strategy's 3 checked steps run in a group
+  made here; its timed run goes through cli.rank_main, the entry every
+  spawned rank runs (which makes and ends its own group)."""
+  import torch.distributed as dist
+  from kf_benchmarks_tpu_torch import benchmark, cli, train_step
+  from kf_benchmarks_tpu_torch.ops import allreduce, conv_bn
+  from kf_benchmarks_tpu_torch.parallel import kungfu, mesh
+  check(not mesh.is_distributed(), "dp: a process group is already up")
+  ref_losses, ref_weights, _, launched = dp_steps(dp_params())
+  check_dp_launches("single-device", launched, DP_STEPS)
+  ref_ips = dp_images_per_sec(dp_params())["images_per_sec"]
+  log(f"dp: single-device (no process group): losses {ref_losses}, "
+      f"{ref_ips:.2f} images/sec")
+  out = {"single_device_images_per_sec": ref_ips}
+  reset_launches()
+  total_steps = 0
+  for label, flags, want in DP_CASES:
+    params = dp_params(**flags)
+    mesh.init_process_group("gpu", 1, 0, mesh.local_init_method())
+    try:
+      check(dist.get_backend() == "nccl", "dp: the group is not NCCL")
+      losses, weights, module, launched = dp_steps(params)
+      if label == "replicated":
+        # One reduction of the full gradient set: per tensor (the default
+        # path), and packed by the spec planner (bf16 wire).
+        grads = [q.grad for q in module.parameters()]
+        stats = train_step.batch_stats(module)
+        nbytes = sum(g.numel() * g.element_size() for g in grads)
+        planner = allreduce.build_planner(dp_params(
+            variable_update="collective_all_reduce",
+            all_reduce_spec="psum:32k:rsag"))
+        per_leaf_ms = time_ms(lambda: kungfu.allreduce_mean(grads), iters=10)
+        packed_ms = time_ms(lambda: planner.reduce(grads), iters=10)
+        stats_ms = time_ms(lambda: kungfu.allreduce_mean(stats), iters=10)
+        log(f"dp reduction: {len(grads)} gradients, {nbytes / 1e6:.1f} MB: "
+            f"per tensor {per_leaf_ms:.3f} ms, packed psum:32k:rsag (bf16 "
+            f"wire) {packed_ms:.3f} ms; batch-norm statistics "
+            f"({len(stats)} tensors) {stats_ms:.3f} ms")
+        out["reduction"] = {"tensors": len(grads), "bytes": nbytes,
+                            "per_tensor_ms": per_leaf_ms,
+                            "packed_ms": packed_ms,
+                            "batch_stats_ms": stats_ms}
+      del module
+    finally:
+      mesh.destroy_process_group()
+    check_dp_launches(label, launched, DP_STEPS)
+    if want == "bitwise":
+      ok = losses == ref_losses and torch.equal(weights, ref_weights)
+      verdict = "bitwise equal" if ok else "DIFFERENT"
+    else:
+      rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+      ok = rel <= want and bool(torch.isfinite(weights).all())
+      verdict = f"losses within {rel:.3g} (tol {want:g})"
+    del weights
+    log(f"dp {label}: NCCL world 1, losses {losses}: {verdict} against "
+        "the single-device step")
+    check(ok, f"dp {label}: differs from the single-device step")
+    before = benchmark.kernel_launches()
+    stats = cli.rank_main(0, params, mesh.local_init_method())
+    after = benchmark.kernel_launches()
+    check(not mesh.is_distributed(), "dp: rank_main left its group up")
+    check(np.isfinite(stats["last_average_loss"]), "dp: loss not finite")
+    check_dp_launches(label, {k: after[k] - before[k] for k in after},
+                      stats["steps_run"])
+    total_steps += DP_STEPS + stats["steps_run"]
+    ips = stats["images_per_sec"]
+    log(f"dp {label}: {ips:.2f} images/sec ({ips / ref_ips:.4f} of the "
+        f"single-device run's {ref_ips:.2f}), num_workers "
+        f"{stats['num_workers']}")
+    out[label] = {"images_per_sec": ips, "losses": losses}
+  counts = benchmark.kernel_launches()
+  res.setdefault("counts_by_path", {})["dp"] = counts
+  for name in conv_bn.LAUNCHES:
+    check(counts[name] == 13 * total_steps,
+          f"dp: {name} launched {counts[name]} times in {total_steps} "
+          "steps, want 13 a step")
+  log(f"dp: kernel launches {counts} over {total_steps} steps of "
+      f"{len(DP_CASES)} strategies")
+  res["dp"] = out
+
+
 # -- main ----------------------------------------------------------------------
 
 def device_line() -> str:
@@ -1511,7 +1660,7 @@ def main(argv=None) -> int:
            "flash": phase_flash, "flash_grad": phase_flash_grad,
            "lm_train": phase_lm_train, "lm_parity": phase_lm_parity,
            "decode": phase_decode, "serve": phase_serve,
-           "serve_parity": phase_serve_parity,
+           "serve_parity": phase_serve_parity, "dp": phase_dp,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}

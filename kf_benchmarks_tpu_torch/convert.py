@@ -17,6 +17,12 @@ layer axis or as the loop layout's ``block_<i>/<sub>/<leaf>``, both onto the
 port's ``blocks.<i>.<sub>``. LayerNorm ``scale``/``bias`` become
 ``weight``/``bias``; Dense kernels are transposed as above.
 
+``replica_state_dict`` does the same for one replica of the JAX package's
+data-parallel state, whose leaves carry a leading replica axis (every
+replica's copy of the weights and batch statistics): replica r becomes rank
+r's state_dict, so a rank can start from any replica of a run whose
+replicas diverged (independent, kungfu async_sgd or sma).
+
 ``flax_to_state_dict`` maps every flax leaf (every layer of a stacked one)
 exactly once onto every entry of the module's state_dict, and raises on any
 leaf left over or missing. The inputs are numpy arrays (``jax.device_get``
@@ -151,3 +157,22 @@ def flax_to_state_dict(variables: Mapping, module: nn.Module
   if left:
     raise KeyError(f"flax leaves with no place in the port: {sorted(left)}")
   return out
+
+
+def replica_variables(stacked: Mapping, replica: int) -> Dict:
+  """The variables of one replica: every leaf of a replica-stacked tree
+  (leading axis = replica) taken at ``replica``."""
+  out = {}
+  for name, value in stacked.items():
+    if isinstance(value, Mapping):
+      out[name] = replica_variables(value, replica)
+    else:
+      out[name] = np.asarray(value)[replica]
+  return out
+
+
+def replica_state_dict(stacked: Mapping, replica: int, module: nn.Module
+                       ) -> Dict[str, torch.Tensor]:
+  """Rank ``replica``'s state_dict from the replica-stacked flax
+  variables."""
+  return flax_to_state_dict(replica_variables(stacked, replica), module)

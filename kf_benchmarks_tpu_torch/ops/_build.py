@@ -16,11 +16,15 @@ The libraries link the CUDA runtime only: the kernels that load by TMA
 (``csrc/sm90.cuh``) look ``cuTensorMapEncodeTiled`` up in
 ``libcuda.so.1``, which the runtime has loaded, with ``dlsym`` at run
 time, so no ``-lcuda`` is needed.
+
+The ranks of a data-parallel run share the build directory: the first to
+take its lock builds, and the others wait for it and load what it built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -112,6 +116,13 @@ def build_all() -> str:
   Returns the directory."""
   out_dir = os.path.join(BUILD_ROOT, _source_hash())
   os.makedirs(out_dir, exist_ok=True)
+  with open(os.path.join(out_dir, ".lock"), "w") as lock:
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    _build_missing(out_dir)
+  return out_dir
+
+
+def _build_missing(out_dir: str) -> None:
   todo = [name for name in _SIGNATURES
           if not os.path.exists(os.path.join(out_dir, name + ".so"))]
   if todo:
@@ -136,7 +147,6 @@ def build_all() -> str:
         os.replace(tmp, os.path.join(out_dir, name + ".so"))
     if failed:
       raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-  return out_dir
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,8 +1,9 @@
 """The parameters the port reads so far, and the Params object.
 
 A subset of kf_benchmarks_tpu/params.py (ref: benchmark_cnn.py:114-636):
-ResNet-50 and transformer_lm training on synthetic data on one card, and
-the transformer_lm serving bench (serving/bench.py). Names, defaults and
+ResNet-50 and transformer_lm training on synthetic data, on one card or
+data-parallel over torch.distributed, and the transformer_lm serving bench
+(serving/bench.py). Names, defaults and
 meanings follow the JAX package (the serving bench's ``--serving_requests``,
 ``--serving_rate`` and ``--serving_tenants`` are arguments of the JAX
 package's bench.py), except ``device``, which defaults to the card.
@@ -27,12 +28,68 @@ flags.DEFINE_integer("num_warmup_batches", None,
 flags.DEFINE_enum("device", "gpu", ("gpu", "cpu"),
                   "Device to run on: the CUDA card (default; fails without "
                   "one) or the CPU, where the kernels' plain versions run.")
-flags.DEFINE_integer("num_devices", 1, "Number of devices (this slice: 1).",
-                     lower_bound=1)
+flags.DEFINE_integer("num_devices", 1,
+                     "Number of devices: one rank process each "
+                     "(torch.distributed; NCCL on the card, one rank per "
+                     "card; gloo with --device=cpu).", lower_bound=1)
 flags.DEFINE_enum("variable_update", "replicated",
-                  ("replicated", "independent"),
-                  "Parallelism strategy; on one device both are plain "
-                  "single-replica training.")
+                  ("independent", "parameter_server", "replicated",
+                   "distributed_replicated", "distributed_all_reduce",
+                   "collective_all_reduce", "horovod", "kungfu"),
+                  "Parallelism strategy (parallel/strategies.py); "
+                  "distributed_replicated needs a multi-host launch the "
+                  "port does not have yet (validation.py).")
+flags.DEFINE_enum("kungfu_option", "sync_sgd",
+                  ("sync_sgd", "async_sgd", "sma"),
+                  "KungFu optimizer wrapper: sync_sgd (all-reduce mean of "
+                  "the gradients), async_sgd (pair averaging of the "
+                  "weights after a local step), sma (all-reduce mean of "
+                  "the weights before a local step).")
+flags.DEFINE_string("all_reduce_spec", None,
+                    "All-reduce algorithm spec, alg#shards:limit:alg...: "
+                    "psum (all_reduce), rsag (reduce_scatter + "
+                    "all_gather), hier (two-level ring); size-ranged "
+                    "hybrids and the reference's aliases accepted "
+                    "(ops/allreduce.py).")
+flags.DEFINE_integer("agg_small_grads_max_bytes", 0,
+                     "Pack gradients smaller than this into one tensor "
+                     "before the all-reduce (0 = off).", lower_bound=0)
+flags.DEFINE_integer("agg_small_grads_max_group", 10,
+                     "Max number of small gradients per pack.",
+                     lower_bound=1)
+flags.DEFINE_integer("gradient_repacking", 0,
+                     "Re-split the concatenated gradient vector into this "
+                     "many evenly-sized chunks for reduction (0 = off; "
+                     "exclusive with --all_reduce_spec).", lower_bound=0)
+flags.DEFINE_boolean("compact_gradient_transfer", True,
+                     "Compact gradients to a 16-bit wire format (bf16) for "
+                     "the packed all-reduce paths when --use_fp16 is on; "
+                     "the default per-leaf all-reduce has no wire format "
+                     "to compact.")
+flags.DEFINE_boolean("compact_gradient_transfer_f32", False,
+                     "Engage the bf16 all-reduce wire format for f32 "
+                     "training too (halves reduction bytes; not "
+                     "bit-identical to the f32 wire). Requires "
+                     "--compact_gradient_transfer and a packed reduction "
+                     "path.")
+flags.DEFINE_boolean("hierarchical_copy", False,
+                     "Two-level reduction: a ring within contiguous rank "
+                     "groups, then across them.")
+flags.DEFINE_boolean("cross_replica_sync", True,
+                     "Synchronous data-parallel updates; false with "
+                     "parameter_server is the async parameter server.")
+# Flags of the JAX package that the port refuses until their ROADMAP item
+# lands (validation.py names it).
+flags.DEFINE_boolean("shard_optimizer_state", False,
+                     "ZeRO sharded optimizer state (not ported yet).")
+flags.DEFINE_boolean("shard_params", False,
+                     "FSDP sharded parameters (not ported yet).")
+flags.DEFINE_boolean("overlap_gradient_reduction", False,
+                     "Bucketed in-backward gradient reduction (not ported "
+                     "yet).")
+flags.DEFINE_integer("reduce_bucket_mb", None,
+                     "Bucket size of --overlap_gradient_reduction (not "
+                     "ported yet).", lower_bound=1)
 flags.DEFINE_boolean("use_fp16", False,
                      "bf16 activations and gradients over f32 parameters.")
 flags.DEFINE_enum("optimizer", "sgd", ("sgd", "momentum"),

@@ -10,8 +10,14 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import torch.distributed as dist
+
 
 def log_fn(string: str) -> None:
+  """Prints on rank 0 of the process group (or without one); the other
+  ranks of a data-parallel run print nothing."""
+  if dist.is_available() and dist.is_initialized() and dist.get_rank():
+    return
   print(string, flush=True)
 
 

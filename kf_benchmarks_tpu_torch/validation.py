@@ -2,8 +2,10 @@
 
 The port's counterpart of kf_benchmarks_tpu/validation.py. The port runs
 ResNet-50 (and the trivial model) and transformer_lm training on synthetic
-data on one device, and the transformer_lm serving bench; anything else
-fails here with the reason, before any work starts.
+data, on one device or data-parallel over torch.distributed, and the
+transformer_lm serving bench; anything else fails here with the reason,
+before any work starts. The data-parallel rules are the JAX package's
+(validation.py:620-700, :817-851), with its messages.
 """
 
 from __future__ import annotations
@@ -12,6 +14,21 @@ import torch
 
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.models import transformer_lm
+from kf_benchmarks_tpu_torch.ops import allreduce
+from kf_benchmarks_tpu_torch.parallel import mesh
+
+# Async parameter server with a stateful optimizer: n sequential optimizer
+# applications a step (train_step.TrainStep._sequential_apply).
+ASYNC_PS_SEQUENTIAL_MAX_DEVICES = 32
+
+# Flags of the JAX package the port takes but does not run yet, with the
+# ROADMAP item that ports them.
+_UNPORTED_FLAGS = (
+    ("shard_optimizer_state", "ZeRO sharded optimizer state"),
+    ("shard_params", "FSDP sharded parameters"),
+    ("overlap_gradient_reduction", "bucketed in-backward reduction"),
+    ("reduce_bucket_mb", "the in-backward reduction's buckets"),
+)
 
 
 class ParamError(ValueError):
@@ -40,10 +57,7 @@ def validate_cross_flags(params) -> None:
     raise ParamError(
         f"--model={params.model} is not ported yet; the port runs "
         f"{', '.join(model_config.list_models())}")
-  if params.num_devices != 1:
-    raise ParamError(
-        f"--num_devices={params.num_devices}: the port runs one device; "
-        "data-parallel training is not ported yet")
+  validate_data_parallel_flags(params)
   if params.attn_block:
     if params.model != "transformer_lm":
       raise ParamError(
@@ -62,6 +76,9 @@ def validate_cross_flags(params) -> None:
         f"--serving_batching={params.serving_batching!r}: expected "
         "'continuous' or 'static'")
   if params.device == "gpu":
+    count_error = mesh.device_count_error(params.device, params.num_devices)
+    if count_error:
+      raise ParamError(count_error)
     if not torch.cuda.is_available():
       raise ParamError(
           "--device=gpu but no CUDA device is available "
@@ -73,3 +90,68 @@ def validate_cross_flags(params) -> None:
       raise ParamError(
           f"--device=gpu needs --use_fp16 for --model={params.model}: "
           f"{kernels} have no f32 variant yet")
+
+
+def validate_data_parallel_flags(p) -> None:
+  """The --variable_update family and its reduction flags."""
+  for name, what in _UNPORTED_FLAGS:
+    if getattr(p, name):
+      raise ParamError(
+          f"--{name} ({what}) is not ported yet (ROADMAP Queue 1 item 6)")
+  if p.variable_update == "distributed_replicated":
+    raise ParamError(
+        "distributed_replicated requires --job_name (ref :1311-1314): a "
+        "multi-host launch, which the port does not have yet (ROADMAP "
+        "Queue 1 item 4)")
+  if p.variable_update == "distributed_all_reduce" and not p.all_reduce_spec:
+    raise ParamError("distributed_all_reduce requires --all_reduce_spec "
+                     "(ref :1319-1321)")
+  if p.all_reduce_spec:
+    try:
+      allreduce.parse_all_reduce_spec(p.all_reduce_spec)
+    except ValueError as e:
+      raise ParamError(f"--all_reduce_spec={p.all_reduce_spec}: {e}")
+  if (p.variable_update == "parameter_server" and not p.cross_replica_sync
+      and p.optimizer != "sgd"
+      and p.num_devices > ASYNC_PS_SEQUENTIAL_MAX_DEVICES):
+    raise ParamError(
+        "async parameter_server (--cross_replica_sync=false) with a "
+        f"stateful optimizer ({p.optimizer}) applies num_devices "
+        "optimizer updates sequentially through shared state each step; "
+        f"capped at {ASYNC_PS_SEQUENTIAL_MAX_DEVICES} devices. Use "
+        "--optimizer=sgd (exact single-update collapse) or a "
+        "synchronous --variable_update at this scale")
+  if p.hierarchical_copy and p.num_devices <= 1:
+    raise ParamError("--hierarchical_copy requires more than one device "
+                     "(ref :1310-1311)")
+  if p.gradient_repacking and p.all_reduce_spec:
+    raise ParamError(
+        "--gradient_repacking cannot be combined with --all_reduce_spec "
+        "(repacking re-splits the full gradient vector; the spec planner "
+        "owns packing on the spec path -- ref: batch_allreduce.py:300-317)")
+  if p.gradient_repacking and p.agg_small_grads_max_bytes > 0:
+    raise ParamError(
+        "--gradient_repacking cannot be combined with "
+        "--agg_small_grads_max_bytes (both re-shape reduction granularity)")
+  if p.hierarchical_copy and p.all_reduce_spec:
+    raise ParamError(
+        "--hierarchical_copy cannot be combined with --all_reduce_spec "
+        "(use the 'hier' algorithm inside the spec instead; "
+        "ref :507-513 vs :532-553)")
+  if p.compact_gradient_transfer_f32:
+    if not p.compact_gradient_transfer:
+      raise ParamError(
+          "--compact_gradient_transfer_f32 requires "
+          "--compact_gradient_transfer: it widens WHEN the 16-bit wire "
+          "format engages (f32 training too), it cannot engage a "
+          "compaction that is switched off")
+    if not (p.use_fp16 or p.all_reduce_spec or p.gradient_repacking
+            or p.agg_small_grads_max_bytes > 0 or p.hierarchical_copy):
+      raise ParamError(
+          "--compact_gradient_transfer_f32 has no effect without a "
+          "reduction path that repacks the wire: the default per-leaf "
+          "pmean never re-encodes gradients (ops/allreduce.py "
+          "build_reducer returns None). Select a packed path -- "
+          "--all_reduce_spec, --gradient_repacking, "
+          "--agg_small_grads_max_bytes or --hierarchical_copy -- or drop "
+          "the flag")

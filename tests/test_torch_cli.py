@@ -57,7 +57,9 @@ def test_module_entry_point_exits_nonzero_without_cuda():
 
 @pytest.mark.parametrize("overrides,match", [
     ({"model": "vgg16", "device": "cpu"}, "not ported yet"),
-    ({"num_devices": 2, "device": "cpu"}, "one device"),
+    # Data parallel runs one rank per card: more ranks than cards is
+    # refused (no shared card, no gloo fallback).
+    ({"num_devices": 64, "device": "gpu"}, "one device"),
 ])
 def test_validation_rejects_outside_the_slice(overrides, match):
   with pytest.raises(validation.ParamError, match=match):
@@ -65,7 +67,7 @@ def test_validation_rejects_outside_the_slice(overrides, match):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"optimizer": "adam"}, {"variable_update": "kungfu"},
+    {"optimizer": "adam"}, {"kungfu_option": "ada_sgd"},
     {"data_format": "NCHW"}, {"device": "tpu"}, {"eval": True}])
 def test_params_reject_unknown_values(overrides):
   with pytest.raises(ValueError):
