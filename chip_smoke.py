@@ -81,12 +81,18 @@ the run with a non-zero exit and no result line:
                 entry, 3 steps from the seed under replicated, kungfu
                 sync_sgd, sma and async_sgd (losses and weights bitwise equal
                 to the single-device step's, which has no process group) and
-                collective_all_reduce with --all_reduce_spec=psum:32k:rsag
-                (losses within 1e-2: its packed path rides a bf16 wire), 13
-                K-A and 13 K-B launches a step in every run; then 5 warmup +
-                20 timed steps of BenchmarkCNN under each, beside the
-                single-device run's images/sec, and the device time of one
-                reduction of the full gradient set, per tensor and packed.
+                collective_all_reduce with --all_reduce_spec=psum:32k:rsag,
+                whose packed path rides a bf16 wire: each step's packed
+                reduction is held against the per-tensor all-reduce mean of
+                the same gradients (every element within 2^-7 of it
+                relative, twice bf16's unit roundoff, and not all equal),
+                its losses within 1e-2 of the single-device step's; 13 K-A and 13 K-B launches a step in
+                every run; then 5 warmup + 20 timed steps of BenchmarkCNN
+                under each, beside the single-device run's images/sec, and
+                the time of one reduction of the full gradient set, per
+                tensor and packed (back-to-back CUDA events: the host paces
+                these many small collectives, so it is host time as much as
+                device time).
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -1472,7 +1478,8 @@ def phase_serve_profile(res):
 # -- data parallel -------------------------------------------------------------
 
 # (label, --variable_update flags, check against the single-device step:
-# "bitwise", or the largest relative loss difference).
+# "bitwise", or the largest relative loss difference; a case with a packed
+# path is also held to PACKED_WIRE_TOL).
 DP_CASES = (
     ("replicated", dict(variable_update="replicated"), "bitwise"),
     ("kungfu_sync_sgd", dict(variable_update="kungfu",
@@ -1486,6 +1493,58 @@ DP_CASES = (
           all_reduce_spec="psum:32k:rsag"), 1e-2),
 )
 DP_STEPS = 3
+# At world 1 the all_reduce of one rank is exact, so the packed path's one
+# change is the bf16 wire: each gradient rounded to bf16 once, within the
+# unit roundoff 2^-8 of itself relative (8 significant bits, round to
+# nearest); the limit is twice that.
+PACKED_WIRE_TOL = 2.0 ** -7
+
+
+@contextlib.contextmanager
+def packed_wire_errors(errors):
+  """Holds every CollectivePlanner.reduce of the block against the
+  per-tensor all-reduce mean (kungfu.allreduce_mean) of copies of the same
+  gradients, and appends to ``errors`` each call's (largest elementwise
+  error over |reference| (at least the smallest normal f32), relative L2
+  distance)."""
+  from kf_benchmarks_tpu_torch.ops import allreduce
+  from kf_benchmarks_tpu_torch.parallel import kungfu
+  orig = allreduce.CollectivePlanner.reduce
+
+  def reduce(self, tensors):
+    out = orig(self, tensors)
+    ref = [t.detach().clone() for t in tensors]
+    kungfu.allreduce_mean(ref)
+    got = torch.cat([o.reshape(-1).float() for o in out])
+    want = torch.cat([r.reshape(-1).float() for r in ref])
+    diff = (got - want).abs()
+    errors.append((float((diff / want.abs().clamp_min(2.0 ** -126)).max()),
+                   float(diff.norm() / want.norm())))
+    return out
+
+  allreduce.CollectivePlanner.reduce = reduce
+  try:
+    yield errors
+  finally:
+    allreduce.CollectivePlanner.reduce = orig
+
+
+def check_packed_wire(label, errors, steps):
+  """Every step reduced through the planner, within PACKED_WIRE_TOL of the
+  per-tensor mean elementwise and in L2, and not equal to it (the wire was
+  compacted)."""
+  check(len(errors) == steps,
+        f"dp {label}: {len(errors)} packed reductions in {steps} steps")
+  elem = [e for e, _ in errors]
+  l2 = [d for _, d in errors]
+  ok = all(e <= PACKED_WIRE_TOL for e in elem) and \
+      all(0 < d <= PACKED_WIRE_TOL for d in l2)
+  log(f"dp {label}: packed reduction against the per-tensor mean, {steps} "
+      f"steps: largest elementwise relative error {elem!r}, relative L2 "
+      f"{l2!r} (limit {PACKED_WIRE_TOL!r}, and > 0)")
+  check(ok, f"dp {label}: the packed reduction is not the per-tensor mean "
+        "on a bf16 wire")
+  return {"max_elementwise_rel": elem, "rel_l2": l2}
 
 
 def dp_params(**flags):
@@ -1547,7 +1606,13 @@ def phase_dp(res):
     mesh.init_process_group("gpu", 1, 0, mesh.local_init_method())
     try:
       check(dist.get_backend() == "nccl", "dp: the group is not NCCL")
-      losses, weights, module, launched = dp_steps(params)
+      wire_errors = []
+      with (packed_wire_errors(wire_errors) if want != "bitwise"
+            else contextlib.nullcontext()):
+        losses, weights, module, launched = dp_steps(params)
+      if want != "bitwise":
+        out[f"{label}_packed_wire"] = check_packed_wire(label, wire_errors,
+                                                        DP_STEPS)
       if label == "replicated":
         # One reduction of the full gradient set: per tensor (the default
         # path), and packed by the spec planner (bf16 wire).

@@ -30,7 +30,13 @@ def parse_params(argv: Optional[Sequence[str]] = None):
       description="ResNet-50 training benchmark on NVIDIA H100s "
       "(PyTorch + hand-written CUDA kernels).")
   flags.add_to_parser(parser)
-  ns = parser.parse_args(argv)
+  ns, unknown = parser.parse_known_args(argv)
+  if unknown:
+    from kf_benchmarks_tpu_torch import validation
+    for arg in unknown:
+      if arg.startswith("--"):
+        validation.refuse_unported_flag(arg[2:].split("=", 1)[0])
+    parser.error(f"unrecognized arguments: {' '.join(unknown)}")
   overrides = {k: v for k, v in vars(ns).items() if v is not None}
   return params_lib.make_params(**overrides)
 

@@ -10,13 +10,13 @@ grammar is the JAX package's (and the reference's):
     limit       := <int>[kKmM]?   (tensors under the limit use the
                                    preceding alg)
 
-and each algorithm maps onto the process group:
-
-  psum     all_reduce SUM / n
-  rsag#k   reduce_scatter_tensor + all_gather_into_tensor over k chunks
-  hier#g   a ring within each of g rank groups, then a ring across the
-           groups' same-offset members (batch_isend_irecv inside
-           ``new_group`` subgroups), / n
+The spec's ranges, the small-gradient packs and the repacked chunks decide
+which tensors travel together; every pack is then reduced by one
+all_reduce mean (kungfu.allreduce_mean). ``rsag#k`` and ``hier#g`` parse
+as in the JAX package and run as that same all_reduce: NCCL chooses its
+own ring or tree inside it, and all ranks of the port share one host, so
+there is no host boundary for a two-level ring to exploit. A separate
+algorithm comes back when a multi-card workload shows it faster.
 
 A reducer takes the list of gradients of one rank (the same order on every
 rank) and returns the list of reduced tensors; the packed paths concatenate
@@ -30,9 +30,8 @@ import re
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
-from kf_benchmarks_tpu_torch.parallel import mesh
+from kf_benchmarks_tpu_torch.parallel import kungfu
 from kf_benchmarks_tpu_torch.utils import log as log_util
 
 Reducer = Callable[[Sequence[torch.Tensor]], List[torch.Tensor]]
@@ -189,126 +188,18 @@ def unpack_tensors(vec: torch.Tensor, meta: PackMeta) -> List[torch.Tensor]:
   return out
 
 
-# -- algorithms ----------------------------------------------------------------
+# -- the reduction -------------------------------------------------------------
 
-def _pmean_direct(vec: torch.Tensor) -> torch.Tensor:
-  vec = vec.clone()
-  dist.all_reduce(vec, op=dist.ReduceOp.SUM)
-  return vec / mesh.world_size()
-
-
-def _rsag(vec: torch.Tensor, shards: int = 1) -> torch.Tensor:
-  """Reduce-scatter + all-gather of ``shards`` chunks, / n."""
-  n = mesh.world_size()
-  shards = max(1, int(shards))
-  size = vec.numel()
-  pad = (-size) % (n * shards)
-  if pad:
-    vec = torch.cat([vec, vec.new_zeros(pad)])
-  out = []
-  for part in vec.chunk(shards):
-    part = part.contiguous()
-    scattered = part.new_empty(part.numel() // n)
-    dist.reduce_scatter_tensor(scattered, part, op=dist.ReduceOp.SUM)
-    gathered = part.new_empty(part.numel())
-    dist.all_gather_into_tensor(gathered, scattered)
-    out.append(gathered)
-  vec = torch.cat(out) if len(out) > 1 else out[0]
-  return vec[:size] / n
-
-
-def topology_groups(n: int, num_groups: Optional[int] = None) -> List[int]:
-  """Rank -> group id for the hierarchical reduction. All ranks of the port
-  run on one host, so the groups are ``num_groups`` (default 2) contiguous
-  blocks; all zeros (one group: _hier reduces flat) when they do not divide
-  n."""
-  k = max(2, int(num_groups or 2))
-  if n % k != 0:
-    return [0] * n
-  return [i // (n // k) for i in range(n)]
-
-
-# (default process group, cycles) -> the subgroups of those cycles, made
-# once per process group: new_group is a collective over the whole world,
-# so every rank makes them in one order.
-_ring_groups: Dict[tuple, list] = {}
-
-
-def _cycle_groups(cycles) -> list:
-  key = (dist.group.WORLD, tuple(tuple(c) for c in cycles))
-  if key not in _ring_groups:
-    _ring_groups[key] = [dist.new_group(list(c)) if len(c) > 1 else None
-                         for c in cycles]
-  return _ring_groups[key]
-
-
-def _ring_sum(vec: torch.Tensor, cycles, rounds: int) -> torch.Tensor:
-  """Sums values around disjoint rank cycles: ``rounds`` times each rank
-  passes what it last received to its successor in its cycle and adds what
-  its predecessor passes it (the JAX package's ppermute ring)."""
-  me = mesh.rank()
-  groups = _cycle_groups(cycles)
-  mine = next(i for i, c in enumerate(cycles) if me in c)
-  cycle, group = cycles[mine], groups[mine]
-  j = cycle.index(me)
-  succ, pred = cycle[(j + 1) % len(cycle)], cycle[(j - 1) % len(cycle)]
-  acc, cur = vec, vec
-  for _ in range(rounds):
-    nxt = torch.empty_like(cur)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, cur.contiguous(), succ, group=group),
-        dist.P2POp(dist.irecv, nxt, pred, group=group)])
-    for req in reqs:
-      req.wait()
-    cur = nxt
-    acc = acc + cur
-  return acc
-
-
-def _hier(vec: torch.Tensor, num_groups: int = 2,
-          groups: Optional[List[int]] = None) -> torch.Tensor:
-  """Two-level ring reduction: within each group, then across the groups'
-  same-offset members, / n; a direct all-reduce when the groups are not
-  equal-sized (or there are fewer than two)."""
-  n = mesh.world_size()
-  if groups is not None and len(groups) != n:
-    groups = None
-  if groups is None:
-    num_groups = max(2, int(num_groups))
-    if n <= 1 or n % num_groups != 0:
-      return _pmean_direct(vec)
-    groups = [i // (n // num_groups) for i in range(n)]
-  members: Dict[int, List[int]] = {}
-  for pos, g in enumerate(groups):
-    members.setdefault(g, []).append(pos)
-  sizes = {len(m) for m in members.values()}
-  if n <= 1 or len(members) < 2 or len(sizes) != 1:
-    return _pmean_direct(vec)
-  gsize = sizes.pop()
-  ordered = [members[g] for g in sorted(members)]
-  vec = _ring_sum(vec, ordered, gsize - 1)
-  cross = [[grp[j] for grp in ordered] for j in range(gsize)]
-  vec = _ring_sum(vec, cross, len(ordered) - 1)
-  return vec / n
-
-
-def _reduce_packed(vec: torch.Tensor, spec: AllReduceSpecTuple,
+def _reduce_packed(vec: torch.Tensor,
                    compact_dtype: Optional[torch.dtype] = None
                    ) -> torch.Tensor:
-  """One packed vector reduced by its spec's algorithm, on the
-  ``compact_dtype`` wire when one is given."""
-  orig_dtype = vec.dtype
-  if compact_dtype is not None and vec.dtype != compact_dtype:
-    vec = vec.to(compact_dtype)
-  if spec.alg == "psum":
-    vec = _pmean_direct(vec)
-  elif spec.alg == "rsag":
-    vec = _rsag(vec, spec.shards)
-  elif spec.alg == "hier":
-    vec = _hier(vec, max(spec.shards, 2))
-  else:
-    raise ValueError(f"Unknown alg {spec.alg!r}")
-  return vec.to(orig_dtype)
+  """The mean over the ranks of one packed vector, sent as
+  ``compact_dtype`` when one is given. Every algorithm of the spec lands
+  here: one all_reduce, in which NCCL chooses its own ring or tree."""
+  wire = vec.to(compact_dtype or vec.dtype, copy=True,
+                memory_format=torch.contiguous_format)
+  kungfu.allreduce_mean([wire])
+  return wire.to(vec.dtype)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -317,16 +208,15 @@ def _nbytes(t: torch.Tensor) -> int:
 
 class CollectivePlanner:
   """Spec-driven reduction with small-tensor packing: the tensors are
-  bucketed by byte size over the spec's ranges, each bucket packed into one
-  flat vector (its tensors under ``agg_max_bytes`` in packs of at most
-  ``agg_max_group``, when set) and reduced by the bucket's algorithm."""
+  bucketed by byte size over the spec's ranges, and each bucket packed into
+  one flat vector (its tensors under ``agg_max_bytes`` in packs of at most
+  ``agg_max_group``, when set) and reduced."""
 
   def __init__(self, spec_tuples: Sequence[AllReduceSpecTuple],
-               num_replicas_hint: int = 8, agg_max_bytes: int = 0,
+               agg_max_bytes: int = 0,
                agg_max_group: Optional[int] = None,
                compact_dtype: Optional[torch.dtype] = None):
     self.spec_tuples = list(spec_tuples)
-    self.num_replicas_hint = num_replicas_hint
     self.agg_max_bytes = agg_max_bytes
     self.agg_max_group = agg_max_group
     self.compact_dtype = compact_dtype
@@ -338,13 +228,11 @@ class CollectivePlanner:
     return len(self.spec_tuples) - 1
 
   def reduce(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    n = self.num_replicas_hint
     buckets: Dict[int, List[int]] = {}
     for idx, t in enumerate(tensors):
       buckets.setdefault(self._bucket_of(_nbytes(t)), []).append(idx)
     reduced: List[Optional[torch.Tensor]] = [None] * len(tensors)
-    for b, idxs in sorted(buckets.items()):
-      spec = self.spec_tuples[b]
+    for _, idxs in sorted(buckets.items()):
       if self.agg_max_bytes > 0:
         small = [i for i in idxs if _nbytes(tensors[i]) < self.agg_max_bytes]
         rest = [i for i in idxs if i not in small]
@@ -355,18 +243,15 @@ class CollectivePlanner:
       else:
         chunks = [idxs]
       for chunk in chunks:
-        vec, meta = pack_tensors([tensors[i] for i in chunk], multiple_of=n)
-        vec = _reduce_packed(vec, spec, self.compact_dtype)
+        vec, meta = pack_tensors([tensors[i] for i in chunk])
+        vec = _reduce_packed(vec, self.compact_dtype)
         for i, t in zip(chunk, unpack_tensors(vec, meta)):
           reduced[i] = t
     return reduced
 
 
-_PSUM = AllReduceSpecTuple(alg="psum", shards=1, limit=None)
-
-
 def pack_small_reduce(tensors: Sequence[torch.Tensor], max_bytes: int,
-                      max_group: int, num_replicas: int,
+                      max_group: int,
                       compact_dtype: Optional[torch.dtype] = None
                       ) -> List[torch.Tensor]:
   """Small-gradient aggregation without a spec: tensors under
@@ -376,55 +261,46 @@ def pack_small_reduce(tensors: Sequence[torch.Tensor], max_bytes: int,
   small = [i for i, t in enumerate(tensors) if _nbytes(t) < max_bytes]
   for i, t in enumerate(tensors):
     if i not in small:
-      reduced[i] = _reduce_packed(t.reshape(-1), _PSUM,
-                                  compact_dtype).reshape(t.shape)
+      reduced[i] = _reduce_packed(t, compact_dtype)
   group = max(1, max_group)
   for start in range(0, len(small), group):
     chunk = small[start:start + group]
-    vec, meta = pack_tensors([tensors[i] for i in chunk],
-                             multiple_of=num_replicas)
-    vec = _reduce_packed(vec, _PSUM, compact_dtype)
+    vec, meta = pack_tensors([tensors[i] for i in chunk])
+    vec = _reduce_packed(vec, compact_dtype)
     for i, t in zip(chunk, unpack_tensors(vec, meta)):
       reduced[i] = t
   return reduced
 
 
 def repack_reduce(tensors: Sequence[torch.Tensor], num_chunks: int,
-                  num_replicas: int,
                   compact_dtype: Optional[torch.dtype] = None
                   ) -> List[torch.Tensor]:
   """--gradient_repacking: all tensors concatenated into one vector,
   re-split into ``num_chunks`` even chunks, each all-reduced."""
-  vec, meta = pack_tensors(tensors, multiple_of=num_replicas)
+  vec, meta = pack_tensors(tensors)
   num_chunks = max(1, int(num_chunks))
   chunk = -(-vec.numel() // num_chunks)
   size = vec.numel()
   pad = chunk * num_chunks - size
   if pad:
     vec = torch.cat([vec, vec.new_zeros(pad)])
-  parts = [_reduce_packed(part.contiguous(), _PSUM, compact_dtype)
+  parts = [_reduce_packed(part, compact_dtype)
            for part in vec.split(chunk)]
   return unpack_tensors(torch.cat(parts)[:size], meta)
 
 
-def hier_reduce(tensors: Sequence[torch.Tensor], num_groups: int = 2,
-                compact_dtype: Optional[torch.dtype] = None,
-                groups: Optional[List[int]] = None) -> List[torch.Tensor]:
-  """--hierarchical_copy: each tensor through the two-level ring."""
-  out = []
-  for t in tensors:
-    x = t if compact_dtype is None else t.to(compact_dtype)
-    out.append(_hier(x.reshape(-1), num_groups,
-                     groups=groups).reshape(t.shape).to(t.dtype))
-  return out
+def hier_reduce(tensors: Sequence[torch.Tensor],
+                compact_dtype: Optional[torch.dtype] = None
+                ) -> List[torch.Tensor]:
+  """--hierarchical_copy: each tensor reduced on its own, on the
+  ``compact_dtype`` wire."""
+  return [_reduce_packed(t, compact_dtype) for t in tensors]
 
 
-def _warn_hier_selected(source: str) -> None:
+def _note_alg(source: str) -> None:
   log_util.log_fn(
-      f"Warning: 'hier' all-reduce selected ({source}): the two-level ring "
-      "is unvalidated at scale and every rank of the port runs on one "
-      "host, so there is no host boundary for it to exploit -- the psum "
-      "default is the direct all_reduce")
+      f"{source}: rsag and hier run as psum's one all_reduce in the port "
+      "(every rank shares one host)")
 
 
 def build_reducer(params) -> Optional[Reducer]:
@@ -435,16 +311,14 @@ def build_reducer(params) -> Optional[Reducer]:
   if params.all_reduce_spec:
     return build_planner(params).reduce
   if params.gradient_repacking:
-    return lambda g: repack_reduce(g, params.gradient_repacking,
-                                   params.num_devices, compact)
+    return lambda g: repack_reduce(g, params.gradient_repacking, compact)
   if params.agg_small_grads_max_bytes > 0:
     return lambda g: pack_small_reduce(
         g, params.agg_small_grads_max_bytes,
-        params.agg_small_grads_max_group, params.num_devices, compact)
+        params.agg_small_grads_max_group, compact)
   if params.hierarchical_copy:
-    _warn_hier_selected("--hierarchical_copy")
-    groups = topology_groups(params.num_devices)
-    return lambda g: hier_reduce(g, compact_dtype=compact, groups=groups)
+    _note_alg("--hierarchical_copy")
+    return lambda g: hier_reduce(g, compact_dtype=compact)
   return None
 
 
@@ -453,9 +327,9 @@ def build_planner(params) -> Optional[CollectivePlanner]:
   if not params.all_reduce_spec:
     return None
   tuples = parse_all_reduce_spec(params.all_reduce_spec)
-  if any(t.alg == "hier" for t in tuples):
-    _warn_hier_selected(f"--all_reduce_spec={params.all_reduce_spec}")
-  return CollectivePlanner(tuples, num_replicas_hint=params.num_devices,
+  if any(t.alg != "psum" for t in tuples):
+    _note_alg(f"--all_reduce_spec={params.all_reduce_spec}")
+  return CollectivePlanner(tuples,
                            agg_max_bytes=params.agg_small_grads_max_bytes,
                            agg_max_group=params.agg_small_grads_max_group,
                            compact_dtype=compact_wire_dtype(params))

@@ -139,12 +139,6 @@ class CollectiveAllReduceStrategy(ReplicatedStrategy):
 
   name = "collective_all_reduce"
 
-  def __init__(self, params=None, planner=None, reducer=None):
-    if planner is not None and reducer is None:
-      reducer = planner.reduce
-    super().__init__(params, reducer=reducer)
-    self.planner = planner
-
 
 class KungFuStrategy(Strategy):
   """KungFu's optimizer wrappers, by --kungfu_option:
@@ -188,10 +182,6 @@ class KungFuStrategy(Strategy):
 
 def get_strategy(params) -> Strategy:
   """The strategy of --variable_update (and its companion flags)."""
-  if params.shard_optimizer_state:
-    raise ValueError(
-        "--shard_optimizer_state (ZeRO/FSDP) is not ported yet (ROADMAP "
-        "Queue 1 item 6)")
   vu = params.variable_update
   if vu == "independent":
     return IndependentStrategy(params)
@@ -205,8 +195,7 @@ def get_strategy(params) -> Strategy:
       return AsyncParameterServerStrategy(params, reducer=reducer)
     return ParameterServerStrategy(params, reducer=reducer)
   if vu in ("collective_all_reduce", "distributed_all_reduce"):
-    return CollectiveAllReduceStrategy(
-        params, planner=allreduce.build_planner(params), reducer=reducer)
+    return CollectiveAllReduceStrategy(params, reducer=reducer)
   if vu == "horovod":
     s = ReplicatedStrategy(params, reducer=reducer)
     s.name = "horovod"

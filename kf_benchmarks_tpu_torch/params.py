@@ -47,10 +47,10 @@ flags.DEFINE_enum("kungfu_option", "sync_sgd",
                   "the weights before a local step).")
 flags.DEFINE_string("all_reduce_spec", None,
                     "All-reduce algorithm spec, alg#shards:limit:alg...: "
-                    "psum (all_reduce), rsag (reduce_scatter + "
-                    "all_gather), hier (two-level ring); size-ranged "
-                    "hybrids and the reference's aliases accepted "
-                    "(ops/allreduce.py).")
+                    "the size ranges pick which gradients are packed "
+                    "together; psum, rsag and hier (and the reference's "
+                    "aliases) parse as in the JAX package and each pack is "
+                    "reduced by one all_reduce (ops/allreduce.py).")
 flags.DEFINE_integer("agg_small_grads_max_bytes", 0,
                      "Pack gradients smaller than this into one tensor "
                      "before the all-reduce (0 = off).", lower_bound=0)
@@ -73,23 +73,12 @@ flags.DEFINE_boolean("compact_gradient_transfer_f32", False,
                      "--compact_gradient_transfer and a packed reduction "
                      "path.")
 flags.DEFINE_boolean("hierarchical_copy", False,
-                     "Two-level reduction: a ring within contiguous rank "
-                     "groups, then across them.")
+                     "Hierarchical copy: each gradient reduced on its own "
+                     "(on the bf16 wire under --use_fp16), by one "
+                     "all_reduce in the port.")
 flags.DEFINE_boolean("cross_replica_sync", True,
                      "Synchronous data-parallel updates; false with "
                      "parameter_server is the async parameter server.")
-# Flags of the JAX package that the port refuses until their ROADMAP item
-# lands (validation.py names it).
-flags.DEFINE_boolean("shard_optimizer_state", False,
-                     "ZeRO sharded optimizer state (not ported yet).")
-flags.DEFINE_boolean("shard_params", False,
-                     "FSDP sharded parameters (not ported yet).")
-flags.DEFINE_boolean("overlap_gradient_reduction", False,
-                     "Bucketed in-backward gradient reduction (not ported "
-                     "yet).")
-flags.DEFINE_integer("reduce_bucket_mb", None,
-                     "Bucket size of --overlap_gradient_reduction (not "
-                     "ported yet).", lower_bound=1)
 flags.DEFINE_boolean("use_fp16", False,
                      "bf16 activations and gradients over f32 parameters.")
 flags.DEFINE_enum("optimizer", "sgd", ("sgd", "momentum"),
@@ -167,6 +156,8 @@ def make_params(**kwargs) -> Params:
             for name, spec in flags.param_specs.items()}
   for k, v in kwargs.items():
     if k not in flags.param_specs:
+      from kf_benchmarks_tpu_torch import validation
+      validation.refuse_unported_flag(k)
       raise ValueError(f"Unknown param: {k} (this port slice reads only "
                        f"{', '.join(flags.param_specs)})")
     values[k] = flags.canonicalize_value(flags.param_specs[k], v)

@@ -8,7 +8,10 @@ own seeded tensors, against the JAX reducer of the same kind on a virtual
 CPU mesh of the same size fed the same tensors as its replicas': the spec
 planner with psum, rsag and hier and a size-ranged spec, small-gradient
 packing, gradient repacking and the hierarchical copy, each with the f32
-and the bf16 wire. f32: rtol 1e-6 (sum order only). bf16: both sides round
+and the bf16 wire. The port reduces every pack with one all_reduce mean,
+where the JAX package runs rsag and hier as collectives of their own, so
+these cases hold the port's bucketing and packing against other reduction
+orders. f32: rtol 1e-6 (sum order only). bf16: both sides round
 every rank's tensor to bf16 and sum in bf16 in their own order, so an
 element may differ by two bf16 ulps of the largest partial sum (2^-6 of
 the sum of the ranks' magnitudes); the bf16 results must also differ from
@@ -85,9 +88,7 @@ def _jax_reducer(kind, kwargs, world, wire):
   if kind == "repack":
     return lambda g, ax: jax_allreduce.repack_reduce(
         g, ax, kwargs["chunks"], world, compact)
-  return lambda g, ax: jax_allreduce.hier_reduce(
-      g, ax, compact_dtype=compact,
-      groups=allreduce.topology_groups(world))
+  return lambda g, ax: jax_allreduce.hier_reduce(g, ax, compact_dtype=compact)
 
 
 def _jax_reduce(kind, kwargs, world, wire, tensors):
@@ -121,21 +122,13 @@ def test_bad_spec_rejected_like_jax(spec):
     allreduce.parse_all_reduce_spec(spec)
 
 
-def test_size_buckets_and_topology_groups_match_jax():
+def test_size_buckets_match_jax():
   rng = np.random.default_rng(3)
   for _ in range(20):
     sizes = [int(s) for s in rng.integers(1, 5000, rng.integers(0, 30))]
     bound = int(rng.integers(1, 20000))
     assert (allreduce.plan_size_buckets(sizes, bound) ==
             jax_allreduce.plan_size_buckets(sizes, bound))
-
-  class Dev:
-    process_index = 0
-
-  for n in (1, 2, 4, 6, 8):
-    for k in (None, 2, 3, 4):
-      assert (allreduce.topology_groups(n, k) ==
-              jax_allreduce.topology_groups([Dev()] * n, k)), (n, k)
 
 
 @pytest.mark.parametrize("multiple", [1, 8])

@@ -8,7 +8,8 @@ on the CPU.
   only rank 0 prints: one banner, one total line, the global batch and
   rate; a failing rank makes it exit non-zero.
 * Validation accepts ``--num_devices > 1`` for every ported strategy and
-  refuses the unported flags naming their ROADMAP item, and more ranks
+  refuses the unported flags naming their ROADMAP item (in make_params and
+  in the CLI's parser, which do not define them), and more ranks
   than cards on the card.
 """
 
@@ -147,3 +148,22 @@ def test_more_ranks_than_cards_is_refused():
         device="gpu", num_devices=2, use_fp16=True, model="resnet50"))
   rc = cli.main(["--device=gpu", "--num_devices=2"])
   assert rc != 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--shard_optimizer_state"],
+    ["--shard_params=true"],
+    ["--overlap_gradient_reduction"],
+    ["--reduce_bucket_mb=25"],
+])
+def test_cli_refuses_unported_flag_naming_roadmap(argv, capsys):
+  """The port does not define the sharding and overlap flags; the CLI's
+  parser names their ROADMAP item instead of calling them unknown."""
+  assert cli.main(["--device=cpu", "--model=trivial"] + argv) == 1
+  assert "Queue 1 item 6" in capsys.readouterr().err
+
+
+def test_cli_rejects_an_unknown_flag():
+  with pytest.raises(SystemExit) as e:
+    cli.parse_params(["--device=cpu", "--no_such_flag=1"])
+  assert e.value.code == 2

@@ -113,7 +113,7 @@ def _pair_average_case(case, rank):
   return {"history": history}
 
 
-def make_reducer(kind, kwargs, world, compact):
+def make_reducer(kind, kwargs, compact):
   """A reducer of ops/allreduce.py by kind: "planner" (kwargs: spec and
   optionally agg_max_bytes/agg_max_group), "pack_small", "repack" or
   "hier"."""
@@ -121,17 +121,14 @@ def make_reducer(kind, kwargs, world, compact):
   if kind == "planner":
     kw = dict(kwargs)
     spec = allreduce.parse_all_reduce_spec(kw.pop("spec"))
-    return allreduce.CollectivePlanner(spec, num_replicas_hint=world,
-                                       compact_dtype=wire, **kw).reduce
+    return allreduce.CollectivePlanner(spec, compact_dtype=wire, **kw).reduce
   if kind == "pack_small":
     return lambda t: allreduce.pack_small_reduce(
-        t, kwargs["max_bytes"], kwargs["max_group"], world, wire)
+        t, kwargs["max_bytes"], kwargs["max_group"], wire)
   if kind == "repack":
-    return lambda t: allreduce.repack_reduce(t, kwargs["chunks"], world,
-                                             wire)
+    return lambda t: allreduce.repack_reduce(t, kwargs["chunks"], wire)
   if kind == "hier":
-    return lambda t: allreduce.hier_reduce(
-        t, compact_dtype=wire, groups=allreduce.topology_groups(world))
+    return lambda t: allreduce.hier_reduce(t, compact_dtype=wire)
   raise ValueError(kind)
 
 
@@ -139,7 +136,7 @@ def _reducers_case(case, rank, world):
   tensors = [torch.from_numpy(a) for a in case["tensors"][rank]]
   out = {}
   for label, kind, kwargs, compact in case["reducers"]:
-    reduced = make_reducer(kind, kwargs, world, compact)(tensors)
+    reduced = make_reducer(kind, kwargs, compact)(tensors)
     out[label] = [r.numpy().copy() for r in reduced]
   return out
 
