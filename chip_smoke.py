@@ -92,7 +92,30 @@ the run with a non-zero exit and no result line:
                 the time of one reduction of the full gradient set, per
                 tensor and packed (back-to-back CUDA events: the host paces
                 these many small collectives, so it is host time as much as
-                device time).
+                device time);
+ 14. zoo     -- BASELINE configs 4 and 5's models: K-A and K-B at
+                Inception-v3's fused shape (x [128,8,8,448] -> 384 forward,
+                384 -> 448 for K-A on the input gradient) against their
+                plain versions, checked and timed as in phases conv and
+                unit; then BenchmarkCNN on ResNet-152 v1.5 and on
+                Inception-v3 (kungfu async_sgd, pair averaging, world 1
+                over NCCL), batch 128, bf16, Nesterov, 5 warmup + 20 timed
+                steps each: images/sec, peak memory, and 47 + 47 and 2 + 2
+                K-A + K-B launches a step, the counts set to 0 just before
+                the two runs and read just after;
+ 15. elastic -- BASELINE config 5's command (ResNet-152, batch 128, bf16,
+                kungfu, --elastic --adaptive_batch_size, --train_dir)
+                through `python -m kf_benchmarks_tpu_torch.kfrun -np 1`, no
+                warmup: 6 steps twice uninterrupted, then 3 steps, a
+                checkpoint, and 3 more in a new process resumed from it;
+                the resumed state at step 6 (parameters, batch-norm
+                averages, momentum buffers, step) bitwise equal to the
+                first uninterrupted run's if the two uninterrupted runs are
+                bitwise equal, else no tensor farther from it than the
+                second uninterrupted run is; the batch holds at world 1
+                (no noise-scale estimate); 47 + 47 launches a step in every
+                worker (read from its log); checkpoint save and restore
+                times.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -123,7 +146,7 @@ import torch.nn.functional as F
 
 ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
-              "serve_parity", "dp")
+              "serve_parity", "dp", "zoo", "elastic")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -1672,6 +1695,275 @@ def phase_dp(res):
   res["dp"] = out
 
 
+# -- the zoo: ResNet-152 and Inception-v3 (BASELINE configs 4 and 5) ------------
+
+# Inception-v3's two fused convs (mixed_9 and mixed_10, column 4): x
+# [N,8,8,448] -> [N,8,8,384] forward (K-B), and K-A on the input gradient,
+# 384 -> 448. (name, N, H, W, C, CO).
+INCEPTION_SHAPES = (("inception_448_384", 128, 8, 8, 448, 384),
+                    ("inception_grad_384_448", 128, 8, 8, 384, 448))
+ZOO_RUNS = (
+    # (label, model, fused units a step, extra flags)
+    ("resnet152", "resnet152", 47, {}),
+    ("inception3", "inception3", 2, dict(variable_update="kungfu",
+                                         kungfu_option="async_sgd")),
+)
+ZOO_BATCH = 128
+
+
+def zoo_params(model, **flags):
+  from kf_benchmarks_tpu_torch import params as params_lib
+  return params_lib.make_params(
+      model=model, batch_size=ZOO_BATCH, use_fp16=True, optimizer="momentum",
+      num_batches=20, num_warmup_batches=5, display_every=10, device="gpu",
+      **flags)
+
+
+def check_conv_at(label, n, h, w, c, co, seed):
+  """K-A against its plain version at one shape, timed as in phase conv."""
+  from kf_benchmarks_tpu_torch.ops import conv_bn
+  x, wt, _, _ = inputs(n, h, w, c, co, seed)
+  w_k = conv_bn.kmajor(wt)
+  y = conv_bn.conv3x3_same(x, wt)
+  ref = conv_bn.conv3x3_same_plain(x, wt)
+  torch.cuda.synchronize()
+  err, ok = bf16_close(y, ref)
+  rel = err / float(ref.float().abs().max())
+  check(ok, f"conv3x3_same {label}: max abs err {err} out of tolerance")
+  x_nchw = x.permute(0, 3, 1, 2)
+  w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+      memory_format=torch.channels_last)
+  ms = time_ms(lambda: conv_bn.conv3x3_same_kmajor(x, w_k))
+  plain_ms = time_ms(lambda: conv_bn.conv3x3_same_plain(x, wt), iters=5)
+  lib_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1))
+  b_ms, b_by = conv_cost(n, h, w, c, co)
+  log(f"zoo conv: {label} x[{n},{h},{w},{c}] w[3,3,{c},{co}]: max abs err "
+      f"{err:.3g} (rel {rel:.2g}; tol 2^-7|ref| + 1e-3 max|ref|) kernel "
+      f"{ms:.4f} ms, plain {plain_ms:.3f} ms, F.conv2d {lib_ms:.4f} ms, "
+      f"bound {b_ms:.4f} ms ({b_by})")
+  return dict(stage=label, shape=[n, h, w, c, co], max_abs_err=err,
+              max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+              bound_by=b_by, library_ms=lib_ms, library="F.conv2d (cuDNN)")
+
+
+def check_unit_at(label, n, h, w, c, co, seed):
+  """K-B against its plain version at one shape, with the checks and
+  timings of phase unit."""
+  from kf_benchmarks_tpu_torch.ops import conv_bn
+  x, wt, sc, sh = inputs(n, h, w, c, co, seed)
+  w_k = conv_bn.kmajor(wt)
+  y, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k)
+  y2, st2 = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k)
+  y_ref, st_ref = conv_bn.bn_relu_conv3x3_stats_plain(x, sc, sh, wt)
+  torch.cuda.synchronize()
+  check(torch.equal(y, y2) and torch.equal(st, st2),
+        f"bn_relu_conv3x3_stats {label}: two launches differ")
+  err, ok = bf16_close(y, y_ref)
+  check(ok, f"bn_relu_conv3x3_stats {label}: y max abs err {err}")
+  yf = y_ref.float()
+  scale = torch.stack([yf.abs().sum((0, 1, 2)), (yf * yf).sum((0, 1, 2))])
+  st_err = float(((st - st_ref).abs() / scale.clamp_min(1e-30)).max())
+  check(st_err <= 1e-3, f"bn_relu_conv3x3_stats {label}: stats rel err "
+        f"{st_err} > 1e-3")
+  x_nchw = x.permute(0, 3, 1, 2)
+  w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+      memory_format=torch.channels_last)
+  ms = time_ms(lambda: conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k))
+  plain_ms = time_ms(
+      lambda: conv_bn.bn_relu_conv3x3_stats_plain(x, sc, sh, wt), iters=5)
+  lib_ms = time_ms(lambda: _bn_relu_stats_library(x_nchw, w_oihw, sc, sh))
+  b_ms, b_by = conv_cost(n, h, w, c, co, extra_bytes=4.0 * (2 * c + 2 * co))
+  log(f"zoo unit: {label} x[{n},{h},{w},{c}] -> {co}: y max abs err "
+      f"{err:.3g}, stats rel err {st_err:.2g} (tol 1e-3), two launches "
+      f"bitwise equal; tile {tuple(conv_bn.kb_tile(n, h, w, co, 132))}; "
+      f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, cuDNN conv + torch "
+      f"BN/ReLU/stats {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+  return dict(stage=label, shape=[n, h, w, c, co], max_abs_err=err,
+              stats_rel_err=st_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+              bound_by=b_by, library_ms=lib_ms,
+              library="F.conv2d (cuDNN) + torch BN-apply, ReLU and "
+              "statistics (no single call computes the unit)")
+
+
+def phase_zoo(res):
+  """BASELINE configs 4 and 5's models. K-A and K-B at Inception-v3's
+  fused shape against their plain versions; then BenchmarkCNN on
+  ResNet-152 v1.5 and on Inception-v3 (the latter under kungfu async_sgd,
+  pair averaging, at world 1 over NCCL through the rank entry), batch 128,
+  bf16, Nesterov momentum, 5 warmup + 20 timed steps each, with the launch
+  counts set to 0 just before the two runs and read just after."""
+  from kf_benchmarks_tpu_torch import benchmark, cli
+  from kf_benchmarks_tpu_torch.parallel import mesh
+  for i, (label, n, h, w, c, co) in enumerate(INCEPTION_SHAPES):
+    res.setdefault("conv3x3_same", []).append(
+        check_conv_at(label, n, h, w, c, co, seed=60 + i))
+  label, n, h, w, c, co = INCEPTION_SHAPES[0]
+  res.setdefault("bn_relu_conv3x3_stats", []).append(
+      check_unit_at(label, n, h, w, c, co, seed=70))
+  out = {}
+  reset_launches()
+  for label, model, fused, flags in ZOO_RUNS:
+    params = zoo_params(model, **flags)
+    before = benchmark.kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    if flags:
+      stats = cli.rank_main(0, params, mesh.local_init_method())
+      check(not mesh.is_distributed(), "zoo: rank_main left its group up")
+    else:
+      stats = benchmark.BenchmarkCNN(params).run()
+    after = benchmark.kernel_launches()
+    launched = {k: after[k] - before[k] for k in after}
+    steps = stats["steps_run"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"zoo {label}: batch {ZOO_BATCH}, {steps} steps (5 warmup + 20 "
+        f"timed), {stats['images_per_sec']:.2f} images/sec, peak memory "
+        f"{peak:.2f} GiB, kernel launches {launched} ({fused} + {fused} a "
+        f"step wanted)")
+    check(np.isfinite(stats["last_average_loss"]),
+          f"zoo {label}: loss not finite")
+    for name in ("conv3x3_same", "bn_relu_conv3x3_stats"):
+      check(launched[name] == fused * steps,
+            f"zoo {label}: {name} launched {launched[name]} times in "
+            f"{steps} steps, want {fused} a step")
+    out[label] = {"images_per_sec": stats["images_per_sec"],
+                  "peak_gib": peak, "launches": launched}
+  res.setdefault("counts_by_path", {})["zoo"] = benchmark.kernel_launches()
+  res["zoo"] = out
+
+
+# -- elastic: BASELINE config 5 through kfrun -----------------------------------
+
+ELASTIC_STEPS = 6
+
+
+def elastic_arc(root, name, num_batches):
+  """One launch of BASELINE config 5's command through ``python -m
+  kf_benchmarks_tpu_torch.kfrun -np 1``: ResNet-152, batch 128, bf16,
+  kungfu, --elastic --adaptive_batch_size, its checkpoints in
+  root/<name>, no warmup steps. Returns the worker's stdout."""
+  from kf_benchmarks_tpu_torch.parallel import mesh
+  train_dir = os.path.join(root, name)
+  logdir = os.path.join(root, name + "_logs")
+  os.makedirs(logdir, exist_ok=True)
+  cmd = [sys.executable, "-m", "kf_benchmarks_tpu_torch.kfrun", "-np", "1",
+         "--logdir", logdir, "--", sys.executable, "-m",
+         "kf_benchmarks_tpu_torch.cli", "--model=resnet152",
+         f"--batch_size={ZOO_BATCH}", "--use_fp16", "--optimizer=momentum",
+         "--variable_update=kungfu", "--elastic", "--adaptive_batch_size",
+         "--elastic_check_every_n_steps=2", "--num_warmup_batches=0",
+         f"--num_batches={num_batches}", "--display_every=1",
+         f"--train_dir={train_dir}",
+         "--worker_hosts=" + mesh.local_init_method()[len("tcp://"):]]
+  # A worker killed by a signal leaves its Python stack in its log.
+  env = {**os.environ, "PYTHONFAULTHANDLER": "1"}
+  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                        env=env)
+  with open(os.path.join(logdir, "127.0.0.1.10000.stdout.log")) as f:
+    out = f.read()
+  with open(os.path.join(logdir, "127.0.0.1.10000.stderr.log")) as f:
+    err = f.read()
+  check(proc.returncode == 0, f"elastic {name}: kfrun exited "
+        f"{proc.returncode}\nkfrun: {proc.stderr[-2000:]}\nworker stdout: "
+        f"{out[-2000:]}\nworker stderr: {err[-4000:]}")
+  return out
+
+
+def state_distances(a, b):
+  """{tensor: max |a - b|} over a snapshot's module state (parameters and
+  batch-norm averages) and optimizer buffers; the step must match."""
+  check(a["step"] == b["step"], f"elastic: steps {a['step']} != "
+        f"{b['step']}")
+  out = {}
+  for k, v in a["model"].items():
+    out[f"module {k}"] = float((v.double() - b["model"][k].double()).abs()
+                               .max()) if v.numel() else 0.0
+  for i, st in a["optimizer"]["state"].items():
+    for k, v in st.items():
+      out[f"optimizer {i}/{k}"] = float(
+          (v.double() - b["optimizer"]["state"][i][k].double()).abs().max())
+  return out
+
+
+def launches_in(log_text):
+  m = re.findall(r"^Kernel launches: (.*)$", log_text, re.M)
+  check(len(m) == 1, "elastic: no kernel launch line")
+  return {k: int(v) for k, v in (x.rsplit(" ", 1) for x in m[0].split(", "))}
+
+
+def phase_elastic(res):
+  """BASELINE config 5 through kfrun at -np 1: ResNet-152 run for 6
+  steps twice uninterrupted, and 3 + 3 with a checkpoint and a resume in
+  between (a new process); the resumed state at step 6 -- parameters,
+  batch-norm averages, momentum buffers, step -- held to the limit the
+  card gives: bitwise if the two uninterrupted runs are bitwise equal,
+  else within their distance of each other, tensor by tensor. World 1
+  gives no noise-scale estimate, so the batch must hold."""
+  import gc
+  import tempfile
+  from kf_benchmarks_tpu_torch import checkpoint
+  # The workers are other processes: leave them the card's memory.
+  gc.collect()
+  torch.cuda.empty_cache()
+  free, total = torch.cuda.mem_get_info()
+  log(f"elastic: this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+      f" GiB ({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the card "
+      f"has {free / 2**30:.1f} of {total / 2**30:.1f} GiB free")
+  root = tempfile.mkdtemp(prefix="elastic_")
+  half = ELASTIC_STEPS // 2
+  logs = {"whole_a": elastic_arc(root, "whole_a", ELASTIC_STEPS),
+          "whole_b": elastic_arc(root, "whole_b", ELASTIC_STEPS),
+          "arc_1": elastic_arc(root, "arcs", half),
+          "arc_2": elastic_arc(root, "arcs", half)}
+  # The port runs this path in the workers: their counts, each from 0.
+  from kf_benchmarks_tpu_torch import benchmark
+  counts = dict.fromkeys(benchmark.kernel_launches(), 0)
+  for label, text in logs.items():
+    launched = launches_in(text)
+    steps = half if label.startswith("arc") else ELASTIC_STEPS
+    for name in ("conv3x3_same", "bn_relu_conv3x3_stats"):
+      check(launched.get(name) == 47 * steps,
+            f"elastic {label}: {name} launched {launched.get(name)} times "
+            f"in {steps} steps, want 47 a step")
+    for k, v in launched.items():
+      counts[k] += v
+    check("track_grad_noise_scale: needs >= 2 devices" in text and
+          "Elastic reshape" not in text,
+          f"elastic {label}: the batch did not hold at world 1")
+  res.setdefault("counts_by_path", {})["elastic"] = counts
+  check(f"Restored checkpoint at global step {half}" in logs["arc_2"],
+        "elastic: the second arc did not resume at step 3")
+  save_s = [float(x) for t in logs.values() for x in re.findall(
+      r"Saved checkpoint at global step \d+ in ([\d.]+) s", t)]
+  restore_s = float(re.findall(
+      r"Restored checkpoint at global step \d+ in ([\d.]+) s",
+      logs["arc_2"])[0])
+  snaps = {}
+  for name in ("whole_a", "whole_b", "arcs"):
+    snaps[name], _, step = checkpoint.load_latest_checkpoint(
+        os.path.join(root, name))
+    check(step == ELASTIC_STEPS, f"elastic {name}: last step {step}")
+  nbytes = os.path.getsize(checkpoint.latest_checkpoint(
+      os.path.join(root, "arcs"))[0])
+  noise = state_distances(snaps["whole_b"], snaps["whole_a"])
+  resumed = state_distances(snaps["arcs"], snaps["whole_a"])
+  bitwise = max(noise.values()) == 0.0
+  over = {k: (v, noise[k]) for k, v in resumed.items() if v > noise[k]}
+  log(f"elastic: two uninterrupted runs {'bitwise equal' if bitwise else 'differ'} "
+      f"(largest tensor distance {max(noise.values()):.3g}); resumed run "
+      f"against the first: largest tensor distance "
+      f"{max(resumed.values()):.3g}, {len(over)} of {len(resumed)} tensors "
+      f"over the uninterrupted pair's distance")
+  log(f"elastic: checkpoint {nbytes / 2 ** 20:.1f} MiB, save "
+      f"{min(save_s):.3f}-{max(save_s):.3f} s over {len(save_s)} saves, "
+      f"restore {restore_s:.3f} s; kernel launches {counts}")
+  check(not over, f"elastic: resumed state beyond the card's own spread: "
+        f"{dict(list(over.items())[:5])}")
+  res["elastic"] = {"bitwise": bitwise, "noise_max": max(noise.values()),
+                    "resumed_max": max(resumed.values()),
+                    "save_s": save_s, "restore_s": restore_s,
+                    "checkpoint_bytes": nbytes}
+
+
 # -- main ----------------------------------------------------------------------
 
 def device_line() -> str:
@@ -1726,6 +2018,7 @@ def main(argv=None) -> int:
            "lm_train": phase_lm_train, "lm_parity": phase_lm_parity,
            "decode": phase_decode, "serve": phase_serve,
            "serve_parity": phase_serve_parity, "dp": phase_dp,
+           "zoo": phase_zoo, "elastic": phase_elastic,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}

@@ -3,12 +3,17 @@
 The JAX package keeps every layer of a CNN at the top level of its flax
 variable tree under the ConvNetBuilder's layer name (``conv_stem``, ``resnet_v10_a``,
 ``resnet_v10_a_bn``, ``affine0``, ...). The port nests the bottleneck
-layers (``resnet_v1<k>_<part>`` -> ``blocks.<k>.<part>``) and keeps the
-other names. Leaves:
+layers (``resnet_v1<k>_<part>``, or ``resnet_v2<k>_<part>`` in ResNet v2
+with its ``_preact_bn``, -> ``blocks.<k>.<part>``; the module's
+``block_prefix`` says which) and keeps the other names: ResNet v2's
+``final_bn``, and Inception's ``conv<n>`` / ``conv<n>_bn`` in the JAX
+builder's counter order (builder.GraphNet registers them under those
+names). Leaves:
 
   conv   ``kernel`` HWIO       -> ``weight`` OIHW
   dense  ``kernel`` (in, out)  -> ``weight`` (out, in); ``bias`` as is
-  BN     params ``scale``/``bias``, batch_stats ``mean``/``var`` as is
+  BN     params ``scale`` (absent in a batch norm without scale, as
+         Inception's) / ``bias``, batch_stats ``mean``/``var`` as is
 
 The transformer LM's tree is nested (``lm_leaf_of``): ``embed/embedding``,
 ``pos_embedding``, ``ln_f``, ``lm_head`` (kept (d_model, vocab)) and the
@@ -48,15 +53,17 @@ FlaxLeaf = Tuple[str, str, str, str]
 FlaxSource = Tuple[Tuple[str, ...], str, Optional[int]]
 
 
-def flax_layer_name(port_name: str) -> str:
+def flax_layer_name(port_name: str, block_prefix: str = "resnet_v1") -> str:
   m = _PORT_BLOCK.match(port_name)
-  return f"resnet_v1{m.group(1)}_{m.group(2)}" if m else port_name
+  return f"{block_prefix}{m.group(1)}_{m.group(2)}" if m else port_name
 
 
-def leaf_of(key: str, tensor: torch.Tensor) -> FlaxLeaf:
-  """The flax leaf a state_dict entry comes from."""
+def leaf_of(key: str, tensor: torch.Tensor,
+            block_prefix: str = "resnet_v1") -> FlaxLeaf:
+  """The flax leaf a state_dict entry comes from (``block_prefix``: the
+  flax name of the module's bottlenecks, ``resnet_v1`` or ``resnet_v2``)."""
   layer, attr = key.rsplit(".", 1)
-  flax_name = flax_layer_name(layer)
+  flax_name = flax_layer_name(layer, block_prefix)
   if attr in ("mean", "var"):
     return "batch_stats", flax_name, attr, "copy"
   if attr == "weight":
@@ -110,7 +117,8 @@ def flax_source(key: str, tensor: torch.Tensor,
   """The flax leaf (and layer, for a stacked one) of a state_dict entry."""
   if isinstance(module, transformer_lm.TransformerLM):
     return lm_leaf_of(key, module.scan_layers)
-  collection, layer, leaf, kind = leaf_of(key, tensor)
+  collection, layer, leaf, kind = leaf_of(
+      key, tensor, getattr(module, "block_prefix", "resnet_v1"))
   return (collection, layer, leaf), kind, None
 
 

@@ -64,6 +64,11 @@ def DEFINE_enum(name, default, enum_values, help):  # noqa: N802
   _define(name, "enum", default, help, enum_values=list(enum_values))
 
 
+def DEFINE_list(name, default, help):  # noqa: N802
+  """A comma-separated list of strings."""
+  _define(name, "list", list(default or []), help)
+
+
 def canonicalize_value(spec: ParamSpec, value: Any) -> Any:
   """Coerce a raw (possibly string) value to the spec's python type."""
   if value is None:
@@ -71,6 +76,10 @@ def canonicalize_value(spec: ParamSpec, value: Any) -> Any:
   t = spec.flag_type
   if t in ("string", "enum"):
     return str(value)
+  if t == "list":
+    if isinstance(value, str):
+      return [v for v in value.split(",") if v]
+    return list(value)
   if t == "boolean":
     if isinstance(value, bool):
       return value

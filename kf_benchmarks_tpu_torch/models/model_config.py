@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+from kf_benchmarks_tpu_torch.models import inception_model
 from kf_benchmarks_tpu_torch.models import resnet_model
 from kf_benchmarks_tpu_torch.models import transformer_lm
 from kf_benchmarks_tpu_torch.models import trivial_model
@@ -21,6 +22,12 @@ _MODELS: Dict[str, Callable] = {
     "trivial": trivial_model.TrivialModel,
     "resnet50": resnet_model.create_resnet50_model,
     "resnet50_v1.5": resnet_model.create_resnet50_v15_model,
+    "resnet50_v2": resnet_model.create_resnet50_v2_model,
+    "resnet101": resnet_model.create_resnet101_model,
+    "resnet101_v2": resnet_model.create_resnet101_v2_model,
+    "resnet152": resnet_model.create_resnet152_model,
+    "resnet152_v2": resnet_model.create_resnet152_v2_model,
+    "inception3": inception_model.Inceptionv3Model,
     "transformer_lm": transformer_lm.create_transformer_lm_model,
 }
 

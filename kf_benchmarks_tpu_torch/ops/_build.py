@@ -19,6 +19,10 @@ time, so no ``-lcuda`` is needed.
 
 The ranks of a data-parallel run share the build directory: the first to
 take its lock builds, and the others wait for it and load what it built.
+
+``build_host_library`` does the same with ``g++`` for the host-side C++ of
+``csrc/`` (the coordination service, ``csrc/kfcoord.cc``), into
+``build/host/<hash>/``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,14 @@ from typing import Dict, List
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+HOST_BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "host")
+
+# The C++ runtime is linked in and its symbols kept private: in a process
+# that has loaded the CUDA libraries, a library that takes its std::
+# symbols from the global namespace crashed (a segfault in the first
+# std::ostringstream, kfcoord_barrier, on an H100 host; g++ 13.3).
+GXX_FLAGS = ["-O2", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-shared",
+             "-static-libstdc++", "-static-libgcc", "-Wl,--exclude-libs,ALL"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -120,6 +132,33 @@ def build_all() -> str:
     fcntl.flock(lock, fcntl.LOCK_EX)
     _build_missing(out_dir)
   return out_dir
+
+
+def build_host_library(name: str) -> str:
+  """``csrc/<name>.cc`` built by ``g++`` into
+  ``build/host/<hash>/lib<name>.so`` (the hash covers the source and the
+  flags) unless it is there already, under the build directory's lock;
+  returns the library's path."""
+  src = os.path.join(CSRC_DIR, name + ".cc")
+  h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+  with open(src, "rb") as f:
+    h.update(f.read())
+  out_dir = os.path.join(HOST_BUILD_ROOT, h.hexdigest()[:16])
+  path = os.path.join(out_dir, f"lib{name}.so")
+  os.makedirs(out_dir, exist_ok=True)
+  with open(os.path.join(out_dir, ".lock"), "w") as lock:
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    if not os.path.exists(path):
+      tmp = os.path.join(out_dir, f"lib{name}.{os.getpid()}.tmp.so")
+      cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+      proc = subprocess.run([cxx] + GXX_FLAGS + ["-o", tmp, src,
+                                                 "-lpthread"],
+                            capture_output=True, text=True)
+      if proc.returncode != 0:
+        raise RuntimeError(f"{name}: {cxx} exited {proc.returncode}\n"
+                           f"{proc.stdout}{proc.stderr}")
+      os.replace(tmp, path)
+  return path
 
 
 def _build_missing(out_dir: str) -> None:

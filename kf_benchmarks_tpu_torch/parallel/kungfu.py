@@ -11,15 +11,16 @@ collective over the default process group, in place on a list of tensors
   pair_average     one send/receive of the whole list per step with the
                    step's gossip partner, then (x + y) / 2 (async_sgd)
   sync_average     allreduce_mean of the weights (sma)
-  run_barrier      dist.barrier
+  run_barrier      the exit barrier: on the coordination service under the
+                   kfrun launcher (KFCOORD_* set), else dist.barrier
 
 ``current_cluster_size`` and ``current_rank`` answer for the process group
-(1 and 0 without one). The ``KFCOORD_*`` barrier of the native
-coordination service is not ported yet (ROADMAP Queue 1 item 4).
+(1 and 0 without one).
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import torch
@@ -37,7 +38,20 @@ def current_rank() -> int:
 
 
 def run_barrier() -> None:
-  """Every rank waits for the others (the reference's exit barrier)."""
+  """Every rank waits for the others (the reference's exit barrier,
+  tf_cnn_benchmarks.py:58-60). Under the kfrun launcher each of the
+  KFCOORD_WORLD workers joins the coordinator and enters its ``kf_exit``
+  barrier; otherwise the process group's barrier (none without one)."""
+  host = os.environ.get("KFCOORD_HOST")
+  port = os.environ.get("KFCOORD_PORT")
+  world = os.environ.get("KFCOORD_WORLD")
+  if host and port and world:
+    from kf_benchmarks_tpu_torch.parallel import coordination
+    with coordination.CoordinatorClient(host=host,
+                                        port=int(port)) as client:
+      client.join(os.environ.get("KFCOORD_NAME", f"proc-{os.getpid()}"))
+      client.barrier("kf_exit", int(world))
+    return
   if mesh.is_distributed():
     dist.barrier()
 

@@ -31,6 +31,14 @@ def rank() -> int:
   return dist.get_rank() if is_distributed() else 0
 
 
+def local_rank() -> int:
+  """This rank's card on its host: the CUDA device ``init_process_group``
+  made current in an NCCL group, else the rank."""
+  if is_distributed() and dist.get_backend() == "nccl":
+    return torch.cuda.current_device()
+  return rank()
+
+
 def rank_device(device: str, local_rank: int) -> torch.device:
   """``cuda:<local_rank>`` for --device=gpu, the CPU for --device=cpu."""
   if device == "gpu":
@@ -60,11 +68,12 @@ def device_count_error(device: str, num_devices: int):
 
 
 def init_process_group(device: str, world: int, rank_: int,
-                       init_method: str, timeout_s: float = 600.0
-                       ) -> torch.device:
-  """Joins rank ``rank_`` of ``world`` and returns its device. On the card
-  the rank's device is made current before NCCL starts."""
-  dev = rank_device(device, rank_)
+                       init_method: str, timeout_s: float = 600.0,
+                       local_rank: int = None) -> torch.device:
+  """Joins rank ``rank_`` of ``world`` and returns its device,
+  ``cuda:<local_rank>`` (default: the rank, one host) on the card, where
+  it is made current before NCCL starts."""
+  dev = rank_device(device, rank_ if local_rank is None else local_rank)
   if dev.type == "cuda":
     torch.cuda.set_device(dev)
   dist.init_process_group(

@@ -1,9 +1,11 @@
 """The parameters the port reads so far, and the Params object.
 
 A subset of kf_benchmarks_tpu/params.py (ref: benchmark_cnn.py:114-636):
-ResNet-50 and transformer_lm training on synthetic data, on one card or
-data-parallel over torch.distributed, and the transformer_lm serving bench
-(serving/bench.py). Names, defaults and
+the CNN zoo of models/model_config.py and transformer_lm training on
+synthetic data, on one card or data-parallel over torch.distributed
+(spawned ranks, or kfrun workers joined through --worker_hosts), with
+checkpoints, elastic resize and the adaptive batch size, and the
+transformer_lm serving bench (serving/bench.py). Names, defaults and
 meanings follow the JAX package (the serving bench's ``--serving_requests``,
 ``--serving_rate`` and ``--serving_tenants`` are arguments of the JAX
 package's bench.py), except ``device``, which defaults to the card.
@@ -37,8 +39,8 @@ flags.DEFINE_enum("variable_update", "replicated",
                    "distributed_replicated", "distributed_all_reduce",
                    "collective_all_reduce", "horovod", "kungfu"),
                   "Parallelism strategy (parallel/strategies.py); "
-                  "distributed_replicated needs a multi-host launch the "
-                  "port does not have yet (validation.py).")
+                  "distributed_replicated (parameter-server hosts) is not "
+                  "ported (validation.py).")
 flags.DEFINE_enum("kungfu_option", "sync_sgd",
                   ("sync_sgd", "async_sgd", "sma"),
                   "KungFu optimizer wrapper: sync_sgd (all-reduce mean of "
@@ -99,6 +101,59 @@ flags.DEFINE_integer("attn_block", None,
                      "ATTN_BLOCK). Must divide the model's sequence length "
                      "(validation.py). The flash kernels choose their own "
                      "tile.", lower_bound=8)
+# Checkpoints (checkpoint.py; ref :585-608).
+flags.DEFINE_string("train_dir", None,
+                    "Checkpoint directory (ref :585-588): the run resumes "
+                    "from its newest readable checkpoint and saves there.")
+flags.DEFINE_integer("save_model_secs", 0,
+                     "Checkpoint cadence in seconds (ref :598-601).")
+flags.DEFINE_integer("save_model_steps", 0,
+                     "Checkpoint cadence in steps (ref :602-605).")
+flags.DEFINE_integer("max_ckpts_to_keep", 5,
+                     "Max checkpoints kept (ref :606-608).")
+# Elastic resize and the adaptive batch size (elastic.py).
+flags.DEFINE_boolean("track_grad_noise_scale", False,
+                     "Measure the gradient noise scale in the train step "
+                     "(each rank's gradients against their mean over the "
+                     "ranks) and report the EMA-smoothed B_simple -- the "
+                     "statistic KungFu's adaptation policies monitor. Needs "
+                     "a world of at least 2.")
+flags.DEFINE_boolean("elastic", False,
+                     "Enable elastic resize: watch the coordination "
+                     "service (KFCOORD_* env, set by kfrun) for target-size "
+                     "changes; a new world size is a checkpoint-restart "
+                     "through kfrun (one card a process).")
+flags.DEFINE_integer("elastic_check_every_n_steps", 10,
+                     "How often the train loop polls for elastic resize / "
+                     "adaptive-batch decisions.", lower_bound=1)
+flags.DEFINE_boolean("adaptive_batch_size", False,
+                     "Adapt the per-device batch size to the measured "
+                     "gradient noise scale (implies "
+                     "track_grad_noise_scale; KungFu adaptive batch "
+                     "policy analog).")
+flags.DEFINE_integer("adaptive_batch_min", 1,
+                     "Lower bound for the adaptive per-device batch size.",
+                     lower_bound=1)
+flags.DEFINE_integer("adaptive_batch_max", 1024,
+                     "Upper bound for the adaptive per-device batch size.",
+                     lower_bound=1)
+# Cluster wiring (cluster.py; ref :567-583).
+flags.DEFINE_enum("job_name", "", ("ps", "worker", "controller", ""),
+                  "Job role for multi-process runs (ref :571-573); every "
+                  "process of the port is a worker.")
+flags.DEFINE_list("ps_hosts", [], "Parameter-server hosts (ref :574); "
+                  "refused (cluster.py).")
+flags.DEFINE_list("worker_hosts", [],
+                  "Worker hosts (ref :575), host:port each: one rank a "
+                  "process, joined at tcp://<worker_hosts[0]>; under kfrun "
+                  "truncated to KFCOORD_WORLD.")
+flags.DEFINE_integer("task_index", 0, "Task index (ref :577): this "
+                     "process's rank unless kfrun's KFCOORD_RANK_HINT "
+                     "gives it.")
+flags.DEFINE_boolean("sync_on_finish", False,
+                     "Barrier across workers at exit (ref :567-569); "
+                     "accepted for reference CLI parity: the exit barrier "
+                     "(parallel/kungfu.py run_barrier) is unconditional.")
 flags.DEFINE_integer("tf_random_seed", 1234, "Seed of the weights and of "
                      "the synthetic batch.")
 # Serving engine (serving/engine.py, serving/bench.py). None = the engine's

@@ -13,7 +13,11 @@ of the total loss are reduced after backward, the weights go through
 ``pre_update`` before the optimizer step and ``post_update`` after it, the
 running averages through ``sync_batch_stats``, and the reported losses are
 the mean over the ranks. Without a process group, or without a strategy,
-it is the single-device step.
+it is the single-device step. With ``track_noise_scale`` and a world of at
+least 2, the step also returns the gradient noise scale's per-step
+estimates ``noise_scale_g2`` / ``noise_scale_s``, measured on the ranks'
+gradients before the strategy reduces them (elastic.noise_scale_stats;
+train_step.py:629-640 and :918-919 of the JAX package).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from kf_benchmarks_tpu_torch import elastic
 from kf_benchmarks_tpu_torch.models import builder
 from kf_benchmarks_tpu_torch.ops.conv_bn import accum
 from kf_benchmarks_tpu_torch.parallel import mesh
@@ -68,13 +73,14 @@ class TrainStep:
   def __init__(self, model, module: nn.Module,
                optimizer: torch.optim.Optimizer,
                lr_fn: Callable[[int], float], weight_decay: float,
-               strategy=None):
+               strategy=None, track_noise_scale: bool = False):
     self.model = model
     self.module = module
     self.optimizer = optimizer
     self.lr_fn = lr_fn
     self.weight_decay = weight_decay
     self.strategy = strategy
+    self.track_noise_scale = track_noise_scale
     self.global_step = 0
 
   def __call__(self, images: torch.Tensor,
@@ -91,23 +97,30 @@ class TrainStep:
     for group in self.optimizer.param_groups:
       group["lr"] = lr
     strategy = self.strategy if mesh.is_distributed() else None
+    metrics = {}
     if strategy is None:
       self.optimizer.step()
     else:
       base_loss, total_loss = self._data_parallel_update(
-          strategy, base_loss.detach(), total_loss.detach())
+          strategy, base_loss.detach(), total_loss.detach(), metrics,
+          images.shape[0])
     self.global_step += 1
-    return {"base_loss": base_loss.detach(),
-            "total_loss": total_loss.detach(),
-            "learning_rate": lr}
+    metrics.update({"base_loss": base_loss.detach(),
+                    "total_loss": total_loss.detach(),
+                    "learning_rate": lr})
+    return metrics
 
   @torch.no_grad()
-  def _data_parallel_update(self, strategy, base_loss, total_loss):
+  def _data_parallel_update(self, strategy, base_loss, total_loss, metrics,
+                            batch_size):
     """The update with the strategy's hooks; returns the losses' mean over
-    the ranks."""
+    the ranks (and puts the noise-scale estimates into ``metrics``)."""
     step = self.global_step
     params = [p for p in self.module.parameters() if p.grad is not None]
     weights = [p.detach() for p in params]
+    if self.track_noise_scale and mesh.world_size() > 1:
+      metrics["noise_scale_g2"], metrics["noise_scale_s"] = \
+          elastic.noise_scale_stats([p.grad for p in params], batch_size)
     strategy.reduce_gradients([p.grad for p in params])
     strategy.pre_update(weights, step)
     if strategy.sequential_apply:

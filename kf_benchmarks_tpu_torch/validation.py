@@ -67,6 +67,7 @@ def validate_cross_flags(params) -> None:
         f"--model={params.model} is not ported yet; the port runs "
         f"{', '.join(model_config.list_models())}")
   validate_data_parallel_flags(params)
+  validate_elastic_flags(params)
   if params.attn_block:
     if params.model != "transformer_lm":
       raise ParamError(
@@ -101,13 +102,40 @@ def validate_cross_flags(params) -> None:
           f"{kernels} have no f32 variant yet")
 
 
+def validate_elastic_flags(p) -> None:
+  """Checkpoints, the cluster flags, elastic resize and the adaptive batch
+  size (the JAX package's rules and messages, validation.py:600-604,
+  :725-741)."""
+  if p.save_model_secs and p.save_model_steps:
+    raise ParamError("At most one of --save_model_secs and "
+                     "--save_model_steps may be set (ref :1341-1344)")
+  if (p.adaptive_batch_size and
+      p.adaptive_batch_min > p.adaptive_batch_max):
+    raise ParamError(
+        f"--adaptive_batch_min={p.adaptive_batch_min} exceeds "
+        f"--adaptive_batch_max={p.adaptive_batch_max}: the adaptive "
+        "policy's search interval is empty")
+  if p.variable_update in ("horovod", "kungfu") and p.job_name:
+    raise ParamError(f"--job_name is incompatible with "
+                     f"--variable_update={p.variable_update} "
+                     f"(ref :1293-1297)")
+  if p.worker_hosts and p.num_devices > 1:
+    raise ParamError(
+        f"--worker_hosts with --num_devices={p.num_devices}: a worker is "
+        "one rank driving one device (cluster.py); launch one process a "
+        "device (kfrun -np N) with --num_devices=1")
+
+
 def validate_data_parallel_flags(p) -> None:
   """The --variable_update family and its reduction flags."""
   if p.variable_update == "distributed_replicated":
+    if not p.job_name:
+      raise ParamError("distributed_replicated requires --job_name "
+                       "(ref :1311-1314)")
     raise ParamError(
-        "distributed_replicated requires --job_name (ref :1311-1314): a "
-        "multi-host launch, which the port does not have yet (ROADMAP "
-        "Queue 1 item 4)")
+        "distributed_replicated (replicas over parameter-server hosts) is "
+        "not ported; run the workers with --variable_update=replicated or "
+        "kungfu under kfrun")
   if p.variable_update == "distributed_all_reduce" and not p.all_reduce_spec:
     raise ParamError("distributed_all_reduce requires --all_reduce_spec "
                      "(ref :1319-1321)")

@@ -112,7 +112,7 @@ def test_validation_accepts_every_ported_strategy(flags):
     (dict(shard_params=True), "Queue 1 item 6"),
     (dict(overlap_gradient_reduction=True), "Queue 1 item 6"),
     (dict(reduce_bucket_mb=25), "Queue 1 item 6"),
-    (dict(variable_update="distributed_replicated"), "Queue 1 item 4"),
+    (dict(variable_update="distributed_replicated"), "requires --job_name"),
     (dict(variable_update="distributed_all_reduce"),
      "requires --all_reduce_spec"),
     (dict(all_reduce_spec="psum:32k"), "--all_reduce_spec"),
