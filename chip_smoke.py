@@ -93,18 +93,20 @@ the run with a non-zero exit and no result line:
                 tensor and packed (back-to-back CUDA events: the host paces
                 these many small collectives, so it is host time as much as
                 device time);
- 14. zoo     -- BASELINE configs 4 and 5's models: K-A and K-B at
-                Inception-v3's fused shape (x [128,8,8,448] -> 384 forward,
-                384 -> 448 for K-A on the input gradient) against their
-                plain versions, checked and timed as in phases conv and
-                unit; then BenchmarkCNN on ResNet-152 v1.5 and on
-                Inception-v3 (kungfu async_sgd, pair averaging, world 1
-                over NCCL), batch 128, bf16, Nesterov, 5 warmup + 20 timed
-                steps each: images/sec, peak memory, and 47 + 47 and 2 + 2
-                K-A + K-B launches a step, the counts set to 0 just before
-                the two runs and read just after;
+ 14. zoo     -- BASELINE configs 4 and 5's models: BenchmarkCNN on
+                ResNet-152 v1.5 and on Inception-v3 (kungfu async_sgd, pair
+                averaging, world 1 over NCCL), batch 128, bf16, Nesterov,
+                5 warmup + 20 timed steps each: images/sec, peak memory,
+                and 47 + 47 and 2 + 2 K-A + K-B launches a step, the counts
+                set to 0 just before the two runs and read just after;
+                every shape the two runs gave K-A and K-B (noted at each
+                call: ResNet-152's four stages at batch 128, Inception-v3's
+                x [128,8,8,448] -> 384 and its 384 -> 448 input gradient;
+                K-A also at K-B's shapes) then checked against the plain
+                versions and timed as in phases conv and unit;
  15. elastic -- BASELINE config 5's command (ResNet-152, batch 128, bf16,
-                kungfu, --elastic --adaptive_batch_size, --train_dir)
+                kungfu, --elastic --adaptive_batch_size, --train_dir, and
+                --sync_on_finish: the coordinator's exit barrier)
                 through `python -m kf_benchmarks_tpu_torch.kfrun -np 1`, no
                 warmup: 6 steps twice uninterrupted, then 3 steps, a
                 checkpoint, and 3 more in a new process resumed from it;
@@ -1697,11 +1699,6 @@ def phase_dp(res):
 
 # -- the zoo: ResNet-152 and Inception-v3 (BASELINE configs 4 and 5) ------------
 
-# Inception-v3's two fused convs (mixed_9 and mixed_10, column 4): x
-# [N,8,8,448] -> [N,8,8,384] forward (K-B), and K-A on the input gradient,
-# 384 -> 448. (name, N, H, W, C, CO).
-INCEPTION_SHAPES = (("inception_448_384", 128, 8, 8, 448, 384),
-                    ("inception_grad_384_448", 128, 8, 8, 384, 448))
 ZOO_RUNS = (
     # (label, model, fused units a step, extra flags)
     ("resnet152", "resnet152", 47, {}),
@@ -1785,32 +1782,57 @@ def check_unit_at(label, n, h, w, c, co, seed):
               "statistics (no single call computes the unit)")
 
 
+@contextlib.contextmanager
+def noting_unit_shapes(shapes):
+  """Notes the (N, H, W, C, CO) of every call the fused unit makes while
+  the block runs: K-B's in shapes["bn_relu_conv3x3_stats"], K-A's (the
+  input gradient) in shapes["conv3x3_same"]. The unit's Function looks
+  both wrappers up in ops/conv_bn.py at each call; the wrappers' own
+  launch counts are untouched."""
+  from kf_benchmarks_tpu_torch.ops import conv_bn
+  kb, ka = conv_bn.bn_relu_conv3x3_stats, conv_bn.conv3x3_same_kmajor
+
+  def kb_noted(x, sc, sh, w_k):
+    shapes["bn_relu_conv3x3_stats"].add((*x.shape, w_k.shape[0]))
+    return kb(x, sc, sh, w_k)
+
+  def ka_noted(x, w_k):
+    shapes["conv3x3_same"].add((*x.shape, w_k.shape[0]))
+    return ka(x, w_k)
+
+  conv_bn.bn_relu_conv3x3_stats = kb_noted
+  conv_bn.conv3x3_same_kmajor = ka_noted
+  try:
+    yield
+  finally:
+    conv_bn.bn_relu_conv3x3_stats, conv_bn.conv3x3_same_kmajor = kb, ka
+
+
 def phase_zoo(res):
-  """BASELINE configs 4 and 5's models. K-A and K-B at Inception-v3's
-  fused shape against their plain versions; then BenchmarkCNN on
-  ResNet-152 v1.5 and on Inception-v3 (the latter under kungfu async_sgd,
-  pair averaging, at world 1 over NCCL through the rank entry), batch 128,
-  bf16, Nesterov momentum, 5 warmup + 20 timed steps each, with the launch
-  counts set to 0 just before the two runs and read just after."""
+  """BASELINE configs 4 and 5's models: BenchmarkCNN on ResNet-152 v1.5
+  and on Inception-v3 (the latter under kungfu async_sgd, pair averaging,
+  at world 1 over NCCL through the rank entry), batch 128, bf16, Nesterov
+  momentum, 5 warmup + 20 timed steps each, with the launch counts set to
+  0 just before the two runs and read just after. Then K-A and K-B
+  against their plain versions at every shape the runs gave them, and K-A
+  at K-B's shapes too (phase elastic runs ResNet-152 at the same batch,
+  so these are its shapes as well)."""
   from kf_benchmarks_tpu_torch import benchmark, cli
   from kf_benchmarks_tpu_torch.parallel import mesh
-  for i, (label, n, h, w, c, co) in enumerate(INCEPTION_SHAPES):
-    res.setdefault("conv3x3_same", []).append(
-        check_conv_at(label, n, h, w, c, co, seed=60 + i))
-  label, n, h, w, c, co = INCEPTION_SHAPES[0]
-  res.setdefault("bn_relu_conv3x3_stats", []).append(
-      check_unit_at(label, n, h, w, c, co, seed=70))
   out = {}
+  shapes = {label: {"conv3x3_same": set(), "bn_relu_conv3x3_stats": set()}
+            for label, *_ in ZOO_RUNS}
   reset_launches()
   for label, model, fused, flags in ZOO_RUNS:
     params = zoo_params(model, **flags)
     before = benchmark.kernel_launches()
     torch.cuda.reset_peak_memory_stats()
-    if flags:
-      stats = cli.rank_main(0, params, mesh.local_init_method())
-      check(not mesh.is_distributed(), "zoo: rank_main left its group up")
-    else:
-      stats = benchmark.BenchmarkCNN(params).run()
+    with noting_unit_shapes(shapes[label]):
+      if flags:
+        stats = cli.rank_main(0, params, mesh.local_init_method())
+        check(not mesh.is_distributed(), "zoo: rank_main left its group up")
+      else:
+        stats = benchmark.BenchmarkCNN(params).run()
     after = benchmark.kernel_launches()
     launched = {k: after[k] - before[k] for k in after}
     steps = stats["steps_run"]
@@ -1826,9 +1848,26 @@ def phase_zoo(res):
             f"zoo {label}: {name} launched {launched[name]} times in "
             f"{steps} steps, want {fused} a step")
     out[label] = {"images_per_sec": stats["images_per_sec"],
-                  "peak_gib": peak, "launches": launched}
+                  "peak_gib": peak, "launches": launched,
+                  "shapes": {k: sorted(v) for k, v in shapes[label].items()}}
   res.setdefault("counts_by_path", {})["zoo"] = benchmark.kernel_launches()
   res["zoo"] = out
+  seed = 60
+  for label, *_ in ZOO_RUNS:
+    noted = shapes[label]
+    for name in noted:
+      check(noted[name], f"zoo {label}: no {name} call noted")
+    # K-A also at K-B's shapes: the same conv without the prologue
+    # (Inception's forward 448 -> 384 beside its gradient's 384 -> 448).
+    todo = (("conv3x3_same", check_conv_at,
+             noted["conv3x3_same"] | noted["bn_relu_conv3x3_stats"]),
+            ("bn_relu_conv3x3_stats", check_unit_at,
+             noted["bn_relu_conv3x3_stats"]))
+    for name, check_at, at in todo:
+      for n, h, w, c, co in sorted(at):
+        res.setdefault(name, []).append(check_at(
+            f"{label}_{h}x{w}_{c}_{co}", n, h, w, c, co, seed=seed))
+        seed += 1
 
 
 # -- elastic: BASELINE config 5 through kfrun -----------------------------------
@@ -1851,6 +1890,7 @@ def elastic_arc(root, name, num_batches):
          f"--batch_size={ZOO_BATCH}", "--use_fp16", "--optimizer=momentum",
          "--variable_update=kungfu", "--elastic", "--adaptive_batch_size",
          "--elastic_check_every_n_steps=2", "--num_warmup_batches=0",
+         "--sync_on_finish",
          f"--num_batches={num_batches}", "--display_every=1",
          f"--train_dir={train_dir}",
          "--worker_hosts=" + mesh.local_init_method()[len("tcp://"):]]
@@ -1908,42 +1948,43 @@ def phase_elastic(res):
   log(f"elastic: this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
       f" GiB ({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the card "
       f"has {free / 2**30:.1f} of {total / 2**30:.1f} GiB free")
-  root = tempfile.mkdtemp(prefix="elastic_")
-  half = ELASTIC_STEPS // 2
-  logs = {"whole_a": elastic_arc(root, "whole_a", ELASTIC_STEPS),
-          "whole_b": elastic_arc(root, "whole_b", ELASTIC_STEPS),
-          "arc_1": elastic_arc(root, "arcs", half),
-          "arc_2": elastic_arc(root, "arcs", half)}
-  # The port runs this path in the workers: their counts, each from 0.
-  from kf_benchmarks_tpu_torch import benchmark
-  counts = dict.fromkeys(benchmark.kernel_launches(), 0)
-  for label, text in logs.items():
-    launched = launches_in(text)
-    steps = half if label.startswith("arc") else ELASTIC_STEPS
-    for name in ("conv3x3_same", "bn_relu_conv3x3_stats"):
-      check(launched.get(name) == 47 * steps,
-            f"elastic {label}: {name} launched {launched.get(name)} times "
-            f"in {steps} steps, want 47 a step")
-    for k, v in launched.items():
-      counts[k] += v
-    check("track_grad_noise_scale: needs >= 2 devices" in text and
-          "Elastic reshape" not in text,
-          f"elastic {label}: the batch did not hold at world 1")
-  res.setdefault("counts_by_path", {})["elastic"] = counts
-  check(f"Restored checkpoint at global step {half}" in logs["arc_2"],
-        "elastic: the second arc did not resume at step 3")
-  save_s = [float(x) for t in logs.values() for x in re.findall(
-      r"Saved checkpoint at global step \d+ in ([\d.]+) s", t)]
-  restore_s = float(re.findall(
-      r"Restored checkpoint at global step \d+ in ([\d.]+) s",
-      logs["arc_2"])[0])
-  snaps = {}
-  for name in ("whole_a", "whole_b", "arcs"):
-    snaps[name], _, step = checkpoint.load_latest_checkpoint(
-        os.path.join(root, name))
-    check(step == ELASTIC_STEPS, f"elastic {name}: last step {step}")
-  nbytes = os.path.getsize(checkpoint.latest_checkpoint(
-      os.path.join(root, "arcs"))[0])
+  # Four ResNet-152 checkpoints of 460 MiB: removed when read.
+  with tempfile.TemporaryDirectory(prefix="elastic_") as root:
+    half = ELASTIC_STEPS // 2
+    logs = {"whole_a": elastic_arc(root, "whole_a", ELASTIC_STEPS),
+            "whole_b": elastic_arc(root, "whole_b", ELASTIC_STEPS),
+            "arc_1": elastic_arc(root, "arcs", half),
+            "arc_2": elastic_arc(root, "arcs", half)}
+    # The port runs this path in the workers: their counts, each from 0.
+    from kf_benchmarks_tpu_torch import benchmark
+    counts = dict.fromkeys(benchmark.kernel_launches(), 0)
+    for label, text in logs.items():
+      launched = launches_in(text)
+      steps = half if label.startswith("arc") else ELASTIC_STEPS
+      for name in ("conv3x3_same", "bn_relu_conv3x3_stats"):
+        check(launched.get(name) == 47 * steps,
+              f"elastic {label}: {name} launched {launched.get(name)} times "
+              f"in {steps} steps, want 47 a step")
+      for k, v in launched.items():
+        counts[k] += v
+      check("track_grad_noise_scale: needs >= 2 devices" in text and
+            "Elastic reshape" not in text,
+            f"elastic {label}: the batch did not hold at world 1")
+    res.setdefault("counts_by_path", {})["elastic"] = counts
+    check(f"Restored checkpoint at global step {half}" in logs["arc_2"],
+          "elastic: the second arc did not resume at step 3")
+    save_s = [float(x) for t in logs.values() for x in re.findall(
+        r"Saved checkpoint at global step \d+ in ([\d.]+) s", t)]
+    restore_s = float(re.findall(
+        r"Restored checkpoint at global step \d+ in ([\d.]+) s",
+        logs["arc_2"])[0])
+    snaps = {}
+    for name in ("whole_a", "whole_b", "arcs"):
+      snaps[name], _, step = checkpoint.load_latest_checkpoint(
+          os.path.join(root, name))
+      check(step == ELASTIC_STEPS, f"elastic {name}: last step {step}")
+    nbytes = os.path.getsize(checkpoint.latest_checkpoint(
+        os.path.join(root, "arcs"))[0])
   noise = state_distances(snaps["whole_b"], snaps["whole_a"])
   resumed = state_distances(snaps["arcs"], snaps["whole_a"])
   bitwise = max(noise.values()) == 0.0

@@ -99,6 +99,7 @@ class BenchmarkCNN:
     # rebuild, carried by the checkpoints.
     self.input_incarnation = 0
     self.checkpoint_save_s = []
+    self._saved = None  # (global step, incarnation) last written
     self.checkpoint_restore_s = None
 
   def print_info(self) -> None:
@@ -180,7 +181,12 @@ class BenchmarkCNN:
     """The one checkpoint write: rank 0's state at the step's global step,
     with the input incarnation a resumed run must reopen at
     (``incarnation_bump`` 1 at an in-process rebuild, whose resume point is
-    the new batch)."""
+    the new batch). A state already written is not written again (a
+    --save_model_steps save on the last step, then the final one)."""
+    key = (step.global_step, self.input_incarnation + incarnation_bump)
+    if key == self._saved:
+      return
+    self._saved = key
     _sync(self.device)
     t0 = time.time()
     checkpoint.save_checkpoint(
@@ -367,7 +373,9 @@ class BenchmarkCNN:
           f"{k} {v}" for k, v in launches.items() if v))
     if controller is not None:
       controller.close()
-    if restart_requested is None:
+    if p.sync_on_finish and restart_requested is None:
+      # --sync_on_finish is launch-wide (one command line for every
+      # worker), so every rank meets this barrier or none does.
       kungfu.run_barrier()
     return {
         "num_workers": self.world_size,

@@ -168,11 +168,10 @@ def load_latest_checkpoint(train_dir: str):
 
 
 def restore_state(module: nn.Module, optimizer: torch.optim.Optimizer,
-                  snapshot: Dict, restore_opt_state: bool = True) -> int:
+                  snapshot: Dict) -> int:
   """Loads a snapshot into the module (strictly: every key, every shape)
-  and, unless ``restore_opt_state`` is False, the optimizer; returns the
-  snapshot's global step. The tensors land on the module's own device."""
+  and the optimizer; returns the snapshot's global step. The tensors land
+  on the module's own device."""
   module.load_state_dict(snapshot["model"])
-  if restore_opt_state:
-    optimizer.load_state_dict(snapshot["optimizer"])
+  optimizer.load_state_dict(snapshot["optimizer"])
   return int(snapshot["step"])

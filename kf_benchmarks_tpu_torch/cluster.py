@@ -22,16 +22,10 @@ import torch
 from kf_benchmarks_tpu_torch.parallel import mesh
 
 
-def process_rank() -> int:
+def process_rank(task_index: int = 0) -> int:
   """This process's rank: the kfrun launcher's ``KFCOORD_RANK_HINT``,
-  else the process group's rank (0 without one)."""
-  hint = os.environ.get("KFCOORD_RANK_HINT")
-  if hint:
-    try:
-      return int(hint)
-    except ValueError:
-      pass
-  return mesh.rank()
+  else ``task_index`` (--task_index)."""
+  return int(os.environ.get("KFCOORD_RANK_HINT", task_index))
 
 
 class ClusterManager:
@@ -55,8 +49,8 @@ class ClusterManager:
     if params.ps_hosts:
       raise ValueError("ps_hosts set but parameter-server processes are "
                        "not part of the TPU design (use sharded state)")
-    self._cluster_spec = {"worker": worker_hosts}
-    self.rank = int(os.environ.get("KFCOORD_RANK_HINT", params.task_index))
+    self.worker_hosts = worker_hosts
+    self.rank = process_rank(params.task_index)
     if len(worker_hosts) > 1:
       local = self.rank
       if params.device == "gpu" and torch.cuda.is_available():
@@ -64,11 +58,8 @@ class ClusterManager:
       mesh.init_process_group(params.device, len(worker_hosts), self.rank,
                               f"tcp://{worker_hosts[0]}", local_rank=local)
 
-  def get_cluster_spec(self) -> dict:
-    return dict(self._cluster_spec)
-
   def num_workers(self) -> int:
-    return max(len(self._cluster_spec["worker"]), 1)
+    return max(len(self.worker_hosts), 1)
 
   def shutdown(self) -> None:
     mesh.destroy_process_group()

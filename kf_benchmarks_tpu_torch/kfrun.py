@@ -40,6 +40,8 @@ from typing import List, Optional, Tuple
 # Exit code a worker uses to request a coordinated checkpoint-restart
 # resize (chosen outside the shell/POSIX reserved ranges).
 RESTART_EXIT_CODE = 42
+# Coordinated restarts one launch makes at most.
+MAX_RESTARTS = 16
 
 
 def _run_generation(server, np_: int, command: List[str], logdir: str,
@@ -120,10 +122,9 @@ def _run_generation(server, np_: int, command: List[str], logdir: str,
 
 def launch(np_: int, command: List[str], logdir: str = ".",
            host: str = "127.0.0.1", base_port: int = 0,
-           extra_env: Optional[dict] = None,
-           max_restarts: int = 16) -> int:
+           extra_env: Optional[dict] = None) -> int:
   """Start coordinator + N workers; relaunch on coordinated restarts (at
-  most ``max_restarts``); return the final generation's worst exit
+  most ``MAX_RESTARTS``); return the final generation's worst exit
   code."""
   from kf_benchmarks_tpu_torch.parallel import coordination
 
@@ -131,7 +132,7 @@ def launch(np_: int, command: List[str], logdir: str = ".",
   try:
     gen_np = np_
     opened_logs: set = set()
-    for _ in range(max_restarts + 1):
+    for _ in range(MAX_RESTARTS + 1):
       code, restart = _run_generation(server, gen_np, command, logdir,
                                       host, extra_env,
                                       opened_logs=opened_logs)
@@ -155,7 +156,7 @@ def launch(np_: int, command: List[str], logdir: str = ".",
       print(f"kfrun: coordinated restart, np {gen_np} -> {new_np}",
             file=sys.stderr, flush=True)
       gen_np = new_np
-    print(f"kfrun: giving up after {max_restarts} restarts",
+    print(f"kfrun: giving up after {MAX_RESTARTS} restarts",
           file=sys.stderr, flush=True)
     return 1
   finally:

@@ -216,9 +216,6 @@ def pool(x: torch.Tensor, kind: str, k, stride, mode: str) -> torch.Tensor:
   if kind == "mpool":
     x = F.pad(x, (l, r, t, b), value=float("-inf"))
     return F.max_pool2d(x, (kh, kw), (sh, sw))
-  if t == b and l == r and t <= kh // 2 and l <= kw // 2:
-    return F.avg_pool2d(x, (kh, kw), (sh, sw), padding=(t, l),
-                        count_include_pad=False)
   summed = F.avg_pool2d(F.pad(x, (l, r, t, b)), (kh, kw), (sh, sw),
                         divisor_override=1)
   ones = F.pad(x.new_ones(1, 1, x.shape[2], x.shape[3]), (l, r, t, b))

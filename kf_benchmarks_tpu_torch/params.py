@@ -151,9 +151,9 @@ flags.DEFINE_integer("task_index", 0, "Task index (ref :577): this "
                      "process's rank unless kfrun's KFCOORD_RANK_HINT "
                      "gives it.")
 flags.DEFINE_boolean("sync_on_finish", False,
-                     "Barrier across workers at exit (ref :567-569); "
-                     "accepted for reference CLI parity: the exit barrier "
-                     "(parallel/kungfu.py run_barrier) is unconditional.")
+                     "Barrier across workers at exit (ref :567-569): "
+                     "parallel/kungfu.py run_barrier, the coordinator's "
+                     "kf_exit barrier under kfrun.")
 flags.DEFINE_integer("tf_random_seed", 1234, "Seed of the weights and of "
                      "the synthetic batch.")
 # Serving engine (serving/engine.py, serving/bench.py). None = the engine's

@@ -162,6 +162,14 @@ def test_max_ckpts_to_keep_prunes(tmp_path):
   assert [s for s, _ in checkpoint.all_checkpoints(str(tmp_path))] == [4, 5]
 
 
+def test_a_save_on_the_last_step_is_not_repeated(tmp_path):
+  """--save_model_steps 2 over 4 steps writes steps 2 and 4 once each:
+  the final save finds step 4 already on disk."""
+  stats = _run(tmp_path, 4, save_model_steps=2)
+  assert len(stats["checkpoint_save_s"]) == 2
+  assert [s for s, _ in checkpoint.all_checkpoints(str(tmp_path))] == [2, 4]
+
+
 def test_torn_file_is_skipped_and_all_torn_raises(tmp_path, capsys):
   module, opt = _module_and_optimizer(0)
   for step in (1, 2):

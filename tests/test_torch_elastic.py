@@ -250,7 +250,7 @@ def test_cluster_manager_rules(monkeypatch):
   monkeypatch.setenv("KFCOORD_RANK_HINT", "0")
   manager = cluster.get_cluster_manager(params_lib.make_params(
       device="cpu", worker_hosts="127.0.0.1:1,127.0.0.1:2,127.0.0.1:3"))
-  assert manager.get_cluster_spec() == {"worker": ["127.0.0.1:1"]}
+  assert manager.worker_hosts == ["127.0.0.1:1"] and manager.rank == 0
   assert not mesh.is_distributed()
   assert cluster.process_rank() == 0
   monkeypatch.setenv("KFCOORD_RANK_HINT", "3")
@@ -277,6 +277,18 @@ def test_validation_takes_the_ported_flags():
     with pytest.raises(ValueError, match=match):
       validation.validate_cross_flags(params_lib.make_params(
           device="cpu", **flags))
+
+
+@pytest.mark.parametrize("sync_on_finish", [False, True])
+def test_exit_barrier_follows_sync_on_finish(monkeypatch, sync_on_finish):
+  """As in the JAX package, the exit barrier runs only with
+  --sync_on_finish."""
+  calls = []
+  monkeypatch.setattr(kungfu, "run_barrier", lambda: calls.append(1))
+  benchmark.BenchmarkCNN(params_lib.make_params(
+      model="trivial", device="cpu", batch_size=2, num_batches=1,
+      num_warmup_batches=0, sync_on_finish=sync_on_finish)).run()
+  assert calls == ([1] if sync_on_finish else [])
 
 
 def _env():
@@ -324,7 +336,8 @@ def test_kfrun_checkpoint_restart_2_to_1(tmp_path):
   """A RESIZE to one worker while two train (trivial model, kungfu
   sync_sgd over gloo): both checkpoint at the scheduled step and exit 42,
   kfrun relaunches one worker, which resumes at a later global step and
-  finishes; the launch exits 0. The appended log of worker 0 holds both
+  finishes and passes the coordinator's exit barrier (--sync_on_finish);
+  the launch exits 0. The appended log of worker 0 holds both
   generations."""
   coord_port = _free_port()
   train_dir = tmp_path / "train"
@@ -334,7 +347,7 @@ def test_kfrun_checkpoint_restart_2_to_1(tmp_path):
          "--model=trivial", "--device=cpu", "--variable_update=kungfu",
          "--batch_size=2", "--num_batches=20", "--num_warmup_batches=1",
          "--display_every=1", "--elastic", "--elastic_check_every_n_steps=2",
-         f"--train_dir={train_dir}",
+         "--sync_on_finish", f"--train_dir={train_dir}",
          f"--worker_hosts=127.0.0.1:{_free_port()},127.0.0.1:{_free_port()}"]
   result = {}
   t = threading.Thread(target=lambda: result.update(code=kfrun.launch(
