@@ -117,7 +117,38 @@ the run with a non-zero exit and no result line:
                 second uninterrupted run is; the batch holds at world 1
                 (no noise-scale estimate); 47 + 47 launches a step in every
                 worker (read from its log); checkpoint save and restore
-                times.
+                times;
+ 16. infer   -- --forward_only through BenchmarkCNN: ResNet-50 v1.5 at batch
+                256, bf16, and transformer_lm (flash attention) at batch 8,
+                5 warmup + 20 timed steps each, the counts set to 0 just
+                before each run and read just after (13 K-B and 0 K-A a
+                ResNet step; 6 flash-forward launches an LM step, no
+                backward kernel); images/sec, sequences/sec, peak memory;
+                K-B at every shape the ResNet run gave it and the flash
+                forward on the LM run's own q, k, v against their plain
+                versions; ResNet-50 trained 3 steps on the card, then its
+                eval-mode logits at batch 8 on the card (bf16, kernels)
+                against the CPU (f32, plain) from the same weights;
+ 17. eval    -- ResNet-50 at batch 256 trains 6 steps in a process of its
+                own, saving at steps 3 and 6; a second process runs --eval
+                over that directory (one poll, 4 eval batches): it must
+                score the step-6 checkpoint with 13 K-B launches a batch and
+                the top-1 / top-5 of the eval step in this process on the
+                same restored weights and batch; then 6 steps with
+                --eval_during_training_every_n_steps=2 evaluate after steps
+                2, 4 and 6 and end bitwise at the state of the same run
+                without evals (if two such runs are bitwise equal);
+ 18. optim   -- ResNet-50 at batch 256, bf16, 3 warmup + 10 timed steps
+                under momentum and under rmsprop, adam and lars (each with
+                --gradient_clip=1.0, a piecewise rate and
+                --print_training_accuracy; 13 + 13 launches a step),
+                images/sec beside momentum's; each optimizer's 3 steps at
+                batch 8 on the card against the CPU under a warmup rate;
+                and the auto loss scale from 2^127 at batch 256: every
+                skipped step halves the scale and leaves the weights,
+                optimizer buffers and batch-norm averages bitwise as they
+                were, until an applied step; then a planted overflow after
+                it is skipped with the momentum buffers unchanged.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -148,7 +179,8 @@ import torch.nn.functional as F
 
 ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
-              "serve_parity", "dp", "zoo", "elastic")
+              "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
+              "optim")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -2005,6 +2037,492 @@ def phase_elastic(res):
                     "checkpoint_bytes": nbytes}
 
 
+# -- infer: forward-only ResNet-50 and transformer_lm ----------------------------
+
+INFER_STEPS = (5, 20)  # warmup, timed
+
+
+@contextlib.contextmanager
+def capturing_flash_inputs(calls):
+  """Notes the inputs of the first flash-forward call of each distinct
+  shape made while the block runs (clones: the real activations of the
+  path), and lets the call through; the wrapper's launch count is
+  untouched."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  fwd = fa.flash_attention_fwd
+
+  def noted(q, k, v, causal=False, scale=None, q_seg=None, kv_seg=None):
+    key = (tuple(q.shape), tuple(k.shape), q.stride(), causal)
+    if key not in calls:
+      clone = lambda t: None if t is None else t.clone()
+      # q, k and v keep their strides (the LM's qkv.unbind(2) views).
+      qkv = torch.stack([q, k, v], dim=2).unbind(2)
+      calls[key] = (*qkv, causal, scale, clone(q_seg), clone(kv_seg))
+    return fwd(q, k, v, causal, scale, q_seg, kv_seg)
+
+  fa.flash_attention_fwd = noted
+  try:
+    yield
+  finally:
+    fa.flash_attention_fwd = fwd
+
+
+def eval_logits(module, images):
+  """The module's eval-mode logits under the eval step's grad mode."""
+  module.eval()
+  try:
+    with torch.no_grad():
+      return module(images).float()
+  finally:
+    module.train()
+
+
+def phase_infer(res):
+  """--forward_only through BenchmarkCNN: ResNet-50 v1.5 at batch 256,
+  bf16, and transformer_lm (flash attention) at batch 8, 5 warmup + 20
+  timed steps each, with the launch counts set to 0 just before each run
+  and read just after (K-B 13 a ResNet step and K-A 0; the flash forward
+  6 an LM step, no checkpoint recompute under no_grad). K-B at every shape
+  the ResNet run gave it, and the flash forward on the LM run's own
+  inputs, against their plain versions. Then eval-mode logits of
+  ResNet-50 at batch 8 after 3 training steps on the card: the card
+  (bf16, kernels) against the CPU (f32, plain versions) from the same
+  weights and averages."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import params as params_lib
+  from kf_benchmarks_tpu_torch.models import transformer_lm as lm
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  warm, timed = INFER_STEPS
+  out = {}
+  shapes = {"conv3x3_same": set(), "bn_relu_conv3x3_stats": set()}
+  params = params_lib.make_params(
+      model="resnet50", batch_size=256, use_fp16=True, forward_only=True,
+      num_batches=timed, num_warmup_batches=warm, display_every=10,
+      device="gpu")
+  bench = benchmark.BenchmarkCNN(params)
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches()
+  with noting_unit_shapes(shapes):
+    stats = bench.run()
+  counts = benchmark.kernel_launches()
+  steps = warm + timed
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  log(f"infer resnet50: batch 256, {steps} forward-only steps ({warm} "
+      f"warmup + {timed} timed), {stats['images_per_sec']:.2f} images/sec, "
+      f"peak memory {peak:.2f} GiB, kernel launches {counts}")
+  check(np.isfinite(stats["last_average_loss"]), "infer: loss not finite")
+  want = {"bn_relu_conv3x3_stats": 13, "conv3x3_same": 0,
+          "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
+          "flash_attention_bwd_dq": 0, "flash_decode": 0}
+  for name, per_step in want.items():
+    check(counts[name] == per_step * steps,
+          f"infer resnet50: {name} launched {counts[name]} times in {steps} "
+          f"steps, want {per_step} a step")
+  resnet_counts = counts
+  out["resnet50"] = {"images_per_sec": stats["images_per_sec"],
+                     "peak_gib": peak, "launches": counts,
+                     "kb_shapes": sorted(shapes["bn_relu_conv3x3_stats"])}
+  check(shapes["bn_relu_conv3x3_stats"] and not shapes["conv3x3_same"],
+        f"infer: noted unit shapes {shapes}")
+  for i, (n, h, w, c, co) in enumerate(
+      sorted(shapes["bn_relu_conv3x3_stats"])):
+    res.setdefault("bn_relu_conv3x3_stats", []).append(check_unit_at(
+        f"infer_{h}x{w}_{c}_{co}", n, h, w, c, co, seed=90 + i))
+  del bench
+  # transformer_lm forward-only, flash attention.
+  calls = {}
+  with lm_attention("flash"):
+    bench = benchmark.BenchmarkCNN(lm_params(
+        forward_only=True, num_batches=timed, num_warmup_batches=warm,
+        display_every=10))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with capturing_flash_inputs(calls):
+      stats = bench.run()
+    counts = benchmark.kernel_launches()
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  seq_per_s = stats["images_per_sec"]
+  log(f"infer transformer_lm: batch 8, {steps} forward-only steps, "
+      f"{seq_per_s:.2f} sequences/sec, {seq_per_s * lm.SEQ_LEN:.0f} "
+      f"tokens/sec, peak memory {peak:.2f} GiB, kernel launches {counts}")
+  check(np.isfinite(stats["last_average_loss"]),
+        "infer lm: loss not finite")
+  want = {"flash_attention_fwd": 6, "flash_attention_bwd_dkv": 0,
+          "flash_attention_bwd_dq": 0, "conv3x3_same": 0,
+          "bn_relu_conv3x3_stats": 0, "flash_decode": 0}
+  for name, per_step in want.items():
+    check(counts[name] == per_step * steps,
+          f"infer lm: {name} launched {counts[name]} times in {steps} "
+          f"steps, want {per_step} a step")
+  check(len(calls) == 1, f"infer lm: flash shapes {list(calls)}")
+  for (qs, ks, stride, causal), args in calls.items():
+    o, lse = fa.flash_attention_fwd(*args)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err, ok = bf16_close(o, o_ref)
+    lse_err = float(((lse - lse_ref).abs() /
+                     lse_ref.abs().clamp_min(1.0)).max())
+    log(f"infer lm: flash forward on the run's own q{list(qs)} (strides "
+        f"{stride}) causal={causal}: o max abs err {err:.3g} (tol one bf16 "
+        f"ulp + 1e-3 max|ref|), lse rel err {lse_err:.2g} (tol 1e-3)")
+    check(ok and lse_err <= 1e-3, "infer lm: flash forward differs from "
+          "its plain version on the run's inputs")
+  out["transformer_lm"] = {"sequences_per_sec": seq_per_s,
+                           "peak_gib": peak, "launches": counts}
+  res.setdefault("counts_by_path", {})["infer"] = {
+      k: resnet_counts[k] + counts[k] for k in counts}
+  del bench
+  out["eval_logits"] = infer_parity()
+  res["infer"] = out
+
+
+def infer_parity():
+  """ResNet-50 trained 3 steps on the card (batch 8, bf16, momentum), then
+  eval-mode logits of a new batch of 8 on the card (kernels, bf16) and on
+  the CPU (plain versions, f32) from the trained weights and averages:
+  the loss within phase parity's 2e-2, the logits' norm within 5e-2 and
+  their cosine >= 0.98 (phase parity's classifier limits)."""
+  from kf_benchmarks_tpu_torch import optimizers
+  from kf_benchmarks_tpu_torch import params as params_lib
+  from kf_benchmarks_tpu_torch import train_step
+  from kf_benchmarks_tpu_torch.models import resnet_model
+  from kf_benchmarks_tpu_torch.ops import conv_bn
+  model = resnet_model.create_resnet50_model()
+  gen = torch.Generator(device="cuda").manual_seed(8)
+  with torch.device("cuda"):
+    card = model.make_module(1001, torch.bfloat16, generator=gen)
+  opt = optimizers.get_optimizer(
+      params_lib.make_params(optimizer="momentum", device="cpu"),
+      card.parameters())
+  step = train_step.TrainStep(model, card, opt, lambda s: 0.01, 4e-5)
+  rng = np.random.default_rng(8)
+
+  def batch():
+    images = (np.clip(rng.normal(size=(8, 224, 224, 3)), -2, 2) * 60.0 +
+              127.0).astype(np.float32)
+    return torch.from_numpy(images), torch.from_numpy(
+        rng.integers(0, 1001, 8))
+
+  for _ in range(3):
+    x, y = batch()
+    step(x.cuda(), y.cuda())
+  cpu = model.make_module(1001, torch.float32)
+  cpu.load_state_dict({k: v.float().cpu() for k, v in
+                       card.state_dict().items()})
+  x, y = batch()
+  before = dict(conv_bn.LAUNCHES)
+  # In double: with batch-norm averages three steps from their initial
+  # values, the eval-mode activations of raw pixels grow large.
+  got = eval_logits(card, x.cuda()).cpu().double()
+  launched = {k: conv_bn.LAUNCHES[k] - before[k] for k in before}
+  ref = eval_logits(cpu, x).double()
+  loss = {k: float(F.cross_entropy(v, y)) for k, v in
+          (("card", got), ("cpu", ref))}
+  rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+  n_rel = abs(float(got.norm()) - float(ref.norm())) / float(ref.norm())
+  cos = float((got * ref).sum() / (got.norm() * ref.norm()))
+  top1 = {k: float((v.argmax(-1) == y).float().mean())
+          for k, v in (("card", got), ("cpu", ref))}
+  log(f"infer parity: ResNet-50 after 3 card steps, eval logits at batch 8: "
+      f"cross-entropy card {loss['card']:.6g} cpu {loss['cpu']:.6g} (rel "
+      f"{rel:.2g}, tol 2e-2), logits norm rel {n_rel:.2g} (tol 5e-2), "
+      f"cosine {cos:.5f} (tol 0.98), top-1 card {top1['card']} cpu "
+      f"{top1['cpu']}, card launches {launched}")
+  check(launched == {"conv3x3_same": 0, "bn_relu_conv3x3_stats": 13},
+        f"infer parity: the card's eval forward launched {launched}")
+  check(rel <= 2e-2 and n_rel <= 5e-2 and cos >= 0.98,
+        "infer parity: card eval logits differ from the CPU's")
+  return {"loss_rel": rel, "norm_rel": n_rel, "cosine": cos}
+
+
+# -- eval: --eval over checkpoints, mid-training eval --------------------------
+
+EVAL_STEPS = 6
+EVAL_BATCHES = 4
+
+
+def resnet_cli(*flags):
+  """``python -m kf_benchmarks_tpu_torch.cli`` on ResNet-50 v1.5 at batch
+  256, bf16, Nesterov momentum, with ``flags``; its stdout."""
+  cmd = [sys.executable, "-m", "kf_benchmarks_tpu_torch.cli",
+         "--model=resnet50", "--batch_size=256", "--use_fp16",
+         "--optimizer=momentum", *flags]
+  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+  check(proc.returncode == 0, f"eval: {' '.join(cmd[2:])} exited "
+        f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+  return proc.stdout
+
+
+def resnet_params(**flags):
+  """ResNet-50 v1.5 at batch 256, bf16, Nesterov momentum (unless
+  ``flags`` name another optimizer), on the card."""
+  from kf_benchmarks_tpu_torch import params as params_lib
+  return params_lib.make_params(**{
+      "model": "resnet50", "batch_size": 256, "use_fp16": True,
+      "optimizer": "momentum", "device": "gpu", **flags})
+
+
+def phase_eval(res):
+  """ResNet-50 at batch 256: 6 training steps in a process of their own
+  with a checkpoint every 3; a second process with --eval over that
+  directory (one poll) must score the step-6 checkpoint, with top-1 and
+  top-5 equal to the eval step's in this process on the same restored
+  weights and batch, and 13 K-B launches an eval batch; then 6 steps in
+  this process with --eval_during_training_every_n_steps=2 must evaluate
+  after steps 2, 4 and 6 and end with the batch-norm averages (and every
+  other tensor) of the same run without the evals: bitwise if two runs
+  without evals are bitwise equal, else no farther from it than they
+  are from each other."""
+  import tempfile
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import checkpoint
+  from kf_benchmarks_tpu_torch import train_step
+  out = {}
+  with tempfile.TemporaryDirectory(prefix="eval_") as root:
+    train_dir = os.path.join(root, "ckpt")
+    t0 = time.time()
+    resnet_cli(f"--num_batches={EVAL_STEPS}", "--num_warmup_batches=0",
+               f"--train_dir={train_dir}", "--save_model_steps=3",
+               "--display_every=3")
+    train_s = time.time() - t0
+    check([s for s, _ in checkpoint.all_checkpoints(train_dir)] == [3, 6],
+          "eval: the training process did not save steps 3 and 6")
+    t0 = time.time()
+    text = resnet_cli("--eval", f"--train_dir={train_dir}",
+                      "--eval_interval_secs=0",
+                      f"--num_eval_batches={EVAL_BATCHES}")
+    eval_s = time.time() - t0
+    check("Evaluating checkpoint at global step 6" in text,
+          "eval: the step-6 checkpoint was not scored")
+    m = re.findall(r"^Accuracy @ 1 = ([\d.]+) Accuracy @ 5 = ([\d.]+) "
+                   r"\[(\d+) examples\]$", text, re.M)
+    check(len(m) == 1 and int(m[0][2]) == 256 * EVAL_BATCHES,
+          f"eval: accuracy lines {m}")
+    top1, top5 = float(m[0][0]), float(m[0][1])
+    launched = launches_in(text)
+    check(launched.get("bn_relu_conv3x3_stats") == 13 * EVAL_BATCHES and
+          not launched.get("conv3x3_same"),
+          f"eval: launches {launched}, want 13 K-B an eval batch")
+    bench = benchmark.BenchmarkCNN(resnet_params(
+        eval=True, train_dir=train_dir, eval_interval_secs=0))
+    module, gen = bench._make_module()
+    images, labels = bench._synthetic_batch(gen)
+    snap, _, step = checkpoint.load_latest_checkpoint(train_dir)
+    check(step == 6, f"eval: newest checkpoint at step {step}")
+    checkpoint.restore_model(module, snap)
+    acc = train_step.EvalStep(bench.model, module)(images, labels)
+    here = (float(acc["top_1_accuracy"]), float(acc["top_5_accuracy"]))
+    log(f"eval: training process (6 steps, checkpoints at 3 and 6) "
+        f"{train_s:.1f} s, eval process {eval_s:.1f} s: step 6 scored "
+        f"top-1 {top1:.4f} top-5 {top5:.4f} over {m[0][2]} examples; "
+        f"in-process eval step on the restored weights top-1 "
+        f"{here[0]:.4f} top-5 {here[1]:.4f}; launches {launched}")
+    for a, b in zip((top1, top5), here):
+      check(abs(a - b) <= 1 / 256 + 5e-5,
+            "eval: the eval process's accuracy differs from the eval step's")
+    del bench, module, snap
+    runs = {}
+    for name, flags in (("plain_a", {}), ("plain_b", {}),
+                        ("evals", dict(eval_during_training_every_n_steps=2))):
+      stats = benchmark.BenchmarkCNN(resnet_params(
+          num_batches=EVAL_STEPS, num_warmup_batches=0, display_every=2,
+          train_dir=os.path.join(root, name), **flags)).run()
+      runs[name], _, _ = checkpoint.load_latest_checkpoint(
+          os.path.join(root, name))
+      if flags:
+        steps = [e["step"] for e in stats["eval_results"]]
+        log(f"eval: mid-training evals after steps {steps}: " + ", ".join(
+            f"top-1 {e['top_1_accuracy']:.4f}" for e in
+            stats["eval_results"]))
+        check(steps == [2, 4, 6], f"eval: evals after steps {steps}")
+  noise = state_distances(runs["plain_b"], runs["plain_a"])
+  got = state_distances(runs["evals"], runs["plain_a"])
+  bitwise = max(noise.values()) == 0.0
+  over = {k: (v, noise[k]) for k, v in got.items() if v > noise[k]}
+  bn = [k for k in got if k.endswith(".mean") or k.endswith(".var")]
+  log(f"eval: two runs without evals {'bitwise equal' if bitwise else 'differ'}"
+      f" (largest distance {max(noise.values()):.3g}); the run with evals "
+      f"against the first: largest distance {max(got.values()):.3g} "
+      f"({max(got[k] for k in bn):.3g} over {len(bn)} batch-norm "
+      f"averages), {len(over)} tensors over the pair's distance")
+  check(not over, f"eval: mid-training evals moved the state: "
+        f"{dict(list(over.items())[:5])}")
+  out.update(top_1=top1, top_5=top5, in_process=here, bitwise=bitwise,
+             train_s=train_s, eval_s=eval_s)
+  res.setdefault("counts_by_path", {})["eval"] = {
+      k: launched.get(k, 0) for k in KERNELS}
+  res["eval"] = out
+
+
+# -- optim: rmsprop, adam and lars; the auto loss scale -------------------------
+
+OPTIM_STEPS = (3, 10)
+# Per optimizer: its rate flags (validation forbids a piecewise schedule
+# beside warmup flags, so the timed runs take the schedule and the card-vs
+# CPU runs the warmup).
+OPTIM_RUNS = {
+    "rmsprop": dict(rate=1e-3),
+    "adam": dict(rate=1e-3),
+    "lars": dict(rate=1.0),
+}
+
+
+def optim_flags(optimizer, rate, schedule):
+  flags = dict(optimizer=optimizer, gradient_clip=1.0,
+               print_training_accuracy=True)
+  if schedule == "piecewise":
+    flags["piecewise_learning_rate_schedule"] = f"{rate};1;{rate / 10}"
+  else:
+    flags.update(init_learning_rate=rate, num_learning_rate_warmup_epochs=1)
+  return flags
+
+
+def phase_optim(res):
+  """ResNet-50 at batch 256, bf16, 3 warmup + 10 timed steps under
+  momentum and under rmsprop, adam and lars (each with --gradient_clip=1.0,
+  a piecewise schedule and --print_training_accuracy), the counts set to 0
+  just before the four runs and read just after (13 + 13 a step); each
+  optimizer's 3 steps at batch 8 on the card against the CPU (under a
+  warmup rate); then the auto loss scale from 2^127."""
+  from kf_benchmarks_tpu_torch import benchmark
+  warm, timed = OPTIM_STEPS
+  out = {}
+  reset_launches()
+  total_steps = 0
+  for name in ("momentum", *OPTIM_RUNS):
+    flags = (dict(optimizer="momentum") if name == "momentum" else
+             optim_flags(name, OPTIM_RUNS[name]["rate"], "piecewise"))
+    before = benchmark.kernel_launches()
+    stats = benchmark.BenchmarkCNN(resnet_params(**{
+        **flags, "num_batches": timed, "num_warmup_batches": warm,
+        "display_every": 5})).run()
+    after = benchmark.kernel_launches()
+    launched = {k: after[k] - before[k] for k in after}
+    steps = stats["steps_run"]
+    total_steps += steps
+    out[name] = {"images_per_sec": stats["images_per_sec"],
+                 "launches": launched}
+    log(f"optim {name}: batch 256, {steps} steps, "
+        f"{stats['images_per_sec']:.2f} images/sec (momentum "
+        f"{out['momentum']['images_per_sec']:.2f}), launches {launched}")
+    check(np.isfinite(stats["last_average_loss"]),
+          f"optim {name}: loss not finite")
+    for kernel in ("conv3x3_same", "bn_relu_conv3x3_stats"):
+      check(launched[kernel] == 13 * steps,
+            f"optim {name}: {kernel} launched {launched[kernel]} times in "
+            f"{steps} steps")
+  res.setdefault("counts_by_path", {})["optim"] = benchmark.kernel_launches()
+  for name, run in OPTIM_RUNS.items():
+    out[name]["parity"] = optim_parity(name, run["rate"])
+  out["loss_scale"] = loss_scale_overflow()
+  res["optim"] = out
+
+
+def optim_parity(name, rate):
+  """3 steps of ``name`` (clip 1.0, warmup rate, accuracy printed) at
+  batch 8 from one init and one batch: the card (bf16, kernels) against
+  the CPU (f32, plain versions). Each step's loss within phase parity's
+  2e-2; the classifier's total update with its norm within 5e-2 and its
+  cosine >= 0.98."""
+  from kf_benchmarks_tpu_torch import learning_rate
+  from kf_benchmarks_tpu_torch import optimizers
+  from kf_benchmarks_tpu_torch import params as params_lib
+  from kf_benchmarks_tpu_torch import train_step
+  from kf_benchmarks_tpu_torch.models import resnet_model
+  model = resnet_model.create_resnet50_model()
+  gen = torch.Generator().manual_seed(9)
+  init = model.make_module(1001, torch.float32, generator=gen).state_dict()
+  rng = np.random.default_rng(9)
+  images = torch.from_numpy((np.clip(rng.normal(size=(8, 224, 224, 3)), -2,
+                                     2) * 60.0 + 127.0).astype(np.float32))
+  labels = torch.from_numpy(rng.integers(0, 1001, 8))
+  p = params_lib.make_params(device="cpu",
+                             **optim_flags(name, rate, "warmup"))
+  got = {}
+  for arm, device, dtype in (("card", "cuda", torch.bfloat16),
+                             ("cpu", "cpu", torch.float32)):
+    module = model.make_module(1001, dtype).to(device)
+    module.load_state_dict(init)
+    opt = optimizers.get_optimizer(p, module.parameters())
+    # An epoch of 3 steps: the warmup rate changes at every step.
+    lr_fn = learning_rate.make_learning_rate_fn(p, model, 8, 24)
+    step = train_step.TrainStep(model, module, opt, lr_fn, 4e-5,
+                                gradient_clip=p.gradient_clip,
+                                print_accuracy=True)
+    losses = [float(step(images.to(device), labels.to(device))["base_loss"])
+              for _ in range(3)]
+    upd = (module.affine0.weight.detach().float().cpu() -
+           init["affine0.weight"])
+    got[arm] = (losses, upd)
+  (lc, uc), (lr_, ur) = got["card"], got["cpu"]
+  uc, ur = uc.double(), ur.double()
+  rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lr_))
+  n_rel = abs(float(uc.norm()) - float(ur.norm())) / float(ur.norm())
+  cos = float((uc * ur).sum() / (uc.norm() * ur.norm()))
+  log(f"optim parity {name}: losses card {[round(x, 5) for x in lc]} cpu "
+      f"{[round(x, 5) for x in lr_]} (max rel {rel:.3g}, tol 2e-2); "
+      f"classifier update norm rel {n_rel:.2g} (tol 5e-2), cosine {cos:.4f} "
+      f"(tol 0.98)")
+  check(rel <= 2e-2 and n_rel <= 5e-2 and cos >= 0.98,
+        f"optim parity {name}: the card differs from the CPU")
+  return {"loss_rel": rel, "update_norm_rel": n_rel, "update_cosine": cos}
+
+
+def loss_scale_overflow():
+  """ResNet-50 at batch 256, bf16, Nesterov momentum, the auto loss scale
+  from 2^127 (--fp16_enable_auto_loss_scale --fp16_loss_scale=2**127):
+  the first steps' gradients are non-finite. Every skipped step must leave
+  the weights, the optimizer's buffers and the batch-norm averages bitwise
+  as they were and halve the scale, and the run must reach an applied
+  step; then an overflow planted after that (the scale set back to 2^127)
+  must be skipped with the momentum buffers unchanged too."""
+  from kf_benchmarks_tpu_torch import benchmark
+  _, step, images, labels = benchmark.BenchmarkCNN(resnet_params(
+      fp16_enable_auto_loss_scale=True, fp16_loss_scale=2.0 ** 127,
+      fp16_inc_loss_scale_every_n=1000)).build()
+  module, opt = step.module, step.optimizer
+
+  def state():
+    from kf_benchmarks_tpu_torch import train_step
+    return ([q.detach().clone() for q in module.parameters()] +
+            [b.clone() for b in train_step.batch_stats(module)] +
+            [v.clone() for st in opt.state.values() for v in st.values()
+             if isinstance(v, torch.Tensor)])
+
+  trace = []
+  skipped_unchanged = []
+  planted = None
+  for i in range(24):
+    if step.update_count == 1 and planted is None:
+      planted = i
+      step.loss_scale = 2.0 ** 127  # the planted overflow
+    scale = step.loss_scale
+    before = state()
+    count = step.update_count
+    step(images, labels)
+    skipped = step.update_count == count
+    trace.append((math.log2(scale), skipped))
+    if skipped:
+      after = state()
+      skipped_unchanged.append(len(before) == len(after) and all(
+          torch.equal(a, b) for a, b in zip(before, after)))
+      check(step.loss_scale == scale / 2,
+            f"loss scale: {scale} -> {step.loss_scale} on a skipped step")
+    if step.update_count == 2:
+      break
+  log(f"loss scale: (log2 scale, skipped) per step {trace}; "
+      f"{sum(s for _, s in trace)} skipped steps, each bitwise unchanged: "
+      f"{all(skipped_unchanged)}; momentum buffers held over the planted "
+      f"overflow: {len(opt.state)} tensors")
+  check(trace[0][1], "loss scale: the first step was not skipped")
+  check(all(skipped_unchanged), "loss scale: a skipped step changed state")
+  check(step.update_count == 2, "loss scale: no applied step after the "
+        "planted overflow")
+  check(trace[planted][1], "loss scale: the planted overflow was not "
+        "skipped")
+  return {"trace": trace, "skipped": sum(s for _, s in trace)}
+
+
 # -- main ----------------------------------------------------------------------
 
 def device_line() -> str:
@@ -2060,6 +2578,7 @@ def main(argv=None) -> int:
            "decode": phase_decode, "serve": phase_serve,
            "serve_parity": phase_serve_parity, "dp": phase_dp,
            "zoo": phase_zoo, "elastic": phase_elastic,
+           "infer": phase_infer, "eval": phase_eval, "optim": phase_optim,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}

@@ -30,6 +30,18 @@ step and synthetic batch at the new batch, the state carried across
 through the checkpoint's state-dict path. Warmup steps train, as in the
 JAX package, so they count toward the global step.
 
+Modes (JAX benchmark.py:694-701, :1149-1158, :2049-2211): --forward_only
+runs the same timed loop with the evaluation step (the module in eval
+mode, no gradient, no optimizer) and saves nothing; --eval scores the
+synthetic batch once, or, with --train_dir, every new checkpoint there
+(weights and batch-norm averages only) each --eval_interval_secs until 10
+polls find nothing new, and prints ``Accuracy @ 1 = ... Accuracy @ 5 =
+... [N examples]``. Training evaluates the training batch after the steps
+the --eval_during_training_* flags name and stops at the first such step
+whose top-1 reaches --stop_at_top_1_accuracy; like checkpoints, the eval
+time stays out of the step times. --num_epochs and --num_eval_epochs
+count ImageNet epochs at the global batch (data/datasets.py).
+
 Timing: the device runs asynchronously, so every timing boundary is a
 ``torch.cuda.synchronize()``: one before the timed loop, and the read of
 each step's loss, which waits for that step to finish. A step's time is
@@ -38,9 +50,11 @@ the host interval between two such boundaries.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from kf_benchmarks_tpu_torch import checkpoint
@@ -50,6 +64,7 @@ from kf_benchmarks_tpu_torch import optimizers
 from kf_benchmarks_tpu_torch import params as params_lib
 from kf_benchmarks_tpu_torch import train_step as train_step_lib
 from kf_benchmarks_tpu_torch import validation
+from kf_benchmarks_tpu_torch.data import datasets
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.ops import conv_bn
 from kf_benchmarks_tpu_torch.ops import flash_attention
@@ -71,6 +86,58 @@ def _sync(device: torch.device) -> None:
     torch.cuda.synchronize(device)
 
 
+def compute_eval_step_set(params, global_batch_size: int,
+                          num_train_examples: int, num_batches: int,
+                          start_step: int = 0, start_examples: int = 0):
+  """Training steps after which mid-training eval runs, from the
+  epoch-based and explicit-list schedules (the JAX package's
+  benchmark.py:102-153; the every-n-steps cadence is checked in the loop).
+  ``start_step``/``start_examples`` re-anchor the epoch-to-step mapping
+  after an adaptive-batch rebuild changes the global batch mid-run."""
+  steps = set()
+
+  def epoch_to_step(e):
+    remaining = int(e * num_train_examples) - start_examples
+    return (start_step +
+            (remaining + global_batch_size - 1) // global_batch_size)
+
+  if params.eval_during_training_every_n_epochs:
+    n = float(params.eval_during_training_every_n_epochs)
+    num_epochs = ((start_examples +
+                   (num_batches - start_step) * global_batch_size) /
+                  max(num_train_examples, 1))
+    # The run's last epoch boundary is included when it lands on one.
+    epochs = [e for e in np.arange(n, num_epochs + 1e-9, n)
+              if e * num_train_examples > start_examples]
+    steps |= {epoch_to_step(e) for e in epochs}
+  if params.eval_during_training_at_specified_steps:
+    try:
+      steps |= set(
+          map(int, params.eval_during_training_at_specified_steps))
+    except ValueError:
+      raise validation.ParamError(
+          "eval_during_training_at_specified_steps value of "
+          f"{params.eval_during_training_at_specified_steps} cannot be "
+          "converted to a list of integers (ref :1457-1463)")
+  if params.eval_during_training_at_specified_epochs:
+    try:
+      epochs = [float(e)
+                for e in params.eval_during_training_at_specified_epochs]
+    except ValueError:
+      raise validation.ParamError(
+          "eval_during_training_at_specified_epochs value of "
+          f"{params.eval_during_training_at_specified_epochs} cannot be "
+          "converted to a list of floats (ref :1465-1476)")
+    steps |= {epoch_to_step(e) for e in epochs
+              if e * num_train_examples > start_examples}
+  return steps
+
+
+def accuracy_line(top1: float, top5: float, examples: int) -> str:
+  return "Accuracy @ 1 = %.4f Accuracy @ 5 = %.4f [%d examples]" % (
+      top1, top5, examples)
+
+
 class BenchmarkCNN:
   """Benchmark runner for one validated Params."""
 
@@ -89,7 +156,10 @@ class BenchmarkCNN:
     if params.batch_size:
       self.model.set_batch_size(params.batch_size)
     self.batch_size = self.model.get_batch_size()
-    self.num_batches = params.num_batches or 100
+    self.num_batches = self._get_num_batches()
+    self.eval_step_set = compute_eval_step_set(
+        params, self.batch_size * self.world_size,
+        datasets.num_examples_per_epoch("train"), self.num_batches)
     self.num_warmup_batches = (params.num_warmup_batches
                                if params.num_warmup_batches is not None
                                else 10)
@@ -102,6 +172,28 @@ class BenchmarkCNN:
     self._saved = None  # (global step, incarnation) last written
     self.checkpoint_restore_s = None
 
+  def _get_num_batches(self) -> int:
+    """--num_batches, or --num_epochs of ImageNet at the global batch, or
+    100 (the JAX package's _get_num_batches, benchmark.py:469-478)."""
+    p = self.params
+    if p.num_batches is not None:
+      return p.num_batches
+    if p.num_epochs is not None:
+      per_epoch = datasets.num_examples_per_epoch("train")
+      return int(math.ceil(p.num_epochs * per_epoch /
+                           (self.batch_size * self.world_size)))
+    return 100
+
+  def _num_eval_batches_from_epochs(self) -> Optional[int]:
+    """--num_eval_epochs of the ImageNet validation set at the global
+    batch (benchmark.py:480-490 of the JAX package)."""
+    p = self.params
+    if p.num_eval_epochs is None:
+      return None
+    per_epoch = datasets.num_examples_per_epoch("validation")
+    return int(math.ceil(p.num_eval_epochs * per_epoch /
+                         (self.batch_size * self.world_size)))
+
   def print_info(self) -> None:
     p = self.params
     device_name = (torch.cuda.get_device_name(self.device)
@@ -110,7 +202,8 @@ class BenchmarkCNN:
            torch.__version__)
     log_fn("Model:       %s" % self.model.get_name())
     log_fn("Dataset:     %s (synthetic)" % self.model.data_name)
-    log_fn("Mode:        training")
+    log_fn("Mode:        %s" % ("forward-only" if p.forward_only else
+                                   "evaluation" if p.eval else "training"))
     log_fn("Batch size:  %d global" % (self.batch_size * self.world_size))
     log_fn("             %d per device" % self.batch_size)
     log_fn("Num batches: %d" % self.num_batches)
@@ -125,28 +218,58 @@ class BenchmarkCNN:
       log_fn("KungFu:      %s" % p.kungfu_option)
     log_fn("==========")
 
-  def build(self, snapshot: Optional[Dict] = None):
-    """(module, train step, images, labels), all made from --tf_random_seed
-    on the rank's device, the same on every rank. The state then comes
-    from ``snapshot`` (a checkpoint.savable_state) if one is given, else
-    from --train_dir's newest readable checkpoint if there is one (the
-    global step, the weights and batch-norm averages, the optimizer's
-    buffers, the input incarnation); in a process group the weights then
-    go through the strategy's ``broadcast_init``. The synthetic batch of
-    incarnation k > 0 comes from a generator seeded --tf_random_seed +
-    7919 k (the JAX package folds k into its data key)."""
-    p = self.params
-    gen = torch.Generator(device=self.device).manual_seed(p.tf_random_seed)
+  def _make_module(self):
+    """(module, generator): the model's module made on the rank's device
+    from --tf_random_seed, and the generator it drew from, which the
+    synthetic batch continues."""
+    gen = torch.Generator(device=self.device).manual_seed(
+        self.params.tf_random_seed)
     with torch.device(self.device):
       module = self.model.make_module(self.nclass, self.compute_dtype,
                                       generator=gen)
-    opt = optimizers.get_optimizer(p, module.parameters())
-    lr_fn = learning_rate.make_learning_rate_fn(
-        self.model, learning_rate.effective_batch_size(
-            self.batch_size, self.world_size, self.strategy.cross_replica))
-    step = train_step_lib.TrainStep(
-        self.model, module, opt, lr_fn, p.weight_decay,
-        strategy=self.strategy, track_noise_scale=p.track_grad_noise_scale)
+    return module, gen
+
+  def _synthetic_batch(self, gen: torch.Generator):
+    """The synthetic batch of the current input incarnation: incarnation
+    0 continues ``gen``, incarnation k > 0 comes from a generator seeded
+    --tf_random_seed + 7919 k (the JAX package folds k into its data
+    key)."""
+    if self.input_incarnation:
+      gen = torch.Generator(device=self.device).manual_seed(
+          self.params.tf_random_seed + 7919 * self.input_incarnation)
+    return self.model.get_synthetic_inputs(gen, self.nclass, self.device)
+
+  def build(self, snapshot: Optional[Dict] = None):
+    """(module, step, images, labels), all made from --tf_random_seed on
+    the rank's device, the same on every rank. The step is the train step,
+    or under --forward_only the evaluation step (no optimizer). The state
+    then comes from ``snapshot`` (a checkpoint.savable_state) if one is
+    given, else from --train_dir's newest readable checkpoint if there is
+    one (the global step, the weights and batch-norm averages, the
+    optimizer's buffers, the train step's counters, the input
+    incarnation; the weights and averages alone under --forward_only); in
+    a process group the weights then go through the strategy's
+    ``broadcast_init``."""
+    p = self.params
+    module, gen = self._make_module()
+    if p.forward_only:
+      step = train_step_lib.EvalStep(self.model, module)
+    else:
+      opt = optimizers.get_optimizer(p, module.parameters())
+      lr_fn = learning_rate.make_learning_rate_fn(
+          p, self.model, learning_rate.effective_batch_size(
+              self.batch_size, self.world_size, self.strategy.cross_replica),
+          datasets.num_examples_per_epoch("train"))
+      loss_scale, auto_loss_scale = train_step_lib.loss_scale_settings(
+          p, self.model, self.compute_dtype)
+      step = train_step_lib.TrainStep(
+          self.model, module, opt, lr_fn, p.weight_decay,
+          strategy=self.strategy, track_noise_scale=p.track_grad_noise_scale,
+          gradient_clip=p.gradient_clip, loss_scale=loss_scale,
+          auto_loss_scale=auto_loss_scale,
+          inc_loss_scale_every_n=p.fp16_inc_loss_scale_every_n,
+          print_accuracy=p.print_training_accuracy,
+          single_l2_loss_op=p.single_l2_loss_op)
     t_restore = None
     if snapshot is None and p.train_dir:
       t_restore = time.time()
@@ -155,21 +278,23 @@ class BenchmarkCNN:
         self.input_incarnation = int(snapshot.get("input_incarnation", 0))
       except checkpoint.CheckpointNotFoundException:
         t_restore = None
+    restored_step = None
     if snapshot is not None:
-      step.global_step = checkpoint.restore_state(module, opt, snapshot)
+      if p.forward_only:
+        restored_step = checkpoint.restore_model(module, snapshot)
+      else:
+        step.global_step = restored_step = checkpoint.restore_state(
+            module, step.optimizer, snapshot)
+        step.restore_counters(snapshot)
       _sync(self.device)
     if t_restore is not None:
       self.checkpoint_restore_s = time.time() - t_restore
-      log_fn(f"Restored checkpoint at global step {step.global_step} in "
+      log_fn(f"Restored checkpoint at global step {restored_step} in "
              f"{self.checkpoint_restore_s:.3f} s")
       if self.input_incarnation:
         log_fn(f"Resumed input stream at incarnation "
                f"{self.input_incarnation}")
-    if self.input_incarnation:
-      gen = torch.Generator(device=self.device).manual_seed(
-          p.tf_random_seed + 7919 * self.input_incarnation)
-    images, labels = self.model.get_synthetic_inputs(gen, self.nclass,
-                                                     self.device)
+    images, labels = self._synthetic_batch(gen)
     if mesh.is_distributed():
       with torch.no_grad():
         self.strategy.broadcast_init(
@@ -192,7 +317,8 @@ class BenchmarkCNN:
     checkpoint.save_checkpoint(
         self.params.train_dir,
         checkpoint.savable_state(module, step.optimizer, step.global_step,
-                                 self.input_incarnation + incarnation_bump),
+                                 self.input_incarnation + incarnation_bump,
+                                 step.counters()),
         self.params.max_ckpts_to_keep)
     self.checkpoint_save_s.append(time.time() - t0)
     log_fn(f"Saved checkpoint at global step {step.global_step} in "
@@ -205,7 +331,8 @@ class BenchmarkCNN:
     built at the new per-device batch (the next input incarnation)."""
     snapshot = checkpoint.savable_state(module, step.optimizer,
                                         step.global_step,
-                                        self.input_incarnation)
+                                        self.input_incarnation,
+                                        step.counters())
     self.input_incarnation += 1
     self.batch_size = batch_per_device
     self.model.set_batch_size(batch_per_device)
@@ -213,7 +340,97 @@ class BenchmarkCNN:
 
   def run(self) -> Dict[str, Any]:
     self.print_info()
+    if self.params.eval:
+      return self._run_eval()
     return self._benchmark_train()
+
+  # -- evaluation ---------------------------------------------------------
+
+  def _eval_once(self, eval_step, images, labels) -> Dict[str, Any]:
+    """--num_eval_batches (or --num_eval_epochs, else --num_batches)
+    evaluations of the batch, averaged (the JAX package's _eval_once,
+    benchmark.py:2049-2083)."""
+    p = self.params
+    num_eval = (p.num_eval_batches or self._num_eval_batches_from_epochs()
+                or self.num_batches)
+    launches_before = kernel_launches()
+    start = time.time()
+    accs = [eval_step(images, labels) for _ in range(num_eval)]
+    top1 = sum(float(a["top_1_accuracy"]) for a in accs) / len(accs)
+    top5 = sum(float(a["top_5_accuracy"]) for a in accs) / len(accs)
+    elapsed = time.time() - start
+    examples = len(accs) * self.batch_size * self.world_size
+    log_fn(accuracy_line(top1, top5, examples))
+    launches = {k: v - launches_before[k]
+                for k, v in kernel_launches().items()}
+    if any(launches.values()):
+      log_fn("Kernel launches: " + ", ".join(
+          f"{k} {v}" for k, v in launches.items() if v))
+    return {"top_1_accuracy": top1, "top_5_accuracy": top5,
+            "eval_images_per_sec": examples / max(elapsed, 1e-9),
+            "num_eval_batches": len(accs), "kernel_launches": launches}
+
+  def _run_eval(self) -> Dict[str, Any]:
+    """Evaluation (JAX benchmark.py:2085-2131): without --train_dir one
+    pass over the seeded model; with it, every new checkpoint there in
+    turn, until 10 polls in a row find none (one poll when
+    --eval_interval_secs is 0). Every rank reads the same files and
+    evaluates its own copy of the batch; the accuracies are the mean
+    over the ranks."""
+    module, gen = self._make_module()
+    images, labels = self._synthetic_batch(gen)
+    eval_step = train_step_lib.EvalStep(self.model, module)
+    if not self.params.train_dir:
+      return self._eval_once(eval_step, images, labels)
+    return self._eval_poll_loop(module, eval_step, images, labels)
+
+  def _eval_poll_loop(self, module, eval_step, images, labels):
+    """The JAX package's _eval_poll_loop (benchmark.py:2151-2211): a
+    checkpoint newer than the last one scored is restored (weights and
+    averages only) and scored; a torn newest file is skipped; after 10
+    stale polls, or after one poll without --eval_interval_secs, the last
+    results are returned (None if nothing was scored)."""
+    p = self.params
+    last_evaluated_step = -1
+    results = None
+    stale_polls = 0
+    max_stale_polls = 10
+    while True:
+      try:
+        _, ckpt_step = checkpoint.latest_checkpoint(p.train_dir)
+      except checkpoint.CheckpointNotFoundException:
+        if not p.eval_interval_secs:
+          raise
+        stale_polls += 1
+        if stale_polls >= max_stale_polls:
+          return results
+        time.sleep(p.eval_interval_secs)
+        continue
+      if ckpt_step > last_evaluated_step:
+        try:
+          snapshot, _, ckpt_step = checkpoint.load_latest_checkpoint(
+              p.train_dir)
+        except checkpoint.CheckpointNotFoundException:
+          snapshot = None
+        if snapshot is None or ckpt_step <= last_evaluated_step:
+          # Pruned between the listing and the read, or torn with nothing
+          # newer behind it: not there yet.
+          stale_polls += 1
+          if stale_polls >= max_stale_polls:
+            return results
+          time.sleep(p.eval_interval_secs or 1)
+          continue
+        checkpoint.restore_model(module, snapshot)
+        log_fn(f"Evaluating checkpoint at global step {ckpt_step}")
+        results = self._eval_once(eval_step, images, labels)
+        results["global_step"] = ckpt_step
+        last_evaluated_step = ckpt_step
+        stale_polls = 0
+      else:
+        stale_polls += 1
+      if not p.eval_interval_secs or stale_polls >= max_stale_polls:
+        return results
+      time.sleep(p.eval_interval_secs)
 
   def _elastic_setup(self):
     """(noise EMA, adaptive-batch policy, resize controller), each None
@@ -271,7 +488,10 @@ class BenchmarkCNN:
     _sync(self.device)
     log_fn("Build + warmup (%d steps): %.1f s" %
            (self.num_warmup_batches, time.time() - t0))
-    log_fn("Step\tImg/sec\ttotal_loss")
+    header = "Step\tImg/sec\ttotal_loss"
+    if p.print_training_accuracy:
+      header += "\ttop_1_accuracy\ttop_5_accuracy"
+    log_fn(header)
 
     step_train_times = []
     last_display_len = 0
@@ -279,6 +499,8 @@ class BenchmarkCNN:
     images_processed = 0
     aux_time = 0.0
     restart_requested = None
+    stopped_early = False
+    eval_results = []
     reshape_events = []
     loop_start = time.time()
     last = last_save = loop_start
@@ -294,23 +516,45 @@ class BenchmarkCNN:
                          float(metrics["noise_scale_s"]))
       i1 = i + 1
       if i1 % self.display_every == 0 or i1 == self.num_batches:
+        top1 = top5 = None
+        if "top_1_accuracy" in metrics:
+          top1 = float(metrics["top_1_accuracy"])
+          top5 = float(metrics["top_5_accuracy"])
         log_fn(log_util.format_step_line(
             i1, self.batch_size * self.world_size,
-            step_train_times[last_display_len:], loss))
+            step_train_times[last_display_len:], loss, top1, top5))
         last_display_len = len(step_train_times)
-      save_due = bool(p.train_dir and (
+      save_due = bool(p.train_dir and not p.forward_only and (
           (p.save_model_steps and i1 % p.save_model_steps == 0) or
           (p.save_model_secs and now - last_save >= p.save_model_secs)))
+      eval_due = bool((p.eval_during_training_every_n_steps and
+                       i1 % p.eval_during_training_every_n_steps == 0) or
+                      i1 in self.eval_step_set)
       elastic_due = bool((controller is not None or batch_policy is not None)
                          and i1 % p.elastic_check_every_n_steps == 0 and
                          i1 < self.num_batches)
-      if not (save_due or elastic_due):
+      if not (save_due or eval_due or elastic_due):
         continue
-      # Checkpoint and resize time stays out of the step times.
+      # Checkpoint, eval and resize time stays out of the step times.
       aux_start = time.time()
       if save_due:
         self._save_checkpoint(module, step)
         last_save = time.time()
+      if eval_due:
+        # Mid-training eval and the early stop (JAX benchmark.py:
+        # 1655-1672; ref: benchmark_cnn.py:2310-2324).
+        acc = train_step_lib.EvalStep(self.model, module)(images, labels)
+        top1 = float(acc["top_1_accuracy"])
+        top5 = float(acc["top_5_accuracy"])
+        eval_results.append({"step": i1, "top_1_accuracy": top1,
+                             "top_5_accuracy": top5})
+        log_fn(accuracy_line(top1, top5, self.batch_size * self.world_size))
+        if p.stop_at_top_1_accuracy and top1 >= p.stop_at_top_1_accuracy:
+          log_fn(f"Stopping early at top-1 accuracy {top1:.4f} "
+                 f">= {p.stop_at_top_1_accuracy}")
+          stopped_early = True
+          aux_time += time.time() - aux_start
+          break
       if elastic_due:
         restart_np = (self._restart_target(controller, i1)
                       if controller is not None else None)
@@ -352,13 +596,19 @@ class BenchmarkCNN:
               self._save_checkpoint(module, step, incarnation_bump=1)
             module, step, images, labels = self._rebuild(module, step,
                                                          proposed)
+            # Epoch-based eval schedules count examples: re-anchored at
+            # the new global batch.
+            self.eval_step_set = compute_eval_step_set(
+                p, self.batch_size * self.world_size,
+                datasets.num_examples_per_epoch("train"), self.num_batches,
+                start_step=i1, start_examples=images_processed)
             reshape_events.append(event)
       _sync(self.device)
       aux = time.time() - aux_start
       aux_time += aux
       last += aux
     total_time = time.time() - loop_start - aux_time
-    if p.train_dir and restart_requested is None:
+    if p.train_dir and not p.forward_only and restart_requested is None:
       # Final checkpoint (ref: benchmark_cnn.py:2374-2378).
       self._save_checkpoint(module, step)
     num_steps = len(step_train_times)
@@ -383,10 +633,12 @@ class BenchmarkCNN:
         "average_wall_time": total_time / max(num_steps, 1),
         "images_per_sec": images_per_sec,
         "last_average_loss": loss,
+        "stopped_early": stopped_early,
+        "eval_results": eval_results,
         "device": str(self.device),
         "kernel_launches": launches,
         "steps_run": self.num_warmup_batches + num_steps,
-        "global_step": step.global_step,
+        "global_step": None if p.forward_only else step.global_step,
         "batch_size_per_device": self.batch_size,
         "grad_noise_scale": noise_ema.b_simple if noise_ema else None,
         "reshape_events": reshape_events,

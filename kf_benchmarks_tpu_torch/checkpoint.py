@@ -8,7 +8,9 @@ Rank 0 writes its copy (the "v0" rule: every data-parallel strategy keeps
 the ranks' weights equal, or, for the gossip and independent ones, rank 0's
 are the run's). A snapshot holds the module's state_dict (parameters and
 the batch-norm running averages), the optimizer's state_dict (its momentum
-buffers), the global step and the input incarnation, as CPU tensors.
+or moment buffers), the global step, the input incarnation and the train
+step's counters (the updates applied, the loss scale and its count of
+clean steps; JAX checkpoint.py:101-102), as CPU tensors and numbers.
 
 Format: one ``model.ckpt-<step>.pt`` per step (``torch.save``), written to
 a temporary name and moved into place with ``os.replace``, plus a
@@ -27,7 +29,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -63,12 +65,16 @@ def _to_cpu(tree):
 
 
 def savable_state(module: nn.Module, optimizer: torch.optim.Optimizer,
-                  global_step: int, input_incarnation: int = 0) -> Dict:
-  """A host-side snapshot of this rank's training state."""
+                  global_step: int, input_incarnation: int = 0,
+                  counters: Optional[Dict] = None) -> Dict:
+  """A host-side snapshot of this rank's training state; ``counters``
+  (the train step's ``counters()``: update count and loss-scale state)
+  go in beside the step."""
   return {"step": int(global_step),
           "model": _to_cpu(module.state_dict()),
           "optimizer": _to_cpu(optimizer.state_dict()),
-          "input_incarnation": int(input_incarnation)}
+          "input_incarnation": int(input_incarnation),
+          **(counters or {})}
 
 
 def save_checkpoint(train_dir: str, snapshot: Dict,
@@ -174,4 +180,13 @@ def restore_state(module: nn.Module, optimizer: torch.optim.Optimizer,
   on the module's own device."""
   module.load_state_dict(snapshot["model"])
   optimizer.load_state_dict(snapshot["optimizer"])
+  return int(snapshot["step"])
+
+
+def restore_model(module: nn.Module, snapshot: Dict) -> int:
+  """The model-only restore of evaluation (the JAX package's
+  ``restore_opt_state=False``, benchmark.py:2200-2201): the weights and
+  batch-norm averages alone, so the evaluating process's optimizer flags
+  need not match the trainer's. Returns the snapshot's global step."""
+  module.load_state_dict(snapshot["model"])
   return int(snapshot["step"])

@@ -10,7 +10,9 @@ Runs on the CUDA card by default and fails when there is none;
 (torch.multiprocessing) that join one process group on this host: NCCL
 with rank r on ``cuda:r`` (N may not exceed the cards present), gloo on the
 CPU with ``--device=cpu``. Rank 0 prints; a rank that raises makes the
-command exit non-zero.
+command exit non-zero. ``--forward_only`` and ``--eval`` take the same
+spawn: each rank evaluates its own copy of the batch and the accuracies
+and losses are the mean over the ranks.
 
 ``--worker_hosts=h0:p0,h1:p1,...`` runs this process as one worker of a
 job that kfrun (or another launcher) started once per worker: it joins the
@@ -38,8 +40,9 @@ from kf_benchmarks_tpu_torch import params as params_lib
 def parse_params(argv: Optional[Sequence[str]] = None):
   parser = argparse.ArgumentParser(
       prog="python -m kf_benchmarks_tpu_torch.cli",
-      description="ResNet-50 training benchmark on NVIDIA H100s "
-      "(PyTorch + hand-written CUDA kernels).")
+      description="CNN and transformer_lm training, inference and "
+      "evaluation benchmark on NVIDIA H100s (PyTorch + hand-written CUDA "
+      "kernels).")
   flags.add_to_parser(parser)
   ns, unknown = parser.parse_known_args(argv)
   if unknown:

@@ -1,16 +1,19 @@
-"""Learning-rate policy: the model-default path of the JAX package's
-learning_rate.py (make_learning_rate_fn, last branch).
+"""Learning-rate policy: the port's counterpart of the JAX package's
+learning_rate.py (ref: benchmark_cnn.py:1067-1169).
 
-This slice runs neither a piecewise schedule, an explicit initial rate nor
-extra warmup flags, so the rate is the model's own schedule of the global
-step, at the effective batch size: the per-device batch, times the number
-of ranks when the strategy averages gradients over them
-(kf_benchmarks_tpu/benchmark.py:536-546).
+Priority: a piecewise 'LR0;E1;LR1;...' schedule, then
+--init_learning_rate with exponential decay and a floor, then the model's
+own schedule; linear warmup over --num_learning_rate_warmup_epochs on top.
+Each is a plain function of the step in Python floats (the JAX package
+evaluates the same formulas in f32). Epochs count batches at the effective
+batch: the per-device batch, times the number of ranks when the strategy
+averages gradients over them (kf_benchmarks_tpu/benchmark.py:536-546).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, List, Tuple
 
 
 def effective_batch_size(batch_size: int, num_replicas: int,
@@ -18,7 +21,79 @@ def effective_batch_size(batch_size: int, num_replicas: int,
   return batch_size * (num_replicas if cross_replica else 1)
 
 
-def make_learning_rate_fn(model, batch_size: int) -> Callable[[int], float]:
-  def lr_fn(step: int) -> float:
-    return float(model.get_learning_rate(step, batch_size))
+def parse_piecewise_schedule(schedule_str: str
+                             ) -> Tuple[List[float], List[int]]:
+  """Parse 'LR0;E1;LR1;...;En;LRn' (ref: benchmark_cnn.py:1067-1101) into
+  (values, epoch boundaries): LR and epoch tokens alternate, and the epochs
+  are strictly increasing positive ints."""
+  pieces = schedule_str.split(";")
+  if len(pieces) % 2 == 0:
+    raise ValueError("--piecewise_learning_rate_schedule must have an odd "
+                     "number of components")
+  values, boundaries = [], []
+  for i, piece in enumerate(pieces):
+    if i % 2 == 0:
+      try:
+        values.append(float(piece))
+      except ValueError:
+        raise ValueError(f"Invalid learning rate: {piece!r}")
+    else:
+      try:
+        boundaries.append(int(piece))
+      except ValueError:
+        raise ValueError(f"Invalid epoch: {piece!r}")
+  if any(b <= a for a, b in zip(boundaries, boundaries[1:])) or (
+      boundaries and boundaries[0] <= 0):
+    raise ValueError("Epochs must be positive and increasing")
+  return values, boundaries
+
+
+def make_learning_rate_fn(params, model, batch_size: int,
+                          num_examples_per_epoch: int,
+                          num_workers: int = 1) -> Callable[[int], float]:
+  """The rate of each step (ref: benchmark_cnn.py:1104-1169).
+  ``batch_size`` is the effective batch of one worker process;
+  ``num_workers`` the processes that each take such a batch (1 for the
+  port's ranks, which ``batch_size`` already counts)."""
+  global_batch = batch_size * max(num_workers, 1)
+  num_batches_per_epoch = num_examples_per_epoch / float(global_batch)
+
+  if params.piecewise_learning_rate_schedule:
+    values, boundaries = parse_piecewise_schedule(
+        params.piecewise_learning_rate_schedule)
+
+    def lr_fn(step):
+      lr = values[0]
+      for epoch, v in zip(boundaries, values[1:]):
+        if step >= epoch * num_batches_per_epoch:
+          lr = v
+      return lr
+  elif params.init_learning_rate is not None:
+    init_lr = params.init_learning_rate
+
+    def lr_fn(step):
+      lr = init_lr
+      if params.num_epochs_per_decay and params.learning_rate_decay_factor:
+        decay_steps = params.num_epochs_per_decay * num_batches_per_epoch
+        lr = init_lr * params.learning_rate_decay_factor ** math.floor(
+            step / decay_steps)
+        if params.minimum_learning_rate:
+          lr = max(lr, params.minimum_learning_rate)
+      return lr
+  else:
+
+    def lr_fn(step):
+      return float(model.get_learning_rate(step, global_batch))
+
+  if params.num_learning_rate_warmup_epochs:
+    warmup_steps = (params.num_learning_rate_warmup_epochs *
+                    num_batches_per_epoch)
+    base_fn = lr_fn
+
+    def lr_fn(step):  # noqa: F811
+      lr = base_fn(step)
+      if step < warmup_steps:
+        return lr * step / max(warmup_steps, 1.0)
+      return lr
+
   return lr_fn

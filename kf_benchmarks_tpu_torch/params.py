@@ -1,8 +1,9 @@
 """The parameters the port reads so far, and the Params object.
 
 A subset of kf_benchmarks_tpu/params.py (ref: benchmark_cnn.py:114-636):
-the CNN zoo of models/model_config.py and transformer_lm training on
-synthetic data, on one card or data-parallel over torch.distributed
+the CNN zoo of models/model_config.py and transformer_lm training,
+forward-only inference and evaluation on synthetic data, with the JAX
+package's optimizers, learning-rate policy and loss scaling, on one card or data-parallel over torch.distributed
 (spawned ranks, or kfrun workers joined through --worker_hosts), with
 checkpoints, elastic resize and the adaptive batch size, and the
 transformer_lm serving bench (serving/bench.py). Names, defaults and
@@ -24,9 +25,40 @@ flags.DEFINE_integer("batch_size", 0, "Per-device batch size (0 = model "
 flags.DEFINE_integer("num_batches", None,
                      "Number of timed batches to run (None = 100).",
                      lower_bound=1)
+flags.DEFINE_float("num_epochs", None,
+                   "Number of epochs to run (mutually exclusive with "
+                   "num_batches; ref :140-144).")
 flags.DEFINE_integer("num_warmup_batches", None,
                      "Number of warmup batches before timing (None = 10).",
                      lower_bound=0)
+# Step modes: evaluation, forward-only, mid-training eval (ref :119-175).
+flags.DEFINE_boolean("eval", False, "Run evaluation instead of training "
+                     "(ref :119).")
+flags.DEFINE_integer("eval_interval_secs", 0,
+                     "How often eval polls for new checkpoints (ref "
+                     ":147-151).")
+flags.DEFINE_integer("num_eval_batches", None,
+                     "Number of eval batches (ref :152-155).")
+flags.DEFINE_float("num_eval_epochs", None,
+                   "Number of eval epochs (ref :156-160).")
+flags.DEFINE_integer("eval_during_training_every_n_steps", None,
+                     "Mid-training eval cadence in steps (ref :161-166).")
+flags.DEFINE_float("eval_during_training_every_n_epochs", None,
+                   "Mid-training eval cadence in epochs (ref :140-143).")
+flags.DEFINE_list("eval_during_training_at_specified_steps", [],
+                  "Explicit training steps after which to run eval "
+                  "(ref :144-147).")
+flags.DEFINE_list("eval_during_training_at_specified_epochs", [],
+                  "Explicit training epochs after which to run eval "
+                  "(ref :148-152).")
+flags.DEFINE_float("stop_at_top_1_accuracy", None,
+                   "Stop training early once this top-1 is reached "
+                   "(ref :167-172).")
+flags.DEFINE_boolean("forward_only", False,
+                     "Only run forward pass (ref :124-126).")
+flags.DEFINE_boolean("print_training_accuracy", False,
+                     "Compute and print top-1/top-5 during training "
+                     "(ref :127-129).")
 flags.DEFINE_enum("device", "gpu", ("gpu", "cpu"),
                   "Device to run on: the CUDA card (default; fails without "
                   "one) or the CPU, where the kernels' plain versions run.")
@@ -83,11 +115,46 @@ flags.DEFINE_boolean("cross_replica_sync", True,
                      "parameter_server is the async parameter server.")
 flags.DEFINE_boolean("use_fp16", False,
                      "bf16 activations and gradients over f32 parameters.")
-flags.DEFINE_enum("optimizer", "sgd", ("sgd", "momentum"),
-                  "sgd, or momentum (Nesterov, as optax.sgd(nesterov=True)).")
-flags.DEFINE_float("momentum", 0.9, "Momentum.")
+flags.DEFINE_float("fp16_loss_scale", None,
+                   "Loss scale; None = model default. bfloat16 does not "
+                   "need loss scaling so the default is 1 (ref :471-480).")
+flags.DEFINE_boolean("fp16_enable_auto_loss_scale", False,
+                     "Auto loss-scaling state machine (ref :486-490).")
+flags.DEFINE_integer("fp16_inc_loss_scale_every_n", 1000,
+                     "Double loss scale after N clean steps (ref :491-495).")
+flags.DEFINE_enum("optimizer", "sgd", ("sgd", "momentum", "rmsprop", "adam",
+                                       "lars"),
+                  "Optimizer (ref :414-417), each as the JAX package builds "
+                  "it with optax: momentum is Nesterov, lars is "
+                  "optax.lars (optimizers.py).")
+flags.DEFINE_float("init_learning_rate", None,
+                   "Initial LR; None = model default (ref :418-422).")
+flags.DEFINE_string("piecewise_learning_rate_schedule", None,
+                    "Schedule 'LR0;E1;LR1;...;En;LRn' (ref :423-429).")
+flags.DEFINE_float("num_epochs_per_decay", 0,
+                   "Epochs between LR decays (ref :430-434).")
+flags.DEFINE_float("learning_rate_decay_factor", 0,
+                   "Exponential decay factor (ref :435-440).")
+flags.DEFINE_float("num_learning_rate_warmup_epochs", 0,
+                   "Linear LR warmup epochs (ref :441-444).")
+flags.DEFINE_float("minimum_learning_rate", 0,
+                   "LR floor (requires decay flags; ref :445-449).")
+flags.DEFINE_float("momentum", 0.9, "Momentum (ref :450).")
+flags.DEFINE_float("rmsprop_decay", 0.9, "RMSProp decay (ref :451-452).")
+flags.DEFINE_float("rmsprop_momentum", 0.9,
+                   "RMSProp momentum (ref :453-454).")
+flags.DEFINE_float("rmsprop_epsilon", 1.0, "RMSProp epsilon (ref :455-456).")
+flags.DEFINE_float("adam_beta1", 0.9, "Adam beta1 (ref :457-458).")
+flags.DEFINE_float("adam_beta2", 0.999, "Adam beta2 (ref :459-460).")
+flags.DEFINE_float("adam_epsilon", 1e-8, "Adam epsilon (ref :461-462).")
 flags.DEFINE_float("weight_decay", 4e-5, "L2 weight decay over the non-BN "
                    "parameters.")
+flags.DEFINE_boolean("single_l2_loss_op", False,
+                     "Compute L2 loss on concatenated weights instead of "
+                     "per-tensor (ref :499-502 single_l2_loss_op).")
+flags.DEFINE_float("gradient_clip", None, "Gradient clip magnitude "
+                   "(ref :412-413): each gradient element clamped to "
+                   "[-c, c] before the optimizer (optax.clip).")
 flags.DEFINE_integer("display_every", 10, "Print step stats every N steps.",
                      lower_bound=1)
 flags.DEFINE_enum("data_format", "NHWC", ("NHWC",),

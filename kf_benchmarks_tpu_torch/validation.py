@@ -1,11 +1,12 @@
 """Cross-flag validation: reject every configuration the port does not run.
 
 The port's counterpart of kf_benchmarks_tpu/validation.py. The port runs
-ResNet-50 (and the trivial model) and transformer_lm training on synthetic
-data, on one device or data-parallel over torch.distributed, and the
-transformer_lm serving bench; anything else fails here with the reason,
-before any work starts. The data-parallel rules are the JAX package's
-(validation.py:620-700, :817-851), with its messages.
+the CNN zoo of models/model_config.py and transformer_lm -- training,
+forward-only inference and evaluation -- on synthetic data, on one device
+or data-parallel over torch.distributed, and the transformer_lm serving
+bench; anything else fails here with the reason, before any work starts.
+The rules of the flags the port shares with the JAX package are the JAX
+package's (validation.py:209-217, :606-741, :817-851), with its messages.
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ def validate_cross_flags(params) -> None:
     raise ParamError(
         f"--model={params.model} is not ported yet; the port runs "
         f"{', '.join(model_config.list_models())}")
+  validate_mode_flags(params)
+  validate_optimizer_flags(params)
   validate_data_parallel_flags(params)
   validate_elastic_flags(params)
   if params.attn_block:
@@ -100,6 +103,111 @@ def validate_cross_flags(params) -> None:
       raise ParamError(
           f"--device=gpu needs --use_fp16 for --model={params.model}: "
           f"{kernels} have no f32 variant yet")
+
+
+def eval_during_training_enabled(params) -> bool:
+  """Any of the four mid-training eval schedules set
+  (ref: benchmark_cnn.py:1317-1327)."""
+  return any(map(bool, [
+      params.eval_during_training_every_n_steps,
+      params.eval_during_training_every_n_epochs,
+      params.eval_during_training_at_specified_steps,
+      params.eval_during_training_at_specified_epochs,
+  ]))
+
+
+def validate_mode_flags(p) -> None:
+  """--eval, --forward_only, the run length and mid-training eval (the
+  JAX package's rules and messages, validation.py:209-217, :606-623,
+  :718-741)."""
+  if p.eval:
+    if p.forward_only:
+      raise ParamError("--eval is incompatible with --forward_only "
+                       "(ref :1269-1270)")
+    if p.job_name:
+      raise ParamError("--job_name is unsupported with --eval (ref :1273)")
+  if p.num_batches is not None and p.num_epochs is not None:
+    raise ParamError("At most one of --num_batches and --num_epochs may be "
+                     "set (ref :1300-1303)")
+  if p.num_epochs is not None and p.num_epochs <= 0:
+    raise ParamError("--num_epochs must be positive")
+  if p.num_eval_batches is not None and p.num_eval_epochs is not None:
+    raise ParamError("At most one of --num_eval_batches and "
+                     "--num_eval_epochs may be set (ref "
+                     "get_num_batches_and_epochs, :782-800)")
+  if p.num_eval_batches is not None and p.num_eval_batches <= 0:
+    raise ParamError("--num_eval_batches must be positive")
+  if p.num_eval_epochs is not None and p.num_eval_epochs <= 0:
+    raise ParamError("--num_eval_epochs must be positive")
+  if p.forward_only and p.variable_update in ("distributed_replicated",
+                                              "distributed_all_reduce",
+                                              "collective_all_reduce"):
+    raise ParamError(f"--forward_only cannot be used with "
+                     f"--variable_update={p.variable_update} (ref :1306-1310)")
+  edt_flags = [p.eval_during_training_every_n_steps,
+               p.eval_during_training_every_n_epochs,
+               p.eval_during_training_at_specified_steps,
+               p.eval_during_training_at_specified_epochs]
+  if sum(map(bool, edt_flags)) > 1:
+    raise ParamError("At most one --eval_during_training_* flag may be "
+                     "specified (ref :1316-1325)")
+  if eval_during_training_enabled(p):
+    if p.eval:
+      raise ParamError("eval-during-training flags are incompatible with "
+                       "--eval (ref :1329-1330)")
+    if p.forward_only:
+      raise ParamError("eval-during-training flags are incompatible with "
+                       "--forward_only (ref :1331-1332)")
+    if p.job_name:
+      raise ParamError("--eval_during_training_* is not supported in "
+                       "distributed ps/controller mode (ref :1333-1334)")
+  if p.stop_at_top_1_accuracy and not eval_during_training_enabled(p):
+    # The reference allows it only with eval-during-training (ref :1339-1340).
+    raise ParamError("--stop_at_top_1_accuracy requires eval-during-training "
+                     "(ref :1339-1340)")
+  if p.forward_only and p.job_name == "controller":
+    raise ParamError("--forward_only is incompatible with controller jobs")
+  if (p.eval or p.forward_only) and (p.elastic or p.adaptive_batch_size or
+                                     p.track_grad_noise_scale):
+    # The port's narrowing: its eval and forward-only loops run no
+    # gradient to measure and poll no coordinator.
+    raise ParamError(
+        "--elastic, --adaptive_batch_size and --track_grad_noise_scale "
+        "apply to training only; they cannot be combined with --eval or "
+        "--forward_only")
+
+
+def validate_optimizer_flags(p) -> None:
+  """Loss scaling and the learning-rate policy (the JAX package's rules
+  and messages, validation.py:647-649, :685-717)."""
+  if p.fp16_enable_auto_loss_scale and not p.use_fp16:
+    raise ParamError("--fp16_enable_auto_loss_scale requires --use_fp16 "
+                     "(ref :1334-1336)")
+  if (p.use_fp16 and p.fp16_enable_auto_loss_scale and
+      p.variable_update not in ("parameter_server", "replicated",
+                                "independent", "kungfu")):
+    raise ParamError("Automatic loss scaling is not supported with "
+                     f"--variable_update={p.variable_update} (ref :1299-1303)")
+  if bool(p.learning_rate_decay_factor) != bool(p.num_epochs_per_decay):
+    raise ParamError("--learning_rate_decay_factor and "
+                     "--num_epochs_per_decay must be set together "
+                     "(ref :1271-1277)")
+  if p.learning_rate_decay_factor and p.init_learning_rate is None:
+    raise ParamError("LR decay flags require --init_learning_rate "
+                     "(ref :1271-1277)")
+  if p.minimum_learning_rate and not (p.learning_rate_decay_factor and
+                                      p.num_epochs_per_decay and
+                                      p.init_learning_rate is not None):
+    raise ParamError("--minimum_learning_rate requires "
+                     "--init_learning_rate, --learning_rate_decay_factor "
+                     "and --num_epochs_per_decay (ref :445-449, :1143-1146)")
+  if p.piecewise_learning_rate_schedule and p.init_learning_rate is not None:
+    raise ParamError("--piecewise_learning_rate_schedule cannot be combined "
+                     "with --init_learning_rate (ref :1104-1120)")
+  if (p.piecewise_learning_rate_schedule and
+      (p.learning_rate_decay_factor or p.num_learning_rate_warmup_epochs)):
+    raise ParamError("--piecewise_learning_rate_schedule cannot be combined "
+                     "with decay/warmup flags (ref :1116-1120)")
 
 
 def validate_elastic_flags(p) -> None:

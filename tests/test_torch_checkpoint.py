@@ -3,7 +3,8 @@ resume path of its BenchmarkCNN, on the CPU.
 
 A run resumed from a checkpoint must reach the state of an uninterrupted
 run bit for bit: parameters, batch-norm running averages, the optimizer's
-momentum buffers and the global step. A copy of the port with one planted
+buffers, the global step and the train step's counters (updates applied,
+loss scale and its count of clean steps). A copy of the port with one planted
 fault (the optimizer's state left out of the restore) must fail that
 check. The runs use a small ResNet v1.5 (one block a stage, 32x32 images,
 batch 2) put in the registry's place of ``resnet50``.
@@ -36,14 +37,16 @@ def _small_resnet(params=None):
 
 
 def _run(train_dir, num_batches, **flags):
-  """BenchmarkCNN on the small ResNet (momentum, no warmup); its stats."""
+  """BenchmarkCNN on the small ResNet (momentum unless ``flags`` name
+  another optimizer, no warmup); its stats."""
   saved = model_config._MODELS["resnet50"]
   model_config._MODELS["resnet50"] = _small_resnet
   try:
-    p = params_lib.make_params(
-        model="resnet50", device="cpu", batch_size=2, optimizer="momentum",
-        num_batches=num_batches, num_warmup_batches=0, display_every=100,
-        train_dir=str(train_dir), **flags)
+    p = params_lib.make_params(**{
+        "model": "resnet50", "device": "cpu", "batch_size": 2,
+        "optimizer": "momentum", "num_batches": num_batches,
+        "num_warmup_batches": 0, "display_every": 100,
+        "train_dir": str(train_dir), **flags})
     return benchmark.BenchmarkCNN(p).run()
   finally:
     model_config._MODELS["resnet50"] = saved
@@ -54,8 +57,10 @@ def state_differences(a, b):
   entry of the module (parameters and running averages) and every buffer
   of the optimizer's state. An empty list when they are equal."""
   out = []
-  if a["step"] != b["step"]:
-    out.append(f"step {a['step']} != {b['step']}")
+  for key in ("step", "update_count", "loss_scale",
+              "loss_scale_normal_steps"):
+    if a.get(key) != b.get(key):
+      out.append(f"{key} {a.get(key)} != {b.get(key)}")
   if set(a["model"]) != set(b["model"]):
     out.append("module keys differ")
   for k, v in a["model"].items():
@@ -71,13 +76,13 @@ def state_differences(a, b):
   return out
 
 
-def resume_differences(root):
+def resume_differences(root, **flags):
   """Six steps uninterrupted against three, a save, and three more from
   the checkpoint in a new BenchmarkCNN: the differences of their final
   checkpoints (state_differences)."""
-  _run(os.path.join(root, "whole"), 6)
-  _run(os.path.join(root, "arcs"), 3)
-  stats = _run(os.path.join(root, "arcs"), 3)
+  _run(os.path.join(root, "whole"), 6, **flags)
+  _run(os.path.join(root, "arcs"), 3, **flags)
+  stats = _run(os.path.join(root, "arcs"), 3, **flags)
   assert stats["global_step"] == 6
   whole, _, step_w = checkpoint.load_latest_checkpoint(
       os.path.join(root, "whole"))
@@ -89,6 +94,21 @@ def resume_differences(root):
 
 def test_resume_is_bitwise_the_uninterrupted_run(tmp_path):
   assert resume_differences(str(tmp_path)) == []
+
+
+def test_adam_auto_loss_scale_resume_is_bitwise(tmp_path):
+  """Adam under the auto loss scale (bf16), from a scale that overflows:
+  the resumed run carries the moments, Adam's step, the loss scale, its
+  count of clean steps and the update count, bit for bit."""
+  flags = dict(optimizer="adam", use_fp16=True,
+               fp16_enable_auto_loss_scale=True, fp16_loss_scale=2.0 ** 127,
+               fp16_inc_loss_scale_every_n=2)
+  assert resume_differences(str(tmp_path), **flags) == []
+  snap, _, _ = checkpoint.load_latest_checkpoint(str(tmp_path / "whole"))
+  # Some steps were skipped and the scale moved.
+  assert snap["update_count"] < snap["step"] == 6
+  assert snap["loss_scale"] < 2.0 ** 127
+  assert all("exp_avg_sq" in st for st in snap["optimizer"]["state"].values())
 
 
 def test_planted_fault_fails_the_state_check(tmp_path):

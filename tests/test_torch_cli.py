@@ -67,8 +67,8 @@ def test_validation_rejects_outside_the_slice(overrides, match):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"optimizer": "adam"}, {"kungfu_option": "ada_sgd"},
-    {"data_format": "NCHW"}, {"device": "tpu"}, {"eval": True}])
+    {"optimizer": "adagrad"}, {"kungfu_option": "ada_sgd"},
+    {"data_format": "NCHW"}, {"device": "tpu"}, {"fp16_vars": True}])
 def test_params_reject_unknown_values(overrides):
   with pytest.raises(ValueError):
     params_lib.make_params(**overrides)

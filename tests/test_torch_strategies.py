@@ -43,7 +43,8 @@ LR = 3e-6
 SEED = 21
 
 # (case name, flags): every ported --variable_update, the async parameter
-# server with and without optimizer state, and the spec planner.
+# server with and without optimizer state (momentum buffers; Adam's moments
+# and count), and the spec planner.
 CASES = (
     ("independent", dict(variable_update="independent")),
     ("replicated", dict(variable_update="replicated")),
@@ -52,6 +53,11 @@ CASES = (
                                cross_replica_sync=False)),
     ("async_ps_sgd", dict(variable_update="parameter_server",
                           cross_replica_sync=False, optimizer="sgd")),
+    # Each of a round's n Adam applications sees the round's update count
+    # (optax's bias correction under the JAX package's
+    # _sync_schedule_counts).
+    ("async_ps_adam", dict(variable_update="parameter_server",
+                           cross_replica_sync=False, optimizer="adam")),
     ("collective_all_reduce", dict(variable_update="collective_all_reduce")),
     ("distributed_all_reduce", dict(variable_update="distributed_all_reduce",
                                     all_reduce_spec="psum:32k:rsag#2")),

@@ -153,6 +153,18 @@ def test_l2_filter_and_value_match_jax():
                              rtol=1e-5)
 
 
+def test_single_l2_loss_op_matches_jax():
+  """--single_l2_loss_op: the same sum over one concatenated vector."""
+  images, _ = tp.batch(2, 32)
+  _, variables = tp.jax_model_and_variables(images)
+  _, module = tp.port_module(variables)
+  ref = float(jax_train_step.l2_loss(variables["params"], single_op=True))
+  got = float(port_train_step.l2_loss(module, single_op=True).detach())
+  np.testing.assert_allclose(got, ref, rtol=1e-5)
+  np.testing.assert_allclose(
+      got, float(port_train_step.l2_loss(module).detach()), rtol=1e-6)
+
+
 @pytest.mark.parametrize("batch_size", [256, 64])
 def test_learning_rate_schedule_matches_jax(batch_size):
   jm = jax_resnet.ResnetModel("resnet50_v1.5", (3, 4, 6, 3))

@@ -12,7 +12,9 @@ A case is a dict: ``name``, ``model`` ("trivial" or "resnet"), ``params``
 (overrides of the port's Params), ``lr``, ``steps``, ``variables`` (numpy
 flax variables, or ``stacked`` ones with a leading replica axis for one
 start per rank) and ``batches`` (one (images, labels) per rank).
-Three extra cases check the collectives themselves: ``{"name":
+``{"name": "eval", "model": ..., "variables": ..., "batches": ...}`` runs
+the eval step once on each rank's batch. Three extra cases check the
+collectives themselves: ``{"name":
 "broadcast_init", "variables": ...}``, ``{"name": "pair_average",
 "steps": k}`` and ``{"name": "reducers", "tensors": [per-rank lists of
 numpy arrays], "reducers": [(label, kind, kwargs, bf16 wire)]}``, which
@@ -113,6 +115,19 @@ def _pair_average_case(case, rank):
   return {"history": history}
 
 
+def _eval_case(case, rank):
+  """The eval step on the rank's batch: its metrics (the mean over the
+  ranks)."""
+  model = port_model(case["model"])
+  module = model.make_module(NCLASS, torch.float32)
+  module.load_state_dict(convert.flax_to_state_dict(case["variables"],
+                                                    module))
+  images, labels = case["batches"][rank]
+  metrics = train_step.EvalStep(model, module)(
+      torch.from_numpy(images), torch.from_numpy(labels).long())
+  return {k: float(v) for k, v in metrics.items()}
+
+
 def make_reducer(kind, kwargs, compact):
   """A reducer of ops/allreduce.py by kind: "planner" (kwargs: spec and
   optionally agg_max_bytes/agg_max_group), "pack_small", "repack" or
@@ -154,6 +169,8 @@ def _rank(rank, world, cases, tmp_dir):
         out[case["name"]] = _pair_average_case(case, rank)
       elif case["name"] == "reducers":
         out[case["name"]] = _reducers_case(case, rank, world)
+      elif case["name"] == "eval":
+        out[case["name"]] = _eval_case(case, rank)
       else:
         out[case["name"]] = _train_case(case, rank, world)
     kungfu.run_barrier()
