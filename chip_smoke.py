@@ -2239,6 +2239,10 @@ def infer_parity():
 
 EVAL_STEPS = 6
 EVAL_BATCHES = 4
+# The eval process's mean loss against the in-process eval step's on the
+# same weights and batch: the same kernels on the same inputs, so all
+# that may separate them is the log line's 6 decimals.
+EVAL_LOSS_RTOL = 1e-4
 
 
 def resnet_cli(*flags):
@@ -2263,11 +2267,13 @@ def resnet_params(**flags):
 
 
 def phase_eval(res):
-  """ResNet-50 at batch 256: 6 training steps in a process of their own
-  with a checkpoint every 3; a second process with --eval over that
-  directory (one poll) must score the step-6 checkpoint, with top-1 and
-  top-5 equal to the eval step's in this process on the same restored
-  weights and batch, and 13 K-B launches an eval batch; then 6 steps in
+  """ResNet-50 at batch 256: 6 training steps at rate 0.1 in a process of
+  their own with a checkpoint every 3; a second process with --eval over
+  that directory (one poll) must score the step-6 checkpoint, with top-1
+  and top-5 equal to the eval step's in this process on the same restored
+  weights and batch and its mean loss within EVAL_LOSS_RTOL of that
+  step's (the seeded init's loss lies farther off, so a missing or partial
+  restore fails), and 13 K-B launches an eval batch; then 6 steps in
   this process with --eval_during_training_every_n_steps=2 must evaluate
   after steps 2, 4 and 6 and end with the batch-norm averages (and every
   other tensor) of the same run without the evals: bitwise if two runs
@@ -2281,9 +2287,11 @@ def phase_eval(res):
   with tempfile.TemporaryDirectory(prefix="eval_") as root:
     train_dir = os.path.join(root, "ckpt")
     t0 = time.time()
+    # A rate that moves every weight well past rounding in 6 steps (the
+    # model's own is still warming up).
     resnet_cli(f"--num_batches={EVAL_STEPS}", "--num_warmup_batches=0",
-               f"--train_dir={train_dir}", "--save_model_steps=3",
-               "--display_every=3")
+               "--init_learning_rate=0.1", f"--train_dir={train_dir}",
+               "--save_model_steps=3", "--display_every=3")
     train_s = time.time() - t0
     check([s for s, _ in checkpoint.all_checkpoints(train_dir)] == [3, 6],
           "eval: the training process did not save steps 3 and 6")
@@ -2299,6 +2307,11 @@ def phase_eval(res):
     check(len(m) == 1 and int(m[0][2]) == 256 * EVAL_BATCHES,
           f"eval: accuracy lines {m}")
     top1, top5 = float(m[0][0]), float(m[0][1])
+    m_loss = re.findall(r"^Eval loss = ([\d.]+) \[(\d+) examples\]$",
+                        text, re.M)
+    check(len(m_loss) == 1 and m_loss[0][1] == m[0][2],
+          f"eval: loss lines {m_loss}")
+    loss = float(m_loss[0][0])
     launched = launches_in(text)
     check(launched.get("bn_relu_conv3x3_stats") == 13 * EVAL_BATCHES and
           not launched.get("conv3x3_same"),
@@ -2307,20 +2320,36 @@ def phase_eval(res):
         eval=True, train_dir=train_dir, eval_interval_secs=0))
     module, gen = bench._make_module()
     images, labels = bench._synthetic_batch(gen)
+    eval_step = train_step.EvalStep(bench.model, module)
+    init = {k: v.clone() for k, v in module.state_dict().items()}
+    init_loss = float(eval_step(images, labels)["base_loss"])
     snap, _, step = checkpoint.load_latest_checkpoint(train_dir)
     check(step == 6, f"eval: newest checkpoint at step {step}")
     checkpoint.restore_model(module, snap)
-    acc = train_step.EvalStep(bench.model, module)(images, labels)
+    unmoved = [k for k, v in module.state_dict().items()
+               if torch.equal(v, init[k])]
+    check(not unmoved, f"eval: restored tensors equal to the seeded init: "
+          f"{unmoved[:5]}")
+    acc = eval_step(images, labels)
     here = (float(acc["top_1_accuracy"]), float(acc["top_5_accuracy"]))
+    here_loss = float(acc["base_loss"])
     log(f"eval: training process (6 steps, checkpoints at 3 and 6) "
         f"{train_s:.1f} s, eval process {eval_s:.1f} s: step 6 scored "
-        f"top-1 {top1:.4f} top-5 {top5:.4f} over {m[0][2]} examples; "
-        f"in-process eval step on the restored weights top-1 "
-        f"{here[0]:.4f} top-5 {here[1]:.4f}; launches {launched}")
+        f"top-1 {top1:.4f} top-5 {top5:.4f} loss {loss:.6f} over "
+        f"{m[0][2]} examples; in-process eval step on the restored "
+        f"weights top-1 {here[0]:.4f} top-5 {here[1]:.4f} loss "
+        f"{here_loss:.6f} (on the seeded init {init_loss:.6f}); "
+        f"launches {launched}")
     for a, b in zip((top1, top5), here):
       check(abs(a - b) <= 1 / 256 + 5e-5,
             "eval: the eval process's accuracy differs from the eval step's")
-    del bench, module, snap
+    check(abs(loss - here_loss) <= EVAL_LOSS_RTOL * abs(here_loss),
+          f"eval: the eval process's loss {loss} differs from the eval "
+          f"step's {here_loss}")
+    check(abs(init_loss - here_loss) > 100 * EVAL_LOSS_RTOL * abs(here_loss),
+          f"eval: the seeded init's loss {init_loss} is within 100 "
+          f"tolerances of the restored weights' {here_loss}")
+    del bench, module, snap, init
     runs = {}
     for name, flags in (("plain_a", {}), ("plain_b", {}),
                         ("evals", dict(eval_during_training_every_n_steps=2))):
@@ -2347,7 +2376,8 @@ def phase_eval(res):
       f"averages), {len(over)} tensors over the pair's distance")
   check(not over, f"eval: mid-training evals moved the state: "
         f"{dict(list(over.items())[:5])}")
-  out.update(top_1=top1, top_5=top5, in_process=here, bitwise=bitwise,
+  out.update(top_1=top1, top_5=top5, in_process=here, loss=loss,
+             in_process_loss=here_loss, init_loss=init_loss, bitwise=bitwise,
              train_s=train_s, eval_s=eval_s)
   res.setdefault("counts_by_path", {})["eval"] = {
       k: launched.get(k, 0) for k in KERNELS}

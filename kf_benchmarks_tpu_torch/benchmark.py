@@ -260,8 +260,7 @@ class BenchmarkCNN:
           p, self.model, learning_rate.effective_batch_size(
               self.batch_size, self.world_size, self.strategy.cross_replica),
           datasets.num_examples_per_epoch("train"))
-      loss_scale, auto_loss_scale = train_step_lib.loss_scale_settings(
-          p, self.model, self.compute_dtype)
+      loss_scale, auto_loss_scale = train_step_lib.loss_scale_settings(p)
       step = train_step_lib.TrainStep(
           self.model, module, opt, lr_fn, p.weight_decay,
           strategy=self.strategy, track_noise_scale=p.track_grad_noise_scale,
@@ -349,7 +348,8 @@ class BenchmarkCNN:
   def _eval_once(self, eval_step, images, labels) -> Dict[str, Any]:
     """--num_eval_batches (or --num_eval_epochs, else --num_batches)
     evaluations of the batch, averaged (the JAX package's _eval_once,
-    benchmark.py:2049-2083)."""
+    benchmark.py:2049-2083); the mean loss is logged beside the
+    accuracies."""
     p = self.params
     num_eval = (p.num_eval_batches or self._num_eval_batches_from_epochs()
                 or self.num_batches)
@@ -358,15 +358,18 @@ class BenchmarkCNN:
     accs = [eval_step(images, labels) for _ in range(num_eval)]
     top1 = sum(float(a["top_1_accuracy"]) for a in accs) / len(accs)
     top5 = sum(float(a["top_5_accuracy"]) for a in accs) / len(accs)
+    loss = sum(float(a["base_loss"]) for a in accs) / len(accs)
     elapsed = time.time() - start
     examples = len(accs) * self.batch_size * self.world_size
     log_fn(accuracy_line(top1, top5, examples))
+    log_fn("Eval loss = %.6f [%d examples]" % (loss, examples))
     launches = {k: v - launches_before[k]
                 for k, v in kernel_launches().items()}
     if any(launches.values()):
       log_fn("Kernel launches: " + ", ".join(
           f"{k} {v}" for k, v in launches.items() if v))
     return {"top_1_accuracy": top1, "top_5_accuracy": top5,
+            "base_loss": loss,
             "eval_images_per_sec": examples / max(elapsed, 1e-9),
             "num_eval_batches": len(accs), "kernel_launches": launches}
 

@@ -1,32 +1,23 @@
-"""Epoch sizes of the datasets the zoo's synthetic inputs stand for.
+"""Epoch sizes of the dataset the zoo's synthetic inputs stand for.
 
-The port's own copy of the example counts of kf_benchmarks_tpu/data/
-datasets.py:53-109 (ref: datasets.py:86-205). Every model of the port
-runs on synthetic ImageNet, as every model of the JAX package does without
---data_dir (create_dataset's default, datasets.py:118-123), so the
-learning-rate policy, --num_epochs and --num_eval_epochs count ImageNet
-epochs.
+The port's own copy of ImageNet's example counts in kf_benchmarks_tpu/data/
+datasets.py:62-66. Every model of the port runs on synthetic ImageNet, as
+every model of the JAX package does without --data_dir (create_dataset's
+default, datasets.py:118-123), so the learning-rate policy, --num_epochs
+and --num_eval_epochs count ImageNet epochs.
 """
 
 from __future__ import annotations
 
-# {dataset: (train examples, validation examples)}
-_NUM_EXAMPLES = {
-    "imagenet": (1281167, 50000),
-    "cifar10": (50000, 10000),
-    "coco": (118287, 4952),
-    "librispeech": (281241, 5567),
-}
-
-DEFAULT_DATASET = "imagenet"
+_IMAGENET_TRAIN = 1281167
+_IMAGENET_VALIDATION = 50000
 
 
-def num_examples_per_epoch(subset: str = "train",
-                           dataset: str = DEFAULT_DATASET) -> int:
-  """Examples in one epoch of ``subset`` ('train' or 'validation')."""
-  train, validation = _NUM_EXAMPLES[dataset]
+def num_examples_per_epoch(subset: str = "train") -> int:
+  """ImageNet examples in one epoch of ``subset`` ('train' or
+  'validation')."""
   if subset == "train":
-    return train
+    return _IMAGENET_TRAIN
   if subset == "validation":
-    return validation
+    return _IMAGENET_VALIDATION
   raise ValueError(f"Invalid data subset {subset!r}")

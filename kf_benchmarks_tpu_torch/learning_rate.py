@@ -49,14 +49,11 @@ def parse_piecewise_schedule(schedule_str: str
 
 
 def make_learning_rate_fn(params, model, batch_size: int,
-                          num_examples_per_epoch: int,
-                          num_workers: int = 1) -> Callable[[int], float]:
+                          num_examples_per_epoch: int
+                          ) -> Callable[[int], float]:
   """The rate of each step (ref: benchmark_cnn.py:1104-1169).
-  ``batch_size`` is the effective batch of one worker process;
-  ``num_workers`` the processes that each take such a batch (1 for the
-  port's ranks, which ``batch_size`` already counts)."""
-  global_batch = batch_size * max(num_workers, 1)
-  num_batches_per_epoch = num_examples_per_epoch / float(global_batch)
+  ``batch_size`` is the effective batch (``effective_batch_size``)."""
+  num_batches_per_epoch = num_examples_per_epoch / float(batch_size)
 
   if params.piecewise_learning_rate_schedule:
     values, boundaries = parse_piecewise_schedule(
@@ -83,7 +80,7 @@ def make_learning_rate_fn(params, model, batch_size: int,
   else:
 
     def lr_fn(step):
-      return float(model.get_learning_rate(step, global_batch))
+      return float(model.get_learning_rate(step, batch_size))
 
   if params.num_learning_rate_warmup_epochs:
     warmup_steps = (params.num_learning_rate_warmup_epochs *

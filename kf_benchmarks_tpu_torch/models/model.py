@@ -29,14 +29,11 @@ class Model:
   data_name = "synthetic"
 
   def __init__(self, name: str, batch_size: int, learning_rate: float,
-               params=None, fp16_loss_scale: float = 128.0):
+               params=None):
     self.name = name
     self.batch_size = batch_size
     self.learning_rate = learning_rate
     self.params = params
-    # The loss scale of float16 compute (model.py:36, :65-66 of the JAX
-    # package); bfloat16 needs none (train_step.loss_scale_settings).
-    self.fp16_loss_scale = fp16_loss_scale
 
   def get_name(self) -> str:
     return self.name
@@ -48,7 +45,10 @@ class Model:
     self.batch_size = batch_size
 
   def get_fp16_loss_scale(self) -> float:
-    return self.fp16_loss_scale
+    """The loss scale of float16 compute (model.py:36, :65-66 of the JAX
+    package). The port computes in bfloat16 or f32, which need none, so
+    ``train_step.loss_scale_settings`` never reads it."""
+    return 128.0
 
   def get_learning_rate(self, global_step: int, batch_size: int) -> float:
     del global_step, batch_size

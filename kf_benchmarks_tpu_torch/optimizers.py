@@ -118,10 +118,8 @@ class LARS(torch.optim.Optimizer):
   u = -lr * g * tc*|w|/|g| (the ratio 1 where |w| or |g| is 0), then the
   trace t = u + m*t added to the weights."""
 
-  def __init__(self, params, lr: float = 0.0, momentum: float = 0.9,
-               trust_coefficient: float = LARS_TRUST_COEFFICIENT):
-    super().__init__(params, dict(lr=lr, momentum=momentum,
-                                  trust_coefficient=trust_coefficient))
+  def __init__(self, params, lr: float = 0.0, momentum: float = 0.9):
+    super().__init__(params, dict(lr=lr, momentum=momentum))
 
   @torch.no_grad()
   def step(self, closure=None):
@@ -133,7 +131,7 @@ class LARS(torch.optim.Optimizer):
       grads = [p.grad for p in params]
       w_norm = torch.stack(torch._foreach_norm(params))
       g_norm = torch.stack(torch._foreach_norm(grads))
-      ratio = group["trust_coefficient"] * w_norm / g_norm
+      ratio = LARS_TRUST_COEFFICIENT * w_norm / g_norm
       ratio = torch.where((w_norm == 0) | (g_norm == 0),
                           torch.ones_like(ratio), ratio)
       upd = torch._foreach_mul(grads, list(ratio.unbind()))

@@ -84,18 +84,15 @@ def batch_stats(module: nn.Module) -> List[torch.Tensor]:
           if isinstance(m, builder.CompactBatchNorm) for b in (m.mean, m.var)]
 
 
-def loss_scale_settings(params, model, compute_dtype: torch.dtype
-                        ) -> Tuple[float, bool]:
+def loss_scale_settings(params) -> Tuple[float, bool]:
   """(initial loss scale, auto loss scale) as the JAX package resolves
-  them (train_step.py:263-279): --fp16_loss_scale when given under
-  --use_fp16, else the model's scale for float16 compute and 1 for
-  bfloat16, which needs none (the port computes in bfloat16)."""
+  them for bfloat16 (train_step.py:263-279): --fp16_loss_scale when given
+  under --use_fp16, else 1, as bfloat16 needs none. The port computes in
+  bfloat16 or f32, never float16, so the model's float16 default
+  (``Model.get_fp16_loss_scale``) is never the scale."""
   scale = 1.0
-  if params.use_fp16:
-    if params.fp16_loss_scale is not None:
-      scale = float(params.fp16_loss_scale)
-    elif compute_dtype == torch.float16:
-      scale = float(model.get_fp16_loss_scale())
+  if params.use_fp16 and params.fp16_loss_scale is not None:
+    scale = float(params.fp16_loss_scale)
   return scale, bool(params.use_fp16 and params.fp16_enable_auto_loss_scale)
 
 

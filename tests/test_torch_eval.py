@@ -313,11 +313,23 @@ def test_eval_train_dir_scores_newest_checkpoint(monkeypatch, tmp_path,
   # run's batch.
   module, gen = bench._make_module()
   images, labels = bench._synthetic_batch(gen)
+  init = {k: v.clone() for k, v in module.state_dict().items()}
+  init_loss = float(train_step.EvalStep(bench.model, module)(
+      images, labels)["base_loss"])
   snap, _, _ = checkpoint.load_latest_checkpoint(str(tmp_path))
   checkpoint.restore_model(module, snap)
+  # The weights and every batch-norm average are the checkpoint's, not
+  # the seeded init's.
+  moved = {k for k, v in module.state_dict().items()
+           if not torch.equal(v, init[k])}
+  assert {k for k, _ in module.named_buffers()} < moved
   want = train_step.EvalStep(bench.model, module)(images, labels)
   assert res["top_1_accuracy"] == float(want["top_1_accuracy"])
   assert res["top_5_accuracy"] == float(want["top_5_accuracy"])
+  assert res["base_loss"] == pytest.approx(float(want["base_loss"]),
+                                           rel=1e-6)
+  assert res["base_loss"] != pytest.approx(init_loss, rel=1e-3)
+  assert "Eval loss = %.6f [6 examples]" % res["base_loss"] in out
   # A torn newest checkpoint: step 2 is scored instead.
   newest = tmp_path / "model.ckpt-4.pt"
   newest.write_bytes(newest.read_bytes()[:500])

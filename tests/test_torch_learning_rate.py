@@ -50,8 +50,11 @@ def test_every_step_matches_jax(branch, workers):
   pm = port_resnet.ResnetModel("resnet50_v1.5", (3, 4, 6, 3))
   ref_fn = jax_lr.make_learning_rate_fn(
       jax_params.make_params(**flags), jm, BATCH, EXAMPLES, workers)
+  # The port passes the effective batch: the per-rank batch times the
+  # ranks.
   got_fn = port_lr.make_learning_rate_fn(
-      port_params.make_params(**flags), pm, BATCH, EXAMPLES, workers)
+      port_params.make_params(**flags), pm,
+      port_lr.effective_batch_size(BATCH, workers, True), EXAMPLES)
   steps_per_epoch = EXAMPLES / (BATCH * workers)
   last = int(3 * steps_per_epoch) + 2
   ref = np.array([float(ref_fn(s)) for s in range(last)])
@@ -62,14 +65,20 @@ def test_every_step_matches_jax(branch, workers):
 
 
 def test_model_default_counts_the_effective_batch():
-  """At 4 workers the model's schedule sees the global batch (its rate
-  scales with it)."""
+  """At 4 ranks of a strategy that averages over them the model's
+  schedule sees the global batch (its rate scales with it); at 4 ranks
+  that each train alone, the per-rank batch."""
+  assert port_lr.effective_batch_size(BATCH, 4, True) == 4 * BATCH
+  assert port_lr.effective_batch_size(BATCH, 4, False) == BATCH
+  jm = jax_resnet.ResnetModel("resnet50_v1.5", (3, 4, 6, 3))
   pm = port_resnet.ResnetModel("resnet50_v1.5", (3, 4, 6, 3))
-  p = port_params.make_params()
-  one = port_lr.make_learning_rate_fn(p, pm, 4 * BATCH, 1281167)
-  four = port_lr.make_learning_rate_fn(p, pm, BATCH, 1281167, 4)
+  ref = jax_lr.make_learning_rate_fn(jax_params.make_params(), jm, BATCH,
+                                     1281167, 4)
+  got = port_lr.make_learning_rate_fn(
+      port_params.make_params(), pm,
+      port_lr.effective_batch_size(BATCH, 4, True), 1281167)
   for s in (0, 10, 5000, 200000):
-    assert one(s) == four(s)
+    assert got(s) == pytest.approx(float(ref(s)), rel=1e-6)
 
 
 @pytest.mark.parametrize("bad", ["0.1;1", "x;1;0.1", "0.1;one;0.2",

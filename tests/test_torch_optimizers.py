@@ -20,7 +20,11 @@ port's by 2.7e-6 in the first loss (the port's f32 agrees with its own f64
 to 3e-8), and large steps through the model's one-unit ReLU bottleneck
 amplify that. Five ResNet steps at batch 2 are
 chaotic in f32 (batch norm over two samples amplifies rounding), so there
-the losses and the parameters (as one vector) are held within 1e-2.
+the losses and the parameters (as one vector) are held within 1e-2; and
+each step's update is held apart from that chaos: the port's clip and
+optimizer, fed the JAX step's weights and gradients, must give its update
+within 1e-5 of its norm (plus 4 f32 ulps of the weights' norm, which the
+update must pass tenfold).
 
 Planted faults, each in a copy of the port run in a subprocess, must fail
 the trivial-model check: rmsprop's eps outside the square root (torch's
@@ -120,15 +124,18 @@ def _jax_run(model, variables, images, labels, flags, examples):
     (loss, new_bs), grads = jax.value_and_grad(loss_fn, has_aux=True)(
         params, bs)
     updates, opt_state = tx.update(grads, opt_state, params)
-    return optax.apply_updates(params, updates), new_bs, opt_state, loss
+    return (optax.apply_updates(params, updates), new_bs, opt_state, loss,
+            grads)
 
   params, bs = variables["params"], variables.get("batch_stats", {})
   opt_state = tx.init(params)
-  losses = []
+  losses, trajectory = [], []
   for _ in range(STEPS):
-    params, bs, opt_state, loss = step(params, bs, opt_state)
+    before = (params, bs)
+    params, bs, opt_state, loss, grads = step(params, bs, opt_state)
+    trajectory.append(jax.device_get(before + (grads, params)))
     losses.append(float(loss))
-  return losses, tp.flat_flax(jax.device_get(params))
+  return losses, tp.flat_flax(jax.device_get(params)), trajectory
 
 
 def _port_run(model, variables, images, labels, flags, examples):
@@ -154,6 +161,58 @@ def _port_run(model, variables, images, labels, flags, examples):
   return losses, params
 
 
+def _flax_layout(module, of):
+  """{(layer, leaf): numpy} of ``of(parameter)`` for every parameter of
+  the port's ``module``, in flax layout."""
+  out = {}
+  for key, q in module.named_parameters():
+    _, layer, leaf, kind = convert.leaf_of(key, q)
+    out[(layer, leaf)] = convert.to_flax_layout(of(q).detach().numpy(), kind)
+  return out
+
+
+def forced_update_errors(model, trajectory, flags, examples):
+  """{what: (error, limit)} of each step's update by the port's optimizer,
+  fed the JAX step's weights and gradients: the two calls of the port's
+  TrainStep after the gradient (``clip_gradients_`` under
+  --gradient_clip, then the optimizer's step at the step's rate), from the
+  port's own optimizer state. The same inputs leave f32 rounding alone
+  between the frameworks: each update within 1e-5 of the JAX update's
+  norm, plus 4 f32 ulps of the weights' norm."""
+  module = model.make_module(tp.NCLASS, torch.float32)
+  p = port_params.make_params(device="cpu", **flags)
+  opt = port_optimizers.get_optimizer(p, module.parameters())
+  lr_fn = port_lr.make_learning_rate_fn(p, model, BATCH, examples)
+  out = {}
+  for k, (params, bs, grads, after) in enumerate(trajectory):
+    module.load_state_dict(convert.flax_to_state_dict(
+        {"params": params, "batch_stats": bs}, module))
+    grad_sd = convert.flax_to_state_dict(
+        {"params": grads, "batch_stats": bs}, module)
+    for key, q in module.named_parameters():
+      q.grad = grad_sd[key].clone()
+    if p.gradient_clip is not None:
+      port_optimizers.clip_gradients_(
+          [q.grad for q in module.parameters()], p.gradient_clip)
+    for group in opt.param_groups:
+      group["lr"] = lr_fn(k)
+    opt.step()
+    got = _flax_layout(module, lambda q: q)
+    w0, w1 = tp.flat_flax(params), tp.flat_flax(after)
+    keys = sorted(w0)
+    d_ref = np.concatenate([(w1[key] - w0[key]).ravel() for key in keys])
+    d_got = np.concatenate([(got[key] - w0[key]).ravel() for key in keys])
+    floor = 4 * 2.0 ** -24 * float(np.linalg.norm(
+        np.concatenate([w1[key].ravel() for key in keys])))
+    if lr_fn(k):
+      # The update is well above the floor: no step passes by moving
+      # too little to see.
+      assert np.linalg.norm(d_ref) >= 10 * floor, k
+    out[f"step {k} update"] = (float(np.linalg.norm(d_got - d_ref)),
+                               1e-5 * float(np.linalg.norm(d_ref)) + floor)
+  return out
+
+
 def parity_errors(name, optimizer, schedule, clip, seed=12):
   """{what: (error, limit)} of the port's five steps against the JAX
   package's; an empty dict of failures is ``{k: v for k, v in ...
@@ -166,8 +225,8 @@ def parity_errors(name, optimizer, schedule, clip, seed=12):
       module.init(jax.random.PRNGKey(seed), jnp.asarray(images)))
   init = tp.flat_flax(variables["params"])
   flags, examples = _flags(name, optimizer, schedule, clip)
-  jax_losses, jax_p = _jax_run(jmodel, variables, images, labels, flags,
-                               examples)
+  jax_losses, jax_p, trajectory = _jax_run(jmodel, variables, images,
+                                           labels, flags, examples)
   port_losses, port_p = _port_run(pmodel, variables, images, labels, flags,
                                   examples)
   assert set(port_p) == set(jax_p) == set(init)
@@ -195,6 +254,7 @@ def parity_errors(name, optimizer, schedule, clip, seed=12):
     ref = np.concatenate([jax_p[k].ravel() for k in keys])
     out["parameters"] = (float(np.linalg.norm(got - ref) /
                                np.linalg.norm(ref)), 1e-2)
+    out.update(forced_update_errors(pmodel, trajectory, flags, examples))
   return out
 
 
