@@ -9,7 +9,11 @@ ResNet-50 v1.5 at batch 256, bf16 over f32 parameters (--use_fp16),
 Nesterov momentum and --variable_update=replicated on one CUDA card, and
 prints ONE JSON line with the keys of the JAX package's bench.py:
 {"metric", "value", "unit", "vs_baseline"}, plus "device" (the card's
-name and power limit as nvidia-smi reports them) and "world_size".
+name and power limit as nvidia-smi reports them), "world_size",
+"steps_per_dispatch", "num_grad_accum", and, as bench.py has them,
+"compile_s" (host time of the first dispatch call: kernel builds, and at
+--steps_per_dispatch > 1 the CUDA-graph capture) and "dispatch_overhead_s"
+(mean host time of a timed dispatch call).
 
 vs_baseline = value / 416.43, bench.py's anchor: the reference's best
 committed single-GPU number, ResNet-50 on synthetic ImageNet at batch 200
@@ -46,6 +50,8 @@ def main(argv=None) -> int:
   ap.add_argument("--batch_size", type=int, default=256)
   ap.add_argument("--num_batches", type=int, default=100)
   ap.add_argument("--num_warmup_batches", type=int, default=10)
+  ap.add_argument("--steps_per_dispatch", type=int, default=1)
+  ap.add_argument("--num_grad_accum", type=int, default=1)
   ap.add_argument("--device", default="gpu", choices=("gpu", "cpu"))
   args = ap.parse_args(argv)
 
@@ -65,7 +71,9 @@ def main(argv=None) -> int:
       num_batches=args.num_batches,
       num_warmup_batches=args.num_warmup_batches, device=args.device,
       use_fp16=args.device == "gpu", optimizer="momentum",
-      variable_update="replicated")
+      variable_update="replicated",
+      steps_per_dispatch=args.steps_per_dispatch,
+      num_grad_accum=args.num_grad_accum)
   stats = benchmark.BenchmarkCNN(params).run()
   value = stats["images_per_sec"]
   print(json.dumps({
@@ -76,6 +84,13 @@ def main(argv=None) -> int:
       "vs_baseline": round(value / BASELINE_IMAGES_PER_SEC, 3),
       "device": device_name(args.device),
       "world_size": stats["num_workers"],
+      "steps_per_dispatch": stats["steps_per_dispatch"],
+      "num_grad_accum": stats["num_grad_accum"],
+      "compile_s": (round(stats["compile_s"], 3)
+                    if stats["compile_s"] is not None else None),
+      "dispatch_overhead_s": (round(stats["dispatch_overhead_s"], 6)
+                              if stats["dispatch_overhead_s"] is not None
+                              else None),
   }), flush=True)
   return 0
 

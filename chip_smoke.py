@@ -86,7 +86,11 @@ the run with a non-zero exit and no result line:
                 reduction is held against the per-tensor all-reduce mean of
                 the same gradients (every element within 2^-7 of it
                 relative, twice bf16's unit roundoff, and not all equal),
-                its losses within 1e-2 of the single-device step's; 13 K-A and 13 K-B launches a step in
+                its losses within 1e-2 of the single-device step's; the
+                same 3 steps again as one --steps_per_dispatch=3 dispatch
+                (the step captured as a CUDA graph with its NCCL
+                collectives and replayed) bitwise equal to the eager ones;
+                13 K-A and 13 K-B launches a step in
                 every run; then 5 warmup + 20 timed steps of BenchmarkCNN
                 under each, beside the single-device run's images/sec, and
                 the time of one reduction of the full gradient set, per
@@ -148,7 +152,37 @@ the run with a non-zero exit and no result line:
                 skipped step halves the scale and leaves the weights,
                 optimizer buffers and batch-norm averages bitwise as they
                 were, until an applied step; then a planted overflow after
-                it is skipped with the momentum buffers unchanged.
+                it is skipped with the momentum buffers unchanged;
+ 19. dispatch -- --steps_per_dispatch through BenchmarkCNN: ResNet-50
+                (batch 256, bf16, momentum) and transformer_lm (batch 8,
+                flash), 8 warmup + 20 timed steps each at K = 1 (eager
+                steps) and K = 8 (the step captured as a CUDA graph and
+                replayed, train_step.TrainChunk) from one seed: per-step
+                losses and final weights bitwise equal, equal launches a
+                step; images/sec or sequences/sec, compile_s,
+                dispatch_overhead_s, peak memory, and the busy share of 4
+                more steps of each arm, as torch.profiler's kernel time
+                and as the card's time for them queued behind a spin
+                kernel (the host's share hidden), over their wall;
+ 20. accum   -- --num_grad_accum: ResNet-50 (batch 256) at M = 1 and at
+                M = 4 under K = 1 and K = 4 (losses bitwise equal between
+                the two, peak memory below M = 1's, K-A and K-B 4 x 13 a
+                step), 4 warmup + 8 timed steps each, then K-A and K-B
+                against their plain versions at every shape the M = 4
+                runs gave them (batch 64); transformer_lm at M = 2
+                against M = 1 (each loss within 1e-4 relative) and
+                against M = 2 at half the rate (a planted double division
+                by M, which must fall outside it), and the flash kernels
+                against their plain versions on the M = 2 run's own
+                inputs (batch 4);
+ 21. serve_graph -- replay (a) through the serving engine with its
+                programs eager and captured (one CUDA graph per program and
+                bucket, the default on the card): tokens/sec, TTFT, token
+                latency, launches 6 a decode step and 6 a prefill wave, at
+                most len(ladder) decode captures in the compile ledger; on
+                a virtual clock (both engines then form the same batches)
+                every generated token identical; 20 decode steps at bucket
+                64 of each arm, their busy share read as in dispatch.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -165,6 +199,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -180,7 +215,7 @@ import torch.nn.functional as F
 ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
-              "optim")
+              "optim", "dispatch", "accum", "serve_graph")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -685,10 +720,9 @@ def phase_parity(res):
         ", ".join(parts))
 
 
-def profile_steps(label, step, n=3):
-  """torch.profiler over n calls of step() after n warm ones, printed as a
-  table of kernel time by name, with the busy share against the wall time
-  of the same n calls run without the profiler."""
+def profile_window(step, n):
+  """(wall s of n calls of step() without the profiler, kernel s of n more
+  under torch.profiler, the profile), after n warm calls."""
   from torch.profiler import ProfilerActivity, profile
   for _ in range(n):
     step()
@@ -702,13 +736,54 @@ def profile_steps(label, step, n=3):
     for _ in range(n):
       step()
     torch.cuda.synchronize()
-  table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=40)
   device_us = sum(e.self_device_time_total for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
+  return wall, device_us / 1e6, prof
+
+
+def device_behind_spin_s(fn, n, wall_s):
+  """(seconds, hidden): the card's time for n calls of fn() queued behind
+  a spin kernel that outlasts their queueing (twice their wall without it,
+  plus 50 ms), so that the card runs them back to back: their own device
+  time, the gaps between their kernels included, with the host's share
+  taken out. hidden is False where the spin ended before the host had
+  queued them all (fn waits on the card, or its launches filled the
+  launch queue): the card may then have waited on the host inside the
+  span, which bounds its busy time from above."""
+  cal0, cal1, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(4))
+  cal0.record()
+  torch.cuda._sleep(10 ** 7)
+  cal1.record()
+  torch.cuda.synchronize()
+  cycles_per_ms = 1e7 / cal0.elapsed_time(cal1)
+  torch.cuda._sleep(int(cycles_per_ms * (2e3 * wall_s + 50)))
+  start.record()
+  for _ in range(n):
+    fn()
+  end.record()
+  hidden = not start.query()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / 1e3, hidden
+
+
+def spin_share(device_s, hidden, wall_s):
+  """The busy share device_s / wall_s as text, marked where it is only an
+  upper bound."""
+  return f"{device_s / wall_s:.3f}" + (
+      "" if hidden else " (upper bound: the host queued past the spin)")
+
+
+def profile_steps(label, step, n=3):
+  """torch.profiler over n calls of step() after n warm ones, printed as a
+  table of kernel time by name, with the busy share against the wall time
+  of the same n calls run without the profiler."""
+  wall, device_s, prof = profile_window(step, n)
+  table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=40)
   log(f"{label}: {n} steps, wall without the profiler {wall * 1e3:.1f} ms, "
-      f"kernel time under it {device_us / 1e3:.1f} ms (busy share "
-      f"{device_us / 1e6 / wall:.3f})")
+      f"kernel time under it {device_s * 1e3:.1f} ms (busy share "
+      f"{device_s / wall:.3f})")
   for line in table.splitlines():
     log(f"{label}: " + line)
 
@@ -1389,6 +1464,9 @@ def phase_serve(res):
         f"{sorted(set(w['args']['bucket'] for w in waves))}), batch fill "
         f"{stats['serving/batch_fill_fraction']:.3f}, peak memory "
         f"{peak:.2f} GiB; launches {counts}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     check(stats["serving/completed"] == SERVE_REQUESTS and
           stats["serving/shed"] == 0,
           f"serve {label}: {stats['serving/completed']} completed, "
@@ -1626,6 +1704,22 @@ def dp_steps(params):
   return losses, weights, module, launched
 
 
+def dp_chunk_steps(params):
+  """The same DP_STEPS steps as one dispatch of BenchmarkCNN's TrainChunk
+  at K = DP_STEPS (--steps_per_dispatch): its first step eager, the others
+  replays of the captured step, collectives included. (losses, flat
+  weights, launches)."""
+  from kf_benchmarks_tpu_torch import benchmark, train_step
+  _, step, images, labels = benchmark.BenchmarkCNN(params).build()
+  chunk = train_step.TrainChunk(step, DP_STEPS)
+  before = benchmark.kernel_launches()
+  losses = chunk(images, labels, DP_STEPS)["total_loss"].tolist()
+  after = benchmark.kernel_launches()
+  weights = torch.cat([q.detach().reshape(-1)
+                       for q in step.module.parameters()])
+  return losses, weights, {k: after[k] - before[k] for k in after}
+
+
 def dp_images_per_sec(params):
   from kf_benchmarks_tpu_torch import benchmark
   stats = benchmark.BenchmarkCNN(params).run()
@@ -1670,6 +1764,15 @@ def phase_dp(res):
       if want != "bitwise":
         out[f"{label}_packed_wire"] = check_packed_wire(label, wire_errors,
                                                         DP_STEPS)
+      c_losses, c_weights, c_launched = dp_chunk_steps(params)
+      check_dp_launches(f"{label} captured", c_launched, DP_STEPS)
+      captured_ok = c_losses == losses and torch.equal(c_weights, weights)
+      log(f"dp {label}: the {DP_STEPS} steps as one K={DP_STEPS} dispatch "
+          f"(captured step, NCCL collectives in the graph): losses "
+          f"{c_losses}, {'bitwise equal' if captured_ok else 'DIFFERENT'} "
+          "against the eager steps")
+      check(captured_ok, f"dp {label}: the captured steps differ")
+      del c_weights
       if label == "replicated":
         # One reduction of the full gradient set: per tensor (the default
         # path), and packed by the spec planner (bf16 wire).
@@ -1712,7 +1815,7 @@ def phase_dp(res):
     check(np.isfinite(stats["last_average_loss"]), "dp: loss not finite")
     check_dp_launches(label, {k: after[k] - before[k] for k in after},
                       stats["steps_run"])
-    total_steps += DP_STEPS + stats["steps_run"]
+    total_steps += 2 * DP_STEPS + stats["steps_run"]
     ips = stats["images_per_sec"]
     log(f"dp {label}: {ips:.2f} images/sec ({ips / ref_ips:.4f} of the "
         f"single-device run's {ref_ips:.2f}), num_workers "
@@ -2553,6 +2656,437 @@ def loss_scale_overflow():
   return {"trace": trace, "skipped": sum(s for _, s in trace)}
 
 
+# -- multi-step dispatch, accumulation, captured serving programs -------------
+
+DISPATCH_K = 8
+DISPATCH_WARMUP, DISPATCH_STEPS = 8, 20
+# The busy share's window: this many steps of each arm (one dispatch of
+# them at K = 8), profiled after as many warm and as many timed.
+BUSY_STEPS = 4
+# Launches of each kernel a training step (one microbatch).
+RESNET_LAUNCHES = {"conv3x3_same": 13, "bn_relu_conv3x3_stats": 13}
+LM_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 6,
+               "flash_attention_bwd_dq": 6}
+
+
+def resnet_train_params(**kw):
+  from kf_benchmarks_tpu_torch import params as params_lib
+  return params_lib.make_params(model="resnet50", batch_size=256,
+                                use_fp16=True, optimizer="momentum",
+                                device="gpu", **kw)
+
+
+def bench_arm(params):
+  """BenchmarkCNN(params).run() with every launch count set to 0 just
+  before and read just after: (bench, stats, counts, peak GiB)."""
+  from kf_benchmarks_tpu_torch import benchmark
+  bench = benchmark.BenchmarkCNN(params)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches()
+  stats = bench.run()
+  counts = benchmark.kernel_launches()
+  return bench, stats, counts, torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_launches(label, counts, per_step, steps):
+  """Every kernel launched per_step[name] times a step, the others not."""
+  for name, n in counts.items():
+    want = per_step.get(name, 0) * steps
+    check(n == want, f"{label}: {name} launched {n} times in {steps} steps, "
+          f"want {per_step.get(name, 0)} a step")
+
+
+def phase_dispatch(res):
+  """--steps_per_dispatch through BenchmarkCNN: ResNet-50 (batch 256, bf16,
+  momentum) and transformer_lm (batch 8, flash), each 8 warmup + 20 timed
+  steps at K = 1 (eager steps) and at K = 8 (one CUDA graph replayed a
+  step) from the same seed; losses and final weights bitwise equal, equal
+  launches a step; the rate, compile_s, dispatch_overhead_s, peak memory
+  and the busy share of 4 more steps of each arm."""
+  res["dispatch"] = {}
+  runs = (("resnet50", resnet_train_params, RESNET_LAUNCHES, "images/sec"),
+          ("transformer_lm", lm_params, LM_LAUNCHES, "sequences/sec"))
+  for model, make, per_step, unit in runs:
+    arms = {}
+    with lm_attention("flash"):
+      for k in (1, DISPATCH_K):
+        label = f"dispatch: {model} K={k}"
+        bench, stats, counts, peak = bench_arm(make(
+            num_batches=DISPATCH_STEPS, num_warmup_batches=DISPATCH_WARMUP,
+            display_every=DISPATCH_STEPS, steps_per_dispatch=k))
+        final = bench.final
+        weights = [q.detach().clone() for q in final["module"].parameters()]
+        steps = stats["steps_run"]
+        res.setdefault("counts_by_path", {})[
+            f"dispatch_{model}_k{k}"] = counts
+        check_launches(label, counts, per_step, steps)
+        if k == 1:
+          fn, n = (lambda: final["step"](final["images"], final["labels"]),
+                   BUSY_STEPS)
+        else:
+          fn, n = (lambda: final["chunk"](final["images"], final["labels"],
+                                          BUSY_STEPS), 1)
+        wall, kern, _ = profile_window(fn, n)
+        dev, hidden = device_behind_spin_s(fn, n, wall)
+        arms[k] = dict(losses=stats["losses"], weights=weights,
+                       rate=stats["images_per_sec"],
+                       compile_s=stats["compile_s"],
+                       dispatch_overhead_s=stats["dispatch_overhead_s"],
+                       wall_ms=wall * 1e3, profiler_kernel_ms=kern * 1e3,
+                       profiler_busy=kern / wall,
+                       device_ms=dev * 1e3, device_busy=dev / wall,
+                       device_hidden=hidden,
+                       peak_gib=peak,
+                       launches_per_step={n: c // steps
+                                          for n, c in counts.items() if c})
+        log(f"{label}: {stats['images_per_sec']:.2f} {unit}, compile_s "
+            f"{stats['compile_s']:.3f}, dispatch_overhead_s "
+            f"{stats['dispatch_overhead_s'] * 1e3:.3f} ms, "
+            f"{stats['num_dispatches']} timed dispatches, peak memory "
+            f"{peak:.2f} GiB, launches a step "
+            f"{arms[k]['launches_per_step']}; {BUSY_STEPS} more steps: wall "
+            f"{wall * 1e3:.1f} ms; torch.profiler's kernel time "
+            f"{kern * 1e3:.1f} ms (share {kern / wall:.3f}); device time "
+            f"behind a spin {dev * 1e3:.1f} ms (share "
+            f"{spin_share(dev, hidden, wall)})")
+        log(f"{label}: losses {stats['losses']}")
+        del bench, final
+    one, many = arms[1], arms[DISPATCH_K]
+    same_weights = all(torch.equal(a, b) for a, b in
+                       zip(one["weights"], many["weights"]))
+    spun = [spin_share(a["device_ms"], a["device_hidden"], a["wall_ms"])
+            for a in (one, many)]
+    log(f"dispatch: {model}: K={DISPATCH_K} against K=1: losses "
+        f"{'bitwise equal' if one['losses'] == many['losses'] else 'DIFFER'}"
+        f", final weights {'bitwise equal' if same_weights else 'DIFFER'}; "
+        f"{unit} {many['rate'] / one['rate']:.3f}x; busy share by "
+        f"torch.profiler K=1 {one['profiler_busy']:.3f}, K={DISPATCH_K} "
+        f"{many['profiler_busy']:.3f}; by device time behind a spin K=1 "
+        f"{spun[0]}, K={DISPATCH_K} {spun[1]}")
+    check(one["losses"] == many["losses"],
+          f"dispatch {model}: K={DISPATCH_K} losses differ from K=1")
+    check(same_weights, f"dispatch {model}: K={DISPATCH_K} weights differ "
+          "from K=1")
+    check(one["launches_per_step"] == many["launches_per_step"],
+          f"dispatch {model}: launches a step differ")
+    for arm in arms.values():
+      del arm["weights"]
+    res["dispatch"][model] = arms
+    torch.cuda.empty_cache()
+
+
+ACCUM_WARMUP, ACCUM_STEPS = 4, 8
+# The LM at M = 2 against M = 1 (no batch norm): bf16 activations, the
+# batch's mean loss split in two; each step's loss within 1e-4 relative.
+# A planted fault that divides the accumulated gradient by M twice halves
+# every SGD update, which is the M = 2 run at half the rate: the phase
+# runs that too and wants its last losses outside the limit.
+ACCUM_LM_RTOL = 1e-4
+ACCUM_LM_RATE = 0.05  # the LM's own (transformer_lm.py), halved below
+
+
+def check_flash_at(label, args, seed):
+  """The flash forward and the Function's gradients (dK/dV and dQ
+  kernels) against their plain versions on one call's own inputs (q, k
+  and v the qkv.unbind(2) views, as the LM passes them), with phase
+  flash's and phase flash_grad's tolerances; rows for the three
+  kernels."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  q, k, v, causal, scale, q_seg, kv_seg = args
+  o, lse = fa.flash_attention_fwd(*args)
+  o_ref, lse_ref = fa.flash_attention_fwd_plain(*args)
+  err, ok = bf16_close(o, o_ref)
+  lse_err = float(((lse - lse_ref).abs() /
+                   lse_ref.abs().clamp_min(1.0)).max())
+  check(ok and lse_err <= 1e-3, f"flash {label}: forward o max abs err "
+        f"{err}, lse rel err {lse_err}")
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+  qkv = torch.stack((q, k, v), dim=2)
+
+  def grads(fn):
+    leaf = qkv.clone().requires_grad_()
+    return torch.autograd.grad(fn(*leaf.unbind(2)), leaf, do)[0].unbind(2)
+
+  got = grads(lambda *x: fa.flash_attention(*x, causal=causal, scale=scale,
+                                            q_seg=q_seg, kv_seg=kv_seg))
+  ref = grads(lambda *x: fa.flash_attention_fwd_plain(
+      *x, causal, scale, q_seg, kv_seg)[0])
+  errs = {}
+  for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+    e = float((a.float() - r.float()).abs().max())
+    m = float(r.float().abs().max())
+    errs[name] = e
+    check(math.isfinite(e) and e <= 3e-2 * m,
+          f"flash {label} {name}: err {e} > 3e-2 * {m}")
+  b, lq, h, d = q.shape
+  log(f"flash {label}: the run's own q[{b},{lq},{h},{d}] (strides "
+      f"{q.stride()}) causal={causal}: o max abs err {err:.3g} (tol one "
+      f"bf16 ulp + 1e-3 max|ref|), lse rel err {lse_err:.2g} (tol 1e-3); "
+      f"dq / dk / dv max abs err {errs['dq']:.3g} / {errs['dk']:.3g} / "
+      f"{errs['dv']:.3g} (tol 3e-2 of each max |ref|)")
+  base = dict(stage=label, shape=[b, lq, k.shape[1], h, d], causal=causal,
+              mask=None if q_seg is None else "segments")
+  return {"flash_attention_fwd": dict(base, max_abs_err=err,
+                                      lse_rel_err=lse_err),
+          "flash_attention_bwd_dkv": dict(base, max_abs_err=max(
+              errs["dk"], errs["dv"])),
+          "flash_attention_bwd_dq": dict(base, max_abs_err=errs["dq"])}
+
+
+def phase_accum(res):
+  """--num_grad_accum through BenchmarkCNN: ResNet-50 (batch 256, bf16,
+  momentum) at M = 1, and at M = 4 under K = 1 and K = 4 (losses bitwise
+  equal between the two; peak memory below M = 1's; K-A and K-B 4 x 13 a
+  step), each 4 warmup + 8 timed steps; K-A and K-B against their plain
+  versions at every shape the M = 4 runs gave them (batch 64).
+  transformer_lm (batch 8, flash) at M = 2 against M = 1, and against M =
+  2 at half the rate (a planted fault's reading); the flash kernels
+  against their plain versions on the M = 2 run's own inputs (batch 4)."""
+  res["accum"] = {}
+  arms = {}
+  shapes = {"conv3x3_same": set(), "bn_relu_conv3x3_stats": set()}
+  for m, k in ((1, 1), (4, 1), (4, 4)):
+    label = f"accum: resnet50 M={m} K={k}"
+    noting = (noting_unit_shapes(shapes) if m > 1
+              else contextlib.nullcontext())
+    with noting:
+      _, stats, counts, peak = bench_arm(resnet_train_params(
+          num_batches=ACCUM_STEPS, num_warmup_batches=ACCUM_WARMUP,
+          display_every=ACCUM_STEPS, num_grad_accum=m, steps_per_dispatch=k))
+    steps = stats["steps_run"]
+    res.setdefault("counts_by_path", {})[f"accum_resnet50_m{m}_k{k}"] = \
+        counts
+    check_launches(label, counts,
+                   {n: m * c for n, c in RESNET_LAUNCHES.items()}, steps)
+    arms[(m, k)] = dict(losses=stats["losses"], peak_gib=peak,
+                        rate=stats["images_per_sec"])
+    log(f"{label}: {stats['images_per_sec']:.2f} images/sec, peak memory "
+        f"{peak:.3f} GiB, launches {counts} in {steps} steps; losses "
+        f"{stats['losses']}")
+  check(arms[(4, 1)]["losses"] == arms[(4, 4)]["losses"],
+        "accum: M=4 losses differ between K=1 and K=4")
+  check(arms[(4, 1)]["peak_gib"] < arms[(1, 1)]["peak_gib"],
+        "accum: peak memory at M=4 not below M=1")
+  log(f"accum: resnet50 M=4 K=4 losses bitwise equal to M=4 K=1; peak "
+      f"memory M=1 {arms[(1, 1)]['peak_gib']:.3f} GiB, M=4 "
+      f"{arms[(4, 1)]['peak_gib']:.3f} GiB")
+  res["accum"]["resnet50"] = {f"m{m}_k{k}": v for (m, k), v in arms.items()}
+  res["accum"]["resnet50_shapes"] = {n: sorted(v) for n, v in shapes.items()}
+  # The kernels at the microbatch's shapes; K-A also at K-B's, as in
+  # phase zoo.
+  micro = 256 // 4
+  for name, check_at, at in (
+      ("conv3x3_same", check_conv_at,
+       shapes["conv3x3_same"] | shapes["bn_relu_conv3x3_stats"]),
+      ("bn_relu_conv3x3_stats", check_unit_at,
+       shapes["bn_relu_conv3x3_stats"])):
+    check(at and all(n == micro for n, *_ in at),
+          f"accum: {name} shapes {sorted(at)}, want batch {micro}")
+    for i, (n, h, w, c, co) in enumerate(sorted(at)):
+      res.setdefault(name, []).append(check_at(
+          f"accum_{h}x{w}_{c}_{co}", n, h, w, c, co, seed=120 + i))
+  lm = {}
+  calls = {}
+  with lm_attention("flash"):
+    for arm, m, rate in (("m1", 1, None), ("m2", 2, None),
+                         ("m2_half_rate", 2, ACCUM_LM_RATE / 2)):
+      noting = (capturing_flash_inputs(calls) if arm == "m2"
+                else contextlib.nullcontext())
+      with noting:
+        _, stats, counts, peak = bench_arm(lm_params(
+            num_batches=ACCUM_STEPS, num_warmup_batches=ACCUM_WARMUP,
+            display_every=ACCUM_STEPS, num_grad_accum=m,
+            init_learning_rate=rate))
+      res["counts_by_path"][f"accum_lm_{arm}"] = counts
+      check_launches(f"accum: transformer_lm {arm}", counts,
+                     {n: m * c for n, c in LM_LAUNCHES.items()},
+                     stats["steps_run"])
+      lm[arm] = dict(losses=stats["losses"], peak_gib=peak,
+                     rate=stats["images_per_sec"])
+      log(f"accum: transformer_lm {arm}: {stats['images_per_sec']:.2f} "
+          f"sequences/sec, peak memory {peak:.3f} GiB; losses "
+          f"{stats['losses']}")
+  gap = lambda a: max(abs(x - y) / abs(y) for x, y in zip(
+      lm[a]["losses"], lm["m1"]["losses"]))
+  rel, planted = gap("m2"), gap("m2_half_rate")
+  first, last = lm["m1"]["losses"][0], lm["m1"]["losses"][-1]
+  log(f"accum: transformer_lm M=2 against M=1: largest relative loss "
+      f"difference {rel:.3g} (tol {ACCUM_LM_RTOL:.3g}); M=2 at half the "
+      f"rate (a gradient divided by M twice) {planted:.3g}; M=1's loss "
+      f"moves {abs(first - last) / abs(first):.3g} relative over the "
+      f"{len(lm['m1']['losses'])} timed steps")
+  check(rel <= ACCUM_LM_RTOL, "accum: transformer_lm M=2 losses differ")
+  check(planted > ACCUM_LM_RTOL, "accum: transformer_lm M=2 at half the "
+        "rate within the limit: the limit cannot see a halved update")
+  res["accum"]["transformer_lm"] = lm
+  check(len(calls) == 1 and all(key[0][0] == 8 // 2 for key in calls),
+        f"accum: transformer_lm M=2 flash shapes {list(calls)}")
+  for (qs, _, _, _), args in calls.items():
+    for name, row in check_flash_at(f"accum_lm_b{qs[0]}", args,
+                                    seed=130).items():
+      res.setdefault(name, []).append(row)
+  torch.cuda.empty_cache()
+
+
+def tick_clock(tick_s=1e-3):
+  """(time_fn, sleep_fn) of a virtual clock: each read advances it by
+  tick_s, a sleep by its length. An engine reads it the same number of
+  times a tick whatever runs its programs, so two engines replay one
+  workload into the same waves and batches."""
+  t = [0.0]
+
+  def now():
+    t[0] += tick_s
+    return t[0]
+
+  def sleep(s):
+    t[0] += max(0.0, s)
+
+  return now, sleep
+
+
+def phase_serve_graph(res):
+  """Replay (a) -- 128 requests at 16/s, 32 new tokens each -- through the
+  engine with its programs eager and with them captured (the default on
+  the card). On the wall clock: tokens/sec, TTFT and token latency of
+  both, launches 6 a decode step and 6 a prefill wave, at most
+  len(ladder) decode captures. The batches a wall-clock replay forms
+  follow the engine's speed, and a bucket's bf16 products round per
+  batch width, so the two are also replayed on a virtual clock
+  (``tick_clock``), where both form the same batches: there every
+  generated token must be identical. Then 20 decode steps at bucket 64 of
+  each, profiled."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import metrics as metrics_lib
+  from kf_benchmarks_tpu_torch import tracing
+  from kf_benchmarks_tpu_torch.data import packing
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  from kf_benchmarks_tpu_torch.serving import engine as engine_lib
+  spec = serve_spec()
+  variables = decode_lib.init_variables(spec, seed=0)
+  _, rate, depth = SERVE_REPLAYS[0]
+  cfg = engine_lib.EngineConfig(spec=spec, max_new_tokens=SERVE_MAX_NEW,
+                                max_queue_depth=depth)
+  lengths = packing.sample_document_lengths(
+      np.random.default_rng(0), 64, spec.max_len,
+      mean_fraction=0.2).astype(np.int32)
+  arms = {}
+  for arm, eager in (("eager", True), ("graph", False)):
+    workload = engine_lib.poisson_workload(SERVE_REQUESTS, rate, spec,
+                                           seed=0,
+                                           max_new_tokens=SERVE_MAX_NEW)
+    trace = tracing.activate(tracing.RunTrace(keep_spans=True))
+    metrics_lib.activate(metrics_lib.MetricRegistry())
+    try:
+      engine = engine_lib.ServingEngine(cfg, variables=variables,
+                                        device="cuda",
+                                        _eager_programs=eager)
+      t0 = time.time()
+      engine.warm()
+      warm_s = time.time() - t0
+      reset_launches()
+      results = engine.replay(workload)
+      counts = benchmark.kernel_launches()
+      stats = engine.stats()
+      ledger = trace.compile_ledger()["entries"]
+    finally:
+      tracing.deactivate()
+      metrics_lib.deactivate()
+    waves = sum(1 for s in trace.spans
+                if (s["sub"], s["name"]) == ("serving", "prefill"))
+    steps = stats["serving/decode_steps"]
+    res.setdefault("counts_by_path", {})[f"serve_graph_{arm}"] = counts
+    want = {"flash_decode": 6 * steps, "flash_attention_fwd": 6 * waves}
+    for name, n in counts.items():
+      check(n == want.get(name, 0), f"serve_graph {arm}: {name} launched "
+            f"{n} times, want {want.get(name, 0)} ({steps} decode steps, "
+            f"{waves} prefill waves)")
+    captures = [e for e in ledger if e["program"] == "serving_decode"]
+    check(len(captures) <= len(cfg.bucket_ladder) and
+          all(e["captured"] == (not eager) for e in ledger),
+          f"serve_graph {arm}: compile ledger {ledger}")
+    check(stats["serving/completed"] == SERVE_REQUESTS,
+          f"serve_graph {arm}: {stats['serving/completed']} completed")
+    arms[arm] = dict(
+        tokens=[(r.rid, r.status, list(r.tokens)) for r in results],
+        tokens_per_sec=stats["serving/tokens_per_sec"],
+        ttft_p50=stats["serving/ttft_p50"], ttft_p99=stats["serving/ttft_p99"],
+        token_latency_p50=stats["serving/token_latency_p50"],
+        token_latency_p99=stats["serving/token_latency_p99"],
+        warm_s=warm_s, prepared=len(ledger), decode_steps=steps,
+        waves=waves)
+    # 20 decode steps at bucket 64, every slot decoding, positions drawn
+    # like the workload's prompt lengths; each step ends in the engine's
+    # value fetch.
+    exe = engine._decode_exe(64)
+    engine._ring_state().pos[:64].copy_(torch.from_numpy(lengths))
+    engine._active_buf[:64].fill_(True)
+    wall, kern, _ = profile_window(lambda: exe()[0].cpu(), 20)
+    dev, hidden = device_behind_spin_s(exe, 20, wall)
+    arms[arm].update(
+        decode64_wall_ms=wall * 1e3 / 20,
+        decode64_profiler_kernel_ms=kern * 1e3 / 20,
+        decode64_profiler_busy=kern / wall,
+        decode64_device_ms=dev * 1e3 / 20, decode64_device_busy=dev / wall,
+        decode64_device_hidden=hidden)
+    del engine, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve_graph: {arm}: warm() {warm_s:.1f} s for {len(ledger)} "
+        f"programs ({len(captures)} decode); replay (a) "
+        f"{stats['serving/tokens_per_sec']:.1f} tokens/sec, TTFT p50 "
+        f"{stats['serving/ttft_p50'] * 1e3:.1f} ms p99 "
+        f"{stats['serving/ttft_p99'] * 1e3:.1f} ms, token latency p50 "
+        f"{stats['serving/token_latency_p50'] * 1e3:.2f} ms p99 "
+        f"{stats['serving/token_latency_p99'] * 1e3:.2f} ms, {steps} decode "
+        f"steps, {waves} prefill waves; launches {counts}; 20 decode steps "
+        f"at bucket 64: wall {wall * 1e3:.1f} ms, torch.profiler's kernel "
+        f"time {kern * 1e3:.1f} ms (share {kern / wall:.3f}), device time "
+        f"behind a spin (no value fetch) {dev * 1e3:.1f} ms (share "
+        f"{spin_share(dev, hidden, wall)})")
+  agree = sum(a == b for a, b in zip(arms["eager"]["tokens"],
+                                     arms["graph"]["tokens"]))
+  log(f"serve_graph: wall-clock replays: {agree} of {SERVE_REQUESTS} "
+      f"requests generated the same tokens ({arms['eager']['decode_steps']}"
+      f" and {arms['graph']['decode_steps']} decode steps)")
+  virtual = {}
+  for arm, eager in (("eager", True), ("graph", False)):
+    now, sleep = tick_clock()
+    engine = engine_lib.ServingEngine(cfg, variables=variables,
+                                      device="cuda", _eager_programs=eager,
+                                      time_fn=now, sleep_fn=sleep)
+    engine.warm()
+    results = engine.replay(engine_lib.poisson_workload(
+        SERVE_REQUESTS, rate, spec, seed=0, max_new_tokens=SERVE_MAX_NEW))
+    virtual[arm] = ([(r.rid, r.status, list(r.tokens)) for r in results],
+                    engine.stats()["serving/decode_steps"])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+  same = virtual["eager"][0] == virtual["graph"][0]
+  log(f"serve_graph: virtual-clock replays ({virtual['eager'][1]} and "
+      f"{virtual['graph'][1]} decode steps): the graph engine's tokens "
+      f"{'identical to' if same else 'DIFFER from'} the eager engine's "
+      f"({SERVE_REQUESTS} requests, "
+      f"{sum(len(t) for _, _, t in virtual['graph'][0])} tokens)")
+  check(virtual["eager"][1] == virtual["graph"][1] and same,
+        "serve_graph: graph engine tokens differ from eager")
+  eager, graph = arms["eager"], arms["graph"]
+  log(f"serve_graph: decode step at bucket 64: wall "
+      f"{eager['decode64_wall_ms']:.3f} -> {graph['decode64_wall_ms']:.3f} "
+      f"ms; busy share by torch.profiler "
+      f"{eager['decode64_profiler_busy']:.3f} -> "
+      f"{graph['decode64_profiler_busy']:.3f}, by device time behind a "
+      f"spin " + " -> ".join(
+          spin_share(a["decode64_device_ms"], a["decode64_device_hidden"],
+                     a["decode64_wall_ms"]) for a in (eager, graph)))
+  for arm in arms.values():
+    del arm["tokens"]
+  res["serve_graph"] = arms
+
+
 # -- main ----------------------------------------------------------------------
 
 def device_line() -> str:
@@ -2609,6 +3143,8 @@ def main(argv=None) -> int:
            "serve_parity": phase_serve_parity, "dp": phase_dp,
            "zoo": phase_zoo, "elastic": phase_elastic,
            "infer": phase_infer, "eval": phase_eval, "optim": phase_optim,
+           "dispatch": phase_dispatch, "accum": phase_accum,
+           "serve_graph": phase_serve_graph,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}
@@ -2616,6 +3152,10 @@ def main(argv=None) -> int:
     t0 = time.time()
     log(f"== phase {name}")
     table[name](res)
+    # What a phase kept alive -- CUDA graphs' private pools, engines' rings
+    # -- goes before the next one.
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"== phase {name} done in {time.time() - t0:.1f} s")
   log(device_line())
   log(json.dumps(kernels_line(res, res["counts"])))

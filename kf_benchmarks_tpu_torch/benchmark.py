@@ -42,10 +42,18 @@ whose top-1 reaches --stop_at_top_1_accuracy; like checkpoints, the eval
 time stays out of the step times. --num_epochs and --num_eval_epochs
 count ImageNet epochs at the global batch (data/datasets.py).
 
-Timing: the device runs asynchronously, so every timing boundary is a
-``torch.cuda.synchronize()``: one before the timed loop, and the read of
-each step's loss, which waits for that step to finish. A step's time is
-the host interval between two such boundaries.
+Dispatch (--steps_per_dispatch=K, --num_grad_accum=M): the timed loop
+runs dispatches of up to K steps (train_step.TrainChunk: on the card one
+CUDA-graph replay a step), shortened so that none crosses a step-keyed
+save, eval or elastic check (``dispatch_len``); M splits each step's batch
+into microbatches inside the step.
+
+Timing: the device runs asynchronously. The warmup ends in a
+``torch.cuda.synchronize()``; in the timed loop each dispatch's metrics are
+read two dispatches later through utils/pipeline.py, whose read-arrival
+intervals are the step times (a K-step dispatch's interval split K ways).
+``compile_s`` is the host time of the first dispatch call and
+``dispatch_overhead_s`` the mean host time of a timed one.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from kf_benchmarks_tpu_torch.parallel import kungfu
 from kf_benchmarks_tpu_torch.parallel import mesh
 from kf_benchmarks_tpu_torch.parallel import strategies
 from kf_benchmarks_tpu_torch.utils import log as log_util
+from kf_benchmarks_tpu_torch.utils import pipeline as pipeline_lib
 
 log_fn = log_util.log_fn
 
@@ -133,6 +142,19 @@ def compute_eval_step_set(params, global_batch_size: int,
   return steps
 
 
+def dispatch_len(k: int, done_steps: int, num_batches: int,
+                 event_due) -> int:
+  """Length of the next dispatch: up to K steps, stopping at the run's end
+  and BEFORE any step-keyed event strictly inside the window, so
+  checkpoints, eval and elastic checks keep exact K = 1 step semantics
+  (the JAX package's _dispatch_len, benchmark.py:1553-1565)."""
+  n = min(k, num_batches - done_steps)
+  for d in range(1, n):
+    if event_due(done_steps + d):
+      return d
+  return n
+
+
 def accuracy_line(top1: float, top5: float, examples: int) -> str:
   return "Accuracy @ 1 = %.4f Accuracy @ 5 = %.4f [%d examples]" % (
       top1, top5, examples)
@@ -157,6 +179,12 @@ class BenchmarkCNN:
       self.model.set_batch_size(params.batch_size)
     self.batch_size = self.model.get_batch_size()
     self.num_batches = self._get_num_batches()
+    self.num_grad_accum = int(params.num_grad_accum or 1)
+    validation.check_grad_accum_divides(self.num_grad_accum, self.batch_size,
+                                        self.model.get_name())
+    # K steps a dispatch, no more than the run (JAX benchmark.py:445-451).
+    self.steps_per_dispatch = max(1, min(int(params.steps_per_dispatch or 1),
+                                         self.num_batches))
     self.eval_step_set = compute_eval_step_set(
         params, self.batch_size * self.world_size,
         datasets.num_examples_per_epoch("train"), self.num_batches)
@@ -268,7 +296,8 @@ class BenchmarkCNN:
           auto_loss_scale=auto_loss_scale,
           inc_loss_scale_every_n=p.fp16_inc_loss_scale_every_n,
           print_accuracy=p.print_training_accuracy,
-          single_l2_loss_op=p.single_l2_loss_op)
+          single_l2_loss_op=p.single_l2_loss_op,
+          num_grad_accum=self.num_grad_accum)
     t_restore = None
     if snapshot is None and p.train_dir:
       t_restore = time.time()
@@ -479,15 +508,58 @@ class BenchmarkCNN:
       return sched[1]
     return None
 
+  def _make_chunk(self, step):
+    """The K-step dispatch of ``step`` (None at K = 1, and for the
+    forward-only step)."""
+    if self.steps_per_dispatch == 1 or self.params.forward_only:
+      return None
+    return train_step_lib.TrainChunk(step, self.steps_per_dispatch)
+
   def _benchmark_train(self) -> Dict[str, Any]:
     p = self.params
+    K = self.steps_per_dispatch
     launches_before = kernel_launches()
     t0 = time.time()
     module, step, images, labels = self.build()
+    chunk = self._make_chunk(step)
     noise_ema, batch_policy, controller = self._elastic_setup()
+    if (self.num_grad_accum > 1 and
+        train_step_lib.batch_stats(module)):
+      log_fn(f"Note: --num_grad_accum={self.num_grad_accum} with a "
+             "batch-norm model: BN statistics are per-microbatch "
+             f"(batch/{self.num_grad_accum}) and running stats update "
+             f"{self.num_grad_accum}x per step; not numerically "
+             "equivalent to the monolithic step (BN-free models are)")
+
+    # Host time of each dispatch call (the call alone, no wait for the
+    # device): the first is compile_s -- kernel builds, and under K > 1 the
+    # eager warm-up step and the graph capture; the timed ones average to
+    # dispatch_overhead_s (JAX benchmark.py:1267-1320, :1965-1975).
+    dispatch_stats = {"compile_s": None, "call_times": []}
+
+    def run_dispatch(n: int) -> Dict[str, Any]:
+      t_call = time.monotonic()
+      if chunk is not None:
+        metrics = chunk(images, labels, n)
+        if n == 1:
+          metrics = {k: v[0] for k, v in metrics.items()}
+      else:
+        metrics = step(images, labels)
+      dt = time.monotonic() - t_call
+      if dispatch_stats["compile_s"] is None:
+        dispatch_stats["compile_s"] = dt
+      dispatch_stats["call_times"].append(dt)
+      return metrics
+
     log_fn("Running warm up")
-    for _ in range(self.num_warmup_batches):
-      step(images, labels)
+    # Exactly num_warmup_batches warmup steps at every K: q whole K-step
+    # dispatches, then r single steps, so the warmed-up state is the K = 1
+    # loop's (JAX benchmark.py:1330-1360).
+    q, r = divmod(self.num_warmup_batches, K)
+    for _ in range(q):
+      run_dispatch(K)
+    for _ in range(r):
+      run_dispatch(1)
     _sync(self.device)
     log_fn("Build + warmup (%d steps): %.1f s" %
            (self.num_warmup_batches, time.time() - t0))
@@ -505,40 +577,90 @@ class BenchmarkCNN:
     stopped_early = False
     eval_results = []
     reshape_events = []
-    loop_start = time.time()
-    last = last_save = loop_start
-    for i in range(self.num_batches):
-      metrics = step(images, labels)
-      loss = float(metrics["total_loss"])  # waits for the step
-      now = time.time()
-      step_train_times.append(now - last)
-      last = now
-      images_processed += self.batch_size * self.world_size
-      if noise_ema is not None and "noise_scale_g2" in metrics:
-        noise_ema.update(float(metrics["noise_scale_g2"]),
-                         float(metrics["noise_scale_s"]))
-      i1 = i + 1
+    num_dispatches = 0
+    losses = []
+
+    def handle(done) -> None:
+      nonlocal loss, last_display_len
+      step_train_times.append(done.interval)
+      m = done.metrics
+      loss = float(m["total_loss"])
+      losses.append(loss)
+      if noise_ema is not None and "noise_scale_g2" in m:
+        noise_ema.update(float(m["noise_scale_g2"]),
+                         float(m["noise_scale_s"]))
+      i1 = done.index
       if i1 % self.display_every == 0 or i1 == self.num_batches:
         top1 = top5 = None
-        if "top_1_accuracy" in metrics:
-          top1 = float(metrics["top_1_accuracy"])
-          top5 = float(metrics["top_5_accuracy"])
+        if "top_1_accuracy" in m:
+          top1 = float(m["top_1_accuracy"])
+          top5 = float(m["top_5_accuracy"])
         log_fn(log_util.format_step_line(
             i1, self.batch_size * self.world_size,
             step_train_times[last_display_len:], loss, top1, top5))
         last_display_len = len(step_train_times)
-      save_due = bool(p.train_dir and not p.forward_only and (
-          (p.save_model_steps and i1 % p.save_model_steps == 0) or
-          (p.save_model_secs and now - last_save >= p.save_model_secs)))
-      eval_due = bool((p.eval_during_training_every_n_steps and
-                       i1 % p.eval_during_training_every_n_steps == 0) or
-                      i1 in self.eval_step_set)
-      elastic_due = bool((controller is not None or batch_policy is not None)
-                         and i1 % p.elastic_check_every_n_steps == 0 and
-                         i1 < self.num_batches)
+
+    # Step-keyed schedule predicates: the same functions feed the dispatch
+    # planner and the due flags after each dispatch, so a dispatch never
+    # crosses a scheduled step (JAX benchmark.py:1527-1565). The
+    # seconds-based checkpoint cadence is checked at dispatch boundaries.
+    def save_steps_due(s: int) -> bool:
+      return bool(p.train_dir and not p.forward_only and
+                  p.save_model_steps and s % p.save_model_steps == 0)
+
+    def eval_due_at(s: int) -> bool:
+      return bool((p.eval_during_training_every_n_steps and
+                   s % p.eval_during_training_every_n_steps == 0) or
+                  s in self.eval_step_set)
+
+    def elastic_due_at(s: int) -> bool:
+      return bool((controller is not None or batch_policy is not None)
+                  and s % p.elastic_check_every_n_steps == 0 and
+                  s < self.num_batches)
+
+    def event_due(s: int) -> bool:
+      return save_steps_due(s) or eval_due_at(s) or elastic_due_at(s)
+
+    # Lag-2 pipelined metric reads (utils/pipeline.py): every step's
+    # values are read two dispatches later, so the host never waits for
+    # the step it just queued.
+    pipe = pipeline_lib.MetricsPipeline(lag=2)
+    dispatch_stats["call_times"].clear()
+    loop_start = time.time()
+    last_save = loop_start
+    pipe.reset_clock()
+    i = 0
+    while i < self.num_batches:
+      n = dispatch_len(K, i, self.num_batches, event_due)
+      if chunk is not None and n == K:
+        metrics = run_dispatch(K)
+        i += K
+        images_processed += K * self.batch_size * self.world_size
+        num_dispatches += 1
+        for done in pipe.push(i, metrics, count=K):
+          handle(done)
+      else:
+        # The short remainder before an event, or the end, runs as single
+        # steps (one-step dispatches under K > 1).
+        for _ in range(n):
+          metrics = run_dispatch(1)
+          i += 1
+          images_processed += self.batch_size * self.world_size
+          num_dispatches += 1
+          for done in pipe.push(i, metrics):
+            handle(done)
+      now = time.time()
+      save_due = save_steps_due(i) or bool(
+          p.train_dir and not p.forward_only and p.save_model_secs and
+          now - last_save >= p.save_model_secs)
+      eval_due = eval_due_at(i)
+      elastic_due = elastic_due_at(i)
       if not (save_due or eval_due or elastic_due):
         continue
-      # Checkpoint, eval and resize time stays out of the step times.
+      # A sync point: everything in flight is read, and the checkpoint,
+      # eval and resize time is kept out of the step times.
+      for done in pipe.flush():
+        handle(done)
       aux_start = time.time()
       if save_due:
         self._save_checkpoint(module, step)
@@ -549,7 +671,7 @@ class BenchmarkCNN:
         acc = train_step_lib.EvalStep(self.model, module)(images, labels)
         top1 = float(acc["top_1_accuracy"])
         top5 = float(acc["top_5_accuracy"])
-        eval_results.append({"step": i1, "top_1_accuracy": top1,
+        eval_results.append({"step": i, "top_1_accuracy": top1,
                              "top_5_accuracy": top5})
         log_fn(accuracy_line(top1, top5, self.batch_size * self.world_size))
         if p.stop_at_top_1_accuracy and top1 >= p.stop_at_top_1_accuracy:
@@ -559,7 +681,7 @@ class BenchmarkCNN:
           aux_time += time.time() - aux_start
           break
       if elastic_due:
-        restart_np = (self._restart_target(controller, i1)
+        restart_np = (self._restart_target(controller, i)
                       if controller is not None else None)
         if restart_np is not None:
           if not p.train_dir:
@@ -570,7 +692,7 @@ class BenchmarkCNN:
             self._save_checkpoint(module, step)
             log_fn("Elastic restart at step %d: workers %d -> %d "
                    "(checkpoint + re-exec under the launcher)" % (
-                       i1, self.world_size, restart_np))
+                       i, self.world_size, restart_np))
             # Every worker reaches this at the same step; the barrier
             # holds the exits until rank 0's checkpoint is on disk (rank
             # 0 enters after writing).
@@ -586,12 +708,12 @@ class BenchmarkCNN:
                                           noise_ema.b_simple,
                                           self.world_size)
           if proposed != self.batch_size:
-            event = {"step": i1, "num_devices": self.world_size,
+            event = {"step": i, "num_devices": self.world_size,
                      "batch_size_per_device": proposed,
                      "b_simple": noise_ema.b_simple}
             log_fn("Elastic reshape at step %d: devices %d -> %d, "
                    "per-device batch %d -> %d" % (
-                       i1, self.world_size, self.world_size,
+                       i, self.world_size, self.world_size,
                        self.batch_size, proposed))
             if p.train_dir:
               # On disk before the rebuild: a run preempted during it
@@ -599,21 +721,27 @@ class BenchmarkCNN:
               self._save_checkpoint(module, step, incarnation_bump=1)
             module, step, images, labels = self._rebuild(module, step,
                                                          proposed)
+            chunk = self._make_chunk(step)
             # Epoch-based eval schedules count examples: re-anchored at
             # the new global batch.
             self.eval_step_set = compute_eval_step_set(
                 p, self.batch_size * self.world_size,
                 datasets.num_examples_per_epoch("train"), self.num_batches,
-                start_step=i1, start_examples=images_processed)
+                start_step=i, start_examples=images_processed)
             reshape_events.append(event)
       _sync(self.device)
       aux = time.time() - aux_start
       aux_time += aux
-      last += aux
+      pipe.note_aux_time(aux)
+    for done in pipe.flush():
+      handle(done)
     total_time = time.time() - loop_start - aux_time
     if p.train_dir and not p.forward_only and restart_requested is None:
       # Final checkpoint (ref: benchmark_cnn.py:2374-2378).
       self._save_checkpoint(module, step)
+    # What the run left, for a caller that inspects it.
+    self.final = {"module": module, "step": step, "chunk": chunk,
+                  "images": images, "labels": labels}
     num_steps = len(step_train_times)
     images_per_sec = images_processed / total_time
     log_fn("-" * 64)
@@ -630,12 +758,14 @@ class BenchmarkCNN:
       # --sync_on_finish is launch-wide (one command line for every
       # worker), so every rank meets this barrier or none does.
       kungfu.run_barrier()
+    call_times = dispatch_stats["call_times"]
     return {
         "num_workers": self.world_size,
         "num_steps": num_steps,
         "average_wall_time": total_time / max(num_steps, 1),
         "images_per_sec": images_per_sec,
         "last_average_loss": loss,
+        "losses": losses,
         "stopped_early": stopped_early,
         "eval_results": eval_results,
         "device": str(self.device),
@@ -648,4 +778,10 @@ class BenchmarkCNN:
         "restart_for_resize": restart_requested,
         "checkpoint_save_s": list(self.checkpoint_save_s),
         "checkpoint_restore_s": self.checkpoint_restore_s,
+        "steps_per_dispatch": K,
+        "num_grad_accum": self.num_grad_accum,
+        "num_dispatches": num_dispatches,
+        "compile_s": dispatch_stats["compile_s"],
+        "dispatch_overhead_s": (sum(call_times) / len(call_times)
+                                if call_times else None),
     }

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from kf_benchmarks_tpu_torch import learning_rate
 from kf_benchmarks_tpu_torch.models import builder
 from kf_benchmarks_tpu_torch.models import model
 from kf_benchmarks_tpu_torch.ops import conv_bn
@@ -164,20 +165,21 @@ class ResnetModel(model.CNNModel):
     return ("the fused BN-ReLU-conv3x3 kernel (csrc/bn_relu_conv3x3_stats.cu) "
             "and the conv3x3 kernel")
 
-  def get_learning_rate(self, global_step, batch_size) -> float:
+  def get_learning_rate(self, global_step, batch_size):
     """0.1 scaled by batch/256, piecewise at epochs 30/60/80/90, after a
-    linear warmup from 0 over 5 epochs."""
+    linear warmup from 0 over 5 epochs. A tensor step gives the device
+    form (learning_rate.make_learning_rate_fn)."""
     num_batches_per_epoch = IMAGENET_NUM_TRAIN_IMAGES / float(batch_size)
     rescaled_lr = 0.1 * batch_size / 256.0
-    step = float(global_step)
+    step = (global_step.float() if isinstance(global_step, torch.Tensor)
+            else float(global_step))
     lr = rescaled_lr
     for epoch, factor in zip((30, 60, 80, 90), (0.1, 0.01, 0.001, 1e-4)):
-      if step >= epoch * num_batches_per_epoch:
-        lr = rescaled_lr * factor
+      lr = learning_rate.where(step >= epoch * num_batches_per_epoch,
+                               rescaled_lr * factor, lr)
     warmup_steps = int(5 * num_batches_per_epoch)
-    if step < warmup_steps:
-      return rescaled_lr * step / max(warmup_steps, 1)
-    return lr
+    return learning_rate.where(step < warmup_steps,
+                               rescaled_lr * step / max(warmup_steps, 1), lr)
 
 
 def create_resnet50_model(params=None):

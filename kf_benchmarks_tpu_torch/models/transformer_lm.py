@@ -223,7 +223,8 @@ class TransformerLM(nn.Module):
         ks.append(k)
         vs.append(v)
       elif self.scan_layers and torch.is_grad_enabled():
-        x = checkpoint.checkpoint(block, x, seg, use_reentrant=False)
+        x = checkpoint.checkpoint(block, x, seg, use_reentrant=False,
+                                  preserve_rng_state=False)
       else:
         x = block(x, seg)
     hidden = self.ln_f(x).to(self.dtype)

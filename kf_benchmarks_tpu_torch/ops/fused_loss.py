@@ -68,7 +68,8 @@ def fused_softmax_xent(hidden, kernel, labels, chunk_size: int = 256,
     part = checkpoint.checkpoint(_chunk_log_likelihood,
                                  hidden[:, i:i + chunk], kernel,
                                  labels[:, i:i + chunk], ww,
-                                 use_reentrant=False)
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
     total = part if total is None else total + part
   return -total / (b * t if w is None else torch.clamp(w.sum(), min=1.0))
 

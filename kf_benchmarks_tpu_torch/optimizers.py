@@ -1,14 +1,19 @@
 """Optimizer construction: sgd, Nesterov momentum, rmsprop, adam and lars,
 each with the update rule the JAX package builds with optax
-(kf_benchmarks_tpu/optimizers.py:17-38).
+(kf_benchmarks_tpu/optimizers.py:17-38). Every one reads its rate from a
+device tensor and keeps its counters on the device: a step queues no host
+read, and a CUDA graph of it replays the rate of each step it runs.
 
-* ``sgd`` / ``momentum``: ``torch.optim.SGD``. ``optax.sgd(lr, momentum=m,
-  nesterov=True)`` keeps the trace t = g + m*t_prev (t_0 = 0) and steps by
-  -lr*(g + m*t); torch's SGD(momentum=m, nesterov=True, dampening=0) keeps
-  buf = m*buf + g (buf_1 = g) and steps by -lr*(g + m*buf): the same
-  sequence.
+* ``sgd`` / ``momentum``: ``SGD`` below, on ``torch._foreach`` ops
+  (``torch.optim.SGD`` reads a tensor rate back to the host),
+  ``optax.sgd(lr, momentum=m, nesterov=True)``: the trace
+  t = g + m*t_prev (t_0 = 0), the update -lr*(g + m*t) (-lr*g without
+  momentum).
 * ``adam``: ``torch.optim.Adam``, which is ``optax.adam`` (bias-corrected,
-  eps outside the square root) up to rounding.
+  eps outside the square root) up to rounding. On the card it is
+  capturable: it reads the rate tensor and keeps its count on the device.
+  On the CPU it takes the single-tensor path, the one that reads a rate
+  tensor without being capturable (which needs a CUDA parameter).
 * ``rmsprop``: ``RMSprop`` below. optax's rmsprop (>= 0.2) puts eps inside
   the square root, g*rsqrt(nu + eps), and applies its momentum after the
   learning rate, t = m*t + lr*g*rsqrt(nu + eps); ``torch.optim.RMSprop``
@@ -18,16 +23,19 @@ each with the update rule the JAX package builds with optax
   0.001*|w|/|g| on every tensor (1 where either norm is 0), then the
   learning rate, then a (non-Nesterov) trace. torch.optim has none.
 
-``--gradient_clip`` is ``optax.clip``: every gradient element clamped to
-[-c, c] before the optimizer (``clip_gradients_``, which the train step
-calls before each optimizer step), not a global-norm clip. Weight decay is
-not the optimizer's: the loss carries it (train_step.py). The rate is set
-on the param groups by the train step before each update.
+Each keeps its state as optax initialises it (zeros, count 0);
+``init_state`` makes it before the first step, so a step that the auto
+loss scale skips can keep it as it was. ``--gradient_clip`` is
+``optax.clip``: every gradient element clamped to [-c, c] before the
+optimizer (``clip_gradients_``, which the train step calls before each
+optimizer step), not a global-norm clip. Weight decay is not the
+optimizer's: the loss carries it (train_step.py). The train step sets
+each group's ``lr`` to its 0-d f32 rate tensor.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import torch
 
@@ -38,22 +46,31 @@ LARS_TRUST_COEFFICIENT = 0.001
 def get_optimizer(params, parameters, learning_rate: float = 0.0):
   opt = params.optimizer
   if opt == "sgd":
-    return torch.optim.SGD(parameters, lr=learning_rate)
+    return SGD(parameters, lr=learning_rate)
   if opt == "momentum":
-    return torch.optim.SGD(parameters, lr=learning_rate,
-                           momentum=params.momentum, nesterov=True,
-                           dampening=0.0)
+    return SGD(parameters, lr=learning_rate, momentum=params.momentum,
+               nesterov=True)
   if opt == "rmsprop":
     return RMSprop(parameters, lr=learning_rate, decay=params.rmsprop_decay,
                    momentum=params.rmsprop_momentum,
                    eps=params.rmsprop_epsilon)
   if opt == "adam":
-    return torch.optim.Adam(parameters, lr=learning_rate,
-                            betas=(params.adam_beta1, params.adam_beta2),
-                            eps=params.adam_epsilon)
+    return Adam(parameters, lr=learning_rate,
+                betas=(params.adam_beta1, params.adam_beta2),
+                eps=params.adam_epsilon)
   if opt == "lars":
     return LARS(parameters, lr=learning_rate, momentum=params.momentum)
   raise ValueError(f"Optimizer {opt!r} not supported")
+
+
+def init_state(optimizer: torch.optim.Optimizer) -> None:
+  """Every parameter's optimizer state at its initial value, where it is
+  not there yet (a new optimizer, or one restored from a snapshot taken
+  before its first step)."""
+  for group in optimizer.param_groups:
+    for p in group["params"]:
+      if not optimizer.state[p]:
+        optimizer.state[p].update(optimizer.initial_state(p, group))
 
 
 @torch.no_grad()
@@ -69,15 +86,34 @@ def _with_grads(group):
   return [p for p in group["params"] if p.grad is not None]
 
 
-class RMSprop(torch.optim.Optimizer):
-  """optax.rmsprop(lr, decay, eps, momentum) (eps_in_sqrt, initial scale
-  0, not centered): nu = decay*nu + (1-decay)*g^2, u = -lr*g*rsqrt(nu+eps),
-  then a trace t = u + m*t (none when m is 0) added to the weights."""
+class _Optimizer(torch.optim.Optimizer):
+  """The port's optimizers: ``initial_state`` is optax's init of one
+  parameter's state."""
 
-  def __init__(self, params, lr: float = 0.0, decay: float = 0.9,
-               momentum: float = 0.0, eps: float = 1.0):
-    super().__init__(params, dict(lr=lr, decay=decay, momentum=momentum,
-                                  eps=eps))
+  def initial_state(self, p, group) -> Dict[str, torch.Tensor]:
+    raise NotImplementedError
+
+  def states(self, params, group) -> List[Dict[str, torch.Tensor]]:
+    """The state of each of ``params`` (of ``group``), made at its initial
+    value where it is not there yet."""
+    init_state(self)
+    return [self.state[p] for p in params]
+
+
+class SGD(_Optimizer):
+  """optax.sgd(lr, momentum=m, nesterov): without momentum u = -lr*g;
+  with it the trace t = g + m*t (t_0 = 0) and u = -lr*(g + m*t) under
+  Nesterov, -lr*t without."""
+
+  def __init__(self, params, lr=0.0, momentum: float = 0.0,
+               nesterov: bool = False):
+    super().__init__(params, dict(lr=lr, momentum=momentum,
+                                  nesterov=nesterov))
+
+  def initial_state(self, p, group):
+    if not group["momentum"]:
+      return {}
+    return {"momentum_buffer": torch.zeros_like(p)}
 
   @torch.no_grad()
   def step(self, closure=None):
@@ -87,12 +123,64 @@ class RMSprop(torch.optim.Optimizer):
       if not params:
         continue
       grads = [p.grad for p in params]
-      state = [self.state[p] for p in params]
-      for p, st in zip(params, state):
-        if not st:
-          st["nu"] = torch.zeros_like(p)
-          if group["momentum"]:
-            st["trace"] = torch.zeros_like(p)
+      state = self.states(params, group)
+      upd = grads
+      m = group["momentum"]
+      if m:
+        trace = [st["momentum_buffer"] for st in state]
+        torch._foreach_mul_(trace, m)
+        torch._foreach_add_(trace, grads)
+        if group["nesterov"]:
+          upd = torch._foreach_mul(trace, m)
+          torch._foreach_add_(upd, grads)
+        else:
+          upd = trace
+      upd = torch._foreach_mul(upd, -group["lr"])
+      torch._foreach_add_(params, upd)
+
+
+class Adam(torch.optim.Adam):
+  """torch.optim.Adam, capturable where its parameters are on the card;
+  ``initial_state`` is the state its first step would make."""
+
+  def __init__(self, params, lr=0.0, betas=(0.9, 0.999), eps: float = 1e-8):
+    params = list(params)
+    on_card = any(p.is_cuda for p in params)
+    super().__init__(params, lr=lr, betas=tuple(betas), eps=eps,
+                     capturable=on_card, foreach=on_card)
+
+  def initial_state(self, p, group):
+    del group
+    return {"step": torch.zeros((), dtype=torch.float32, device=p.device),
+            "exp_avg": torch.zeros_like(p),
+            "exp_avg_sq": torch.zeros_like(p)}
+
+
+class RMSprop(_Optimizer):
+  """optax.rmsprop(lr, decay, eps, momentum) (eps_in_sqrt, initial scale
+  0, not centered): nu = decay*nu + (1-decay)*g^2, u = -lr*g*rsqrt(nu+eps),
+  then a trace t = u + m*t (none when m is 0) added to the weights."""
+
+  def __init__(self, params, lr: float = 0.0, decay: float = 0.9,
+               momentum: float = 0.0, eps: float = 1.0):
+    super().__init__(params, dict(lr=lr, decay=decay, momentum=momentum,
+                                  eps=eps))
+
+  def initial_state(self, p, group):
+    st = {"nu": torch.zeros_like(p)}
+    if group["momentum"]:
+      st["trace"] = torch.zeros_like(p)
+    return st
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    assert closure is None
+    for group in self.param_groups:
+      params = _with_grads(group)
+      if not params:
+        continue
+      grads = [p.grad for p in params]
+      state = self.states(params, group)
       nu = [st["nu"] for st in state]
       decay = group["decay"]
       # optax: (1 - decay) * g**2 + decay * nu.
@@ -112,7 +200,7 @@ class RMSprop(torch.optim.Optimizer):
       torch._foreach_add_(params, upd)
 
 
-class LARS(torch.optim.Optimizer):
+class LARS(_Optimizer):
   """optax.lars(lr, momentum=m) at its defaults (no weight decay, trust
   coefficient 0.001, eps 0, every tensor trust-scaled, not Nesterov):
   u = -lr * g * tc*|w|/|g| (the ratio 1 where |w| or |g| is 0), then the
@@ -120,6 +208,9 @@ class LARS(torch.optim.Optimizer):
 
   def __init__(self, params, lr: float = 0.0, momentum: float = 0.9):
     super().__init__(params, dict(lr=lr, momentum=momentum))
+
+  def initial_state(self, p, group):
+    return {"trace": torch.zeros_like(p)}
 
   @torch.no_grad()
   def step(self, closure=None):
@@ -136,12 +227,7 @@ class LARS(torch.optim.Optimizer):
                           torch.ones_like(ratio), ratio)
       upd = torch._foreach_mul(grads, list(ratio.unbind()))
       torch._foreach_mul_(upd, -group["lr"])
-      trace = []
-      for p in params:
-        st = self.state[p]
-        if not st:
-          st["trace"] = torch.zeros_like(p)
-        trace.append(st["trace"])
+      trace = [st["trace"] for st in self.states(params, group)]
       torch._foreach_mul_(trace, group["momentum"])
       torch._foreach_add_(trace, upd)
       torch._foreach_add_(params, trace)

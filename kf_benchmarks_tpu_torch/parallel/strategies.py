@@ -73,6 +73,12 @@ class Strategy:
   def sync_batch_stats(self, stats: Tensors) -> None:
     """Independent modes keep rank-local running statistics."""
 
+  def step_classes(self) -> int:
+    """How many host-side step behaviours the hooks have, by global step
+    modulo this count: a captured step replays the class it was captured
+    at (train_step.TrainChunk keeps one graph a class)."""
+    return 1
+
   def broadcast_init(self, weights: Tensors) -> None:
     """Every rank builds the same weights from the seed: nothing to do
     but for the strategies whose ranks may start apart."""
@@ -175,6 +181,12 @@ class KungFuStrategy(Strategy):
   def sync_batch_stats(self, stats: Tensors) -> None:
     if self.option == "sync_sgd":
       kungfu.allreduce_mean(stats)
+
+  def step_classes(self) -> int:
+    # Pair averaging's partner cycles through the gossip offsets.
+    if self.option != "async_sgd":
+      return 1
+    return max(1, len(kungfu.gossip_offsets(mesh.world_size())))
 
   def broadcast_init(self, weights: Tensors) -> None:
     kungfu.broadcast(weights, root=0)

@@ -31,6 +31,28 @@ flags.DEFINE_float("num_epochs", None,
 flags.DEFINE_integer("num_warmup_batches", None,
                      "Number of warmup batches before timing (None = 10).",
                      lower_bound=0)
+flags.DEFINE_integer("steps_per_dispatch", 1,
+                     "Multi-step training dispatch: K train steps a "
+                     "dispatch, so the host's launch work and the metric "
+                     "fetch are paid once per K steps. On a CUDA device "
+                     "the step is captured as a CUDA graph and replayed "
+                     "(train_step.TrainChunk); on the CPU the K steps run "
+                     "one after another. Per-step losses are unchanged; "
+                     "step times are honest at dispatch granularity "
+                     "(utils/pipeline.py). 1 = one dispatch per step.",
+                     lower_bound=1)
+flags.DEFINE_integer("num_grad_accum", 1,
+                     "Gradient accumulation: split each per-device batch "
+                     "into M microbatches, run forward and backward on "
+                     "each and accumulate the gradients in f32 before ONE "
+                     "gradient reduction, ONE loss-scale decision and ONE "
+                     "optimizer apply. Activation memory shrinks to "
+                     "batch/M; the per-device batch must be divisible by "
+                     "M. Batch-norm models: the statistics are per "
+                     "microbatch and the running averages advance M times "
+                     "a step, not numerically the M=1 step (a note is "
+                     "logged). Composes with --steps_per_dispatch. 1 = the "
+                     "monolithic step.", lower_bound=1)
 # Step modes: evaluation, forward-only, mid-training eval (ref :119-175).
 flags.DEFINE_boolean("eval", False, "Run evaluation instead of training "
                      "(ref :119).")

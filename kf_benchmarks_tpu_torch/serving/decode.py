@@ -135,47 +135,43 @@ def init_cache(spec: LMSpec, bucket: int, device) -> CacheState:
       tok=torch.zeros(bucket, dtype=torch.int32, device=device))
 
 
-def grow_cache(cache: CacheState, spec: LMSpec, bucket: int) -> CacheState:
-  """The cache on a wider bucket (ladder growth): old slots keep their
-  contents and positions, new slots start empty."""
-  fresh = init_cache(spec, bucket, cache.k.device)
-  old = cache.k.shape[1]
-  fresh.k[:, :old] = cache.k
-  fresh.v[:, :old] = cache.v
-  fresh.pos[:old] = cache.pos
-  fresh.tok[:old] = cache.tok
-  return fresh
-
-
 def decode_fn(spec: LMSpec):
-  """``(module, k, v, pos, tok, active) -> (next_tok, k, v, pos')``: one
-  greedy decode step for every slot. ``k``/``v`` are updated in place;
-  inactive slots keep their token and position (their ring write lands on
-  their own row, which the next prefill re-installs wholesale)."""
+  """``(module, k, v, pos, tok, active) -> (tok, k, v, pos)``: one greedy
+  decode step for every slot, in place: ``k``/``v`` take the step's ring
+  writes, ``tok`` the sampled tokens and ``pos`` advances, and the same
+  tensors are returned. Inactive slots keep their token and position
+  (their ring write lands on their own row, which the next prefill
+  re-installs wholesale). Everything stays on the device, so the step is
+  one CUDA graph a bucket (serving/engine.py)."""
   del spec  # the module carries the shape
 
   @torch.no_grad()
   def step(module, cache_k, cache_v, pos, tok, active):
     logits, _ = module.decode(tok, cache_k, cache_v, pos)
     nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
-    nxt = torch.where(active, nxt, tok)
-    return nxt, cache_k, cache_v, pos + active.to(torch.int32)
+    tok.copy_(torch.where(active, nxt, tok))
+    pos.add_(active.to(torch.int32))
+    return tok, cache_k, cache_v, pos
 
   return step
 
 
-def _spans(kv: torch.Tensor, rows: List[int], offsets: List[int],
+def _spans(kv: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
            t_cache: int) -> torch.Tensor:
   """(R, L, t_cache, H, Dh): request i's K or V from its packed row
-  ``rows[i]`` starting at ``offsets[i]``, zero past the packed row's end.
-  Each span is a narrow of the (L, B_pack, T, H, Dh) stack; only the tail
-  is padded (the JAX package pads the whole stack along T first)."""
-  l_, _, t, h, dh = kv.shape
-  out = kv.new_empty((len(rows), l_, t_cache, h, dh))
-  for i, (row, off) in enumerate(zip(rows, offsets)):
-    n = min(t - off, t_cache)
-    out[i, :, :n] = kv[:, row].narrow(1, off, n)
-    out[i, :, n:] = 0
+  ``rows[i]`` starting at ``offsets[i]``, zero past the packed row's end
+  (the JAX package pads the stack along T and slices). One gather on
+  device index tensors of the pack bucket's size: no host read, a fixed
+  shape."""
+  l_, _, t, _, _ = kv.shape
+  device = kv.device
+  rows = rows.to(device, torch.long)
+  idx = (offsets.to(device, torch.long)[:, None] +
+         torch.arange(t_cache, device=device))                 # (R, t_cache)
+  layers = torch.arange(l_, device=device)
+  out = kv.permute(1, 0, 2, 3, 4)[rows[:, None, None], layers[None, :, None],
+                                  idx.clamp(max=t - 1)[:, None, :]]
+  out.masked_fill_((idx >= t)[:, None, :, None, None], 0)
   return out
 
 
@@ -185,26 +181,27 @@ def prefill_fn(spec: LMSpec):
 
   ``packed`` is the (B_pack, 3, T) stack from packing.pack_prompts on the
   module's device; ``rows``, ``last_pos`` and ``offsets`` are (B_pack,)
-  int32 HOST tensors: request i sits in packed row ``rows[i]`` at
-  ``offsets[i]`` and ends at ``last_pos[i]``. Returns each request's first
-  greedy token (computed from the fused head's hidden rows at its last
-  position only) and its per-layer K/V span (B_pack, L, T, H, Dh). Spans
-  are stale-inclusive: positions past a prompt hold its packed neighbour's
-  K/V until decode overwrites them, which the ``slot <= pos`` mask makes
-  invisible."""
+  int32 tensors (moved to the module's device): request i sits in packed
+  row ``rows[i]`` at ``offsets[i]`` and ends at ``last_pos[i]``. Returns
+  each request's first greedy token (computed from the fused head's hidden
+  rows at its last position only) and its per-layer K/V span (B_pack, L,
+  T, H, Dh). Spans are stale-inclusive: positions past a prompt hold its
+  packed neighbour's K/V until decode overwrites them, which the ``slot <=
+  pos`` mask makes invisible. Padding entries give spans too; the install
+  drops them. Fixed shapes and device indices throughout, so the prefill
+  is one CUDA graph a pack bucket."""
   t_cache = spec.max_len
 
   @torch.no_grad()
   def prefill(module, packed, rows, last_pos, offsets):
     head, _aux, (kst, vst) = module(packed, return_kv=True)
     device = head.hidden.device
-    hidden = head.hidden[rows.to(device, torch.long),
-                         last_pos.to(device, torch.long)]       # (R, D)
+    rows = rows.to(device, torch.long)
+    hidden = head.hidden[rows, last_pos.to(device, torch.long)]  # (R, D)
     logits = hidden @ head.kernel.to(spec.dtype)                 # (R, V)
     first = torch.argmax(logits, dim=-1).to(torch.int32)
-    rows_l, offs_l = rows.tolist(), offsets.tolist()
-    return first, _spans(kst, rows_l, offs_l, t_cache), \
-        _spans(vst, rows_l, offs_l, t_cache)
+    return first, _spans(kst, rows, offsets, t_cache), \
+        _spans(vst, rows, offsets, t_cache)
 
   return prefill
 
@@ -212,18 +209,26 @@ def prefill_fn(spec: LMSpec):
 def install_prefill(cache: CacheState, ek, ev, first, lengths,
                     slots) -> CacheState:
   """Scatter prefilled spans into their decode slots, in place, and return
-  the cache. ``slots`` and ``lengths`` are (B_pack,) int32 host tensors;
-  padding entries carry an out-of-range slot (the bucket) and are dropped
-  here (the JAX package's ``mode="drop"``; torch raises on such an
-  index)."""
-  keep = torch.nonzero(slots < cache.k.shape[1]).flatten()
+  the cache. ``slots`` and ``lengths`` are (B_pack,) int32 tensors (moved
+  to the cache's device); padding entries carry an out-of-range slot (at
+  least the cache's row count) and are dropped, as the JAX package's
+  ``mode="drop"`` drops them: each repeats entry 0's write, so every index
+  is in range and the duplicate writes carry equal values. Entry 0 is a
+  request whenever the wave has one (the engine places requests first); a
+  wave of padding alone would write entry 0's span into the last row, so
+  the engine's rings keep a spare last row that its padding entries name.
+  Fixed shapes and device indices: no host read."""
   device = cache.k.device
-  dst = slots[keep].to(device, torch.long)
-  src = keep.to(device)
+  b = cache.k.shape[1]
+  slots = slots.to(device, torch.long)
+  n = slots.shape[0]
+  src = torch.where(slots < b, torch.arange(n, device=device),
+                    torch.zeros_like(slots))
+  dst = slots[src].clamp(max=b - 1)
   cache.k[:, dst] = ek[src].transpose(0, 1).to(cache.k.dtype)
   cache.v[:, dst] = ev[src].transpose(0, 1).to(cache.v.dtype)
-  cache.pos[dst] = lengths[keep].to(device, torch.int32)
-  cache.tok[dst] = first[src]
+  cache.pos[dst] = lengths.to(device, torch.int32)[src]
+  cache.tok[dst] = first.to(device)[src]
   return cache
 
 

@@ -6,11 +6,20 @@ variants, and the ``/metrics`` endpoint, are not ported yet):
 
 * **Bounded program set** -- decode and prefill run only at bucket-ladder
   batch widths (default 1/4/16/64/256). Each (program, bucket) is one
-  prepared callable, made once, run once on dummy inputs when it is made
+  prepared program, made once and cached: run once on its dummy inputs
   (the first kernel launch builds the kernels; cuBLAS and the caching
-  allocator warm up) and cached; that first run's wall time lands in the
-  run trace's compile ledger, keyed on ``config_fingerprint_key``. At most
-  ``len(ladder)`` callables exist per program family.
+  allocator warm up) and, on the card, then captured as a CUDA graph that
+  every later call replays -- the counterpart of the JAX engine's
+  compiled program per (program, bucket). The preparation's wall time
+  (first run and capture) lands in the run trace's compile ledger, keyed
+  on ``config_fingerprint_key``. At most ``len(ladder)`` programs exist per
+  family. The graphs share one memory pool, and every program works on one
+  set of static device buffers: the K/V rings of the top bucket plus a
+  spare row (the decode bucket b runs on their first b rows; prefill
+  padding installs into the spare row), the slots' ``pos``/``tok``/
+  ``active`` vectors, and each pack bucket's input stack and index
+  vectors. On the CPU, where the caller asked for it, the programs run
+  eagerly on the same buffers.
 * **Continuous in-flight batching** -- freed slots refill from the queue
   every decode step (``batching='continuous'``); ``'static'`` admits a
   wave, decodes it to completion and only then admits again.
@@ -26,6 +35,11 @@ Timing: TTFT and token latency are read on the engine's clock once a
 program's values have reached the host. On the card the fetch of the next
 tokens (``.cpu()``) is the synchronisation, as ``np.asarray(nxt)`` is in the
 JAX engine; the loop adds no ``torch.cuda.synchronize()``.
+
+Memory: a slot's bf16 K+V ring at the zoo LM's size is 2 x 6 layers x 2048
+x 512 x 2 B = 24 MiB; the shared rings hold the top bucket's 256 slots and
+the spare, 6.0 GiB (a ring per bucket of the default ladder would be 341
+slots, 8.0 GiB).
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import torch
 from kf_benchmarks_tpu_torch import metrics as metrics_lib
 from kf_benchmarks_tpu_torch import tracing as tracing_lib
 from kf_benchmarks_tpu_torch.data import packing as packing_lib
+from kf_benchmarks_tpu_torch.ops import graphs
 from kf_benchmarks_tpu_torch.serving import decode as decode_lib
 
 DEFAULT_BUCKET_LADDER = (1, 4, 16, 64, 256)
@@ -133,7 +148,9 @@ class ServingEngine:
   Synchronous: callers drive it with ``submit`` + ``drain`` or
   ``replay(workload)`` (wall-clock arrival offsets). ``variables`` is the
   served module's state_dict (default: ``init_variables(spec, seed)``);
-  ``device`` is the card unless the caller asks for the CPU.
+  ``device`` is the card unless the caller asks for the CPU. On the card
+  the programs are CUDA graphs; ``_eager_programs=True`` (not a flag: for a
+  comparison of the two) runs the same programs eagerly there.
   """
 
   _SLO_BURN_KEYS = {
@@ -146,10 +163,15 @@ class ServingEngine:
   def __init__(self, config: EngineConfig, variables=None, seed: int = 0,
                time_fn: Callable[[], float] = time.monotonic,
                sleep_fn: Callable[[float], None] = time.sleep,
-               recorder=None, device="cuda"):
+               recorder=None, device="cuda", _eager_programs: bool = False):
     self.cfg = config
     self.spec = config.spec
     self.device = torch.device(device)
+    self._graphs = self.device.type == "cuda" and not _eager_programs
+    self._pool = None            # the graphs' shared memory pool
+    self._ring: Optional[decode_lib.CacheState] = None
+    self._active_buf: Optional[torch.Tensor] = None
+    self._prefill_bufs: Dict[int, Dict[str, torch.Tensor]] = {}
     self._time = time_fn
     self._sleep = sleep_fn
     self.variables = (variables if variables is not None
@@ -299,47 +321,92 @@ class ServingEngine:
 
   # -- prepared programs (the bounded set) -------------------------------------
 
-  def _prepare(self, kind: str, bucket: int, fn: Callable,
-               dummy_args: Tuple) -> Callable:
-    """Run ``fn`` once on dummy inputs of the bucket's shapes and record
-    that run's wall time (kernel builds and first-use set-up included) in
-    the compile ledger. The value fetch ends the run."""
+  def _ring_state(self) -> decode_lib.CacheState:
+    """The static rings and slot vectors: the top bucket's rows plus a
+    spare last row."""
+    if self._ring is None:
+      rows = self.cfg.bucket_ladder[-1] + 1
+      self._ring = decode_lib.init_cache(self.spec, rows, self.device)
+      self._active_buf = torch.zeros(rows, dtype=torch.bool,
+                                     device=self.device)
+    return self._ring
+
+  def _bucket_view(self, bucket: int) -> decode_lib.CacheState:
+    ring = self._ring_state()
+    return decode_lib.CacheState(k=ring.k[:, :bucket], v=ring.v[:, :bucket],
+                                 pos=ring.pos[:bucket], tok=ring.tok[:bucket])
+
+  def _prepare(self, kind: str, bucket: int, fn: Callable) -> Callable:
+    """Run ``fn`` once on its dummy inputs and, on the card, capture it as
+    a CUDA graph; record the wall time of both (kernel builds and
+    first-use set-up included) in the compile ledger. Returns the callable
+    that runs the program: the graph's replay, returning its captured
+    outputs, or ``fn`` itself. A failed capture raises."""
     key = config_fingerprint_key(self.cfg.fingerprint_config(bucket, kind),
                                  program=kind)
     t0 = time.monotonic()
-    fn(*dummy_args)[0].cpu()
+    if not self._graphs:
+      fn()
+      exe = fn
+    else:
+      graphs.on_side_stream(fn)
+      graph = graphs.Graph(fn, pool=self._pool)
+      self._pool = graph.pool()
+
+      def exe():
+        graph.replay()
+        return graph.outputs
+    if self.device.type == "cuda":
+      torch.cuda.synchronize(self.device)
     tracing_lib.active().note_compile(key, kind, time.monotonic() - t0,
-                                      bucket=bucket)
-    return fn
+                                      bucket=bucket,
+                                      captured=self._graphs)
+    return exe
 
   def _decode_exe(self, bucket: int) -> Callable:
     if bucket not in self._decode_exes:
       step = decode_lib.decode_fn(self.spec)
       module = self.module
-      fn = lambda *args: step(module, *args)
-      dummy = decode_lib.init_cache(self.spec, bucket, self.device)
+      view = self._bucket_view(bucket)
+      active = self._active_buf[:bucket]
+      # Dummy run: no slot active, so tokens and positions stay; each
+      # slot's ring write is the one its next real step makes.
+      active.fill_(False)
       self._decode_exes[bucket] = self._prepare(
-          "serving_decode", bucket, fn,
-          (dummy.k, dummy.v, dummy.pos, dummy.tok,
-           torch.ones(bucket, dtype=torch.bool, device=self.device)))
+          "serving_decode", bucket,
+          lambda: step(module, view.k, view.v, view.pos, view.tok, active))
     return self._decode_exes[bucket]
 
-  def _prefill_exe(self, bucket: int) -> Callable:
-    # Keyed on the PACK bucket (the wave's size), independent of the decode
-    # bucket.
+  def _prefill_exe(self, bucket: int) -> Tuple[Callable,
+                                               Dict[str, torch.Tensor]]:
+    """The prefill-and-install program of a PACK bucket (the wave's size,
+    independent of the decode bucket) and its input buffers."""
     if bucket not in self._prefill_exes:
       prefill = decode_lib.prefill_fn(self.spec)
       module = self.module
-      fn = lambda *args: prefill(module, *args)
-      packed = torch.zeros((bucket, 3, self.spec.max_len), dtype=torch.int32,
-                           device=self.device)
-      idx = torch.zeros(bucket, dtype=torch.int32)
-      self._prefill_exes[bucket] = self._prepare(
-          "serving_prefill", bucket, fn, (packed, idx, idx, idx))
-    return self._prefill_exes[bucket]
+      ring = self._ring_state()
+      idx = lambda: torch.zeros(bucket, dtype=torch.int32, device=self.device)
+      bufs = {"packed": torch.zeros((bucket, 3, self.spec.max_len),
+                                    dtype=torch.int32, device=self.device),
+              "rows": idx(), "last_pos": idx(), "offsets": idx(),
+              "lengths": idx(),
+              # Dummy run: every entry padding, into the spare row.
+              "slots": idx().fill_(ring.k.shape[1] - 1)}
+
+      def program():
+        first, ek, ev = prefill(module, bufs["packed"], bufs["rows"],
+                                bufs["last_pos"], bufs["offsets"])
+        decode_lib.install_prefill(ring, ek, ev, first, bufs["lengths"],
+                                   bufs["slots"])
+        return first
+
+      self._prefill_bufs[bucket] = bufs
+      self._prefill_exes[bucket] = self._prepare("serving_prefill", bucket,
+                                                 program)
+    return self._prefill_exes[bucket], self._prefill_bufs[bucket]
 
   def warm(self, buckets: Optional[Sequence[int]] = None) -> int:
-    """Prepare the decode and prefill callables for ``buckets`` (default:
+    """Prepare the decode and prefill programs for ``buckets`` (default:
     the whole ladder) before serving, so the first wave's TTFT measures
     the system and not first-use set-up. Returns how many were made."""
     n = 0
@@ -357,20 +424,20 @@ class ServingEngine:
     return sum(1 for s in self._slots if s is not None)
 
   def _ensure_bucket(self, target: int) -> None:
+    """Grow the decode batch up the ladder: the bucket's rows of the
+    shared rings (new slots are empty until a prefill installs them)."""
     want = bucket_for(target, self.cfg.bucket_ladder)
     if want <= self._bucket:
       return
-    if self._cache is None:
-      self._cache = decode_lib.init_cache(self.spec, want, self.device)
-    else:
-      self._cache = decode_lib.grow_cache(self._cache, self.spec, want)
+    self._cache = self._bucket_view(want)
     self._slots.extend([None] * (want - self._bucket))
     self._bucket = want
     metrics_lib.active().set("serving/decode_bucket", want)
 
   def _maybe_shrink(self) -> None:
     """Compact the decode batch DOWN the ladder when occupancy fits a
-    strictly lower bucket; an empty engine drops its cache."""
+    strictly lower bucket; an empty engine drops its bucket (the rings
+    stay, for the prepared programs)."""
     if self._bucket == 0:
       return
     active_idx = [i for i, s in enumerate(self._slots) if s is not None]
@@ -383,14 +450,17 @@ class ServingEngine:
     target = bucket_for(len(active_idx), self.cfg.bucket_ladder)
     if target >= self._bucket:
       return
-    # Pad rows duplicate slot 0's cache; they carry active=False, so their
-    # contents are never read and their writes land on the pad row only.
+    # The active slots move to the first rows, in order. Pad rows duplicate
+    # slot 0's cache; they carry active=False, so their contents are never
+    # read and their writes land on the pad row only.
     keep = torch.tensor(active_idx + [0] * (target - len(active_idx)),
                         dtype=torch.long, device=self.device)
-    cache = self._cache
-    self._cache = decode_lib.CacheState(
-        k=cache.k[:, keep], v=cache.v[:, keep], pos=cache.pos[keep],
-        tok=cache.tok[keep])
+    ring = self._ring_state()
+    ring.k[:, :target] = ring.k[:, keep]
+    ring.v[:, :target] = ring.v[:, keep]
+    ring.pos[:target] = ring.pos[keep]
+    ring.tok[:target] = ring.tok[keep]
+    self._cache = self._bucket_view(target)
     self._slots = ([self._slots[i] for i in active_idx]
                    + [None] * (target - len(active_idx)))
     self._bucket = target
@@ -430,28 +500,28 @@ class ServingEngine:
       self._queue.appendleft(req)
     if not placed:
       return
-    rows = np.zeros((pack_bucket,), np.int32)
-    offsets = np.zeros((pack_bucket,), np.int32)
-    last_pos = np.zeros((pack_bucket,), np.int32)
-    lengths = np.zeros((pack_bucket,), np.int32)
-    slots = np.full((pack_bucket,), self._bucket, np.int32)  # pad: dropped
+    exe, bufs = self._prefill_exe(pack_bucket)
+    host = {"packed": packed_np,
+            "rows": np.zeros((pack_bucket,), np.int32),
+            "offsets": np.zeros((pack_bucket,), np.int32),
+            "last_pos": np.zeros((pack_bucket,), np.int32),
+            "lengths": np.zeros((pack_bucket,), np.int32),
+            # Padding entries install into the rings' spare row.
+            "slots": np.full((pack_bucket,), self._ring_state().k.shape[1] - 1,
+                             np.int32)}
     for i, (req, prm, (row, off)) in enumerate(placed):
-      rows[i], offsets[i] = row, off
-      lengths[i] = prm.size
-      last_pos[i] = off + prm.size - 1
-      slots[i] = free[i]
-    exe = self._prefill_exe(pack_bucket)
+      host["rows"][i], host["offsets"][i] = row, off
+      host["lengths"][i] = prm.size
+      host["last_pos"][i] = off + prm.size - 1
+      host["slots"][i] = free[i]
     trace = tracing_lib.active()
     with trace.span("serving", "prefill", requests=len(placed),
                     bucket=pack_bucket):
-      first, ek, ev = exe(torch.from_numpy(packed_np).to(self.device),
-                          torch.from_numpy(rows), torch.from_numpy(last_pos),
-                          torch.from_numpy(offsets))
-      self._cache = decode_lib.install_prefill(
-          self._cache, ek, ev, first, torch.from_numpy(lengths),
-          torch.from_numpy(slots))
-      del ek, ev
-      first_np = first.cpu().numpy()  # the value fetch = completion
+      for name, value in host.items():
+        bufs[name].copy_(torch.from_numpy(value))
+      first = exe()
+      # The value fetch = completion.
+      first_np = first[:len(placed)].cpu().numpy()
     now = self._time()
     for i, (req, _prm, _place) in enumerate(placed):
       ttft = self._note_first_token(req, now)
@@ -466,11 +536,9 @@ class ServingEngine:
     """One batched decode step; updates the cache in place and returns the
     sampled tokens."""
     exe = self._decode_exe(self._bucket)
-    cache = self._cache
-    active = torch.from_numpy(active_np).to(self.device)
-    nxt, k, v, pos = exe(cache.k, cache.v, cache.pos, cache.tok, active)
+    self._active_buf[:self._bucket].copy_(torch.from_numpy(active_np))
+    nxt, _, _, _ = exe()
     nxt_np = nxt.cpu().numpy()  # the value fetch = completion
-    self._cache = decode_lib.CacheState(k=k, v=v, pos=pos, tok=nxt)
     self._decode_steps += 1
     reg = metrics_lib.active()
     reg.inc("serving/decode_steps")

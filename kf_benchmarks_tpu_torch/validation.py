@@ -71,6 +71,7 @@ def validate_cross_flags(params) -> None:
   validate_optimizer_flags(params)
   validate_data_parallel_flags(params)
   validate_elastic_flags(params)
+  validate_dispatch_flags(params)
   if params.attn_block:
     if params.model != "transformer_lm":
       raise ParamError(
@@ -232,6 +233,70 @@ def validate_elastic_flags(p) -> None:
         f"--worker_hosts with --num_devices={p.num_devices}: a worker is "
         "one rank driving one device (cluster.py); launch one process a "
         "device (kfrun -np N) with --num_devices=1")
+
+
+def validate_dispatch_flags(p) -> None:
+  """--steps_per_dispatch and --num_grad_accum (the JAX package's rules and
+  messages, validation.py:259-311), and the combination a captured step
+  cannot hold."""
+  if (p.steps_per_dispatch or 1) > 1:
+    if p.eval:
+      raise ParamError("--steps_per_dispatch > 1 applies to training "
+                       "only; it cannot be combined with --eval")
+    if p.forward_only:
+      raise ParamError("--steps_per_dispatch > 1 applies to training "
+                       "only; it cannot be combined with --forward_only")
+    if (p.variable_update == "parameter_server" and
+        not p.cross_replica_sync and p.optimizer != "sgd"):
+      # The port's narrowing: the sequential apply reads and resets the
+      # optimizer's step counts on the host between its n applications, so
+      # a graph captured at one step would replay that step's counts.
+      raise ParamError(
+          "--steps_per_dispatch > 1 cannot be combined with async "
+          "parameter_server (--cross_replica_sync=false) and a stateful "
+          f"--optimizer={p.optimizer}: its sequential apply sets the "
+          "optimizer's step counts from the host between applications, "
+          "which a captured step cannot replay")
+  m = p.num_grad_accum or 1
+  if m > 1:
+    if p.eval:
+      raise ParamError("--num_grad_accum > 1 applies to training only; "
+                       "it cannot be combined with --eval")
+    if p.forward_only:
+      raise ParamError("--num_grad_accum > 1 applies to training only; "
+                       "it cannot be combined with --forward_only")
+    if p.batch_size and p.batch_size % m:
+      raise ParamError(
+          f"--num_grad_accum={m} must divide --batch_size="
+          f"{p.batch_size}: the step splits each per-device batch into "
+          "M equal microbatches (a ragged tail microbatch would change "
+          "the gradient weighting silently)")
+    if p.variable_update == "parameter_server" and not p.cross_replica_sync:
+      raise ParamError(
+          "--num_grad_accum > 1 cannot be combined with async "
+          "parameter_server (--cross_replica_sync=false): the "
+          "sequential-apply path consumes each replica's UNAVERAGED "
+          "per-batch gradient (train_step.py sequential_apply); an "
+          "accumulated mean-of-microbatches gradient would silently "
+          "change what each of its n optimizer applications sees. Use "
+          "a synchronous --variable_update with accumulation")
+    if p.adaptive_batch_size:
+      raise ParamError(
+          "--num_grad_accum > 1 cannot be combined with "
+          "--adaptive_batch_size: the policy re-picks the per-device "
+          "batch mid-run and cannot guarantee divisibility by M")
+
+
+def check_grad_accum_divides(num_grad_accum: int, batch_size: int,
+                             model_name: str) -> None:
+  """The divisibility rule against the resolved per-device batch (a model
+  default is known only once the model is built; JAX benchmark.py:
+  384-391)."""
+  if num_grad_accum > 1 and batch_size % num_grad_accum:
+    raise ParamError(
+        f"--num_grad_accum={num_grad_accum} must divide the per-device "
+        f"batch size {batch_size} (model default for {model_name}); pass "
+        "a divisible --batch_size")
 
 
 def validate_data_parallel_flags(p) -> None:

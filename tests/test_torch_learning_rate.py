@@ -96,3 +96,32 @@ def test_piecewise_parse_matches_jax():
   values, bounds = jax_lr.parse_piecewise_schedule("1;3;0.5;10;0.25")
   got_v, got_b = port_lr.parse_piecewise_schedule("1;3;0.5;10;0.25")
   assert got_v == list(values) and got_b == list(bounds)
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_device_form_is_the_jax_rate(branch, workers):
+  """The device form (a 0-d f32 count in, a 0-d f32 rate out, which the
+  train step and its CUDA-graph replay read) is the JAX package's f32 rate
+  bitwise at every step, and within two f32 ulps of the host form, which
+  evaluates the same formulas in Python floats."""
+  import torch
+  flags = BRANCHES[branch]
+  jm = jax_resnet.ResnetModel("resnet50_v1.5", (3, 4, 6, 3))
+  pm = port_resnet.ResnetModel("resnet50_v1.5", (3, 4, 6, 3))
+  ref_fn = jax_lr.make_learning_rate_fn(
+      jax_params.make_params(**flags), jm, BATCH, EXAMPLES, workers)
+  got_fn = port_lr.make_learning_rate_fn(
+      port_params.make_params(**flags), pm,
+      port_lr.effective_batch_size(BATCH, workers, True), EXAMPLES)
+  last = int(3 * EXAMPLES / (BATCH * workers)) + 2
+  ref = np.array([np.float32(ref_fn(s)) for s in range(last)])
+  device = []
+  for s in range(last):
+    rate = got_fn(torch.tensor(float(s)))
+    assert rate.dtype == torch.float32 and rate.shape == ()
+    device.append(rate.item())
+  device = np.array(device, np.float32)
+  host = np.array([got_fn(s) for s in range(last)], np.float32)
+  np.testing.assert_array_equal(device, ref)
+  assert np.all(np.abs(device - host) <= 2 * np.spacing(np.abs(host)))

@@ -232,3 +232,43 @@ def test_loss_scale_resolution_matches_jax():
     p = port_params.make_params(device="cpu", **flags)
     assert port_train_step.loss_scale_settings(p) == (scale, auto), flags
   assert model.get_fp16_loss_scale() == _setup()[2].get_fp16_loss_scale()
+
+
+def test_loss_scale_state_lives_on_the_device(monkeypatch):
+  """The auto-scaled step decides its skip on the device: the loss scale,
+  its count of clean steps and the update count are 0-d tensors on the
+  module's device, and four steps (three skipped, one applied, as in the
+  JAX trace above) run with every host read of a tensor refused -- the
+  condition for capturing the step as a CUDA graph -- ending bitwise where
+  the same steps end with host reads allowed."""
+  images, labels, _, variables = _setup()
+  x = torch.from_numpy(images)
+  y = torch.from_numpy(labels).long()
+  runs = []
+  for refuse in (False, True):
+    model, module = tp.port_module(variables)
+    p = port_params.make_params(device="cpu", **FLAGS)
+    step = port_train_step.TrainStep(
+        model, module, port_optimizers.get_optimizer(p, module.parameters()),
+        port_lr.make_learning_rate_fn(p, model, BATCH, EXAMPLES),
+        WEIGHT_DECAY, loss_scale=2.0 ** 127, auto_loss_scale=True,
+        inc_loss_scale_every_n=2)
+    for t in (step._loss_scale, step._normal_steps, step._update_count):
+      assert t.shape == () and t.device == x.device
+    with monkeypatch.context() as m:
+      if refuse:
+        def no_host_read(*_a, **_k):
+          raise AssertionError("a host read inside the step")
+        for name in ("item", "tolist", "__float__", "__int__", "__bool__"):
+          m.setattr(torch.Tensor, name, no_host_read)
+      metrics = [step(x, y) for _ in range(4)]
+    runs.append((metrics, _port_state(module, step.optimizer),
+                 step.counters()))
+  (ref_m, ref_state, ref_counters), (got_m, got_state, got_counters) = runs
+  assert [float(m["loss_scale"]) for m in got_m] == \
+      [2.0 ** 126, 2.0 ** 125, 2.0 ** 124, 2.0 ** 124]
+  assert got_counters == ref_counters and got_counters["update_count"] == 1
+  for a, b in zip(ref_m, got_m):
+    assert all(torch.equal(a[k], b[k]) for k in a)
+  for a, b in zip(ref_state, got_state):
+    assert all(torch.equal(u, v) for u, v in zip(a, b))

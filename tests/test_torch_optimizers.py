@@ -152,7 +152,7 @@ def _port_run(model, variables, images, labels, flags, examples):
   for _ in range(STEPS):
     m = step(x, y)
     losses.append(float(m["total_loss"]))
-    rates.append(m["learning_rate"])
+    rates.append(float(m["learning_rate"]))
   assert len(set(rates)) > 1  # the rate did change
   params = {}
   for key, q in module.named_parameters():

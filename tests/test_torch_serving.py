@@ -674,3 +674,134 @@ def test_flash_in_f32_on_the_card_is_refused(monkeypatch):
 
 def test_launch_counts_name_the_decode_kernels():
   assert "flash_decode" in fa.LAUNCHES
+
+
+# -- the fixed-shape prefill gathers and install scatters ----------------------
+#
+# The loop versions below are the port's _spans and install_prefill before
+# they became fixed-shape device programs (host lists, torch.nonzero), kept
+# here as the reference the rewrite must equal.
+
+def _loop_spans(kv, rows, offsets, t_cache):
+  l_, _, t, h, dh = kv.shape
+  out = kv.new_empty((len(rows), l_, t_cache, h, dh))
+  for i, (row, off) in enumerate(zip(rows, offsets)):
+    n = min(t - off, t_cache)
+    out[i, :, :n] = kv[:, row].narrow(1, off, n)
+    out[i, :, n:] = 0
+  return out
+
+
+def _loop_install(cache, ek, ev, first, lengths, slots):
+  keep = torch.nonzero(slots < cache.k.shape[1]).flatten()
+  dst = slots[keep].long()
+  cache.k[:, dst] = ek[keep].transpose(0, 1).to(cache.k.dtype)
+  cache.v[:, dst] = ev[keep].transpose(0, 1).to(cache.v.dtype)
+  cache.pos[dst] = lengths[keep].to(torch.int32)
+  cache.tok[dst] = first[keep]
+  return cache
+
+
+def _padded_wave(bucket=8):
+  """_prefill_args at a pack bucket of 8: three requests, then padding
+  entries whose rows and offsets are arbitrary (one span runs off the
+  packed row's end) and whose slots are out of range."""
+  images, rows, last_pos, offsets, lengths, slots = _prefill_args(bucket)
+  rng = np.random.default_rng(3)
+  n = len(PROMPTS)
+  rows[n:] = rng.integers(0, bucket, bucket - n)
+  offsets[n:] = rng.integers(0, TINY["max_len"], bucket - n)
+  last_pos[n:] = offsets[n:]
+  slots[n:] = 4 + rng.integers(0, 5, bucket - n)  # >= the cache's 4 rows
+  return images, rows, last_pos, offsets, lengths, slots
+
+
+def test_fixed_shape_spans_equal_the_loop_and_jax(tiny):
+  jspec, pspec, variables, state, _ = tiny
+  images, rows, last_pos, offsets, lengths, slots = _padded_wave()
+  module = port_decode.load_module(pspec, state, "cpu")
+  with torch.no_grad():
+    _, _, (kst, vst) = module(torch.from_numpy(images), return_kv=True)
+  for kv in (kst, vst):
+    got = port_decode._spans(kv, torch.from_numpy(rows),
+                             torch.from_numpy(offsets), pspec.max_len)
+    want = _loop_spans(kv, rows.tolist(), offsets.tolist(), pspec.max_len)
+    assert torch.equal(got, want)
+  assert (offsets > 0).any()  # a span that runs off its row's end
+  jfirst, jek, jev = jax.jit(jax_decode.prefill_fn(jspec))(
+      variables, *(jnp.asarray(a) for a in (images, rows, last_pos,
+                                             offsets)))
+  first, ek, ev = port_decode.prefill_fn(pspec)(
+      module, *(torch.from_numpy(a) for a in (images, rows, last_pos,
+                                               offsets)))
+  np.testing.assert_array_equal(first.numpy(), np.asarray(jfirst))
+  for got, ref in ((ek, jek), (ev, jev)):
+    assert got.shape == ref.shape == (8, 2, 16, 4, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_fixed_shape_install_drops_padding_as_jax_does(tiny):
+  jspec, pspec, _, _, _ = tiny
+  _, _, _, _, lengths, slots = _padded_wave()
+  rng = np.random.default_rng(4)
+  shape = (8, 2, 16, 4, 8)
+  ek, ev = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+  first = rng.integers(0, TINY["vocab"], 8).astype(np.int32)
+  args = [torch.from_numpy(a) for a in (ek, ev, first, lengths, slots)]
+
+  def filled():
+    cache = port_decode.init_cache(pspec, 4, "cpu")
+    for t in cache:
+      t.copy_(torch.arange(t.numel()).reshape(t.shape).to(t.dtype))
+    return cache
+
+  got = port_decode.install_prefill(filled(), *args)
+  want = _loop_install(filled(), *args)
+  for a, b in zip(got, want):
+    assert torch.equal(a, b)
+  init = filled()
+  jcache = jax_decode.install_prefill(
+      jax_decode.CacheState(*(jnp.asarray(t.numpy()) for t in init)),
+      *(jnp.asarray(a) for a in (ek, ev, first, lengths, slots)))
+  for a, b in zip(got, jcache):
+    np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+  # The fourth row had no request: untouched.
+  assert torch.equal(got.k[:, 3], init.k[:, 3])
+
+
+def test_decode_step_updates_its_buffers_in_place(tiny):
+  """decode_fn writes the sampled tokens and advanced positions into the
+  bucket's own tok and pos (a captured graph's static buffers) and returns
+  them; inactive slots keep theirs."""
+  _, pspec, _, state, _ = tiny
+  module = port_decode.load_module(pspec, state, "cpu")
+  cache = port_decode.init_cache(pspec, 2, "cpu")
+  cache.tok.copy_(torch.tensor([5, 9], dtype=torch.int32))
+  cache.pos.copy_(torch.tensor([3, 7], dtype=torch.int32))
+  active = torch.tensor([True, False])
+  with torch.no_grad():
+    logits, _ = module.decode(cache.tok.clone(), cache.k.clone(),
+                              cache.v.clone(), cache.pos.clone())
+  tok, k, v, pos = port_decode.decode_fn(pspec)(
+      module, cache.k, cache.v, cache.pos, cache.tok, active)
+  assert tok is cache.tok and pos is cache.pos and k is cache.k
+  assert int(tok[0]) == int(logits[0, 0].argmax()) and int(tok[1]) == 9
+  assert pos.tolist() == [4, 7]
+
+
+def test_engine_shares_one_ring_with_a_spare_row(tiny):
+  """The prepared programs work on one static ring of the top bucket plus a
+  spare row: every bucket's cache is a view of its first rows, and a
+  wave's padding lands in the spare row only."""
+  eng = _port_engine(tiny[3], ladder=(1, 2, 4))
+  for i, prm in enumerate(_prompts(3)):
+    eng.submit(port_engine.Request(rid=i, prompt=prm))
+  eng.drain()
+  ring = eng._ring
+  assert ring.k.shape[1] == 5 and eng._prefill_bufs
+  for bucket, bufs in eng._prefill_bufs.items():
+    assert bufs["slots"].shape == (bucket,)
+  view = eng._bucket_view(2)
+  assert view.k.data_ptr() == ring.k.data_ptr() and view.k.shape[1] == 2
+  assert eng._graphs is False  # the CPU runs the programs eagerly
