@@ -10,7 +10,8 @@ Nesterov momentum and --variable_update=replicated on one CUDA card, and
 prints ONE JSON line with the keys of the JAX package's bench.py:
 {"metric", "value", "unit", "vs_baseline"}, plus "device" (the card's
 name and power limit as nvidia-smi reports them), "world_size",
-"steps_per_dispatch", "num_grad_accum", and, as bench.py has them,
+"steps_per_dispatch", "num_grad_accum", "shard_optimizer_state",
+"shard_params", "overlap_gradient_reduction", and, as bench.py has them,
 "compile_s" (host time of the first dispatch call: kernel builds, and at
 --steps_per_dispatch > 1 the CUDA-graph capture) and "dispatch_overhead_s"
 (mean host time of a timed dispatch call).
@@ -53,6 +54,13 @@ def main(argv=None) -> int:
   ap.add_argument("--steps_per_dispatch", type=int, default=1)
   ap.add_argument("--num_grad_accum", type=int, default=1)
   ap.add_argument("--device", default="gpu", choices=("gpu", "cpu"))
+  # The sharded state and the overlapped reduction (one card: no process
+  # group, so the collectives are skipped and the step's own sharded path
+  # runs at world 1).
+  ap.add_argument("--shard_optimizer_state", action="store_true")
+  ap.add_argument("--shard_params", action="store_true")
+  ap.add_argument("--overlap_gradient_reduction", action="store_true")
+  ap.add_argument("--reduce_bucket_mb", type=int, default=None)
   args = ap.parse_args(argv)
 
   import torch
@@ -73,7 +81,11 @@ def main(argv=None) -> int:
       use_fp16=args.device == "gpu", optimizer="momentum",
       variable_update="replicated",
       steps_per_dispatch=args.steps_per_dispatch,
-      num_grad_accum=args.num_grad_accum)
+      num_grad_accum=args.num_grad_accum,
+      shard_optimizer_state=args.shard_optimizer_state,
+      shard_params=args.shard_params,
+      overlap_gradient_reduction=args.overlap_gradient_reduction,
+      reduce_bucket_mb=args.reduce_bucket_mb)
   stats = benchmark.BenchmarkCNN(params).run()
   value = stats["images_per_sec"]
   print(json.dumps({
@@ -86,6 +98,9 @@ def main(argv=None) -> int:
       "world_size": stats["num_workers"],
       "steps_per_dispatch": stats["steps_per_dispatch"],
       "num_grad_accum": stats["num_grad_accum"],
+      "shard_optimizer_state": params.shard_optimizer_state,
+      "shard_params": params.shard_params,
+      "overlap_gradient_reduction": params.overlap_gradient_reduction,
       "compile_s": (round(stats["compile_s"], 3)
                     if stats["compile_s"] is not None else None),
       "dispatch_overhead_s": (round(stats["dispatch_overhead_s"], 6)

@@ -96,7 +96,21 @@ the run with a non-zero exit and no result line:
                 the time of one reduction of the full gradient set, per
                 tensor and packed (back-to-back CUDA events: the host paces
                 these many small collectives, so it is host time as much as
-                device time);
+                device time). The sharded and overlapped modes at world 1:
+                ResNet-50 under --shard_optimizer_state, under
+                --shard_optimizer_state --shard_params and under
+                --overlap_gradient_reduction (f32 wire), and transformer_lm
+                at its published size (batch 8, bf16, flash, Nesterov)
+                under --shard_optimizer_state --shard_params and under
+                --overlap_gradient_reduction, each held against its model's
+                single-device step, eager and as one captured dispatch:
+                bitwise, but the LM under FSDP with weight decay (its block
+                stack's L2 reassociated: losses and weights within
+                DP_FSDP_LM_RTOL); 13 + 13 K-A / K-B launches a ResNet step,
+                12 + 6 + 6 flash launches an LM step; each with its
+                images/sec (or sequences/sec) from 3 warmup + 8 timed
+                steps, the peak memory its build and checked steps add,
+                and its bucket count;
  14. zoo     -- BASELINE configs 4 and 5's models: BenchmarkCNN on
                 ResNet-152 v1.5 and on Inception-v3 (kungfu async_sgd, pair
                 averaging, world 1 over NCCL), batch 128, bf16, Nesterov,
@@ -1626,7 +1640,30 @@ DP_CASES = (
     ("collective_psum_32k_rsag",
      dict(variable_update="collective_all_reduce",
           all_reduce_spec="psum:32k:rsag"), 1e-2),
+    ("zero", dict(shard_optimizer_state=True), "bitwise"),
+    ("zero_fsdp", dict(shard_optimizer_state=True, shard_params=True),
+     "bitwise"),
+    # The f32 wire: the bf16 one (--compact_gradient_transfer under
+    # --use_fp16) rounds every gradient once, as the packed case above.
+    ("overlap", dict(overlap_gradient_reduction=True,
+                     compact_gradient_transfer=False), "bitwise"),
 )
+# The sharded and overlapped cases: their timed runs are short, and they
+# log their peak memory and buckets.
+DP_MODE_CASES = ("zero", "zero_fsdp", "overlap")
+DP_MODE_TIMED = dict(num_batches=8, num_warmup_batches=3)
+# transformer_lm at its published size (label, flags, check): the LM's FSDP
+# step sums its block stack's L2 shard-locally and all-reduces it (the JAX
+# package's _l2_loss_mixed), the exact value reassociated, so its losses
+# and weights are held within DP_FSDP_LM_RTOL relative (the CPU test of the
+# two-layer LM measures 9.6e-8 and 1.3e-8).
+DP_LM_CASES = (
+    ("lm_zero_fsdp", dict(shard_optimizer_state=True, shard_params=True),
+     "rtol"),
+    ("lm_overlap", dict(overlap_gradient_reduction=True,
+                        compact_gradient_transfer=False), "bitwise"),
+)
+DP_FSDP_LM_RTOL = 1e-6
 DP_STEPS = 3
 # At world 1 the all_reduce of one rank is exact, so the packed path's one
 # change is the bf16 wire: each gradient rounded to bf16 once, within the
@@ -1690,18 +1727,45 @@ def dp_params(**flags):
       **flags)
 
 
-def dp_steps(params):
+def dp_steps(params, info=None):
   """DP_STEPS steps of BenchmarkCNN's step from the seed: (losses, flat
-  weights, the module), with the kernel launches of those steps."""
+  weights (gathered under --shard_params), the module), with the kernel
+  launches of those steps. ``info`` (a dict) gets the peak memory the
+  build and the steps added to what was allocated before them, and the
+  step's bucket count."""
   from kf_benchmarks_tpu_torch import benchmark
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  # What earlier cases left allocated (communicator and graph-pool
+  # blocks) is not this case's.
+  base = torch.cuda.memory_allocated()
   module, step, images, labels = benchmark.BenchmarkCNN(params).build()
   before = benchmark.kernel_launches()
   losses = [float(step(images, labels)["total_loss"])
             for _ in range(DP_STEPS)]
   after = benchmark.kernel_launches()
   launched = {k: after[k] - before[k] for k in after}
-  weights = torch.cat([q.detach().reshape(-1) for q in module.parameters()])
+  if info is not None:
+    info["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    info["before_gib"] = base / 2**30
+    info["buckets"] = dp_buckets(step)
+  weights = torch.cat([q.reshape(-1) for q in step.full_weights()])
   return losses, weights, module, launched
+
+
+def dp_buckets(step):
+  """The buckets of the step's collectives: the in-backward reduction's,
+  or the FSDP gathers' (builder-layer buckets and blocks), or under ZeRO
+  alone its per-tensor scatters and gathers (the tensor count)."""
+  if step._reducer is not None:
+    return len(step._reducer.buckets)
+  if step.sharding is None:
+    return 0
+  if step.sharding.shard_params:
+    return len(step.sharding.buckets) + len(step.sharding.block_buckets)
+  return len(step.sharding.shards)
 
 
 def dp_chunk_steps(params):
@@ -1715,8 +1779,7 @@ def dp_chunk_steps(params):
   before = benchmark.kernel_launches()
   losses = chunk(images, labels, DP_STEPS)["total_loss"].tolist()
   after = benchmark.kernel_launches()
-  weights = torch.cat([q.detach().reshape(-1)
-                       for q in step.module.parameters()])
+  weights = torch.cat([q.reshape(-1) for q in step.full_weights()])
   return losses, weights, {k: after[k] - before[k] for k in after}
 
 
@@ -1744,7 +1807,8 @@ def phase_dp(res):
   from kf_benchmarks_tpu_torch.ops import allreduce, conv_bn
   from kf_benchmarks_tpu_torch.parallel import kungfu, mesh
   check(not mesh.is_distributed(), "dp: a process group is already up")
-  ref_losses, ref_weights, _, launched = dp_steps(dp_params())
+  ref_info = {}
+  ref_losses, ref_weights, _, launched = dp_steps(dp_params(), ref_info)
   check_dp_launches("single-device", launched, DP_STEPS)
   ref_ips = dp_images_per_sec(dp_params())["images_per_sec"]
   log(f"dp: single-device (no process group): losses {ref_losses}, "
@@ -1754,13 +1818,14 @@ def phase_dp(res):
   total_steps = 0
   for label, flags, want in DP_CASES:
     params = dp_params(**flags)
+    info = {}
     mesh.init_process_group("gpu", 1, 0, mesh.local_init_method())
     try:
       check(dist.get_backend() == "nccl", "dp: the group is not NCCL")
       wire_errors = []
       with (packed_wire_errors(wire_errors) if want != "bitwise"
             else contextlib.nullcontext()):
-        losses, weights, module, launched = dp_steps(params)
+        losses, weights, module, launched = dp_steps(params, info)
       if want != "bitwise":
         out[f"{label}_packed_wire"] = check_packed_wire(label, wire_errors,
                                                         DP_STEPS)
@@ -1808,6 +1873,8 @@ def phase_dp(res):
     log(f"dp {label}: NCCL world 1, losses {losses}: {verdict} against "
         "the single-device step")
     check(ok, f"dp {label}: differs from the single-device step")
+    if label in DP_MODE_CASES:
+      params = params._replace(**DP_MODE_TIMED)
     before = benchmark.kernel_launches()
     stats = cli.rank_main(0, params, mesh.local_init_method())
     after = benchmark.kernel_launches()
@@ -1819,17 +1886,100 @@ def phase_dp(res):
     ips = stats["images_per_sec"]
     log(f"dp {label}: {ips:.2f} images/sec ({ips / ref_ips:.4f} of the "
         f"single-device run's {ref_ips:.2f}), num_workers "
-        f"{stats['num_workers']}")
-    out[label] = {"images_per_sec": ips, "losses": losses}
+        f"{stats['num_workers']}, peak memory of its build and checked "
+        f"steps {info['peak_gib']:.3f} GiB above {info['before_gib']:.3f} "
+        f"(single device {ref_info['peak_gib']:.3f}), buckets "
+        f"{info['buckets']}")
+    out[label] = {"images_per_sec": ips, "losses": losses, **info}
+  total_lm = phase_dp_lm(out)
   counts = benchmark.kernel_launches()
   res.setdefault("counts_by_path", {})["dp"] = counts
   for name in conv_bn.LAUNCHES:
     check(counts[name] == 13 * total_steps,
           f"dp: {name} launched {counts[name]} times in {total_steps} "
           "steps, want 13 a step")
-  log(f"dp: kernel launches {counts} over {total_steps} steps of "
-      f"{len(DP_CASES)} strategies")
+  for name, per_step in LM_LAUNCHES.items():
+    check(counts[name] == per_step * total_lm,
+          f"dp: {name} launched {counts[name]} times in {total_lm} LM "
+          f"steps, want {per_step} a step")
+  log(f"dp: kernel launches {counts} over {total_steps} ResNet-50 steps "
+      f"of {len(DP_CASES)} strategies and {total_lm} LM steps of "
+      f"{len(DP_LM_CASES)} modes")
   res["dp"] = out
+
+
+def phase_dp_lm(out):
+  """transformer_lm at its published size (flash attention) under the
+  DP_LM_CASES at world 1 over NCCL, against its single-device step: eager
+  and as one captured dispatch, the launches of each run, then a short
+  timed run. Returns the LM steps run."""
+  import torch.distributed as dist
+  from kf_benchmarks_tpu_torch import cli
+  from kf_benchmarks_tpu_torch.models import transformer_lm as lm
+  from kf_benchmarks_tpu_torch.parallel import mesh
+  total = 0
+  with lm_attention("flash"):
+    base = dict(optimizer="momentum", num_batches=8, num_warmup_batches=3,
+                display_every=10)
+    ref_info = {}
+    ref_losses, ref_weights, _, launched = dp_steps(lm_params(**base),
+                                                    ref_info)
+    check_launches("dp lm single-device", launched, LM_LAUNCHES, DP_STEPS)
+    total += DP_STEPS
+    ref_sps = dp_images_per_sec(lm_params(**base))
+    total += ref_sps["steps_run"]
+    ref_sps = ref_sps["images_per_sec"]
+    log(f"dp lm: single-device: losses {ref_losses}, {ref_sps:.2f} "
+        f"sequences/sec, peak memory of its build and checked steps "
+        f"{ref_info['peak_gib']:.3f} GiB")
+    out["lm_single_device"] = {"sequences_per_sec": ref_sps, **ref_info}
+    for label, flags, want in DP_LM_CASES:
+      params = lm_params(**base, **flags)
+      info = {}
+      mesh.init_process_group("gpu", 1, 0, mesh.local_init_method())
+      try:
+        check(dist.get_backend() == "nccl", "dp: the group is not NCCL")
+        losses, weights, _, launched = dp_steps(params, info)
+        check_launches(f"dp {label}", launched, LM_LAUNCHES, DP_STEPS)
+        c_losses, c_weights, c_launched = dp_chunk_steps(params)
+        check_launches(f"dp {label} captured", c_launched, LM_LAUNCHES,
+                       DP_STEPS)
+        captured_ok = c_losses == losses and torch.equal(c_weights, weights)
+        log(f"dp {label}: the {DP_STEPS} steps as one K={DP_STEPS} "
+            f"dispatch: losses {c_losses}, "
+            f"{'bitwise equal' if captured_ok else 'DIFFERENT'} against the "
+            "eager steps")
+        check(captured_ok, f"dp {label}: the captured steps differ")
+        del c_weights
+      finally:
+        mesh.destroy_process_group()
+      total += 2 * DP_STEPS
+      if want == "bitwise":
+        ok = losses == ref_losses and torch.equal(weights, ref_weights)
+        verdict = "bitwise equal" if ok else "DIFFERENT"
+      else:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        w_rel = float((weights - ref_weights).norm() / ref_weights.norm())
+        ok = rel <= DP_FSDP_LM_RTOL and w_rel <= DP_FSDP_LM_RTOL
+        verdict = (f"losses within {rel:.3g} and weights within "
+                   f"{w_rel:.3g} relative (tol {DP_FSDP_LM_RTOL:g})")
+      del weights
+      log(f"dp {label}: NCCL world 1, losses {losses}: {verdict} against "
+          "the single-device step")
+      check(ok, f"dp {label}: differs from the single-device step")
+      stats = cli.rank_main(0, params, mesh.local_init_method())
+      check(not mesh.is_distributed(), "dp: rank_main left its group up")
+      check(np.isfinite(stats["last_average_loss"]), "dp: loss not finite")
+      total += stats["steps_run"]
+      sps = stats["images_per_sec"]
+      log(f"dp {label}: {sps:.2f} sequences/sec ({sps / ref_sps:.4f} of "
+          f"the single-device run's {ref_sps:.2f}; "
+          f"{sps * lm.SEQ_LEN:.0f} tokens/sec), peak memory of its build and "
+          f"checked steps {info['peak_gib']:.3f} GiB above "
+          f"{info['before_gib']:.3f} (single device "
+          f"{ref_info['peak_gib']:.3f}), buckets {info['buckets']}")
+      out[label] = {"sequences_per_sec": sps, "losses": losses, **info}
+  return total
 
 
 # -- the zoo: ResNet-152 and Inception-v3 (BASELINE configs 4 and 5) ------------

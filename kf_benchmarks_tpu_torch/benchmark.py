@@ -48,6 +48,13 @@ CUDA-graph replay a step), shortened so that none crosses a step-keyed
 save, eval or elastic check (``dispatch_len``); M splits each step's batch
 into microbatches inside the step.
 
+Sharded state and the overlapped reduction (--shard_optimizer_state,
+--shard_params, --overlap_gradient_reduction): ``build`` makes this rank's
+shards (ops/sharded.py) before the optimizer, which steps on them, and
+hands them and the bucket spec (ops/overlap.py) to the train step; the
+checkpoints hold the shard stacks, and mid-training eval reads the
+weights gathered.
+
 Timing: the device runs asynchronously. The warmup ends in a
 ``torch.cuda.synchronize()``; in the timed loop each dispatch's metrics are
 read two dispatches later through utils/pipeline.py, whose read-arrival
@@ -76,6 +83,8 @@ from kf_benchmarks_tpu_torch.data import datasets
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.ops import conv_bn
 from kf_benchmarks_tpu_torch.ops import flash_attention
+from kf_benchmarks_tpu_torch.ops import overlap
+from kf_benchmarks_tpu_torch.ops import sharded
 from kf_benchmarks_tpu_torch.parallel import kungfu
 from kf_benchmarks_tpu_torch.parallel import mesh
 from kf_benchmarks_tpu_torch.parallel import strategies
@@ -283,7 +292,11 @@ class BenchmarkCNN:
     if p.forward_only:
       step = train_step_lib.EvalStep(self.model, module)
     else:
-      opt = optimizers.get_optimizer(p, module.parameters())
+      # Under --shard_optimizer_state the optimizer steps on this rank's
+      # shards (and under --shard_params they become the weights' storage).
+      sharding = sharded.build(p, module, self.num_grad_accum)
+      opt = optimizers.get_optimizer(
+          p, module.parameters() if sharding is None else sharding.shards)
       lr_fn = learning_rate.make_learning_rate_fn(
           p, self.model, learning_rate.effective_batch_size(
               self.batch_size, self.world_size, self.strategy.cross_replica),
@@ -297,7 +310,8 @@ class BenchmarkCNN:
           inc_loss_scale_every_n=p.fp16_inc_loss_scale_every_n,
           print_accuracy=p.print_training_accuracy,
           single_l2_loss_op=p.single_l2_loss_op,
-          num_grad_accum=self.num_grad_accum)
+          num_grad_accum=self.num_grad_accum, sharding=sharding,
+          overlap=overlap.build(p))
     t_restore = None
     if snapshot is None and p.train_dir:
       t_restore = time.time()
@@ -312,7 +326,7 @@ class BenchmarkCNN:
         restored_step = checkpoint.restore_model(module, snapshot)
       else:
         step.global_step = restored_step = checkpoint.restore_state(
-            module, step.optimizer, snapshot)
+            module, step.optimizer, snapshot, step.sharding)
         step.restore_counters(snapshot)
       _sync(self.device)
     if t_restore is not None:
@@ -346,7 +360,7 @@ class BenchmarkCNN:
         self.params.train_dir,
         checkpoint.savable_state(module, step.optimizer, step.global_step,
                                  self.input_incarnation + incarnation_bump,
-                                 step.counters()),
+                                 step.counters(), step.sharding),
         self.params.max_ckpts_to_keep)
     self.checkpoint_save_s.append(time.time() - t0)
     log_fn(f"Saved checkpoint at global step {step.global_step} in "
@@ -360,7 +374,7 @@ class BenchmarkCNN:
     snapshot = checkpoint.savable_state(module, step.optimizer,
                                         step.global_step,
                                         self.input_incarnation,
-                                        step.counters())
+                                        step.counters(), step.sharding)
     self.input_incarnation += 1
     self.batch_size = batch_per_device
     self.model.set_batch_size(batch_per_device)
@@ -668,7 +682,8 @@ class BenchmarkCNN:
       if eval_due:
         # Mid-training eval and the early stop (JAX benchmark.py:
         # 1655-1672; ref: benchmark_cnn.py:2310-2324).
-        acc = train_step_lib.EvalStep(self.model, module)(images, labels)
+        acc = train_step_lib.EvalStep(
+            self.model, module, full_params=step.full_params)(images, labels)
         top1 = float(acc["top_1_accuracy"])
         top5 = float(acc["top_5_accuracy"])
         eval_results.append({"step": i, "top_1_accuracy": top1,

@@ -19,9 +19,21 @@ directory can be moved. Pruning keeps ``max_ckpts_to_keep`` files. A file
 that does not load (a copy cut short, a truncated disk) is skipped with a
 warning at restore; if no file loads, ``CheckpointNotFoundException``.
 
-The sharded layouts of the JAX package (``_reshard``, ``_deshard_params``,
-``_restack``) wait for the sharded optimizer state (ROADMAP Queue 1
-item 6).
+Sharded state (JAX checkpoint.py:71-115, :266-360, :418-526): under
+--shard_optimizer_state the optimizer state's rows are per-rank 1/n
+shards, not copies, so the snapshot holds the FULL ``(n, k)`` stacks (a
+0-d state value, Adam's count, as ``(n,)``), gathered for rank 0 by one
+all-gather of every rank's rows, and is marked ``opt_state_layout:
+sharded``. Under --shard_params the parameters' entries are ``(n, k)``
+stacks too (``params_layout: sharded``); the batch-norm averages stay
+whole. A restore re-slices the stacks onto the live world size
+(``_reshard``: both are the zero-padded row-major flatten of the same
+tensor, so only zero pad is ever cut or added) and refuses a snapshot of
+the other layout with the JAX package's messages; the weights-only
+restore of evaluation deshards an FSDP snapshot (``_deshard_params``).
+The port keeps each transformer block's tensors as their own entries, so
+every stack is 2-D; the JAX package's ``_restack`` (the replica
+broadcast) has no counterpart, the module holds one copy.
 """
 
 from __future__ import annotations
@@ -66,15 +78,36 @@ def _to_cpu(tree):
 
 def savable_state(module: nn.Module, optimizer: torch.optim.Optimizer,
                   global_step: int, input_incarnation: int = 0,
-                  counters: Optional[Dict] = None) -> Dict:
+                  counters: Optional[Dict] = None, sharding=None) -> Dict:
   """A host-side snapshot of this rank's training state; ``counters``
   (the train step's ``counters()``: update count and loss-scale state)
-  go in beside the step."""
-  return {"step": int(global_step),
+  go in beside the step. With ``sharding`` (the train step's
+  ops/sharded.ShardedState) the optimizer state, and under FSDP the
+  parameters, are the stacks of every rank's rows: a collective, which
+  every rank calls."""
+  snap = {"step": int(global_step),
           "model": _to_cpu(module.state_dict()),
           "optimizer": _to_cpu(optimizer.state_dict()),
           "input_incarnation": int(input_incarnation),
           **(counters or {})}
+  if sharding is None:
+    return snap
+  opt = optimizer.state_dict()
+  keys = [(i, name) for i in sorted(opt["state"])
+          for name, v in sorted(opt["state"][i].items())
+          if isinstance(v, torch.Tensor)]
+  rows = [opt["state"][i][name] for i, name in keys]
+  if sharding.shard_params:
+    rows = list(sharding.shards) + rows
+  stacks = sharding.stacks(rows)
+  if sharding.shard_params:
+    snap["model"].update(zip(sharding.names, stacks[:len(sharding.names)]))
+    stacks = stacks[len(sharding.names):]
+    snap["params_layout"] = "sharded"
+  for (i, name), stack in zip(keys, stacks):
+    snap["optimizer"]["state"][i][name] = stack
+  snap["opt_state_layout"] = "sharded"
+  return snap
 
 
 def save_checkpoint(train_dir: str, snapshot: Dict,
@@ -174,19 +207,105 @@ def load_latest_checkpoint(train_dir: str):
 
 
 def restore_state(module: nn.Module, optimizer: torch.optim.Optimizer,
-                  snapshot: Dict) -> int:
+                  snapshot: Dict, sharding=None) -> int:
   """Loads a snapshot into the module (strictly: every key, every shape)
   and the optimizer; returns the snapshot's global step. The tensors land
-  on the module's own device."""
-  module.load_state_dict(snapshot["model"])
-  optimizer.load_state_dict(snapshot["optimizer"])
+  on the module's own device. With ``sharding`` the snapshot must be
+  sharded too; its stacks are re-sliced onto the live world size and
+  this rank's rows land in the shards and the optimizer state."""
+  snap_sharded = snapshot.get("opt_state_layout") == "sharded"
+  if snap_sharded != (sharding is not None):
+    run = "sharded" if sharding is not None else "replicated"
+    raise ValueError(
+        f"checkpoint opt_state layout is "
+        f"{'sharded' if snap_sharded else 'replicated'} but the run's "
+        f"is {run}: --shard_optimizer_state checkpoints only resume "
+        "sharded runs of the same topology (pass restore_opt_state=False "
+        "to warm-start model variables only)")
+  snap_fsdp = snapshot.get("params_layout") == "sharded"
+  run_fsdp = sharding is not None and sharding.shard_params
+  if snap_fsdp != run_fsdp:
+    raise ValueError(
+        f"checkpoint params layout is "
+        f"{'sharded (FSDP)' if snap_fsdp else 'replicated'} but the "
+        f"run's is {'sharded (FSDP)' if run_fsdp else 'replicated'}"
+        ": --shard_params checkpoints only resume --shard_params runs "
+        "(and vice versa) -- re-run with the matching flag (eval "
+        "restores, restore_opt_state=False, de-shard automatically)")
+  if sharding is None:
+    module.load_state_dict(snapshot["model"])
+    optimizer.load_state_dict(snapshot["optimizer"])
+    return int(snapshot["step"])
+  model = snapshot["model"]
+  if run_fsdp:
+    if set(model) != set(module.state_dict()):
+      raise KeyError(f"checkpoint entries {sorted(set(model))} are not the "
+                     f"module's {sorted(module.state_dict())}")
+    with torch.no_grad():
+      for name, s in zip(sharding.names, sharding.shards):
+        s.copy_(_reshard(model[name], sharding.n, s.numel())[sharding.rank])
+      for name, b in module.named_buffers():
+        b.copy_(model[name])
+  else:
+    module.load_state_dict(model)
+    sharding.reslice()
+  opt = dict(snapshot["optimizer"])
+  opt["state"] = {
+      i: {name: (_reshard(v, sharding.n, sharding.shards[i].numel())
+                 [sharding.rank] if isinstance(v, torch.Tensor) else v)
+          for name, v in st.items()}
+      for i, st in snapshot["optimizer"]["state"].items()}
+  optimizer.load_state_dict(opt)
   return int(snapshot["step"])
+
+
+def _reshard(stack: torch.Tensor, n: int, k: int) -> torch.Tensor:
+  """A saved stack onto ``n`` ranks of ``k``-element shards: an ``(m, j)``
+  row stack flattens back to its zero-padded vector, is cut (only pad is
+  ever cut: ``n * ceil(size / n) >= size``) or zero-padded to ``n * k``
+  and reshaped ``(n, k)``; an ``(m,)`` stack of a 0-d value (identical on
+  every rank) becomes ``(n,)`` of its row 0. Exact: no value is
+  recomputed, only re-addressed."""
+  if stack.dim() == 1:
+    return stack[:1].expand(n).clone()
+  if stack.dim() != 2:
+    raise ValueError(
+        f"sharded state leaf shape {tuple(stack.shape)} cannot be "
+        f"resliced onto live {(n, k)}: only stacked (n, k) shard rows and "
+        "(n,) per-shard scalars have a defined cross-topology layout "
+        "(ops/sharded.py)")
+  flat = stack.reshape(-1)
+  if n * k <= flat.numel():
+    flat = flat[:n * k]
+  else:
+    flat = torch.cat([flat, flat.new_zeros(n * k - flat.numel())])
+  return flat.reshape(n, k)
+
+
+def _deshard_params(module: nn.Module, model: Dict) -> Dict:
+  """An FSDP snapshot's entries with each parameter's ``(n, k)`` stack
+  re-assembled to the module's full shape (concat the rows, cut the pad,
+  restore the shape); the batch-norm averages as they are."""
+  out = dict(model)
+  for name, p in module.named_parameters():
+    h = model[name]
+    if h.dim() != 2:
+      raise ValueError(
+          f"FSDP param leaf shape {tuple(h.shape)} cannot de-shard onto "
+          f"the full shape {tuple(p.shape)}: only (n, k) stacks have a "
+          "defined layout (ops/sharded.py)")
+    out[name] = h.reshape(-1)[:p.numel()].reshape(p.shape)
+  return out
 
 
 def restore_model(module: nn.Module, snapshot: Dict) -> int:
   """The model-only restore of evaluation (the JAX package's
   ``restore_opt_state=False``, benchmark.py:2200-2201): the weights and
   batch-norm averages alone, so the evaluating process's optimizer flags
-  need not match the trainer's. Returns the snapshot's global step."""
-  module.load_state_dict(snapshot["model"])
+  need not match the trainer's; an FSDP snapshot is desharded. Returns
+  the snapshot's global step."""
+  model = snapshot["model"]
+  if snapshot.get("params_layout") == "sharded":
+    model = _deshard_params(module, model)
+  module.load_state_dict(model)
   return int(snapshot["step"])

@@ -3,8 +3,8 @@
 The port's counterpart of kf_benchmarks_tpu/models/transformer_lm.py: the
 training branch of ``_Block`` (:169-207) with its ``return_kv`` outputs,
 the dense-ring decode branch (:139-168), ``_TransformerLMModule.__call__``
-(:276-384) and ``_decode_call`` (:386-451) without the paged, FSDP and
-overlap hooks, and ``TransformerLMModel``. Pre-LN blocks, learned
+(:276-384) and ``_decode_call`` (:386-451) without the paged branch, and
+``TransformerLMModel``. Pre-LN blocks, learned
 positions, one Dense(3d) for q, k and v, the fused chunked LM head
 (ops/fused_loss.py). The forward and the decode step share every parameter,
 so one module (and one weight bridge, convert.py) serves both.
@@ -23,6 +23,15 @@ package):
   ``torch.utils.checkpoint`` (the JAX package's ``nn.remat`` per scanned
   block; the backward recomputes the block); ``loop``: no checkpoint.
 
+The scan layout's block stack is the flax tree's ``blocks`` prefix
+(``stacked_prefixes``), which the data-parallel modes treat block by
+block, as the JAX package's hooks inside its ``nn.scan`` do:
+--overlap_gradient_reduction reduces each block's gradients as one bucket
+(ops/overlap.py), and --shard_params sets ``block_hook``, which runs a
+block on the parameters of one gather of its shards inside the block's
+checkpoint region, so the backward's recompute gathers it again
+(ops/overlap.py ``fsdp_block_gatherer``).
+
 Precision follows flax's ``dtype=``/``param_dtype=`` split: parameters are
 f32; each Dense casts its input and parameters to the compute dtype; the
 LayerNorms compute in f32 (eps 1e-6) and the block casts back; the
@@ -32,6 +41,7 @@ tanh approximation (flax's ``nn.gelu`` default).
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -203,6 +213,16 @@ class TransformerLM(nn.Module):
     self.ln_f = LayerNorm(d_model)
     self.lm_head = nn.Parameter(torch.empty(d_model, vocab))
     _lecun_normal_(self.lm_head, d_model, g)
+    # hook(l, x, seg) -> x in place of blocks[l](x, seg) in the training
+    # forward's checkpoint regions (the FSDP per-block gather), or None.
+    self.block_hook = None
+
+  @property
+  def stacked_prefixes(self):
+    """The flax tree's top-level keys whose leaves stack the layers:
+    ``blocks`` in the scan layout, none in the loop layout (whose
+    ``block_<l>`` keys are builder layers like any other)."""
+    return ("blocks",) if self.scan_layers else ()
 
   def forward(self, tokens: torch.Tensor, return_kv: bool = False):
     """``return_kv``: also return the stacked per-layer K and V projections,
@@ -217,13 +237,15 @@ class TransformerLM(nn.Module):
            else self.pos_embedding[positions.long()])
     x = x + pos.to(self.dtype)
     ks, vs = [], []
-    for block in self.blocks:
+    for i, block in enumerate(self.blocks):
       if return_kv:
         x, k, v = block(x, seg, return_kv=True)
         ks.append(k)
         vs.append(v)
       elif self.scan_layers and torch.is_grad_enabled():
-        x = checkpoint.checkpoint(block, x, seg, use_reentrant=False,
+        run = (block if self.block_hook is None
+               else functools.partial(self.block_hook, i))
+        x = checkpoint.checkpoint(run, x, seg, use_reentrant=False,
                                   preserve_rng_state=False)
       else:
         x = block(x, seg)

@@ -25,9 +25,10 @@ Mapping from --variable_update:
   collective_all_reduce, distributed_all_reduce
                          the --all_reduce_spec planner
   kungfu                 --kungfu_option: sync_sgd, async_sgd, sma
-
-``--shard_optimizer_state`` (ZeRO/FSDP) is not ported (ROADMAP Queue 1
-item 6).
+  --shard_optimizer_state the sharded family (replicated and
+                         parameter_server): ZeRO / FSDP, whose gradient
+                         reduction, apply and gather are the step's own
+                         (ops/sharded.py)
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ class Strategy:
   # the learning rate is then the global batch).
   cross_replica = False
   sequential_apply = False
+  sharded_state = False
 
   def __init__(self, params=None):
     self.params = params
@@ -140,6 +142,23 @@ class AsyncParameterServerStrategy(ReplicatedStrategy):
       dist.all_reduce(g, op=dist.ReduceOp.SUM)
 
 
+class ShardedOptimizerStrategy(ReplicatedStrategy):
+  """ZeRO / FSDP sharded optimizer state (--shard_optimizer_state [+
+  --shard_params]): the port's rendering of the reference's central
+  variable placement (variable_mgr.py:201-243), where the "server" is the
+  1/n state shard each rank owns. A marker: the reduce-scatter, the shard
+  apply and the gather live in the train step and ops/sharded.py. The
+  batch-norm statistics stay replicated (the inherited mean)."""
+
+  name = "parameter_server(sharded)"
+  sharded_state = True
+
+  def reduce_gradients(self, grads: Tensors) -> None:
+    raise NotImplementedError(
+        "sharded-state gradient reduction is the step's reduce-scatter "
+        "(train_step.py + ops/sharded.py), not a strategy hook")
+
+
 class CollectiveAllReduceStrategy(ReplicatedStrategy):
   """The --all_reduce_spec planner's reduction."""
 
@@ -195,6 +214,10 @@ class KungFuStrategy(Strategy):
 def get_strategy(params) -> Strategy:
   """The strategy of --variable_update (and its companion flags)."""
   vu = params.variable_update
+  if params.shard_optimizer_state:
+    # validation.py admits it only in the synchronous replicated /
+    # parameter_server family, which the sharded strategy subsumes.
+    return ShardedOptimizerStrategy(params)
   if vu == "independent":
     return IndependentStrategy(params)
   if vu == "kungfu":

@@ -3,8 +3,10 @@
 A subset of kf_benchmarks_tpu/params.py (ref: benchmark_cnn.py:114-636):
 the CNN zoo of models/model_config.py and transformer_lm training,
 forward-only inference and evaluation on synthetic data, with the JAX
-package's optimizers, learning-rate policy and loss scaling, on one card or data-parallel over torch.distributed
-(spawned ranks, or kfrun workers joined through --worker_hosts), with
+package's optimizers, learning-rate policy and loss scaling, on one card or
+data-parallel over torch.distributed (spawned ranks, or kfrun workers
+joined through --worker_hosts; optionally with sharded optimizer state,
+sharded parameters or the overlapped reduction), with
 checkpoints, elastic resize and the adaptive batch size, and the
 transformer_lm serving bench (serving/bench.py). Names, defaults and
 meanings follow the JAX package (the serving bench's ``--serving_requests``,
@@ -128,6 +130,63 @@ flags.DEFINE_boolean("compact_gradient_transfer_f32", False,
                      "bit-identical to the f32 wire). Requires "
                      "--compact_gradient_transfer and a packed reduction "
                      "path.")
+flags.DEFINE_boolean("shard_optimizer_state", False,
+                     "ZeRO-shard the optimizer state over the ranks "
+                     "(Rajbhandari et al.): gradients meet in a "
+                     "reduce-scatter of the mean (bitwise the replicated "
+                     "all-reduce mean at two ranks), the optimizer applies "
+                     "on each rank's 1/n flat state shard only, and the "
+                     "updated params all-gather for the next forward -- "
+                     "per-rank optimizer memory drops to ~|state|/n (the "
+                     "port's rendering of the reference's central variable "
+                     "placement, variable_mgr.py:201-243; ops/sharded.py). "
+                     "Synchronous replicated/parameter_server family only; "
+                     "composes with --steps_per_dispatch and "
+                     "--num_grad_accum; exclusions in validation.py.")
+flags.DEFINE_boolean("shard_params", False,
+                     "Full FSDP (ZeRO-3, Rajbhandari et al.): params live "
+                     "as 1/n flat shards between steps (the same (n, k) "
+                     "layout as the sharded optimizer state) and the step "
+                     "re-assembles them per builder-layer bucket / per "
+                     "transformer block INSIDE the forward/backward with "
+                     "one packed all-gather each (ops/overlap.py "
+                     "GatherParams; the bucket bound is --reduce_bucket_mb, "
+                     "default 4 MiB), so between steps per-rank param "
+                     "memory is |params|/n and the sharded path's trailing "
+                     "all-gather is gone. Gradients arrive reduce-scattered "
+                     "by the gather's backward (per element the post-hoc "
+                     "scatter). Requires --shard_optimizer_state "
+                     "(elementwise-optimizer family, same exclusions; "
+                     "validation.py); under --num_grad_accum the in-step "
+                     "gathers disengage (one whole-tree gather per step, "
+                     "like the overlap hooks' accumulation rule).")
+flags.DEFINE_boolean("overlap_gradient_reduction", False,
+                     "Overlap gradient communication with backward "
+                     "compute: size-bounded gradient buckets "
+                     "(--reduce_bucket_mb) each reduce as one collective "
+                     "issued IN the backward pass (post-accumulate-grad "
+                     "hooks at layer boundaries; per block for the "
+                     "transformer's scanned block stack), so layer L's "
+                     "all-reduce runs while layer L-1's backward is still "
+                     "computing -- the pipelining the reference's chunked "
+                     "batch_allreduce/--gradient_repacking existed for "
+                     "(ref: batch_allreduce.py:391-481). f32 wire "
+                     "gradients stay bit-identical to the post-hoc path "
+                     "(ops/overlap.py). Replicated-family "
+                     "--variable_update only; under --num_grad_accum the "
+                     "reduction stays post-hoc on the accumulated "
+                     "gradients; exclusive with the "
+                     "spec/repacking/small-grad/hierarchical reducers "
+                     "(validation.py).")
+flags.DEFINE_integer("reduce_bucket_mb", None,
+                     "Gradient-reduction bucket bound in MiB for "
+                     "--overlap_gradient_reduction, and the gather bucket "
+                     "bound of --shard_params (default 4): leaves group at "
+                     "builder-layer granularity and merge into buckets of "
+                     "at most this size, one collective per bucket "
+                     "(ops/overlap.py; the granularity lever the "
+                     "reference's --gradient_repacking chunk count turned, "
+                     "ref :499-502).", lower_bound=1)
 flags.DEFINE_boolean("hierarchical_copy", False,
                      "Hierarchical copy: each gradient reduced on its own "
                      "(on the bf16 wire under --use_fp16), by one "

@@ -41,6 +41,26 @@ divided by M once; the losses and accuracies reported are the means over
 the microbatches. One reduction, one loss-scale decision and one
 optimizer apply follow.
 
+Sharded state (``sharding``, ops/sharded.py; train_step.py:185-262,
+:410-480 and :640-725 of the JAX package): under --shard_optimizer_state
+(ZeRO) the optimizer steps on this rank's flat shards; the gradients reach
+them by reduce-scatter of the mean after the backward, and the updated
+shards are all-gathered into the module's parameters. Under --shard_params
+(FSDP) the shards are the parameters' only storage: the forward reads
+them gathered bucket by bucket, and the gather's backward reduce-scatters
+the gradients onto them; nothing is gathered after the update. With M > 1
+the whole tree is gathered once and the accumulated gradient scattered
+after the microbatches. The finite check runs on the shards (the same MAX
+all-reduce), and a skipped step keeps the shards and their optimizer
+state. Weight decay over a scanned block stack under FSDP is the
+shard-local sum of squares plus one all-reduce: the exact value,
+reassociated (the JAX package's ``_l2_loss_mixed``).
+
+Overlapped reduction (``overlap``, ops/overlap.py): the gradients are
+reduced bucket by bucket by hooks inside the backward, and the strategy's
+post-hoc reduction is skipped; with M > 1 the hooks stand down and the
+reduction is post hoc on the accumulated gradients.
+
 ``TrainChunk`` runs up to K steps a dispatch (--steps_per_dispatch): on a
 CUDA device the step captured as a CUDA graph and replayed.
 
@@ -52,6 +72,7 @@ top-5 and the loss averaged over the ranks.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -62,8 +83,11 @@ from kf_benchmarks_tpu_torch import elastic
 from kf_benchmarks_tpu_torch import optimizers
 from kf_benchmarks_tpu_torch.models import builder
 from kf_benchmarks_tpu_torch.ops import graphs
+from kf_benchmarks_tpu_torch.ops import overlap as overlap_lib
+from kf_benchmarks_tpu_torch.ops import sharded as sharded_lib
 from kf_benchmarks_tpu_torch.ops.conv_bn import accum
 from kf_benchmarks_tpu_torch.parallel import mesh
+from kf_benchmarks_tpu_torch.utils import log as log_util
 
 
 def is_batch_norm_param(name: str) -> bool:
@@ -79,8 +103,12 @@ def l2_loss(module: nn.Module, single_op: bool = False) -> torch.Tensor:
   """0.5 * sum of squares over the non-BN parameters, in f32
   (tf.nn.l2_loss semantics, train_step.py:78-94). ``single_op``
   (--single_l2_loss_op) concatenates them first."""
-  leaves = [accum(p) for name, p in module.named_parameters()
-            if not is_batch_norm_param(name)]
+  return _l2([p for name, p in module.named_parameters()
+              if not is_batch_norm_param(name)], single_op)
+
+
+def _l2(leaves: List[torch.Tensor], single_op: bool) -> torch.Tensor:
+  leaves = [accum(leaf) for leaf in leaves]
   if not leaves:
     return torch.zeros(())
   if single_op:
@@ -88,6 +116,23 @@ def l2_loss(module: nn.Module, single_op: bool = False) -> torch.Tensor:
     return 0.5 * torch.sum(flat * flat)
   return 0.5 * torch.stack([torch.sum(torch.square(leaf))
                             for leaf in leaves]).sum()
+
+
+def l2_loss_mixed(module: nn.Module, sharding, single_op: bool = False
+                  ) -> torch.Tensor:
+  """``l2_loss`` under FSDP for a module whose block stack is gathered
+  block by block (train_step.py:96-125 of the JAX package): the gathered
+  leaves keep the exact formula; the block stack's shards sum their
+  squares on this rank and one all-reduce adds the ranks' sums (the pad
+  adds nothing) -- the exact value, reassociated."""
+  in_blocks = {i for b in sharding.block_buckets for i in b}
+  full = [p for i, (name, p) in enumerate(module.named_parameters())
+          if i not in in_blocks and not is_batch_norm_param(name)]
+  shards = [sharding.shards[i] for i in sorted(in_blocks)
+            if not is_batch_norm_param(sharding.names[i])]
+  local = 0.5 * torch.stack([torch.sum(torch.square(accum(s)))
+                             for s in shards]).sum()
+  return _l2(full, single_op) + sharded_lib.AllReduceSum.apply(local)
 
 
 def batch_stats(module: nn.Module) -> List[torch.Tensor]:
@@ -154,7 +199,9 @@ class TrainStep:
                loss_scale: float = 1.0, auto_loss_scale: bool = False,
                inc_loss_scale_every_n: int = 1000,
                print_accuracy: bool = False, single_l2_loss_op: bool = False,
-               num_grad_accum: int = 1):
+               num_grad_accum: int = 1,
+               sharding: Optional[sharded_lib.ShardedState] = None,
+               overlap: Optional[overlap_lib.OverlapSpec] = None):
     self.model = model
     self.module = module
     self.optimizer = optimizer
@@ -169,6 +216,20 @@ class TrainStep:
     self.print_accuracy = print_accuracy
     self.single_l2_loss_op = single_l2_loss_op
     self.num_grad_accum = max(1, int(num_grad_accum))
+    self.sharding = sharding
+    # The in-backward reduction's hooks (ops/overlap.py); they stand down
+    # under accumulation, where the reduction is post hoc.
+    self._reducer = (overlap_lib.reducer_for(module, overlap)
+                     if overlap is not None and self.num_grad_accum == 1
+                     else None)
+    if sharding is not None and sharding.block_buckets and weight_decay:
+      log_util.log_fn(
+          "shard_params: weight decay over the scanned parameter stack "
+          "['blocks'] reduces shard-locally + one all-reduce (full blocks "
+          "exist only one at a time inside the forward): exact L2 value, "
+          "reassociated -- total_loss is not bit-identical to the "
+          "replicated-param L2 on this model (pass --weight_decay=0 for "
+          "bit-exact A/Bs)")
     self.global_step = 0
     device = next(module.parameters()).device
     self._update_count = torch.zeros((), dtype=torch.int64, device=device)
@@ -236,13 +297,31 @@ class TrainStep:
     return metrics
 
   def _state_tensors(self) -> List[torch.Tensor]:
-    """What a skipped step keeps: the weights, the optimizer's state and
-    the batch-norm running averages."""
-    opt_state = [v for p in self.module.parameters()
-                 for v in self.optimizer.state[p].values()
+    """What a skipped step keeps: the weights (this rank's shards under
+    sharded state), the optimizer's state and the batch-norm running
+    averages."""
+    weights = [p for g in self.optimizer.param_groups for p in g["params"]]
+    opt_state = [v for p in weights for v in self.optimizer.state[p].values()
                  if isinstance(v, torch.Tensor)]
-    return ([p.detach() for p in self.module.parameters()] + opt_state +
+    return ([p.detach() for p in weights] + opt_state +
             batch_stats(self.module))
+
+  def full_params(self):
+    """A context in which the module's parameters read as their full
+    values (gathered from the shards under FSDP)."""
+    if self.sharding is None:
+      return contextlib.nullcontext()
+    return self.sharding.full_params(self.module)
+
+  def full_weights(self) -> List[torch.Tensor]:
+    """Copies of the module's full parameters, in module order."""
+    with self.full_params():
+      return [p.detach().clone() for p in self.module.parameters()]
+
+  def _l2_loss(self) -> torch.Tensor:
+    if self.sharding is not None and self.sharding.block_buckets:
+      return l2_loss_mixed(self.module, self.sharding, self.single_l2_loss_op)
+    return l2_loss(self.module, self.single_l2_loss_op)
 
   def run(self, images: torch.Tensor,
           labels: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -263,31 +342,37 @@ class TrainStep:
       kept = self._kept
       torch._foreach_copy_(kept, state)
     self.optimizer.zero_grad(set_to_none=True)
+    self.module.zero_grad(set_to_none=True)
+    strategy = self.strategy if mesh.is_distributed() else None
+    if self._reducer is not None and strategy is not None:
+      self._reducer.begin()
     m = self.num_grad_accum
     sums = None
     acc_keys = []
     parts = (zip(images.chunk(m), labels.chunk(m)) if m > 1
              else [(images, labels)])
-    for x, y in parts:
-      logits = self.module(x)
-      base_loss = self.model.loss_function(logits, y)
-      total_loss = base_loss
-      if self.weight_decay:
-        total_loss = total_loss + self.weight_decay * l2_loss(
-            self.module, self.single_l2_loss_op)
-      if self.use_loss_scale:
-        (total_loss * self._loss_scale).backward()
-      else:
-        total_loss.backward()
-      values = [base_loss.detach(), total_loss.detach()]
-      if self.print_accuracy:
-        with torch.no_grad():
-          acc = self.model.accuracy_function(logits, y)
-        acc_keys = [k for k in ("top_1_accuracy", "top_5_accuracy")
-                    if k in acc]
-        values += [acc[k] for k in acc_keys]
-      del logits
-      sums = values if sums is None else [a + b for a, b in zip(sums, values)]
+    with (self.sharding.step_params(self.module) if self.sharding is not None
+          else contextlib.nullcontext()):
+      for x, y in parts:
+        logits = self.module(x)
+        base_loss = self.model.loss_function(logits, y)
+        total_loss = base_loss
+        if self.weight_decay:
+          total_loss = total_loss + self.weight_decay * self._l2_loss()
+        if self.use_loss_scale:
+          (total_loss * self._loss_scale).backward()
+        else:
+          total_loss.backward()
+        values = [base_loss.detach(), total_loss.detach()]
+        if self.print_accuracy:
+          with torch.no_grad():
+            acc = self.model.accuracy_function(logits, y)
+          acc_keys = [k for k in ("top_1_accuracy", "top_5_accuracy")
+                      if k in acc]
+          values += [acc[k] for k in acc_keys]
+        del logits
+        sums = (values if sums is None
+                else [a + b for a, b in zip(sums, values)])
     if m > 1:
       # The means over the microbatches (JAX train_step.py:510-615).
       sums = [v / m for v in sums]
@@ -298,7 +383,6 @@ class TrainStep:
         self._lr.copy_(rate)
       else:
         self._lr.fill_(float(rate))
-      strategy = self.strategy if mesh.is_distributed() else None
       finite = self._update(strategy, metrics, images.shape[0])
       if finite is None:
         self._update_count.add_(1)
@@ -306,6 +390,8 @@ class TrainStep:
         _select_(finite, self._state_tensors(), kept)
         self._update_count.add_(finite.long())
         self._next_loss_scale(finite)
+      if self.sharding is not None:
+        self.sharding.after_update()
       if strategy is not None:
         sums = _mean_over_ranks(sums)
       metrics.update(zip(["base_loss", "total_loss"] + acc_keys, sums))
@@ -318,7 +404,22 @@ class TrainStep:
     """Average the accumulated gradients, unscale, reduce and apply them
     with the strategy's hooks (none without a process group). With the
     auto loss scale, returns the device flag of finite gradients (the
-    caller keeps the old state where it is false); else None."""
+    caller keeps the old state where it is false); else None. Under
+    sharded state the gradients and the apply are the shards'; under the
+    overlapped reduction the hooks have reduced the gradients."""
+    if self.sharding is not None:
+      grads = self.sharding.reduce_gradients(
+          self.num_grad_accum,
+          self._loss_scale if self.use_loss_scale else None)
+      finite = (self._all_finite(grads, strategy is not None)
+                if self.auto_loss_scale else None)
+      self._apply(grads)
+      if strategy is not None:
+        strategy.sync_batch_stats(batch_stats(self.module))
+      return finite
+    reduced = self._reducer is not None and self._reducer.active
+    if reduced:
+      self._reducer.finish()
     step = self.global_step
     params = [p for p in self.module.parameters() if p.grad is not None]
     grads = [p.grad for p in params]
@@ -330,7 +431,7 @@ class TrainStep:
         mesh.world_size() > 1):
       metrics["noise_scale_g2"], metrics["noise_scale_s"] = \
           elastic.noise_scale_stats(grads, batch_size)
-    if strategy is not None:
+    if strategy is not None and not reduced:
       strategy.reduce_gradients(grads)
     finite = None
     if self.auto_loss_scale:
@@ -383,22 +484,25 @@ class TrainStep:
     one all-gather of the flat gradients, then n optimizer steps at this
     step's rate. Each application sees the round's update count in the
     optimizer's state (Adam's bias correction), as the JAX package's
-    _sync_schedule_counts makes optax's counts. It reads those counts on
-    the host, so validation.py keeps it out of captured steps."""
+    _sync_schedule_counts makes optax's counts: each count is copied on
+    the device before the first application and copied back before each
+    later one, so nothing is read to the host and a captured step replays
+    the counts of the step it runs."""
     n = mesh.world_size()
     flat = torch.cat([p.grad.reshape(-1) for p in params])
     gathered = flat.new_empty(n * flat.numel())
     dist.all_gather_into_tensor(gathered, flat)
-    counts = {p: float(self.optimizer.state[p]["step"])
-              if "step" in self.optimizer.state.get(p, {}) else 0.0
-              for p in params}
+    counts = [(st["step"], st["step"].clone())
+              for st in (self.optimizer.state.get(p, {}) for p in params)
+              if "step" in st]
     for r in range(n):
       offset = r * flat.numel()
       for p in params:
         p.grad.copy_(gathered[offset:offset + p.numel()].view_as(p.grad))
         offset += p.numel()
-        if r and "step" in self.optimizer.state.get(p, {}):
-          self.optimizer.state[p]["step"].fill_(counts[p])
+      if r:
+        for count, before in counts:
+          count.copy_(before)
       self._apply([p.grad for p in params])
 
 
@@ -498,16 +602,21 @@ class EvalStep:
   and ``total_loss``), each the mean over the ranks, as tensors on the
   module's device. The module is back in training mode afterwards."""
 
-  def __init__(self, model, module: nn.Module):
+  def __init__(self, model, module: nn.Module,
+               full_params: Optional[Callable] = None):
     self.model = model
     self.module = module
+    # A context in which the module's parameters read whole (the train
+    # step's ``full_params`` under FSDP), or None.
+    self.full_params = full_params or contextlib.nullcontext
 
   @torch.no_grad()
   def __call__(self, images: torch.Tensor,
                labels: torch.Tensor) -> Dict[str, torch.Tensor]:
     self.module.eval()
     try:
-      logits = self.module(images)
+      with self.full_params():
+        logits = self.module(images)
       acc = self.model.accuracy_function(logits, labels)
       loss = self.model.loss_function(logits, labels)
     finally:

@@ -6,7 +6,8 @@ forward-only inference and evaluation -- on synthetic data, on one device
 or data-parallel over torch.distributed, and the transformer_lm serving
 bench; anything else fails here with the reason, before any work starts.
 The rules of the flags the port shares with the JAX package are the JAX
-package's (validation.py:209-217, :606-741, :817-851), with its messages.
+package's (validation.py:209-217, :371-480, :606-741, :817-900), with its
+messages.
 """
 
 from __future__ import annotations
@@ -26,10 +27,8 @@ ASYNC_PS_SEQUENTIAL_MAX_DEVICES = 32
 # error that names the ROADMAP item porting it (make_params and the CLI's
 # parser ask here before they call the flag unknown).
 _UNPORTED_FLAGS = {
-    "shard_optimizer_state": "ZeRO sharded optimizer state",
-    "shard_params": "FSDP sharded parameters",
-    "overlap_gradient_reduction": "bucketed in-backward reduction",
-    "reduce_bucket_mb": "the in-backward reduction's buckets",
+    "fp16_vars": ("16-bit parameters", "6b"),
+    "mesh_shape": ("the named 2-D device mesh", "8"),
 }
 
 
@@ -40,9 +39,9 @@ class ParamError(ValueError):
 def refuse_unported_flag(name: str) -> None:
   """ParamError for a flag of the JAX package the port has not ported."""
   if name in _UNPORTED_FLAGS:
-    raise ParamError(
-        f"--{name} ({_UNPORTED_FLAGS[name]}) is not ported yet (ROADMAP "
-        "Queue 1 item 6)")
+    what, item = _UNPORTED_FLAGS[name]
+    raise ParamError(f"--{name} ({what}) is not ported yet (ROADMAP Queue "
+                     f"1 item {item})")
 
 
 def parse_bucket_ladder(ladder: str):
@@ -68,6 +67,7 @@ def validate_cross_flags(params) -> None:
         f"--model={params.model} is not ported yet; the port runs "
         f"{', '.join(model_config.list_models())}")
   validate_mode_flags(params)
+  validate_sharded_flags(params)
   validate_optimizer_flags(params)
   validate_data_parallel_flags(params)
   validate_elastic_flags(params)
@@ -246,17 +246,6 @@ def validate_dispatch_flags(p) -> None:
     if p.forward_only:
       raise ParamError("--steps_per_dispatch > 1 applies to training "
                        "only; it cannot be combined with --forward_only")
-    if (p.variable_update == "parameter_server" and
-        not p.cross_replica_sync and p.optimizer != "sgd"):
-      # The port's narrowing: the sequential apply reads and resets the
-      # optimizer's step counts on the host between its n applications, so
-      # a graph captured at one step would replay that step's counts.
-      raise ParamError(
-          "--steps_per_dispatch > 1 cannot be combined with async "
-          "parameter_server (--cross_replica_sync=false) and a stateful "
-          f"--optimizer={p.optimizer}: its sequential apply sets the "
-          "optimizer's step counts from the host between applications, "
-          "which a captured step cannot replay")
   m = p.num_grad_accum or 1
   if m > 1:
     if p.eval:
@@ -352,12 +341,156 @@ def validate_data_parallel_flags(p) -> None:
           "format engages (f32 training too), it cannot engage a "
           "compaction that is switched off")
     if not (p.use_fp16 or p.all_reduce_spec or p.gradient_repacking
-            or p.agg_small_grads_max_bytes > 0 or p.hierarchical_copy):
+            or p.agg_small_grads_max_bytes > 0 or p.hierarchical_copy
+            or p.overlap_gradient_reduction):
       raise ParamError(
           "--compact_gradient_transfer_f32 has no effect without a "
           "reduction path that repacks the wire: the default per-leaf "
           "pmean never re-encodes gradients (ops/allreduce.py "
           "build_reducer returns None). Select a packed path -- "
-          "--all_reduce_spec, --gradient_repacking, "
-          "--agg_small_grads_max_bytes or --hierarchical_copy -- or drop "
-          "the flag")
+          "--overlap_gradient_reduction, --all_reduce_spec, "
+          "--gradient_repacking, --agg_small_grads_max_bytes or "
+          "--hierarchical_copy -- or drop the flag (a silent no-op "
+          "that logs a halved-bytes note would misrecord the run)")
+  if p.reduce_bucket_mb and not (p.overlap_gradient_reduction
+                                 or p.shard_params):
+    raise ParamError(
+        "--reduce_bucket_mb sizes the in-backward collective buckets "
+        "and requires --overlap_gradient_reduction (reduction buckets) "
+        "or --shard_params (FSDP gather buckets); the post-hoc paths' "
+        "granularity levers are --gradient_repacking / "
+        "--agg_small_grads_max_bytes / --all_reduce_spec")
+  if p.overlap_gradient_reduction:
+    # In-backward reduction replaces the strategy's post-hoc gradient pass
+    # with per-bucket means issued inside the backward; it is defined only
+    # for strategies whose aggregation IS the replica mean, and it cannot
+    # coexist with reducers that own reduction granularity themselves
+    # (ref: batch_allreduce.py:300-317 selects exactly one algorithm).
+    if p.variable_update not in ("replicated", "distributed_replicated",
+                                 "parameter_server",
+                                 "collective_all_reduce",
+                                 "distributed_all_reduce", "horovod"):
+      raise ParamError(
+          "--overlap_gradient_reduction requires a replicated-family "
+          f"--variable_update (got {p.variable_update!r}): "
+          "independent/gossip modes have no gradient reduction to "
+          "overlap")
+    if p.variable_update == "parameter_server" and not p.cross_replica_sync:
+      raise ParamError(
+          "--overlap_gradient_reduction cannot be combined with async "
+          "parameter_server (--cross_replica_sync=false): the async path "
+          "consumes each replica's UNAVERAGED gradient (train_step.py "
+          "sequential_apply / psum-sum collapse); in-backward pmeans "
+          "would silently average them. Use a synchronous "
+          "--variable_update")
+    for flag, name in ((p.all_reduce_spec, "--all_reduce_spec"),
+                       (p.gradient_repacking, "--gradient_repacking"),
+                       (p.agg_small_grads_max_bytes > 0,
+                        "--agg_small_grads_max_bytes"),
+                       (p.hierarchical_copy, "--hierarchical_copy")):
+      if flag:
+        raise ParamError(
+            f"--overlap_gradient_reduction cannot be combined with "
+            f"{name}: each reducer owns the reduction granularity "
+            "(ref: batch_allreduce.py:300-317 selects one algorithm); "
+            "the overlap path's granularity lever is --reduce_bucket_mb")
+    if p.track_grad_noise_scale:
+      raise ParamError(
+          "--overlap_gradient_reduction cannot be combined with "
+          "--track_grad_noise_scale: the noise-scale estimator contrasts "
+          "PRE-reduction per-replica gradients with their replica mean "
+          "(elastic.noise_scale_stats), and in-backward reduction never "
+          "materializes the pre-reduction tree. Cost of the exclusion: "
+          "use the post-hoc default when monitoring noise scale")
+
+
+def validate_sharded_flags(p) -> None:
+  """--shard_optimizer_state and --shard_params: the JAX package's
+  exclusions and messages (validation.py:371-480) for the flags the port
+  defines, and the port's own two."""
+  if p.shard_optimizer_state:
+    # The sharded step replaces the strategy's gradient pass with
+    # reduce-scatter + all-gather and applies the optimizer on 1/n flat
+    # state shards (ops/sharded.py); the modes below own gradient
+    # aggregation themselves, need per-replica gradients the scatter
+    # never materializes, or read full state the shards no longer hold.
+    if p.eval or p.forward_only:
+      raise ParamError(
+          "--shard_optimizer_state applies to training only (there is "
+          "no optimizer state to shard in --eval/--forward_only)")
+    if p.variable_update not in ("replicated", "parameter_server"):
+      raise ParamError(
+          "--shard_optimizer_state requires --variable_update="
+          f"replicated or parameter_server (got {p.variable_update!r}): "
+          "independent/gossip modes keep per-replica diverged state "
+          "with no global reduction to scatter, and the distributed_* "
+          "modes' multi-process worlds are not wired to the sharded "
+          "checkpoint layout yet")
+    if not p.cross_replica_sync:
+      raise ParamError(
+          "--shard_optimizer_state cannot be combined with async "
+          "parameter_server (--cross_replica_sync=false): the "
+          "sequential-apply path serializes each replica's UNAVERAGED "
+          "gradient through one shared full state copy "
+          "(train_step.py); sharded state has no such copy")
+    if p.job_name or p.worker_hosts:
+      raise ParamError(
+          "--shard_optimizer_state is single-process for now: the "
+          "checkpoint path saves the sharded optimizer state from "
+          "locally-addressable rows (checkpoint.py), which a "
+          "multi-host mesh cannot do chief-only without a cross-host "
+          "gather leg")
+    if p.optimizer == "lars":
+      raise ParamError(
+          "--shard_optimizer_state cannot be combined with "
+          "--optimizer=lars: the LARS trust ratio needs per-LAYER "
+          "param/update norms, and the flat 1/n shard cuts across "
+          "layer boundaries. Every other stock optimizer updates "
+          "elementwise, so the shard apply stays exact")
+    if p.adaptive_batch_size or p.track_grad_noise_scale:
+      raise ParamError(
+          "--shard_optimizer_state cannot be combined with "
+          "--adaptive_batch_size/--track_grad_noise_scale: the "
+          "noise-scale estimator contrasts PRE-reduction per-replica "
+          "gradients with their replica mean (elastic.py), and the "
+          "scattered reduction never materializes the replica mean")
+    if p.overlap_gradient_reduction:
+      raise ParamError(
+          "--shard_optimizer_state cannot be combined with "
+          "--overlap_gradient_reduction: the in-backward hooks issue "
+          "bucket pmeans (all-reduce), which is exactly the collective "
+          "the sharded path replaces with reduce-scatter")
+    for flag, name in ((p.all_reduce_spec, "--all_reduce_spec"),
+                       (p.gradient_repacking, "--gradient_repacking"),
+                       (p.agg_small_grads_max_bytes > 0,
+                        "--agg_small_grads_max_bytes"),
+                       (p.hierarchical_copy, "--hierarchical_copy")):
+      if flag:
+        raise ParamError(
+            f"--shard_optimizer_state cannot be combined with {name}: "
+            "each reducer owns the reduction granularity (ref: "
+            "batch_allreduce.py:300-317 selects one algorithm); the "
+            "sharded path's reduction IS the per-leaf reduce-scatter")
+    # The port's own two.
+    if p.elastic:
+      raise ParamError(
+          "--elastic cannot be combined with --shard_optimizer_state yet: "
+          "a resize would resume the (n, k) shard rows at another world "
+          "size, the shard-rescale resume of ROADMAP Queue 1 item 6d")
+    if p.save_model_secs:
+      raise ParamError(
+          "--save_model_secs cannot be combined with "
+          "--shard_optimizer_state: every rank takes part in the "
+          "collective that gathers the shard rows of a checkpoint, and "
+          "each rank would decide a time-based save by its own clock; "
+          "use --save_model_steps")
+  if p.shard_params and not p.shard_optimizer_state:
+    raise ParamError(
+        "--shard_params requires --shard_optimizer_state: the FSDP "
+        "forward rides the sharded family's scatter/apply machinery "
+        "(reduce-scatter mean, 1/n shard apply, the (n, k) "
+        "checkpoint layout), and params-sharded-but-state-replicated "
+        "would re-create exactly the per-device footprint ZeRO "
+        "removes. Add --shard_optimizer_state (which also brings its "
+        "exclusion matrix: elementwise optimizers only, synchronous "
+        "replicated/parameter_server only, no --staged_vars)")

@@ -7,10 +7,13 @@ on the CPU.
 * The CLI at ``--device=cpu --num_devices=4`` spawns four gloo ranks and
   only rank 0 prints: one banner, one total line, the global batch and
   rate; a failing rank makes it exit non-zero.
-* Validation accepts ``--num_devices > 1`` for every ported strategy and
-  refuses the unported flags naming their ROADMAP item (in make_params and
-  in the CLI's parser, which do not define them), and more ranks
-  than cards on the card.
+* Validation accepts ``--num_devices > 1`` for every ported strategy,
+  the sharded optimizer state and the overlapped reduction among them
+  (which the CLI runs at two gloo ranks), refuses --shard_params and
+  --reduce_bucket_mb without the mode they need with the JAX package's
+  messages, refuses the unported flags naming their ROADMAP item (in
+  make_params and in the CLI's parser, which do not define them), and
+  refuses more ranks than cards on the card.
 """
 
 import json
@@ -101,6 +104,12 @@ def test_cli_fails_when_a_rank_fails(monkeypatch, capsys):
     dict(variable_update="replicated", hierarchical_copy=True),
     dict(variable_update="replicated", all_reduce_spec="psum:32k:rsag",
          compact_gradient_transfer_f32=True),
+    dict(shard_optimizer_state=True),
+    dict(variable_update="parameter_server", shard_optimizer_state=True,
+         shard_params=True, reduce_bucket_mb=25),
+    dict(overlap_gradient_reduction=True),
+    dict(variable_update="horovod", overlap_gradient_reduction=True,
+         reduce_bucket_mb=25),
 ])
 def test_validation_accepts_every_ported_strategy(flags):
   validation.validate_cross_flags(params_lib.make_params(
@@ -108,10 +117,9 @@ def test_validation_accepts_every_ported_strategy(flags):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(shard_optimizer_state=True), "Queue 1 item 6"),
-    (dict(shard_params=True), "Queue 1 item 6"),
-    (dict(overlap_gradient_reduction=True), "Queue 1 item 6"),
-    (dict(reduce_bucket_mb=25), "Queue 1 item 6"),
+    (dict(fp16_vars=True), "Queue 1 item 6b"),
+    (dict(shard_params=True), "requires --shard_optimizer_state"),
+    (dict(reduce_bucket_mb=25), "requires --overlap_gradient_reduction"),
     (dict(variable_update="distributed_replicated"), "requires --job_name"),
     (dict(variable_update="distributed_all_reduce"),
      "requires --all_reduce_spec"),
@@ -150,17 +158,34 @@ def test_more_ranks_than_cards_is_refused():
   assert rc != 0
 
 
+@pytest.mark.parametrize("argv,match", [
+    (["--fp16_vars"], "Queue 1 item 6b"),
+    (["--mesh_shape=2x1"], "Queue 1 item 8"),
+    (["--shard_params=true"], "requires --shard_optimizer_state"),
+    (["--reduce_bucket_mb=25"], "requires --overlap_gradient_reduction"),
+])
+def test_cli_refuses_unported_flag_naming_roadmap(argv, match, capsys):
+  """The port does not define --fp16_vars and --mesh_shape; the CLI's
+  parser names their ROADMAP item instead of calling them unknown.
+  --shard_params and --reduce_bucket_mb alone are refused with the JAX
+  package's messages."""
+  assert cli.main(["--device=cpu", "--model=trivial"] + argv) == 1
+  assert match in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("argv", [
     ["--shard_optimizer_state"],
-    ["--shard_params=true"],
-    ["--overlap_gradient_reduction"],
-    ["--reduce_bucket_mb=25"],
+    ["--shard_optimizer_state", "--shard_params", "--reduce_bucket_mb=1"],
+    ["--overlap_gradient_reduction", "--reduce_bucket_mb=1"],
 ])
-def test_cli_refuses_unported_flag_naming_roadmap(argv, capsys):
-  """The port does not define the sharding and overlap flags; the CLI's
-  parser names their ROADMAP item instead of calling them unknown."""
-  assert cli.main(["--device=cpu", "--model=trivial"] + argv) == 1
-  assert "Queue 1 item 6" in capsys.readouterr().err
+def test_cli_runs_the_sharding_and_overlap_flags(argv):
+  proc = _run(["-m", "kf_benchmarks_tpu_torch.cli", "--device=cpu",
+               "--num_devices=2", "--model=trivial", "--batch_size=2",
+               "--num_batches=2", "--num_warmup_batches=1",
+               "--optimizer=momentum"] + argv)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.count("total images/sec") == 1, proc.stdout
+  assert "Num devices: 2 (cpu" in proc.stdout
 
 
 def test_cli_rejects_an_unknown_flag():

@@ -22,6 +22,10 @@ planner of benchmark.py, utils/pipeline.py), on the CPU.
   event, and a K = 4 run saves and evaluates at the steps of the K = 1
   run with the same losses.
 * validation.py's K rules, with the JAX package's messages.
+* The async parameter server with a stateful optimizer (Adam, whose step
+  counts its sequential apply now keeps on the device, and momentum): at
+  two gloo ranks, four steps as one K = 4 dispatch are bitwise four single
+  steps.
 * The lag-N pipeline: the cases of the JAX package's tests/test_pipeline.py
   and tests/test_steps_per_dispatch.py:54-105, on the port's pipeline.
 """
@@ -56,6 +60,8 @@ from kf_benchmarks_tpu_torch.models import transformer_lm as port_lm
 from kf_benchmarks_tpu_torch.utils import log as log_util
 from kf_benchmarks_tpu_torch.utils.pipeline import MetricsPipeline
 
+import torch_dp_modes as dp_modes
+import torch_dp_worker as dp_worker
 import torch_parity as tp
 
 torch.set_num_threads(2)
@@ -360,19 +366,41 @@ def test_k_is_training_only_with_the_jax_message(flags):
 def test_k_rules_of_the_port():
   with pytest.raises(ValueError):
     port_params.make_params(steps_per_dispatch=0)  # lower_bound=1
-  # The sequential apply reads optimizer counts on the host.
-  with pytest.raises(validation.ParamError, match="sequential apply"):
-    validation.validate_cross_flags(port_params.make_params(
-        steps_per_dispatch=2, variable_update="parameter_server",
-        cross_replica_sync=False, optimizer="adam"))
   for kw in (dict(steps_per_dispatch=8),
              dict(steps_per_dispatch=2, variable_update="parameter_server",
                   cross_replica_sync=False, optimizer="sgd"),
+             # The sequential apply keeps the optimizer's counts on the
+             # device, so a captured step replays them.
+             dict(steps_per_dispatch=2, variable_update="parameter_server",
+                  cross_replica_sync=False, optimizer="adam"),
              dict(steps_per_dispatch=4, num_grad_accum=2, batch_size=8),
              dict(steps_per_dispatch=4, use_fp16=True,
                   fp16_enable_auto_loss_scale=True)):
     validation.validate_cross_flags(port_params.make_params(device="cpu",
                                                             **kw))
+
+
+_ASYNC_PS = {}
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "momentum"])
+def test_async_ps_chunk_is_bitwise_the_single_steps(optimizer,
+                                                   tmp_path_factory):
+  if not _ASYNC_PS:
+    flags = dict(variable_update="parameter_server",
+                 cross_replica_sync=False)
+    cases = [dp_modes.case(f"{opt}_k{k}", "trivial", 2,
+                           {**flags, "optimizer": opt}, steps=4, k=k)
+             for opt in ("adam", "momentum") for k in (1, 4)]
+    _ASYNC_PS.update(enumerate(dp_worker.run_world(
+        2, cases, tmp_path_factory.mktemp("async_ps"))))
+  for res in _ASYNC_PS.values():
+    chunk, single = res[f"{optimizer}_k4"], res[f"{optimizer}_k1"]
+    assert chunk["losses"] == single["losses"]
+    assert torch.equal(chunk["weights"][-1], single["weights"][-1])
+  singles = [r[f"{optimizer}_k1"] for r in _ASYNC_PS.values()]
+  assert torch.equal(singles[0]["weights"][-1], singles[1]["weights"][-1])
+  assert singles[0]["losses"][-1][0] < singles[0]["losses"][0][0]
 
 
 # -- the lag-N pipeline (tests/test_pipeline.py, test_steps_per_dispatch.py) ---

@@ -299,12 +299,20 @@ def _env():
 
 def test_kfrun_spawns_workers_that_meet_at_the_barrier(tmp_path):
   """Two workers with KFCOORD_* env, logs named as kungfu-run names them;
-  worker 0 leaves the exit barrier only after worker 1 (one second late)
-  enters it."""
+  worker 0 leaves the exit barrier only after worker 1 enters it. Worker 0
+  writes a marker file just before it enters; worker 1 waits for the
+  marker and then sleeps one second, so worker 0 waits that second
+  whichever process starts first."""
+  marker = str(tmp_path / "rank0_at_barrier")
   script = ("import os, time; from kf_benchmarks_tpu_torch.parallel import "
             "kungfu; r = int(os.environ['KFCOORD_RANK_HINT']); "
-            "time.sleep(1.0 if r else 0); t = time.time(); "
-            "kungfu.run_barrier(); print('rank', r, 'of', "
+            f"m = {marker!r}\n"
+            "if r:\n"
+            "  while not os.path.exists(m): time.sleep(0.01)\n"
+            "  time.sleep(1.0)\n"
+            "else:\n"
+            "  open(m, 'w').close()\n"
+            "t = time.time(); kungfu.run_barrier(); print('rank', r, 'of', "
             "os.environ['KFCOORD_WORLD'], 'waited', time.time() - t)")
   code = kfrun.launch(2, [sys.executable, "-c", script],
                       logdir=str(tmp_path), extra_env=_env())

@@ -805,3 +805,92 @@ def test_engine_shares_one_ring_with_a_spare_row(tiny):
   view = eng._bucket_view(2)
   assert view.k.data_ptr() == ring.k.data_ptr() and view.k.shape[1] == 2
   assert eng._graphs is False  # the CPU runs the programs eagerly
+
+
+# -- one request's bf16 row against the batch width ----------------------------
+
+# The LM's width (d 512, 8 heads, d_ff 2048) with two layers and a 4096-token
+# vocabulary, in bf16: the shape at which the batch width reaches the
+# rounding of the JAX package's decode on the CPU.
+WIDE = dict(vocab=4096, d_model=512, n_layers=2, n_heads=8, d_ff=2048,
+            max_len=16, attn_block=8)
+BUCKETS = (16, 64, 256)
+NEW_TOKENS = 6
+
+
+def _one_request(step_fn, b, prompt, fill):
+  """Slot 0 teacher-forced through ``prompt``, then NEW_TOKENS greedy
+  tokens, beside b - 1 active slots of other tokens: (slot 0's tokens,
+  its logits row at each prompt position)."""
+  tokens, rows = [], []
+  tok = np.concatenate([prompt[:1], fill[1:b]]).astype(np.int32)
+  for t in range(prompt.size + NEW_TOKENS - 1):
+    nxt, row = step_fn(tok, t)
+    if t < prompt.size:
+      rows.append(row)
+    if t + 1 < prompt.size:
+      tok = nxt.copy()
+      tok[0] = prompt[t + 1]
+    else:
+      tokens.append(int(nxt[0]))
+      tok = nxt
+  return tokens, np.stack(rows)
+
+
+def _jax_row(spec, variables, b, prompt, fill):
+  module = jax_decode.decode_module(spec)
+  apply = jax.jit(module.apply)
+  cache = jax_decode.init_cache(spec, b)
+  state = {"k": cache.k, "v": cache.v, "pos": jnp.zeros((b,), jnp.int32)}
+
+  def step(tok, t):
+    logits, (state["k"], state["v"]) = apply(
+        variables, jnp.asarray(tok), state["k"], state["v"], state["pos"])
+    state["pos"] = state["pos"] + 1
+    logits = np.asarray(logits[:, 0].astype(jnp.float32))
+    return logits.argmax(-1).astype(np.int32), logits[0]
+
+  return _one_request(step, b, prompt, fill)
+
+
+def _port_row(spec, state, b, prompt, fill):
+  module = port_decode.load_module(spec, state, "cpu")
+  cache = port_decode.init_cache(spec, b, "cpu")
+
+  def step(tok, t):
+    with torch.no_grad():
+      logits, _ = module.decode(torch.from_numpy(tok), cache.k, cache.v,
+                                torch.full((b,), t, dtype=torch.int32))
+    logits = logits[:, 0].float().numpy()
+    return logits.argmax(-1).astype(np.int32), logits[0]
+
+  return _one_request(step, b, prompt, fill)
+
+
+def test_bf16_decode_row_against_the_batch_width():
+  """ROADMAP Queue 3 item 3: one request's greedy tokens in bf16 at buckets
+  16, 64 and 256, through the JAX package's decode and the port's. A port
+  fault would be a port row that depends on the batch width where the JAX
+  package's does not. Here the JAX package's own row does: its logits at
+  64 and 256 are not bitwise those at 16 (its CPU dot rounds by the batch
+  width), so the eager-versus-captured token differences on the card are
+  bf16 rounding by batch width, which the reference shares, not a port
+  fault. The tokens themselves agree at every width, in both, and the
+  port's logits stay within bf16 rounding (2^-6 of the largest) of the JAX
+  package's at each width."""
+  jspec = jax_decode.LMSpec(**WIDE, dtype=jnp.bfloat16)
+  pspec = port_decode.LMSpec(**WIDE, dtype=torch.bfloat16)
+  variables, state = _variables(jspec, pspec)
+  rng = np.random.default_rng(1)
+  prompt = rng.integers(0, WIDE["vocab"], 6).astype(np.int32)
+  fill = rng.integers(0, WIDE["vocab"], max(BUCKETS)).astype(np.int32)
+  jax_runs = {b: _jax_row(jspec, variables, b, prompt, fill)
+              for b in BUCKETS}
+  port_runs = {b: _port_row(pspec, state, b, prompt, fill) for b in BUCKETS}
+  assert any(not np.array_equal(jax_runs[b][1], jax_runs[16][1])
+             for b in BUCKETS[1:])
+  for b in BUCKETS:
+    assert port_runs[b][0] == jax_runs[b][0] == jax_runs[16][0], b
+    scale = np.abs(jax_runs[b][1]).max()
+    assert np.abs(port_runs[b][1] - jax_runs[b][1]).max() <= \
+        2.0 ** -6 * scale, b

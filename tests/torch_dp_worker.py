@@ -8,10 +8,21 @@ step (the mean over the ranks, as the step reports them), the weights after
 every step and the final batch-norm running averages, all in flax layout.
 This module imports no JAX, so the ranks start without it.
 
-A case is a dict: ``name``, ``model`` ("trivial" or "resnet"), ``params``
-(overrides of the port's Params), ``lr``, ``steps``, ``variables`` (numpy
-flax variables, or ``stacked`` ones with a leading replica axis for one
-start per rank) and ``batches`` (one (images, labels) per rank).
+A case is a dict: ``name``, ``model`` ("trivial", "resnet" or "lm", the
+two-layer transformer LM of ``SmallLM``), ``params`` (overrides of the
+port's Params: the strategy, and --shard_optimizer_state, --shard_params,
+--overlap_gradient_reduction, --num_grad_accum), ``lr``, ``steps``,
+``variables`` (numpy flax variables, or ``stacked`` ones with a leading
+replica axis for one start per rank) and ``batches`` (one (images, labels)
+per rank). Optional: ``k`` runs the steps as dispatches of K through
+TrainChunk, ``weight_decay`` replaces WEIGHT_DECAY, ``restore`` names a
+checkpoint file to resume from before the steps, ``save`` one to write
+after them, and ``snapshot`` returns the savable_state after them (a
+collective under sharded state, so every rank takes it). Besides the
+losses and weights, a training case records the bytes of the optimizer
+state and of the parameters this rank holds after its steps (its shards'
+under sharded state) and the number of buckets of the overlapped
+reduction or the FSDP gather.
 ``{"name": "eval", "model": ..., "variables": ..., "batches": ...}`` runs
 the eval step once on each rank's batch. Three extra cases check the
 collectives themselves: ``{"name":
@@ -27,13 +38,17 @@ import numpy as np
 import torch
 import torch.multiprocessing as mp
 
+from kf_benchmarks_tpu_torch import checkpoint
 from kf_benchmarks_tpu_torch import convert
 from kf_benchmarks_tpu_torch import optimizers
 from kf_benchmarks_tpu_torch import params as params_lib
 from kf_benchmarks_tpu_torch import train_step
 from kf_benchmarks_tpu_torch.models import resnet_model
+from kf_benchmarks_tpu_torch.models import transformer_lm
 from kf_benchmarks_tpu_torch.models import trivial_model
 from kf_benchmarks_tpu_torch.ops import allreduce
+from kf_benchmarks_tpu_torch.ops import overlap
+from kf_benchmarks_tpu_torch.ops import sharded
 from kf_benchmarks_tpu_torch.parallel import kungfu
 from kf_benchmarks_tpu_torch.parallel import mesh
 from kf_benchmarks_tpu_torch.parallel import strategies
@@ -41,21 +56,74 @@ from kf_benchmarks_tpu_torch.parallel import strategies
 RESNET_LAYER_COUNTS = (1, 2, 1, 1)
 NCLASS = 10
 WEIGHT_DECAY = 1e-3
+# The two-layer LM of the data-parallel tests (the dispatch tests' size).
+LM_VOCAB, LM_D, LM_LAYERS, LM_HEADS, LM_DFF, LM_T, LM_BLOCK = (
+    128, 32, 2, 4, 64, 64, 16)
+LM_LOSS_CHUNK = 16
+
+
+class SmallLM(transformer_lm.TransformerLMModel):
+  """transformer_lm at the tests' size, flash attention (its plain
+  version on the CPU), the scan layout."""
+
+  LOSS_CHUNK = LM_LOSS_CHUNK
+
+  def make_module(self, nclass, dtype=torch.float32, generator=None):
+    del nclass
+    return transformer_lm.TransformerLM(
+        LM_VOCAB, LM_D, LM_LAYERS, LM_HEADS, LM_DFF, LM_BLOCK, LM_BLOCK,
+        "flash", True, True, LM_T, dtype, generator)
 
 
 def port_model(name):
   if name == "trivial":
     return trivial_model.TrivialModel()
+  if name == "lm":
+    return SmallLM()
   return resnet_model.ResnetModel("resnet50_v1.5", RESNET_LAYER_COUNTS)
 
 
+def make_step(model, module, p, lr, weight_decay=WEIGHT_DECAY):
+  """The train step of ``p`` as benchmark.BenchmarkCNN.build makes it:
+  the strategy, this rank's shards under --shard_optimizer_state (the
+  optimizer steps on them) and the overlap spec."""
+  sharding = sharded.build(p, module, p.num_grad_accum)
+  opt = optimizers.get_optimizer(
+      p, module.parameters() if sharding is None else sharding.shards)
+  return train_step.TrainStep(
+      model, module, opt, lambda s: lr, weight_decay,
+      strategy=strategies.get_strategy(p), num_grad_accum=p.num_grad_accum,
+      sharding=sharding, overlap=overlap.build(p))
+
+
+def held_bytes(step):
+  """(optimizer-state bytes, parameter bytes) this rank holds."""
+  nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+  opt = [v for st in step.optimizer.state.values() for v in st.values()
+         if isinstance(v, torch.Tensor)]
+  params = list(step.module.parameters())
+  if step.sharding is not None and step.sharding.shard_params:
+    params += step.sharding.shards
+  return nbytes(opt), nbytes(params)
+
+
+def num_buckets(step):
+  if step._reducer is not None:
+    return len(step._reducer.buckets)
+  if step.sharding is not None:
+    return len(step.sharding.buckets) + len(step.sharding.block_buckets)
+  return 0
+
+
 def flax_layout(module):
-  """{(layer, leaf): numpy} of the module's parameters and buffers."""
+  """{flax path: numpy} of the module's parameters and buffers: the path
+  within its collection, (layer, leaf) for a CNN, and for a layer of the
+  transformer's scanned block stack that path and the layer's index."""
   out = {}
   for key, t in module.state_dict().items():
-    _, layer, leaf, kind = convert.leaf_of(key, t)
-    out[(layer, leaf)] = convert.to_flax_layout(t.detach().numpy().copy(),
-                                                kind)
+    path, kind, index = convert.flax_source(key, t, module)
+    name = path[1:] if index is None else path[1:] + (index,)
+    out[name] = convert.to_flax_layout(t.detach().numpy().copy(), kind)
   return out
 
 
@@ -67,24 +135,51 @@ def _train_case(case, rank, world):
   else:
     state = convert.flax_to_state_dict(case["variables"], module)
   module.load_state_dict(state)
+  wd = case.get("weight_decay", WEIGHT_DECAY)
   p = params_lib.make_params(device="cpu", num_devices=world,
-                             weight_decay=WEIGHT_DECAY, **case["params"])
-  strategy = strategies.get_strategy(p)
-  opt = optimizers.get_optimizer(p, module.parameters())
-  step = train_step.TrainStep(model, module, opt, lambda s: case["lr"],
-                              WEIGHT_DECAY, strategy=strategy)
+                             weight_decay=wd, **case["params"])
+  step = make_step(model, module, p, case["lr"], wd)
   with torch.no_grad():
-    strategy.broadcast_init([q.detach() for q in module.parameters()])
+    step.strategy.broadcast_init([q.detach() for q in module.parameters()])
+  if "restore" in case:
+    snap = checkpoint.load_checkpoint(case["restore"])
+    step.global_step = checkpoint.restore_state(module, step.optimizer, snap,
+                                                step.sharding)
+    step.restore_counters(snap)
   images, labels = case["batches"][rank]
   x = torch.from_numpy(images)
   y = torch.from_numpy(labels).long()
   losses, weights = [], []
-  for _ in range(case["steps"]):
-    m = step(x, y)
-    losses.append((float(m["base_loss"]), float(m["total_loss"])))
-    weights.append(torch.cat([q.detach().reshape(-1).clone()
-                              for q in module.parameters()]))
-  return {"losses": losses, "weights": weights, "final": flax_layout(module)}
+  k = case.get("k", 1)
+  chunk = train_step.TrainChunk(step, k) if k > 1 else None
+  done = 0
+  while done < case["steps"]:
+    d = min(k, case["steps"] - done)
+    if chunk is None:
+      m = {key: v.reshape(1) for key, v in step(x, y).items()}
+    else:
+      m = chunk(x, y, d)
+    losses += list(zip(m["base_loss"].tolist(), m["total_loss"].tolist()))
+    weights.append(torch.cat([q.reshape(-1) for q in step.full_weights()]))
+    done += d
+  opt_bytes, param_bytes = held_bytes(step)
+  with step.full_params():
+    final = flax_layout(module)
+  out = {"losses": losses, "weights": weights, "final": final,
+         "opt_bytes": opt_bytes, "param_bytes": param_bytes,
+         "buckets": num_buckets(step)}
+  if "save" in case or case.get("snapshot"):
+    snap = checkpoint.savable_state(module, step.optimizer, step.global_step,
+                                    counters=step.counters(),
+                                    sharding=step.sharding)
+    if case.get("snapshot"):
+      out["snapshot"] = snap
+    if "save" in case:
+      if rank == 0:
+        torch.save(snap, case["save"])
+      # A later case may restore it on any rank.
+      kungfu.run_barrier()
+  return out
 
 
 def _broadcast_case(case, rank):
