@@ -14,7 +14,13 @@ name and power limit as nvidia-smi reports them), "world_size",
 "shard_params", "overlap_gradient_reduction", and, as bench.py has them,
 "compile_s" (host time of the first dispatch call: kernel builds, and at
 --steps_per_dispatch > 1 the CUDA-graph capture) and "dispatch_overhead_s"
-(mean host time of a timed dispatch call).
+(mean host time of a timed dispatch call), and "health": the run's health
+summary as bench.py records it (max_grad_norm, nonfinite_steps,
+loss_scale_final, watchdog_stalls). As in bench.py the in-step health stats
+are always asked for (the bench writes no --train_dir, so they would
+otherwise resolve off); "health" is None where they resolve off all the
+same: under --shard_optimizer_state, whose apply never holds the whole
+update.
 
 vs_baseline = value / 416.43, bench.py's anchor: the reference's best
 committed single-GPU number, ResNet-50 on synthetic ImageNet at batch 200
@@ -85,9 +91,21 @@ def main(argv=None) -> int:
       shard_optimizer_state=args.shard_optimizer_state,
       shard_params=args.shard_params,
       overlap_gradient_reduction=args.overlap_gradient_reduction,
-      reduce_bucket_mb=args.reduce_bucket_mb)
+      reduce_bucket_mb=args.reduce_bucket_mb,
+      # Explicit --health_stats is refused with the sharded state
+      # (validation.py); there the stats resolve off and "health" is None.
+      health_stats=None if args.shard_optimizer_state else True)
   stats = benchmark.BenchmarkCNN(params).run()
   value = stats["images_per_sec"]
+  health = stats.get("health")
+  if health:
+    mgn = health.get("max_grad_norm")
+    health = {
+        "max_grad_norm": round(mgn, 4) if mgn is not None else None,
+        "nonfinite_steps": health.get("nonfinite_steps"),
+        "loss_scale_final": health.get("loss_scale_final"),
+        "watchdog_stalls": health.get("watchdog_stalls"),
+    }
   print(json.dumps({
       "metric": "%s_synthetic_images_per_sec" % (
           "resnet50" if args.model.startswith("resnet50") else args.model),
@@ -106,6 +124,7 @@ def main(argv=None) -> int:
       "dispatch_overhead_s": (round(stats["dispatch_overhead_s"], 6)
                               if stats["dispatch_overhead_s"] is not None
                               else None),
+      "health": health or None,
   }), flush=True)
   return 0
 

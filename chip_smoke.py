@@ -196,7 +196,49 @@ the run with a non-zero exit and no result line:
                 most len(ladder) decode captures in the compile ledger; on
                 a virtual clock (both engines then form the same batches)
                 every generated token identical; 20 decode steps at bucket
-                64 of each arm, their busy share read as in dispatch.
+                64 of each arm, their busy share read as in dispatch;
+ 22. fp16_vars -- --fp16_vars (bf16 parameters and optimizer state):
+                ResNet-50 (batch 256) and transformer_lm (batch 8, flash),
+                4 warmup + 16 timed steps at K = 1 and K = 8, and without
+                the flag at K = 8, each through BenchmarkCNN with the counts
+                set to 0 just before and read just after: every parameter
+                and optimizer buffer bf16, 13 + 13 K-A / K-B and 12 + 6 + 6
+                flash launches a step, K = 8 bitwise K = 1 (losses and
+                weights), no cast of a weight (an aten::_to_copy of a
+                parameter's shape of two or more dimensions) in
+                torch.profiler over 2 eager steps (the run without the flag
+                shows them), K-A and K-B against their plain versions on
+                the inputs the bf16-weight run gave them (one call of each
+                shape: its activations and bf16 weights); one Nesterov
+                momentum step from bf16-rounded weights (ResNet-50 at batch
+                8, the LM at batch 2) against the same step with f32
+                parameters on the card and on the CPU (f32, plain
+                versions): the loss bitwise and within 2e-2, every tensor's
+                new weights within one bf16 ulp plus 2^-7 of the update of
+                the f32-parameter step (a doubled update must fail it
+                where it moves a weight 2 ulps), the head's update against
+                the CPU's, the momentum buffers bf16 (the LM's timed runs
+                train with SGD, which keeps none); images/sec,
+                sequences/sec and peak memory with the flag and without;
+ 23. health  -- ResNet-50 at batch 256 with --health_stats --train_dir, 4
+                warmup + 16 timed steps at K = 1 and K = 8 and with the
+                stats off at K = 8: one flight-recorder row a timed step
+                and the run-end dump, the rows' health vectors and the
+                losses of K = 8 bitwise K = 1, grad_norm within 1e-4 of
+                the norm recomputed on the card from the gradients of an
+                eager step, images/sec with the stats on and off; then 8
+                steps with --fault_schedule=heartbeat_delay@4:secs=8: a
+                watchdog diagnostic, and the run ends normally;
+ 24. faults  -- `python -m kf_benchmarks_tpu_torch.kfrun -np 1
+                --restart-on-failure` on ResNet-50 (batch 256, bf16,
+                Nesterov, a checkpoint every 2 steps) with
+                --fault_schedule=corrupt_ckpt@6,kill@7 over 9 steps: the
+                worker is killed after step 7 and rejoined, which resumes
+                at step 6 (step 4's checkpoint torn on disk) and takes 9
+                more; its state at step 15 held as phase elastic holds its
+                resume, against two uninterrupted runs of 15 steps (in
+                this process); 13 + 13 launches a step in every run that
+                ran to its end.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -229,7 +271,8 @@ import torch.nn.functional as F
 ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
-              "optim", "dispatch", "accum", "serve_graph")
+              "optim", "dispatch", "accum", "serve_graph", "fp16_vars",
+              "health", "faults")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -2001,10 +2044,11 @@ def zoo_params(model, **flags):
       **flags)
 
 
-def check_conv_at(label, n, h, w, c, co, seed):
-  """K-A against its plain version at one shape, timed as in phase conv."""
+def check_conv_at(label, n, h, w, c, co, seed, given=None):
+  """K-A against its plain version at one shape, timed as in phase conv,
+  on seeded inputs or on ``given`` (x, HWIO weights) of a real run."""
   from kf_benchmarks_tpu_torch.ops import conv_bn
-  x, wt, _, _ = inputs(n, h, w, c, co, seed)
+  x, wt = given if given is not None else inputs(n, h, w, c, co, seed)[:2]
   w_k = conv_bn.kmajor(wt)
   y = conv_bn.conv3x3_same(x, wt)
   ref = conv_bn.conv3x3_same_plain(x, wt)
@@ -2028,11 +2072,13 @@ def check_conv_at(label, n, h, w, c, co, seed):
               bound_by=b_by, library_ms=lib_ms, library="F.conv2d (cuDNN)")
 
 
-def check_unit_at(label, n, h, w, c, co, seed):
+def check_unit_at(label, n, h, w, c, co, seed, given=None):
   """K-B against its plain version at one shape, with the checks and
-  timings of phase unit."""
+  timings of phase unit, on seeded inputs or on ``given`` (x, HWIO
+  weights, sc, sh) of a real run."""
   from kf_benchmarks_tpu_torch.ops import conv_bn
-  x, wt, sc, sh = inputs(n, h, w, c, co, seed)
+  x, wt, sc, sh = (given if given is not None
+                   else inputs(n, h, w, c, co, seed))
   w_k = conv_bn.kmajor(wt)
   y, st = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k)
   y2, st2 = conv_bn.bn_relu_conv3x3_stats(x, sc, sh, w_k)
@@ -2087,6 +2133,39 @@ def noting_unit_shapes(shapes):
 
   conv_bn.bn_relu_conv3x3_stats = kb_noted
   conv_bn.conv3x3_same_kmajor = ka_noted
+  try:
+    yield
+  finally:
+    conv_bn.bn_relu_conv3x3_stats, conv_bn.conv3x3_same_kmajor = kb, ka
+
+
+@contextlib.contextmanager
+def capturing_unit_inputs(calls):
+  """Keeps clones of the inputs of the first call at each (N, H, W, C, CO)
+  that the fused unit makes of K-B (calls["bn_relu_conv3x3_stats"]: x, the
+  HWIO weights, sc, sh) and of K-A (calls["conv3x3_same"]: x, the HWIO
+  weights) while the block runs: the activations and the weights of the
+  path itself. The calls go through; the wrappers' launch counts are
+  untouched."""
+  from kf_benchmarks_tpu_torch.ops import conv_bn
+  kb, ka = conv_bn.bn_relu_conv3x3_stats, conv_bn.conv3x3_same_kmajor
+
+  def keep(name, x, w_k, *rest):
+    key = (*x.shape, w_k.shape[0])
+    if key not in calls[name]:
+      calls[name][key] = (x.clone(), w_k.permute(1, 2, 3, 0).clone(),
+                          *(t.clone() for t in rest))
+
+  def kb_kept(x, sc, sh, w_k):
+    keep("bn_relu_conv3x3_stats", x, w_k, sc, sh)
+    return kb(x, sc, sh, w_k)
+
+  def ka_kept(x, w_k):
+    keep("conv3x3_same", x, w_k)
+    return ka(x, w_k)
+
+  conv_bn.bn_relu_conv3x3_stats = kb_kept
+  conv_bn.conv3x3_same_kmajor = ka_kept
   try:
     yield
   finally:
@@ -3237,6 +3316,465 @@ def phase_serve_graph(res):
   res["serve_graph"] = arms
 
 
+# -- fp16_vars, health, faults ---------------------------------------------------
+
+FP16_WARMUP, FP16_STEPS = 4, 16
+
+
+def weight_casts(module, fn, n=2):
+  """(casts of a weight, all aten::_to_copy) in n calls of fn() under
+  torch.profiler: a cast of a weight is an aten::_to_copy whose input has
+  the shape of a parameter of two or more dimensions (the per-call
+  f32 -> bf16 weight copy; 1-D parameters, batch norm's and layer norm's,
+  are upcast by design)."""
+  from torch.profiler import ProfilerActivity, profile
+  shapes = {tuple(q.shape) for q in module.parameters() if q.dim() >= 2}
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+    for _ in range(n):
+      fn()
+    torch.cuda.synchronize()
+  copies = [e for e in prof.events() if e.name == "aten::_to_copy"]
+  casts = [e for e in copies
+           if e.input_shapes and tuple(e.input_shapes[0]) in shapes]
+  return len(casts), len(copies)
+
+
+# One momentum step under --fp16_vars, held against the same step with f32
+# parameters on the card and on the CPU (fp16_vars_step).
+FP16_STEP_LR = 0.1
+FP16_STEP_LOSS_RTOL = 2e-2  # against the CPU: bf16 activations (phase parity)
+FP16_STEP_HEAD_NORM_RTOL = 5e-2  # the head's update against the CPU's
+FP16_STEP_HEAD_COSINE = 0.98
+
+
+def bf16_ulp(x):
+  """The spacing of bf16 numbers at |x| (8 significant bits), 0 at 0."""
+  _, exp = torch.frexp(x)
+  return torch.where(x == 0, torch.zeros_like(x),
+                     torch.ldexp(torch.ones_like(x), exp - 8))
+
+
+def update_excess(new, start, update):
+  """max |new - (start + update)| / (one bf16 ulp of start + update, plus
+  2^-7 |update|): how far bf16 weights ``new`` lie from an f32 update
+  rounded to bf16, where the update itself was computed in bf16 (a
+  rounded gradient, momentum and step: three roundings of 2^-9). 1 or
+  less passes."""
+  target = start + update
+  err = (new - target).abs()
+  bound = bf16_ulp(target) + 2.0 ** -7 * update.abs()
+  return float(torch.where(err == 0, torch.zeros_like(err), err / bound)
+               .max())
+
+
+def fp16_vars_step(label, model, module_fn, inputs, labels, head):
+  """One training step under --fp16_vars on the card (bf16 compute over
+  bf16 weights and bf16 Nesterov momentum, the kernels) from bf16-rounded
+  weights, held against the same step from the same weights with f32
+  parameters, on the card (the same compute and kernels: phase parity's
+  path) and on the CPU (f32 compute, the plain versions). Held: the loss
+  within FP16_STEP_LOSS_RTOL of the CPU's and bitwise the f32-parameter
+  step's; every tensor's new weights within one bf16 ulp
+  plus 2^-7 of the update of the f32-parameter step's (``update_excess``),
+  a bound that the same step's update doubled must break in every tensor
+  where it moves a weight by 2 bf16 ulps; the head's update (``head``) against the CPU's rounded to
+  bf16, norm within FP16_STEP_HEAD_NORM_RTOL and cosine at least
+  FP16_STEP_HEAD_COSINE, as phase parity holds the classifier; the
+  momentum buffers bf16."""
+  from kf_benchmarks_tpu_torch import optimizers
+  from kf_benchmarks_tpu_torch import params as params_lib
+  from kf_benchmarks_tpu_torch import train_step
+  from kf_benchmarks_tpu_torch.models import model as model_lib
+  init = module_fn(torch.float32).state_dict()
+  init = {k: v.to(torch.bfloat16).float() if v.is_floating_point() and
+          not k.endswith((".mean", ".var")) else v for k, v in init.items()}
+  p = params_lib.make_params(optimizer="momentum", device="cpu")
+  out = {}
+  for arm, device, dtype, param_dtype in (
+      ("card", "cuda", torch.bfloat16, torch.bfloat16),
+      ("card_f32", "cuda", torch.bfloat16, torch.float32),
+      ("cpu", "cpu", torch.float32, torch.float32)):
+    module = module_fn(dtype).to(device)
+    module.load_state_dict(init)
+    model_lib.cast_params(module, param_dtype)
+    # Every arm's weights in f32 on the card, where they are compared.
+    start = {k: q.detach().to("cuda", torch.float32, copy=True)
+             for k, q in module.named_parameters()}
+    opt = optimizers.get_optimizer(p, module.parameters())
+    step = train_step.TrainStep(model, module, opt,
+                                lambda s: FP16_STEP_LR, 4e-5)
+    m = step(torch.from_numpy(inputs).to(device),
+             torch.from_numpy(labels).to(device))
+    state = {str(v.dtype) for st in opt.state.values() for v in st.values()}
+    out[arm] = (float(m["base_loss"]), start,
+                {k: q.detach().to("cuda", torch.float32, copy=True)
+                 for k, q in module.named_parameters()}, state)
+    del module, opt, step, m
+  loss = {arm: v[0] for arm, v in out.items()}
+  rel = {ref: abs(loss["card"] - loss[ref]) / abs(loss[ref])
+         for ref in ("cpu", "card_f32")}
+  log(f"fp16_vars: {label} step loss card (bf16 weights, kernels) "
+      f"{loss['card']:.6f}, card f32 weights {loss['card_f32']:.6f} (rel "
+      f"{rel['card_f32']:.3g}, want 0), CPU (f32, plain) {loss['cpu']:.6f} "
+      f"(rel {rel['cpu']:.3g}, tol {FP16_STEP_LOSS_RTOL})")
+  check(rel["cpu"] <= FP16_STEP_LOSS_RTOL,
+        f"fp16_vars: {label} card loss differs from the CPU")
+  # The same kernels on the same values: the forward is the same.
+  check(loss["card"] == loss["card_f32"],
+        f"fp16_vars: {label} card loss differs from the f32-parameter step")
+  check(out["card"][3] == {"torch.bfloat16"} and
+        out["card_f32"][3] == {"torch.float32"},
+        f"fp16_vars: {label} momentum buffers {out['card'][3]} / "
+        f"{out['card_f32'][3]}")
+  _, w0, new, _ = out["card"]
+  check(all(torch.equal(w0[k], out[a][1][k]) for a in ("card_f32", "cpu")
+            for k in w0), f"fp16_vars: {label} arms start apart")
+  worst, worst_key, planted_missed = 0.0, None, []
+  moved = total = sensitive = 0
+  for k in w0:
+    upd = out["card_f32"][2][k] - w0[k]
+    excess = update_excess(new[k], w0[k], upd)
+    if worst_key is None or excess > worst:
+      worst, worst_key = excess, k
+    moved += int((new[k] != w0[k]).sum())
+    total += new[k].numel()
+    # Where the update moves a weight by 2 ulps or more, bf16 can show it
+    # doubled: there the bound must break.
+    if bool((upd.abs() >= 2.0 * bf16_ulp(w0[k])).any()):
+      sensitive += 1
+      if update_excess(new[k], w0[k], 2.0 * upd) <= 1.0:
+        planted_missed.append(k)
+  log(f"fp16_vars: {label} new weights against the f32-parameter step's "
+      f"update: worst {worst:.3g} of the bound ({worst_key}), {moved} of "
+      f"{total} weights moved ({moved / total:.3g}); the update doubled "
+      f"passes in {len(planted_missed)} of the {sensitive} of {len(w0)} "
+      f"tensors it moves 2 ulps somewhere {planted_missed[:4]}")
+  check(worst <= 1.0, f"fp16_vars: {label} {worst_key} new weights "
+        f"{worst:.3g}x the bound off the f32-parameter step's")
+  check(not planted_missed, f"fp16_vars: {label} a doubled update passes "
+        f"in {planted_missed}: the check cannot see a scale fault")
+  heads = {}
+  for key in head:
+    got = (new[key] - w0[key]).double()
+    cpu = out["cpu"][2][key]
+    ref = (cpu.to(torch.bfloat16).float() - w0[key]).double()
+    n_rel = abs(float(got.norm()) - float(ref.norm())) / float(ref.norm())
+    cos = float((got * ref).sum() / (got.norm() * ref.norm()))
+    heads[key] = dict(norm_rel=n_rel, cosine=cos)
+    log(f"fp16_vars: {label} update {key}: card {float(got.norm()):.4g}, "
+        f"CPU rounded to bf16 {float(ref.norm()):.4g} (rel {n_rel:.2g}, "
+        f"cosine {cos:.4f})")
+    check(n_rel <= FP16_STEP_HEAD_NORM_RTOL and cos >= FP16_STEP_HEAD_COSINE,
+          f"fp16_vars: {label} update {key} differs from the CPU's")
+  return dict(loss=loss, loss_rel=rel, worst_excess=worst,
+              worst_tensor=worst_key, moved_share=moved / total,
+              sensitive_tensors=sensitive, tensors=len(w0),
+              planted_missed=planted_missed, head=heads)
+
+
+def phase_fp16_vars(res):
+  """--fp16_vars on ResNet-50 (batch 256) and transformer_lm (batch 8):
+  see the module docstring, item 22."""
+  from kf_benchmarks_tpu_torch.models import resnet_model
+  from kf_benchmarks_tpu_torch.models import transformer_lm as lm
+  res["fp16_vars"] = {}
+  calls = {"conv3x3_same": {}, "bn_relu_conv3x3_stats": {}}
+  runs = (("resnet50", resnet_train_params, RESNET_LAUNCHES, "images/sec"),
+          ("transformer_lm", lm_params, LM_LAUNCHES, "sequences/sec"))
+  for model, make, per_step, unit in runs:
+    arms = {}
+    with lm_attention("flash"):
+      for fv, k in ((True, 1), (True, DISPATCH_K), (False, DISPATCH_K)):
+        arm = f"k{k}" + ("" if fv else "_off")
+        label = f"fp16_vars: {model} {arm}"
+        keeping = (capturing_unit_inputs(calls) if fv and k == 1
+                   else contextlib.nullcontext())
+        with keeping:
+          bench, stats, counts, peak = bench_arm(make(
+              num_batches=FP16_STEPS, num_warmup_batches=FP16_WARMUP,
+              display_every=FP16_STEPS, steps_per_dispatch=k,
+              fp16_vars=fv))
+        steps = stats["steps_run"]
+        res.setdefault("counts_by_path", {})[f"fp16_vars_{model}_{arm}"] = \
+            counts
+        check_launches(label, counts, per_step, steps)
+        final = bench.final
+        module, step = final["module"], final["step"]
+        dtypes = {str(q.dtype) for q in module.parameters()}
+        opt_dtypes = {str(v.dtype) for st in step.optimizer.state.values()
+                      for v in st.values()}
+        if fv:
+          # The LM's runs train with SGD, which keeps no buffer: its
+          # momentum buffers' dtype is held in fp16_vars_step.
+          check(dtypes == {"torch.bfloat16"} and
+                opt_dtypes == ({"torch.bfloat16"} if model == "resnet50"
+                               else set()),
+                f"{label}: parameters {dtypes}, optimizer state "
+                f"{opt_dtypes}")
+        weights = [q.detach().clone() for q in module.parameters()]
+        casts = copies = None
+        if k == 1 or not fv:
+          # Profiled steps move the weights on: they were kept above.
+          casts, copies = weight_casts(
+              module, lambda: step(final["images"], final["labels"]))
+        arms[arm] = dict(
+            losses=stats["losses"], rate=stats["images_per_sec"],
+            peak_gib=peak, param_dtypes=sorted(dtypes),
+            optimizer_dtypes=sorted(opt_dtypes), weight_casts=casts,
+            to_copies=copies, weights=weights)
+        log(f"{label}: {stats['images_per_sec']:.2f} {unit}, peak memory "
+            f"{peak:.3f} GiB, launches {counts} in {steps} steps, params "
+            f"{sorted(dtypes)}, optimizer state {sorted(opt_dtypes)}"
+            + (f", weight casts in 2 eager steps {casts} of {copies} "
+               "aten::_to_copy" if casts is not None else ""))
+        del bench, final, module, step, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+    one, many, off = arms["k1"], arms[f"k{DISPATCH_K}"], \
+        arms[f"k{DISPATCH_K}_off"]
+    same = all(torch.equal(a, b) for a, b in zip(one["weights"],
+                                                   many["weights"]))
+    check(one["losses"] == many["losses"] and same,
+          f"fp16_vars: {model} K={DISPATCH_K} differs from K=1")
+    check(one["weight_casts"] == 0, f"fp16_vars: {model}: "
+          f"{one['weight_casts']} weight casts in 2 steps")
+    check(off["weight_casts"] > 0, f"fp16_vars: {model}: the run without "
+          "the flag shows no weight cast: the check cannot see one")
+    log(f"fp16_vars: {model}: K={DISPATCH_K} bitwise K=1 (losses, "
+        f"weights); {unit} with the flag {many['rate']:.2f} against "
+        f"{off['rate']:.2f} without ({many['rate'] / off['rate']:.4f}x); "
+        f"peak memory {many['peak_gib']:.3f} against "
+        f"{off['peak_gib']:.3f} GiB; weight casts in 2 eager steps "
+        f"{one['weight_casts']} against {off['weight_casts']}")
+    for arm in arms.values():
+      del arm["weights"]
+    res["fp16_vars"][model] = arms
+  # K-A and K-B against their plain versions on the inputs the bf16-weight
+  # run gave them: its activations, its bf16 weights in K-major and
+  # flipped form, K-B's scale and shift folded from bf16 parameters.
+  for name, check_at in (("conv3x3_same", check_conv_at),
+                         ("bn_relu_conv3x3_stats", check_unit_at)):
+    at = calls[name]
+    check(at and all(n == 256 for n, *_ in at),
+          f"fp16_vars: {name} shapes {sorted(at)}")
+    for (n, h, w, c, co), given in sorted(at.items()):
+      check(given[1].dtype == torch.bfloat16,
+            f"fp16_vars: {name} weights {given[1].dtype}")
+      res.setdefault(name, []).append(check_at(
+          f"fp16_vars_{h}x{w}_{c}_{co}", n, h, w, c, co, None,
+          given=given))
+    calls[name] = None
+  rn = resnet_model.create_resnet50_model()
+  rng = np.random.default_rng(11)
+  images = (np.clip(rng.normal(size=(8, 224, 224, 3)), -2, 2) * 60.0 +
+            127.0).astype(np.float32)
+  res["fp16_vars"]["resnet50_step"] = fp16_vars_step(
+      "resnet50 batch 8", rn,
+      lambda dt: rn.make_module(1001, dt,
+                                generator=torch.Generator().manual_seed(11)),
+      images, rng.integers(0, 1001, 8), ("affine0.weight", "affine0.bias"))
+  with lm_attention("flash"):
+    lmm = lm.TransformerLMModel()
+    tokens, labels = lm_batch(2, 12)
+    res["fp16_vars"]["lm_step"] = fp16_vars_step(
+        "transformer_lm batch 2", lmm,
+        lambda dt: lmm.make_module(
+            1, dt, generator=torch.Generator().manual_seed(12)),
+        tokens, labels, ("lm_head", "embed.weight"))
+
+
+def read_rows(path):
+  with open(path) as f:
+    return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_health(res):
+  """--health_stats on ResNet-50 at batch 256: see the module docstring,
+  item 23."""
+  import tempfile
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import metrics as metrics_lib
+  from kf_benchmarks_tpu_torch import telemetry
+  res["health"] = {}
+  arms = {}
+  with tempfile.TemporaryDirectory(prefix="health_") as root:
+    for arm, k, health in (("k1", 1, True), (f"k{DISPATCH_K}", DISPATCH_K,
+                                             True),
+                           (f"k{DISPATCH_K}_off", DISPATCH_K, False)):
+      train_dir = os.path.join(root, arm)
+      bench, stats, counts, peak = bench_arm(resnet_train_params(
+          num_batches=FP16_STEPS, num_warmup_batches=FP16_WARMUP,
+          display_every=FP16_STEPS, steps_per_dispatch=k,
+          health_stats=health, train_dir=train_dir))
+      steps = stats["steps_run"]
+      res.setdefault("counts_by_path", {})[f"health_{arm}"] = counts
+      check_launches(f"health {arm}", counts, RESNET_LAUNCHES, steps)
+      keys = [metrics_lib.health_key(h) for h in telemetry.HEALTH_KEYS]
+      rows = []
+      if health:
+        rows = [r for r in read_rows(os.path.join(
+            train_dir, "flight_recorder.jsonl")) if "loss" in r]
+        dump = read_rows(os.path.join(train_dir,
+                                      "flight_recorder.dump.jsonl"))
+        check([r["step"] for r in rows] ==
+              list(range(FP16_WARMUP + 1, steps + 1)),
+              f"health {arm}: recorder rows for steps "
+              f"{[r['step'] for r in rows]}")
+        check(dump and dump[0]["flight_recorder_dump"] == "run end",
+              f"health {arm}: no run-end dump")
+        check(all(key in r for r in rows for key in keys),
+              f"health {arm}: rows without the health keys")
+      else:
+        check(stats["health"] is None and not os.path.exists(
+            os.path.join(train_dir, "flight_recorder.jsonl")),
+              f"health {arm}: a telemetry session with the stats off")
+      arms[arm] = dict(losses=stats["losses"], rate=stats["images_per_sec"],
+                       peak_gib=peak, summary=stats["health"],
+                       health=[[r[key] for key in keys] for r in rows]
+                       if health else None)
+      log(f"health {arm}: {stats['images_per_sec']:.2f} images/sec, peak "
+          f"memory {peak:.3f} GiB, {len(rows)} recorder rows, summary "
+          f"{stats['health']}")
+      if arm == "k1":
+        # One more eager step: its grad_norm against the norm of the
+        # gradients it applied, recomputed on the card in f64.
+        final = bench.final
+        m = final["step"](final["images"], final["labels"])
+        grads = [q.grad for q in final["module"].parameters()
+                 if q.grad is not None]
+        ref = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                   for g in grads)))
+        got = float(m["health"][0])
+        rel = abs(got - ref) / ref
+        log(f"health: grad_norm {got:.6g} against {ref:.6g} recomputed on "
+            f"the card: rel {rel:.3g} (tol 1e-4); update_ratio "
+            f"{float(m['health'][1]):.4g}")
+        check(rel <= 1e-4, "health: grad_norm differs from the recomputed "
+              "norm")
+        arms[arm]["grad_norm_rel"] = rel
+        del final, m, grads
+      del bench
+      gc.collect()
+      torch.cuda.empty_cache()
+    one, many = arms["k1"], arms[f"k{DISPATCH_K}"]
+    off = arms[f"k{DISPATCH_K}_off"]
+    check(one["losses"] == many["losses"] and one["health"] ==
+          many["health"], f"health: K={DISPATCH_K} differs from K=1")
+    log(f"health: K={DISPATCH_K} bitwise K=1 (losses and health rows); "
+        f"images/sec with the stats {many['rate']:.2f} against "
+        f"{off['rate']:.2f} without ({many['rate'] / off['rate']:.4f}x)")
+    # The watchdog: an 8 s heartbeat gap (past its 5 s floor) mid-run.
+    logs = []
+    orig = benchmark.log_fn
+    benchmark.log_fn = lambda line: (logs.append(line), log(line))
+    try:
+      _, stats, _, _ = bench_arm(resnet_train_params(
+          num_batches=8, num_warmup_batches=2, display_every=8,
+          train_dir=os.path.join(root, "stall"), stall_watchdog_factor=2.0,
+          fault_schedule="heartbeat_delay@4:secs=8"))
+    finally:
+      benchmark.log_fn = orig
+    stalls = [line for line in logs if "stall watchdog: no dispatch" in line]
+    check(stalls and stats["num_steps"] == 8 and
+          stats["health"]["watchdog_stalls"] >= 1,
+          f"health: no watchdog diagnostic ({stats['health']})")
+    arms["stall"] = {"diagnostics": stalls,
+                     "watchdog_stalls": stats["health"]["watchdog_stalls"]}
+  res["health"] = arms
+
+
+FAULT_STEPS = 9
+
+
+def fault_run(root, name, num_batches, schedule=None):
+  """One launch of ResNet-50 (batch 256, bf16, Nesterov, a checkpoint
+  every 2 steps, no warmup) through ``kfrun -np 1 --restart-on-failure``;
+  returns the worker's stdout and kfrun's stderr."""
+  train_dir = os.path.join(root, name)
+  logdir = os.path.join(root, name + "_logs")
+  os.makedirs(logdir, exist_ok=True)
+  cmd = [sys.executable, "-m", "kf_benchmarks_tpu_torch.kfrun", "-np", "1",
+         "--restart-on-failure", "--logdir", logdir, "--",
+         sys.executable, "-m", "kf_benchmarks_tpu_torch.cli",
+         "--model=resnet50", "--batch_size=256", "--use_fp16",
+         "--optimizer=momentum", "--num_warmup_batches=0",
+         "--save_model_steps=2", "--max_ckpts_to_keep=3",
+         f"--num_batches={num_batches}",
+         "--display_every=1", f"--train_dir={train_dir}"]
+  if schedule:
+    cmd.append(f"--fault_schedule={schedule}")
+  env = {**os.environ, "PYTHONFAULTHANDLER": "1"}
+  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                        env=env)
+  with open(os.path.join(logdir, "127.0.0.1.10000.stdout.log")) as f:
+    out = f.read()
+  check(proc.returncode == 0, f"faults {name}: kfrun exited "
+        f"{proc.returncode}\nkfrun: {proc.stderr[-2000:]}\nworker: "
+        f"{out[-3000:]}")
+  return out, proc.stderr
+
+
+def phase_faults(res):
+  """kfrun --restart-on-failure with corrupt_ckpt@6,kill@7: see the module
+  docstring, item 24. The two uninterrupted runs are BenchmarkCNN in this
+  process (same seed, same checkpoints), with their counts set to 0 just
+  before each and read just after."""
+  import tempfile
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import checkpoint
+  gc.collect()
+  torch.cuda.empty_cache()
+  total = 6 + FAULT_STEPS
+  with tempfile.TemporaryDirectory(prefix="faults_") as root:
+    t0 = time.time()
+    out, err = fault_run(root, "faulted", FAULT_STEPS,
+                         "corrupt_ckpt@6,kill@7")
+    faulted_s = time.time() - t0
+    check("worker died (exit 9); rejoining np=1" in err,
+          f"faults: kfrun did not rejoin the killed worker: {err[-1000:]}")
+    check("fault injected: kill at step 7" in out and
+          "fault corrupt_ckpt: truncated model.ckpt-4.pt" in out,
+          "faults: the faults did not fire")
+    check(re.findall(r"Restored checkpoint at global step (\d+)", out) ==
+          ["6"], "faults: the rejoined worker did not resume at step 6")
+    # The worker that ran to its end (the killed one prints no counts).
+    counts = launches_in(out)
+    check_launches("faults faulted", counts, RESNET_LAUNCHES, FAULT_STEPS)
+    for name in ("whole_a", "whole_b"):
+      _, stats, launched, _ = bench_arm(resnet_train_params(
+          num_batches=total, num_warmup_batches=0, display_every=total,
+          save_model_steps=2, max_ckpts_to_keep=3,
+          train_dir=os.path.join(root, name)))
+      check_launches(f"faults {name}", launched, RESNET_LAUNCHES, total)
+      counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+      gc.collect()
+      torch.cuda.empty_cache()
+    res.setdefault("counts_by_path", {})["faults"] = counts
+    snaps = {}
+    for name in ("faulted", "whole_a", "whole_b"):
+      snaps[name], _, step = checkpoint.load_latest_checkpoint(
+          os.path.join(root, name))
+      check(step == total, f"faults {name}: last step {step}")
+  noise = state_distances(snaps["whole_b"], snaps["whole_a"])
+  resumed = state_distances(snaps["faulted"], snaps["whole_a"])
+  bitwise = max(noise.values()) == 0.0
+  over = {k: (v, noise[k]) for k, v in resumed.items() if v > noise[k]}
+  log(f"faults: killed after step 7 and rejoined from step 6 (step 4's "
+      f"checkpoint torn): {faulted_s:.1f} s for both generations; two "
+      f"uninterrupted runs {'bitwise equal' if bitwise else 'differ'} "
+      f"(largest tensor distance {max(noise.values()):.3g}); the rejoined "
+      f"run against the first: largest {max(resumed.values()):.3g}, "
+      f"{len(over)} of {len(resumed)} tensors over the uninterrupted "
+      f"pair's distance; launches {counts}")
+  check(not over, f"faults: rejoined state beyond the card's own spread: "
+        f"{dict(list(over.items())[:5])}")
+  res["faults"] = {"bitwise": bitwise, "noise_max": max(noise.values()),
+                   "resumed_max": max(resumed.values()),
+                   "faulted_s": faulted_s}
+
+
 # -- main ----------------------------------------------------------------------
 
 def device_line() -> str:
@@ -3295,6 +3833,8 @@ def main(argv=None) -> int:
            "infer": phase_infer, "eval": phase_eval, "optim": phase_optim,
            "dispatch": phase_dispatch, "accum": phase_accum,
            "serve_graph": phase_serve_graph,
+           "fp16_vars": phase_fp16_vars, "health": phase_health,
+           "faults": phase_faults,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}

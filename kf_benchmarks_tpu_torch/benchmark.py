@@ -48,6 +48,22 @@ CUDA-graph replay a step), shortened so that none crosses a step-keyed
 save, eval or elastic check (``dispatch_len``); M splits each step's batch
 into microbatches inside the step.
 
+Telemetry and faults (telemetry.py, faults.py; JAX benchmark.py:419-440,
+:876-891, :1419-1470, :1549, :1628-1690, :1925-1984): --health_stats
+(resolved once against the strategy, auto = on with a --train_dir) makes
+the step return its health vector; a TelemetrySession (the flight recorder
+and the stall watchdog) spans the build and the loop whenever the stats
+are on, or the run is elastic or fault-injected with a --train_dir. Every
+step the metrics pipeline resolves writes one recorder row, and every
+resolved dispatch is a heartbeat (the pipeline's read of real completed
+work, never a device synchronize). --fault_schedule's steps are events of
+the dispatch planner, and each fault fires at the dispatch boundary after
+its step, after its recorder row. The run-end ``health`` summary goes into
+the stats. Under --shard_optimizer_state --elastic a restart at another
+world size resumes the sharded checkpoint re-sliced (checkpoint.py
+``_reshard``); a target the flags do not run at is refused when it is
+polled (``refuse_restart_target``).
+
 Sharded state and the overlapped reduction (--shard_optimizer_state,
 --shard_params, --overlap_gradient_reduction): ``build`` makes this rank's
 shards (ops/sharded.py) before the optimizer, which steps on them, and
@@ -74,12 +90,16 @@ import torch
 
 from kf_benchmarks_tpu_torch import checkpoint
 from kf_benchmarks_tpu_torch import elastic
+from kf_benchmarks_tpu_torch import faults as faults_lib
 from kf_benchmarks_tpu_torch import learning_rate
 from kf_benchmarks_tpu_torch import optimizers
 from kf_benchmarks_tpu_torch import params as params_lib
+from kf_benchmarks_tpu_torch import telemetry
+from kf_benchmarks_tpu_torch import tracing
 from kf_benchmarks_tpu_torch import train_step as train_step_lib
 from kf_benchmarks_tpu_torch import validation
 from kf_benchmarks_tpu_torch.data import datasets
+from kf_benchmarks_tpu_torch.models import model as model_lib
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.ops import conv_bn
 from kf_benchmarks_tpu_torch.ops import flash_attention
@@ -169,6 +189,24 @@ def accuracy_line(top1: float, top5: float, examples: int) -> str:
       top1, top5, examples)
 
 
+def refuse_restart_target(params, world: int) -> Optional[str]:
+  """Why the run's flags do not run at ``world`` workers, or None: the
+  startup cross-flag rules (validation.py) at the polled target, with the
+  worker list cut to it (JAX benchmark.py:1778-1795). A target is known
+  only when it is polled, so this is where a restart is refused: under
+  --shard_optimizer_state every world re-slices the saved shard stacks
+  exactly (checkpoint._reshard), and the rules that can refuse are the
+  ones that count workers (--hierarchical_copy needs two)."""
+  hosts = list(params.worker_hosts or [])
+  check = (params._replace(worker_hosts=hosts[:world]) if hosts
+           else params._replace(num_devices=world))
+  try:
+    validation.validate_cross_flags(check)
+  except validation.ParamError as e:
+    return str(e)
+  return None
+
+
 class BenchmarkCNN:
   """Benchmark runner for one validated Params."""
 
@@ -178,10 +216,20 @@ class BenchmarkCNN:
     if params.adaptive_batch_size and not params.track_grad_noise_scale:
       # The adaptive-batch policy keys on the measured noise scale.
       params = params._replace(track_grad_noise_scale=True)
-    self.params = params
     self.world_size = mesh.world_size()
     self.device = mesh.rank_device(params.device, mesh.local_rank())
     self.strategy = strategies.get_strategy(params)
+    # --health_stats resolved once against the strategy, so the step and
+    # the recorder see one decision (JAX benchmark.py:419-427).
+    health, self.health_note = telemetry.resolve_health_stats(
+        params, self.strategy)
+    params = params._replace(health_stats=health)
+    self.params = params
+    self.run_id = tracing.resolve_run_id()
+    # The faults fire at dispatch boundaries; the planner keeps a K-step
+    # dispatch from crossing one (JAX benchmark.py:434-440).
+    self.faults = faults_lib.FaultInjector.from_params(
+        params, rank=mesh.rank(), log_fn=lambda s: log_fn(s))
     self.nclass = model_config.IMAGENET_NUM_CLASSES
     self.model = model_config.get_model_config(params.model, params)
     if params.batch_size:
@@ -202,6 +250,10 @@ class BenchmarkCNN:
                                else 10)
     self.display_every = params.display_every
     self.compute_dtype = torch.bfloat16 if params.use_fp16 else torch.float32
+    # --fp16_vars stores the parameters (and so the optimizer state) in the
+    # compute dtype, bf16 (JAX benchmark.py:461-467).
+    self.param_dtype = (self.compute_dtype if params.fp16_vars
+                        else torch.float32)
     # The synthetic batch's generation: 0 at start, +1 at each in-process
     # rebuild, carried by the checkpoints.
     self.input_incarnation = 0
@@ -247,8 +299,9 @@ class BenchmarkCNN:
     log_fn("Num devices: %d (%s: %s)" % (self.world_size, p.device,
                                          device_name))
     log_fn("Data format: %s" % p.data_format)
-    log_fn("Precision:   %s (params: float32)" %
-           str(self.compute_dtype).replace("torch.", ""))
+    log_fn("Precision:   %s (params: %s)" % (
+        str(self.compute_dtype).replace("torch.", ""),
+        str(self.param_dtype).replace("torch.", "")))
     log_fn("Optimizer:   %s" % p.optimizer)
     log_fn("Variables:   %s" % p.variable_update)
     if p.variable_update == "kungfu":
@@ -262,8 +315,9 @@ class BenchmarkCNN:
     gen = torch.Generator(device=self.device).manual_seed(
         self.params.tf_random_seed)
     with torch.device(self.device):
-      module = self.model.make_module(self.nclass, self.compute_dtype,
-                                      generator=gen)
+      module = model_lib.cast_params(
+          self.model.make_module(self.nclass, self.compute_dtype,
+                                 generator=gen), self.param_dtype)
     return module, gen
 
   def _synthetic_batch(self, gen: torch.Generator):
@@ -311,7 +365,7 @@ class BenchmarkCNN:
           print_accuracy=p.print_training_accuracy,
           single_l2_loss_op=p.single_l2_loss_op,
           num_grad_accum=self.num_grad_accum, sharding=sharding,
-          overlap=overlap.build(p))
+          overlap=overlap.build(p), health_stats=bool(p.health_stats))
     t_restore = None
     if snapshot is None and p.train_dir:
       t_restore = time.time()
@@ -512,7 +566,14 @@ class BenchmarkCNN:
       action, value = elastic.plan_resize(
           controller.last_raw_target, procs=self.world_size, capacity=1,
           max_procs=len(p.worker_hosts or []) or 1)
-      if action == "restart" and controller.scheduled_restart() is None:
+      refusal = (refuse_restart_target(p, value) if action == "restart"
+                 else None)
+      if refusal:
+        # The target is only known now: it is refused here, with the
+        # reason, and the world stays (JAX benchmark.py:1770-1795).
+        log_fn(f"Elastic restart to {value} worker(s) rejected: "
+               f"{refusal}; keeping the current world")
+      elif action == "restart" and controller.scheduled_restart() is None:
         controller.schedule_restart(i + 2 * p.elastic_check_every_n_steps,
                                     value)
     sched = controller.scheduled_restart()
@@ -530,6 +591,20 @@ class BenchmarkCNN:
     return train_step_lib.TrainChunk(step, self.steps_per_dispatch)
 
   def _benchmark_train(self) -> Dict[str, Any]:
+    """The training run inside its telemetry session (the flight recorder
+    and watchdog span the build, the warmup and the loop)."""
+    if self.health_note:
+      log_fn(self.health_note)
+    tele = telemetry.TelemetrySession.create(
+        self.params, rank=mesh.rank(), log_fn=lambda s: log_fn(s),
+        num_ranks=self.world_size, run_id=self.run_id)
+    try:
+      return self._train(tele)
+    finally:
+      if tele is not None:
+        tele.close()
+
+  def _train(self, tele) -> Dict[str, Any]:
     p = self.params
     K = self.steps_per_dispatch
     launches_before = kernel_launches()
@@ -600,6 +675,16 @@ class BenchmarkCNN:
       m = done.metrics
       loss = float(m["total_loss"])
       losses.append(loss)
+      if tele is not None:
+        # One recorder row a step; one heartbeat a resolved dispatch, with
+        # its wall interval (JAX benchmark.py:1459-1476).
+        call_times = dispatch_stats["call_times"]
+        tele.record(step=start_step + done.index, loss=loss,
+                    lr=m.get("learning_rate"), health=m.get("health"),
+                    wall_ms=done.interval * 1e3, chunk_len=done.chunk_len,
+                    rtt_ms=call_times[-1] * 1e3 if call_times else None)
+        if done.chunk_end:
+          tele.beat(done.chunk_interval)
       if noise_ema is not None and "noise_scale_g2" in m:
         noise_ema.update(float(m["noise_scale_g2"]),
                          float(m["noise_scale_s"]))
@@ -632,13 +717,21 @@ class BenchmarkCNN:
                   and s % p.elastic_check_every_n_steps == 0 and
                   s < self.num_batches)
 
+    def fault_due(s: int) -> bool:
+      return self.faults is not None and self.faults.due(s)
+
     def event_due(s: int) -> bool:
-      return save_steps_due(s) or eval_due_at(s) or elastic_due_at(s)
+      return (save_steps_due(s) or eval_due_at(s) or elastic_due_at(s) or
+              fault_due(s))
 
     # Lag-2 pipelined metric reads (utils/pipeline.py): every step's
     # values are read two dispatches later, so the host never waits for
     # the step it just queued.
     pipe = pipeline_lib.MetricsPipeline(lag=2)
+    # The global step before the first timed step: the recorder's rows
+    # carry global steps (the forward-only step has none).
+    start_step = 0 if p.forward_only else step.global_step
+    drop_next_poll = False
     dispatch_stats["call_times"].clear()
     loop_start = time.time()
     last_save = loop_start
@@ -669,13 +762,25 @@ class BenchmarkCNN:
           now - last_save >= p.save_model_secs)
       eval_due = eval_due_at(i)
       elastic_due = elastic_due_at(i)
-      if not (save_due or eval_due or elastic_due):
+      faults_due = fault_due(i)
+      if not (save_due or eval_due or elastic_due or faults_due):
         continue
       # A sync point: everything in flight is read, and the checkpoint,
       # eval and resize time is kept out of the step times.
       for done in pipe.flush():
         handle(done)
       aux_start = time.time()
+      if faults_due:
+        # Faults fire first at the boundary (a preemption does not wait
+        # for the checkpoint cadence): corrupt_ckpt tears the newest
+        # snapshot already on disk, before this boundary's own save; the
+        # recorder's row lands before a kill (JAX benchmark.py:1628-1650).
+        if tele is not None:
+          for f in self.faults.peek_due(i):
+            tele.fault_event(f.describe(), start_step + i)
+        fired = self.faults.fire_due(i, train_dir=p.train_dir)
+        if fired.dropped_message:
+          drop_next_poll = True
       if save_due:
         self._save_checkpoint(module, step)
         last_save = time.time()
@@ -696,8 +801,16 @@ class BenchmarkCNN:
           aux_time += time.time() - aux_start
           break
       if elastic_due:
-        restart_np = (self._restart_target(controller, i)
-                      if controller is not None else None)
+        restart_np = None
+        if controller is not None and drop_next_poll:
+          # The injected drop_msg: this poll is the lost message. The
+          # poll's dedup never advanced, so a pending RESIZE surfaces at
+          # the next poll instead of vanishing.
+          drop_next_poll = False
+          log_fn(f"fault drop_msg: coordination poll at step {i} "
+                 "dropped; a pending resize stays pending")
+        elif controller is not None:
+          restart_np = self._restart_target(controller, i)
         if restart_np is not None:
           if not p.train_dir:
             log_fn("Elastic restart to %d worker(s) requested but "
@@ -716,6 +829,9 @@ class BenchmarkCNN:
                   f"kf_restart_{controller.generation()}", self.world_size)
             except Exception as e:  # noqa: BLE001
               log_fn(f"restart barrier failed ({e}); exiting anyway")
+            if tele is not None:
+              tele.elastic_event(controller.generation(), self.world_size,
+                                 restart_np, step.global_step)
             restart_requested = restart_np
             break
         if batch_policy is not None and noise_ema is not None:
@@ -769,6 +885,9 @@ class BenchmarkCNN:
           f"{k} {v}" for k, v in launches.items() if v))
     if controller is not None:
       controller.close()
+    # The run-health summary (None without a telemetry session): what
+    # bench_torch.py's health record carries beside the rate.
+    health_summary = tele.summary() if tele is not None else None
     if p.sync_on_finish and restart_requested is None:
       # --sync_on_finish is launch-wide (one command line for every
       # worker), so every rank meets this barrier or none does.
@@ -799,4 +918,6 @@ class BenchmarkCNN:
         "compile_s": dispatch_stats["compile_s"],
         "dispatch_overhead_s": (sum(call_times) / len(call_times)
                                 if call_times else None),
+        "health": health_summary,
+        "health_stats": bool(p.health_stats),
     }

@@ -153,7 +153,12 @@ def flax_to_state_dict(variables: Mapping, module: nn.Module
     if tuple(value.shape) != tuple(ref.shape):
       raise ValueError(f"{key}: flax {name} has shape {value.shape} in the "
                        f"port's layout, want {tuple(ref.shape)}")
-    out[key] = torch.from_numpy(np.array(value)).to(ref.dtype)
+    value = np.array(value)
+    if value.dtype.name == "bfloat16":
+      # numpy has no bfloat16 of its own; a bf16 leaf (flax param_dtype
+      # bfloat16) crosses exactly through f32.
+      value = value.astype(np.float32)
+    out[key] = torch.from_numpy(value).to(ref.dtype)
   left = []
   for path, value in flat.items():
     layers = {i for p, i in used if p == path}

@@ -18,10 +18,20 @@ for another size, every worker checkpoints, enters a restart barrier and
 exits with ``RESTART_EXIT_CODE``; kfrun then relaunches the same command
 at the size the workers agreed on, and they resume from the checkpoint in
 ``--train_dir``. Any other failing worker ends the launch with its exit
-code.
+code -- unless ``--restart-on-failure`` is given (the JAX package's
+kfrun.py:134-200, :244-259): then a generation in which a worker died
+abnormally (SIGKILL'd by a preemptor, OOM-killed, crashed) is relaunched
+at the SAME world size, at most MAX_RESTARTS times, and the rejoined
+workers resume from the checkpoint in ``--train_dir``. Exit codes 0 and
+130 (an interrupt from the operator) are never resurrected. The
+teardown's SIGTERM to the siblings of a dead worker never hides the
+dead worker's own code. ``KF_RUN_ID`` is set once for the whole job
+(every rank, every generation), so the flight recorders of one job share
+one run id (tracing.resolve_run_id).
 
 Usage:
-    python -m kf_benchmarks_tpu_torch.kfrun -np 2 -- python -m \
+    python -m kf_benchmarks_tpu_torch.kfrun -np 2 [--restart-on-failure] \
+        -- python -m \
         kf_benchmarks_tpu_torch.cli --model=resnet152 --use_fp16 \
         --variable_update=kungfu --elastic --train_dir=/tmp/run \
         --worker_hosts=127.0.0.1:29500,127.0.0.1:29501
@@ -81,14 +91,16 @@ def _run_generation(server, np_: int, command: List[str], logdir: str,
     # never fill -- tear the job down instead of hanging (the
     # kungfu-run failure contract). RESTART_EXIT_CODE is a coordinated
     # exit, not a failure.
+    torn = set()  # the workers this launch sent its teardown SIGTERM
     while True:
       codes = [p.poll() for p in procs]
       if all(c is not None for c in codes):
         break
       if any(c not in (None, 0, RESTART_EXIT_CODE) for c in codes):
         time.sleep(1.0)  # grace: let siblings exit on their own
-        for p in procs:
+        for i, p in enumerate(procs):
           if p.poll() is None:
+            torn.add(i)
             p.terminate()
         for p in procs:
           try:
@@ -102,10 +114,13 @@ def _run_generation(server, np_: int, command: List[str], logdir: str,
     if (any(c == RESTART_EXIT_CODE for c in codes) and
         all(c in (0, RESTART_EXIT_CODE) for c in codes)):
       return 0, True
-    # Report the original failure, not the SIGTERM we delivered: a worker
-    # killed by our teardown shows -15, which would mask the real code.
-    failures = [c for c in codes
-                if c not in (0, RESTART_EXIT_CODE, -signal.SIGTERM)]
+    # Report the original failure, not the SIGTERM the teardown delivered:
+    # a worker it killed shows -15, which would mask the real code. A
+    # worker that died of a SIGTERM of its own (a preemption notice, after
+    # the flight recorder's chained handler) keeps its -15.
+    failures = [c for i, c in enumerate(codes)
+                if c not in (0, RESTART_EXIT_CODE) and
+                not (i in torn and c == -signal.SIGTERM)]
     if failures:
       return max(abs(c) for c in failures), False
     return (1 if any(c == -signal.SIGTERM for c in codes) else 0), False
@@ -122,22 +137,38 @@ def _run_generation(server, np_: int, command: List[str], logdir: str,
 
 def launch(np_: int, command: List[str], logdir: str = ".",
            host: str = "127.0.0.1", base_port: int = 0,
-           extra_env: Optional[dict] = None) -> int:
-  """Start coordinator + N workers; relaunch on coordinated restarts (at
-  most ``MAX_RESTARTS``); return the final generation's worst exit
-  code."""
+           extra_env: Optional[dict] = None,
+           restart_on_failure: bool = False) -> int:
+  """Start coordinator + N workers; relaunch on coordinated restarts and,
+  with ``restart_on_failure``, after a worker's abnormal death (at most
+  ``MAX_RESTARTS`` relaunches in all); return the final generation's
+  worst exit code."""
+  from kf_benchmarks_tpu_torch import tracing
   from kf_benchmarks_tpu_torch.parallel import coordination
 
   server = coordination.CoordinatorServer(port=base_port)
   try:
     gen_np = np_
     opened_logs: set = set()
+    # One run id for the whole job: the workers inherit it.
+    extra_env = dict(extra_env or {})
+    extra_env.setdefault("KF_RUN_ID", tracing.resolve_run_id())
     for _ in range(MAX_RESTARTS + 1):
       code, restart = _run_generation(server, gen_np, command, logdir,
                                       host, extra_env,
                                       opened_logs=opened_logs)
       if not restart:
-        return code
+        # 130: the operator stopped the job; survival must not resurrect
+        # it.
+        if code in (0, 130) or not restart_on_failure:
+          return code
+        # An abnormal death with survival on: rejoin at the same world
+        # size from the last checkpoint. No resize was agreed, so the
+        # scheduled-restart key is not read.
+        print(f"kfrun: worker died (exit {code}); rejoining "
+              f"np={gen_np} from the last checkpoint",
+              file=sys.stderr, flush=True)
+        continue
       # The workers checkpointed and exited for a resize; relaunch at
       # the PROCESS count they agreed on in the scheduled-restart key
       # (the raw RESIZE target is a global DEVICE count; in the port a
@@ -173,6 +204,11 @@ def main(argv=None):
   parser.add_argument("--host", default="127.0.0.1")
   parser.add_argument("--port", type=int, default=0,
                       help="coordinator port (0 = ephemeral)")
+  parser.add_argument("--restart-on-failure", action="store_true",
+                      dest="restart_on_failure",
+                      help="relaunch the world at the same size when a "
+                           "worker dies abnormally (preemption "
+                           "survival; workers resume from --train_dir)")
   parser.add_argument("command", nargs=argparse.REMAINDER,
                       help="worker command (prefix with --)")
   args = parser.parse_args(argv)
@@ -182,7 +218,8 @@ def main(argv=None):
   if not command:
     parser.error("no worker command given")
   sys.exit(launch(args.np_, command, logdir=args.logdir, host=args.host,
-                  base_port=args.port))
+                  base_port=args.port,
+                  restart_on_failure=args.restart_on_failure))
 
 
 if __name__ == "__main__":

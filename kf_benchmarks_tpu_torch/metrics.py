@@ -1,7 +1,7 @@
 """Metric registry: the serving engine's typed metric keys and SLO monitor.
 
 The port's own copy of the part of kf_benchmarks_tpu/metrics.py that the
-serving engine uses (stdlib only, nothing imported from the JAX package):
+serving engine and the training telemetry use (stdlib only, nothing imported from the JAX package):
 
 * ``SCHEMA`` -- the registered metric keys, here the ``serving/*`` entries
   (kind, unit, label names, direction), as the JAX package registers them;
@@ -12,7 +12,10 @@ serving engine uses (stdlib only, nothing imported from the JAX package):
   a no-op sink;
 * ``flatten_stats`` / ``labeled_key`` / ``parse_labeled_key`` -- the flat
   ``name{label="value"}`` form of labeled series;
-* ``SLOMonitor`` -- the multi-window error-budget burn-rate monitor.
+* ``SLOMonitor`` -- the multi-window error-budget burn-rate monitor;
+* ``HEALTH_KEYS`` / ``HEALTH_SUMMARY_KEYS`` / ``health_key`` -- the
+  training-health vector's keys and their ``health/`` namespace
+  (telemetry.py).
 
 The Prometheus exposition, the ``/metrics`` endpoint (``MetricsServer``),
 the run store and the regression sentinel are not ported yet.
@@ -25,6 +28,22 @@ import re
 import threading
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+
+# The in-step health vector's key order (telemetry.health_finalize builds
+# it; telemetry.py re-exports this tuple).
+HEALTH_KEYS = ("grad_norm", "update_ratio", "nonfinite_leaves",
+               "loss_scale", "skipped")
+# Run-end health summary keys (FlightRecorder.summary + watchdog).
+HEALTH_SUMMARY_KEYS = ("records", "max_grad_norm", "nonfinite_steps",
+                       "loss_scale_final", "anomaly_dumps",
+                       "watchdog_stalls")
+
+
+def health_key(name: str) -> str:
+  """The ``health/<key>`` namespace: the one place that prefix is built
+  (flight-recorder rows and the summary scalars share it)."""
+  return "health/" + name
+
 
 # The registered label names; a SCHEMA entry declares which of these its
 # series may carry.

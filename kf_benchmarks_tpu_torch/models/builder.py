@@ -16,7 +16,12 @@ is NHWC in memory. ``nhwc(x)`` is then a free view of the same storage.
 
 Precision follows flax's ``dtype=``/``param_dtype=`` split: parameters are
 f32 and each layer casts them to the compute dtype (bf16 under --use_fp16)
-where it uses them; batch statistics are accumulated in f32.
+where it uses them; batch statistics are accumulated in f32. Under
+--fp16_vars the parameters are stored bf16 (models/model.py
+``cast_params``): the convs and the dense layers then read them as they
+are, and batch norm upcasts its scale and offset to f32 (the JAX
+builder's ``.astype(float32)``, builder.py:95-99), so K-B's prologue still
+takes f32 ``sc``/``sh``; the running averages stay f32.
 """
 
 from __future__ import annotations

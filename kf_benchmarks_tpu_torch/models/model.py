@@ -118,6 +118,21 @@ class CNNModel(Model):
     return {"top_1_accuracy": top1, "top_5_accuracy": top5}
 
 
+def cast_params(module: nn.Module, param_dtype: torch.dtype) -> nn.Module:
+  """Every parameter of ``module`` stored in ``param_dtype`` (--fp16_vars:
+  bf16, the JAX package's ``param_dtype`` of every make_module,
+  benchmark.py:461-467, :530-537), in place and in its memory format; the
+  buffers -- the batch-norm running averages -- stay f32. The layers use
+  such parameters as they are where they compute in bf16 (no per-call
+  cast) and upcast them where they compute in f32 (batch norm's scale and
+  offset, layer norm), as flax does."""
+  if param_dtype != torch.float32:
+    with torch.no_grad():
+      for p in module.parameters():
+        p.data = p.data.to(param_dtype)
+  return module
+
+
 def to_model_input(images_nhwc: torch.Tensor,
                    dtype: torch.dtype) -> torch.Tensor:
   """NHWC images -> NCHW-shaped channels_last tensor in ``dtype``."""

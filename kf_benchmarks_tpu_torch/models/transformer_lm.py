@@ -33,7 +33,9 @@ checkpoint region, so the backward's recompute gathers it again
 (ops/overlap.py ``fsdp_block_gatherer``).
 
 Precision follows flax's ``dtype=``/``param_dtype=`` split: parameters are
-f32; each Dense casts its input and parameters to the compute dtype; the
+f32 (bf16 under --fp16_vars, models/model.py ``cast_params``); each Dense
+casts its input and parameters to the compute dtype (a no-op on bf16
+parameters); the
 LayerNorms compute in f32 (eps 1e-6) and the block casts back; the
 embedding and position rows are cast to the compute dtype. ``gelu`` is the
 tanh approximation (flax's ``nn.gelu`` default).
@@ -53,6 +55,7 @@ from torch.utils import checkpoint
 from kf_benchmarks_tpu_torch.data import packing
 from kf_benchmarks_tpu_torch.models import model as model_lib
 from kf_benchmarks_tpu_torch.ops import fused_loss
+from kf_benchmarks_tpu_torch.ops.conv_bn import accum
 from kf_benchmarks_tpu_torch.parallel import sequence
 
 VOCAB = 32768
@@ -104,7 +107,8 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
   """flax ``nn.LayerNorm(dtype=float32)``: eps 1e-6, computed and returned in
-  the parameters' dtype (f32)."""
+  f32 whatever the parameters' dtype (bf16 ones, under --fp16_vars, are
+  upcast; f64 ones keep f64)."""
 
   def __init__(self, d: int):
     super().__init__()
@@ -112,8 +116,9 @@ class LayerNorm(nn.Module):
     self.bias = nn.Parameter(torch.zeros(d))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(x.to(self.weight.dtype), self.weight.shape,
-                        self.weight, self.bias, 1e-6)
+    dt = accum(self.weight).dtype
+    return F.layer_norm(x.to(dt), self.weight.shape, self.weight.to(dt),
+                        self.bias.to(dt), 1e-6)
 
 
 class Block(nn.Module):

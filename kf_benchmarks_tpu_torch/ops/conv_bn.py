@@ -13,7 +13,9 @@ The counterpart of the three Pallas probes in ``experiments/``:
   experiments/pallas_fused_chain_probe.py:128 and
   experiments/pallas_stage2_probe.py:111. It takes the K-major weights
   alone: its one caller, the ResNet's conv_b, builds them from its OIHW
-  parameter in the bf16 cast it makes anyway.
+  parameter in the bf16 cast it makes anyway -- under --fp16_vars from the
+  bf16 parameter as it is stored (a layout copy, no cast), its weight
+  gradient then coming back in the parameter's dtype.
 
 Each wrapper takes NHWC activations, the JAX package's layout. On a CPU
 tensor it computes its plain PyTorch version (below it);

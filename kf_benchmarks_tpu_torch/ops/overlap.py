@@ -41,6 +41,7 @@ the captured step.
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -221,13 +222,18 @@ class GatherParams(torch.autograd.Function):
   """``apply(spec, *shards)``: a bucket's flat (k_i,) shards -> its full
   parameters (of the (shape, stride) pairs of ``spec``) by ONE all-gather;
   the backward reduce-scatters the bucket's full gradients as ONE
-  collective, then / n, onto the shards."""
+  collective, then / n, onto the shards. The wire rides the bucket's own
+  dtype: f32 for f32 parameters, bf16 under --fp16_vars (the promotion of
+  the bucket's dtypes, as the JAX package's ``_gather_params_bwd``,
+  ops/overlap.py:353), and each leaf comes back in its own."""
 
   @staticmethod
   def forward(ctx, spec, *shards):
     ctx.shapes = [shape for shape, _ in spec]
+    ctx.dtypes = [s.dtype for s in shards]
+    common = functools.reduce(torch.promote_types, ctx.dtypes)
     n = mesh.world_size()
-    vec = torch.cat([s.detach().reshape(-1) for s in shards])
+    vec = torch.cat([s.detach().reshape(-1).to(common) for s in shards])
     if mesh.is_distributed():
       full = vec.new_empty(n * vec.numel())
       dist.all_gather_into_tensor(full, vec)
@@ -238,18 +244,20 @@ class GatherParams(torch.autograd.Function):
     for s, (shape, stride) in zip(shards, spec):
       k = s.numel()
       outs.append(sharded.restride(
-          mat[:, off:off + k].reshape(-1)[:shape.numel()], shape, stride))
+          mat[:, off:off + k].reshape(-1)[:shape.numel()].to(s.dtype),
+          shape, stride))
       off += k
     return tuple(outs)
 
   @staticmethod
   def backward(ctx, *cotangents):
     n = mesh.world_size()
+    common = functools.reduce(torch.promote_types, ctx.dtypes)
     cols, ks = [], []
     for cot, shape in zip(cotangents, ctx.shapes):
       k = sharded.shard_len(shape.numel(), n)
-      cols.append(F.pad(cot.reshape(-1), (0, n * k - shape.numel()))
-                  .view(n, k))
+      cols.append(F.pad(cot.reshape(-1).to(common),
+                        (0, n * k - shape.numel())).view(n, k))
       ks.append(k)
     mat = torch.cat(cols, dim=1)
     if mesh.is_distributed():
@@ -259,7 +267,8 @@ class GatherParams(torch.autograd.Function):
       row.div_(n)
     else:
       row = mat.reshape(-1)
-    return (None,) + tuple(row.split(ks))
+    return (None,) + tuple(r.to(dt) for r, dt in zip(row.split(ks),
+                                                      ctx.dtypes))
 
 
 def fsdp_block_gatherer(module: nn.Module, state, buckets):

@@ -358,24 +358,25 @@ class ShardedState:
   # -- checkpoint rows ----------------------------------------------------
 
   def stacks(self, rows: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Every rank's copy of each of this rank's ``rows`` (f32 tensors
-    whose shape is the same on every rank), gathered by one all-gather:
-    each (k,) row becomes the (n, k) stack, each 0-d value the (n,)
-    stack, on the CPU."""
-    if any(r.dtype != torch.float32 for r in rows):
-      raise ValueError("sharded checkpoint rows must be float32, got "
-                       f"{sorted({str(r.dtype) for r in rows})}")
-    vec = torch.cat([r.detach().reshape(-1) for r in rows]) if rows \
-        else torch.zeros(0)
-    if mesh.is_distributed():
-      full = vec.new_empty(self.n * vec.numel())
-      dist.all_gather_into_tensor(full, vec.contiguous())
-    else:
-      full = vec
-    mat = full.reshape(self.n, -1).cpu()
-    out, off = [], 0
-    for r in rows:
-      out.append(mat[:, off:off + r.numel()].reshape(
-          (self.n,) + tuple(r.shape)).clone())
-      off += r.numel()
+    """Every rank's copy of each of this rank's ``rows`` (tensors whose
+    shape and dtype are the same on every rank), gathered by one
+    all-gather per dtype (f32, and bf16 under --fp16_vars, whose rows are
+    saved as they are): each (k,) row becomes the (n, k) stack, each 0-d
+    value the (n,) stack, on the CPU."""
+    out: List[Optional[torch.Tensor]] = [None] * len(rows)
+    for dtype in sorted({r.dtype for r in rows}, key=str):
+      idx = [i for i, r in enumerate(rows) if r.dtype == dtype]
+      vec = torch.cat([rows[i].detach().reshape(-1) for i in idx])
+      if mesh.is_distributed():
+        full = vec.new_empty(self.n * vec.numel())
+        dist.all_gather_into_tensor(full, vec.contiguous())
+      else:
+        full = vec
+      mat = full.reshape(self.n, -1).cpu()
+      off = 0
+      for i in idx:
+        r = rows[i]
+        out[i] = mat[:, off:off + r.numel()].reshape(
+            (self.n,) + tuple(r.shape)).clone()
+        off += r.numel()
     return out

@@ -31,13 +31,26 @@ optimizer (``clip_gradients_``, which the train step calls before each
 optimizer step), not a global-norm clip. Weight decay is not the
 optimizer's: the loss carries it (train_step.py). The train step sets
 each group's ``lr`` to its 0-d f32 rate tensor.
+
+The state follows the parameters' dtype, as optax's ``zeros_like(params)``
+does: under --fp16_vars the momentum, RMSProp and Adam buffers are bf16
+(Adam's count stays f32).
+
+The health stats (telemetry.py) read the square sum of the update, which
+these optimizers never keep: they add it to the weights in place. With
+``track_update(index, num)`` set, each step also leaves this rank's
+partial square sum of its update (row ``index`` of ``num``, as
+telemetry.sumsq_partials splits a leaf) in ``update_sq``, computed from
+the update as the step forms it (Adam's from its moments after the step).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from kf_benchmarks_tpu_torch import telemetry
 
 # optax.lars's trust coefficient (its default, which the JAX package keeps).
 LARS_TRUST_COEFFICIENT = 0.001
@@ -86,7 +99,27 @@ def _with_grads(group):
   return [p for p in group["params"] if p.grad is not None]
 
 
-class _Optimizer(torch.optim.Optimizer):
+class _UpdateSquares:
+  """``track_update`` / ``update_sq``: the update's partial square sum,
+  noted by the step that forms the update."""
+
+  _update_split: Optional[Tuple[int, int]] = None
+  update_sq: Optional[torch.Tensor] = None
+
+  def track_update(self, index: int, num: int) -> None:
+    """Every later step leaves this rank's partial square sum of its
+    update (row ``index`` of ``num``) in ``update_sq``."""
+    self._update_split = (int(index), int(num))
+
+  def _note_update(self, upd: List[torch.Tensor]) -> None:
+    if self._update_split is None:
+      return
+    part = telemetry.sumsq_partials(upd, *self._update_split).sum()
+    self.update_sq = part if self.update_sq is None else \
+        self.update_sq + part
+
+
+class _Optimizer(_UpdateSquares, torch.optim.Optimizer):
   """The port's optimizers: ``initial_state`` is optax's init of one
   parameter's state."""
 
@@ -118,6 +151,7 @@ class SGD(_Optimizer):
   @torch.no_grad()
   def step(self, closure=None):
     assert closure is None
+    self.update_sq = None
     for group in self.param_groups:
       params = _with_grads(group)
       if not params:
@@ -136,12 +170,15 @@ class SGD(_Optimizer):
         else:
           upd = trace
       upd = torch._foreach_mul(upd, -group["lr"])
+      self._note_update(upd)
       torch._foreach_add_(params, upd)
 
 
-class Adam(torch.optim.Adam):
+class Adam(_UpdateSquares, torch.optim.Adam):
   """torch.optim.Adam, capturable where its parameters are on the card;
-  ``initial_state`` is the state its first step would make."""
+  ``initial_state`` is the state its first step would make. Its update,
+  for ``update_sq``, is formed again from the moments after the step:
+  -lr/(1-b1^t) * m / (sqrt(v)/sqrt(1-b2^t) + eps)."""
 
   def __init__(self, params, lr=0.0, betas=(0.9, 0.999), eps: float = 1e-8):
     params = list(params)
@@ -154,6 +191,31 @@ class Adam(torch.optim.Adam):
     return {"step": torch.zeros((), dtype=torch.float32, device=p.device),
             "exp_avg": torch.zeros_like(p),
             "exp_avg_sq": torch.zeros_like(p)}
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    out = super().step(closure)
+    self.update_sq = None
+    if self._update_split is None:
+      return out
+    for group in self.param_groups:
+      params = _with_grads(group)
+      if not params:
+        continue
+      beta1, beta2 = group["betas"]
+      st = [self.state[p] for p in params]
+      # The bias corrections in f64: 1 - beta2^t cancels most of its f32
+      # bits at small t.
+      t = st[0]["step"].double()
+      bc1 = 1.0 - torch.pow(beta1, t)
+      bc2_sqrt = torch.sqrt(1.0 - torch.pow(beta2, t))
+      denom = torch._foreach_sqrt([s["exp_avg_sq"] for s in st])
+      torch._foreach_div_(denom, bc2_sqrt.to(denom[0].dtype))
+      torch._foreach_add_(denom, group["eps"])
+      upd = torch._foreach_div([s["exp_avg"] for s in st], denom)
+      torch._foreach_mul_(upd, (-group["lr"] / bc1).to(upd[0].dtype))
+      self._note_update(upd)
+    return out
 
 
 class RMSprop(_Optimizer):
@@ -175,6 +237,7 @@ class RMSprop(_Optimizer):
   @torch.no_grad()
   def step(self, closure=None):
     assert closure is None
+    self.update_sq = None
     for group in self.param_groups:
       params = _with_grads(group)
       if not params:
@@ -197,6 +260,7 @@ class RMSprop(_Optimizer):
         torch._foreach_mul_(trace, group["momentum"])
         torch._foreach_add_(trace, upd)
         upd = trace
+      self._note_update(upd)
       torch._foreach_add_(params, upd)
 
 
@@ -215,6 +279,7 @@ class LARS(_Optimizer):
   @torch.no_grad()
   def step(self, closure=None):
     assert closure is None
+    self.update_sq = None
     for group in self.param_groups:
       params = _with_grads(group)
       if not params:
@@ -230,4 +295,5 @@ class LARS(_Optimizer):
       trace = [st["trace"] for st in self.states(params, group)]
       torch._foreach_mul_(trace, group["momentum"])
       torch._foreach_add_(trace, upd)
+      self._note_update(trace)
       torch._foreach_add_(params, trace)

@@ -6,8 +6,9 @@ forward-only inference and evaluation on synthetic data, with the JAX
 package's optimizers, learning-rate policy and loss scaling, on one card or
 data-parallel over torch.distributed (spawned ranks, or kfrun workers
 joined through --worker_hosts; optionally with sharded optimizer state,
-sharded parameters or the overlapped reduction), with
-checkpoints, elastic resize and the adaptive batch size, and the
+sharded parameters or the overlapped reduction), in f32 or bf16
+parameters (--fp16_vars), with checkpoints, elastic resize and the
+adaptive batch size, training-health telemetry and fault injection, and the
 transformer_lm serving bench (serving/bench.py). Names, defaults and
 meanings follow the JAX package (the serving bench's ``--serving_requests``,
 ``--serving_rate`` and ``--serving_tenants`` are arguments of the JAX
@@ -196,6 +197,14 @@ flags.DEFINE_boolean("cross_replica_sync", True,
                      "parameter_server is the async parameter server.")
 flags.DEFINE_boolean("use_fp16", False,
                      "bf16 activations and gradients over f32 parameters.")
+flags.DEFINE_boolean("fp16_vars", False,
+                     "Keep variables in reduced precision too (ref "
+                     ":481-485). The port computes in bfloat16 only, so its "
+                     "16-bit variables are bfloat16 (the JAX package's TPU "
+                     "choice): the parameters and the optimizer state "
+                     "follow them; batch-norm scale and offset are used as "
+                     "f32 and the running averages stay f32. Requires "
+                     "--use_fp16.")
 flags.DEFINE_float("fp16_loss_scale", None,
                    "Loss scale; None = model default. bfloat16 does not "
                    "need loss scaling so the default is 1 (ref :471-480).")
@@ -274,6 +283,16 @@ flags.DEFINE_boolean("elastic", False,
 flags.DEFINE_integer("elastic_check_every_n_steps", 10,
                      "How often the train loop polls for elastic resize / "
                      "adaptive-batch decisions.", lower_bound=1)
+flags.DEFINE_string("fault_schedule", None,
+                    "Deterministic fault injection (faults.py): "
+                    "comma-separated <kind>@<step>[:rank=R][:secs=S] "
+                    "entries with kind in kill | sigterm | "
+                    "heartbeat_delay | drop_msg | corrupt_ckpt; each "
+                    "fires ONCE at the dispatch boundary after the "
+                    "named step (one-shot across checkpoint-restart "
+                    "generations via train_dir markers). The "
+                    "reproducible-preemption harness behind the "
+                    "kill/rejoin tests; no reference analog.")
 flags.DEFINE_boolean("adaptive_batch_size", False,
                      "Adapt the per-device batch size to the measured "
                      "gradient noise scale (implies "
@@ -285,6 +304,41 @@ flags.DEFINE_integer("adaptive_batch_min", 1,
 flags.DEFINE_integer("adaptive_batch_max", 1024,
                      "Upper bound for the adaptive per-device batch size.",
                      lower_bound=1)
+# Training-health telemetry (telemetry.py).
+flags.DEFINE_boolean("health_stats", None,
+                     "In-step training-health stats (telemetry.py): the "
+                     "train step additionally returns a compact f32 "
+                     "vector (global grad norm, update/param norm ratio, "
+                     "non-finite leaf count, loss scale + skip flag) "
+                     "computed on the device inside the step (and inside "
+                     "the captured K-step graph) and packed into the "
+                     "step's existing metrics all-reduce, so it adds NO "
+                     "collective; it reaches the host only through the "
+                     "lag-N metrics pipeline, and feeds the flight "
+                     "recorder and stall watchdog. Unset = auto: on for "
+                     "training runs that reduce gradients "
+                     "replica-synchronously (replicated family / kungfu "
+                     "sync_sgd) AND have a telemetry sink (--train_dir); "
+                     "off with a note for per-replica/gossip/async modes "
+                     "and under --shard_optimizer_state, off quietly for "
+                     "sink-less runs.")
+flags.DEFINE_float("health_grad_norm_sigma", 6.0,
+                   "Flight-recorder anomaly threshold: a step whose "
+                   "global grad norm exceeds the trailing window's mean "
+                   "by this many standard deviations dumps the window "
+                   "(telemetry.py).", lower_bound=0.1)
+flags.DEFINE_integer("flight_recorder_window", 64,
+                     "Per-step records the flight recorder retains (and "
+                     "continuously rewrites to train_dir/"
+                     "flight_recorder.jsonl); the post-mortem window "
+                     "dumped on anomaly/signal/exit (telemetry.py).",
+                     lower_bound=4)
+flags.DEFINE_float("stall_watchdog_factor", 10.0,
+                   "Mid-run stall threshold: silence beyond this factor "
+                   "times the trailing mean dispatch wall emits a "
+                   "watchdog diagnostic (never a kill). 0 disables the "
+                   "watchdog thread; the first dispatch is always exempt "
+                   "(patient, log-only) (telemetry.py).", lower_bound=0)
 # Cluster wiring (cluster.py; ref :567-583).
 flags.DEFINE_enum("job_name", "", ("ps", "worker", "controller", ""),
                   "Job role for multi-process runs (ref :571-573); every "

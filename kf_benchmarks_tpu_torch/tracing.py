@@ -6,7 +6,8 @@ serving engine uses (stdlib only, nothing imported from the JAX package):
 ``add_sample`` / ``percentiles`` (streaming latency samples),
 ``note_compile`` / ``compile_ledger`` (here: the time each prepared serving
 callable took on its first, warming run) and ``now``; the active-trace
-registry (``activate``, ``deactivate``, ``active``); and ``percentile``.
+registry (``activate``, ``deactivate``, ``active``); ``percentile``; and
+``resolve_run_id``, the job's run id (``KF_RUN_ID`` from kfrun).
 The Chrome-trace export, the persisted ledger and the multi-rank merge are
 not ported yet.
 
@@ -18,9 +19,22 @@ fetches a value (the serving engine's token fetch does).
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+
+def resolve_run_id(wall_fn=time.time) -> str:
+  """One run id shared by the flight recorder's rows and the trace.
+
+  Under kfrun every worker inherits KF_RUN_ID from the launcher, so all
+  ranks and restart generations of one job share a single id; a
+  standalone process mints a wall-clock/pid-derived one."""
+  env = os.environ.get("KF_RUN_ID")
+  if env:
+    return env
+  return f"run-{int(wall_fn() * 1000.0):x}-{os.getpid():x}"
 
 
 def percentile(values, q: float) -> Optional[float]:

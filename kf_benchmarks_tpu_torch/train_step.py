@@ -61,6 +61,16 @@ reduced bucket by bucket by hooks inside the backward, and the strategy's
 post-hoc reduction is skipped; with M > 1 the hooks stand down and the
 reduction is post hoc on the accumulated gradients.
 
+Health stats (``health_stats``, --health_stats; train_step.py:309-321 and
+:799-845 of the JAX package): the step also returns ``health``, the
+telemetry.HEALTH_KEYS vector, computed on the device from the applied
+gradients, the weights before the update and the optimizer's update
+(optimizers.py notes its square sum during the apply). Each rank sums
+the squares of a 1/n slice of every tensor, and those partials ride the
+one all-reduce that already averages the losses: the step issues as many
+collectives as without them. Not under sharded state or the sequential
+apply, where no full update exists on one rank.
+
 ``TrainChunk`` runs up to K steps a dispatch (--steps_per_dispatch): on a
 CUDA device the step captured as a CUDA graph and replayed.
 
@@ -73,6 +83,7 @@ top-5 and the loss averaged over the ranks.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -81,11 +92,11 @@ import torch.nn as nn
 
 from kf_benchmarks_tpu_torch import elastic
 from kf_benchmarks_tpu_torch import optimizers
+from kf_benchmarks_tpu_torch import telemetry
 from kf_benchmarks_tpu_torch.models import builder
 from kf_benchmarks_tpu_torch.ops import graphs
 from kf_benchmarks_tpu_torch.ops import overlap as overlap_lib
 from kf_benchmarks_tpu_torch.ops import sharded as sharded_lib
-from kf_benchmarks_tpu_torch.ops.conv_bn import accum
 from kf_benchmarks_tpu_torch.parallel import mesh
 from kf_benchmarks_tpu_torch.utils import log as log_util
 
@@ -102,20 +113,45 @@ def is_batch_norm_param(name: str) -> bool:
 def l2_loss(module: nn.Module, single_op: bool = False) -> torch.Tensor:
   """0.5 * sum of squares over the non-BN parameters, in f32
   (tf.nn.l2_loss semantics, train_step.py:78-94). ``single_op``
-  (--single_l2_loss_op) concatenates them first."""
+  (--single_l2_loss_op) concatenates them first. bf16 parameters
+  (--fp16_vars) accumulate in f32 too, as the JAX package's
+  ``astype(float32)`` does, without an f32 copy of any (``_sum_squares``;
+  numerically the same value, so ``single_op`` is moot there)."""
   return _l2([p for name, p in module.named_parameters()
               if not is_batch_norm_param(name)], single_op)
 
 
+class _SumSquares(torch.autograd.Function):
+  """sum(leaf^2) of a 16-bit leaf in f32, with no f32 copy of the leaf on
+  the card (telemetry.square_sums); the backward is 2 g leaf in the
+  leaf's dtype, rounded once -- the JAX package's
+  ``sum(square(leaf.astype(float32)))``, differentiated."""
+
+  @staticmethod
+  def forward(ctx, leaf):
+    ctx.save_for_backward(leaf)
+    return telemetry.square_sums([leaf])[0]
+
+  @staticmethod
+  def backward(ctx, g):
+    (leaf,) = ctx.saved_tensors
+    return leaf * (2.0 * g)
+
+
+def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+  if leaf.dtype in (torch.float32, torch.float64):
+    return torch.sum(torch.square(leaf))
+  return _SumSquares.apply(leaf)
+
+
 def _l2(leaves: List[torch.Tensor], single_op: bool) -> torch.Tensor:
-  leaves = [accum(leaf) for leaf in leaves]
   if not leaves:
     return torch.zeros(())
-  if single_op:
+  if single_op and all(leaf.dtype in (torch.float32, torch.float64)
+                       for leaf in leaves):
     flat = torch.cat([leaf.reshape(-1) for leaf in leaves])
     return 0.5 * torch.sum(flat * flat)
-  return 0.5 * torch.stack([torch.sum(torch.square(leaf))
-                            for leaf in leaves]).sum()
+  return 0.5 * torch.stack([_sum_squares(leaf) for leaf in leaves]).sum()
 
 
 def l2_loss_mixed(module: nn.Module, sharding, single_op: bool = False
@@ -130,8 +166,7 @@ def l2_loss_mixed(module: nn.Module, sharding, single_op: bool = False
           if i not in in_blocks and not is_batch_norm_param(name)]
   shards = [sharding.shards[i] for i in sorted(in_blocks)
             if not is_batch_norm_param(sharding.names[i])]
-  local = 0.5 * torch.stack([torch.sum(torch.square(accum(s)))
-                             for s in shards]).sum()
+  local = 0.5 * torch.stack([_sum_squares(s) for s in shards]).sum()
   return _l2(full, single_op) + sharded_lib.AllReduceSum.apply(local)
 
 
@@ -157,11 +192,16 @@ def loss_scale_settings(params) -> Tuple[float, bool]:
 def _mean_over_ranks(values: List[torch.Tensor]) -> List[torch.Tensor]:
   """Each scalar's mean over the ranks (itself without a process group),
   by one all-reduce."""
-  vec = torch.stack([v.float() for v in values])
+  return list(_mean_vec_over_ranks(
+      torch.stack([v.float() for v in values])).unbind())
+
+
+def _mean_vec_over_ranks(vec: torch.Tensor) -> torch.Tensor:
+  """An f32 vector's elementwise mean over the ranks, by one all-reduce."""
   if mesh.is_distributed():
     dist.all_reduce(vec, op=dist.ReduceOp.SUM)
     vec = vec / mesh.world_size()
-  return list(vec.unbind())
+  return vec
 
 
 def _select_(finite: torch.Tensor, tensors: List[torch.Tensor],
@@ -201,7 +241,8 @@ class TrainStep:
                print_accuracy: bool = False, single_l2_loss_op: bool = False,
                num_grad_accum: int = 1,
                sharding: Optional[sharded_lib.ShardedState] = None,
-               overlap: Optional[overlap_lib.OverlapSpec] = None):
+               overlap: Optional[overlap_lib.OverlapSpec] = None,
+               health_stats: bool = False):
     self.model = model
     self.module = module
     self.optimizer = optimizer
@@ -241,6 +282,19 @@ class TrainStep:
     self._lr = torch.zeros((), dtype=torch.float32, device=device)
     optimizers.init_state(self.optimizer)
     self._kept = None  # the auto loss scale's copies of the state
+    # The health stats (JAX train_step.py:309-321): not where no full
+    # update exists on one rank.
+    self.health = bool(health_stats and sharding is None and not (
+        strategy is not None and strategy.sequential_apply))
+    # This rank's slice (index, of num) of every tensor the stats read:
+    # the ranks split the reads when the partials meet in the metrics
+    # all-reduce.
+    self._health_split = ((mesh.rank(), mesh.world_size())
+                          if strategy is not None and mesh.is_distributed()
+                          else (0, 1))
+    self._health_parts = None
+    if self.health:
+      optimizer.track_update(*self._health_split)
 
   @property
   def update_count(self) -> int:
@@ -384,6 +438,14 @@ class TrainStep:
       else:
         self._lr.fill_(float(rate))
       finite = self._update(strategy, metrics, images.shape[0])
+      health_vec = None
+      if self.health:
+        grad_sq, param_sq = self._health_parts
+        self._health_parts = None
+        upd_sq = self.optimizer.update_sq
+        health_vec = telemetry.pack_partials(
+            grad_sq, param_sq.new_zeros(()) if upd_sq is None else upd_sq,
+            param_sq, self._health_split[1])
       if finite is None:
         self._update_count.add_(1)
       else:
@@ -392,12 +454,23 @@ class TrainStep:
         self._next_loss_scale(finite)
       if self.sharding is not None:
         self.sharding.after_update()
+      # The health partials ride the losses' all-reduce: one collective
+      # either way (JAX train_step.py:799-845).
+      vec = torch.stack([v.float() for v in sums])
+      if health_vec is not None:
+        vec = torch.cat([vec, health_vec])
       if strategy is not None:
-        sums = _mean_over_ranks(sums)
-      metrics.update(zip(["base_loss", "total_loss"] + acc_keys, sums))
+        vec = _mean_vec_over_ranks(vec)
+      metrics.update(zip(["base_loss", "total_loss"] + acc_keys,
+                         vec[:len(sums)].unbind()))
       metrics["learning_rate"] = self._lr.clone()
       if self.use_loss_scale:
         metrics["loss_scale"] = self._loss_scale.clone()
+      if health_vec is not None:
+        skipped = (torch.zeros((), device=vec.device) if finite is None
+                   else 1.0 - finite.float())
+        metrics["health"] = telemetry.health_finalize(
+            vec[len(sums):], self._loss_scale, skipped, skipped)
     return metrics
 
   def _update(self, strategy, metrics, batch_size) -> Optional[torch.Tensor]:
@@ -437,6 +510,12 @@ class TrainStep:
     if self.auto_loss_scale:
       finite = self._all_finite(grads, strategy is not None)
     weights = [p.detach() for p in params]
+    if self.health:
+      # The applied gradients (before the clip, which is the optimizer's
+      # in optax) and the weights before the in-place update.
+      self._health_parts = (
+          telemetry.sumsq_partials(grads, *self._health_split),
+          telemetry.sumsq_partials(weights, *self._health_split).sum())
     if strategy is not None:
       strategy.pre_update(weights, step)
     if strategy is not None and strategy.sequential_apply:
@@ -512,14 +591,15 @@ class TrainChunk:
   1036-1064), K steps of one program.
 
   A call runs ``d`` (1 <= d <= K) steps of ``step`` on one batch and
-  returns each metric as a (d,) tensor in step order. On the CPU, where the
+  returns each metric as a (d, *shape) tensor in step order (the health
+  vector's rows are (d, 5)). On the CPU, where the
   caller has asked for the CPU, the d steps run one after another. On a
   CUDA device the first call runs its first step eagerly on a side stream
   (which builds and loads every kernel, makes the optimizer's state and
   lets cuBLAS and cuDNN pick their algorithms), then captures ``step.run``
   as a CUDA graph and replays it for the others: a dispatch of d steps is d
   graph launches and no other host work. Step j's metrics land in a row of
-  a device (K, n) buffer through a device row counter, so the host reads
+  a device (K, width) buffer through a device row counter, so the host reads
   them once a dispatch; a call returns copies of its rows, which later
   dispatches do not overwrite. The graph reads the inputs, the rate, the
   loss scale and the counters from fixed device tensors: the chunk's own
@@ -536,9 +616,10 @@ class TrainChunk:
     self.step = step
     self.k = k
     self.keys: Optional[Tuple[str, ...]] = None
+    self._shapes: Dict[str, Tuple[int, ...]] = {}
     self._graphs: Dict[int, graphs.Graph] = {}
     self._inputs = None
-    self._rows = None       # (K, n) f32 metrics, one row a step
+    self._rows = None       # (K, width) f32 metrics, one row a step
     self._row = None        # (1,) int64: the row the next replay writes
     self._next_row = 0      # its host mirror
 
@@ -553,9 +634,11 @@ class TrainChunk:
     if self._inputs is None:
       first = graphs.on_side_stream(lambda: self.step(images, labels))
       self.keys = tuple(first)
+      self._shapes = {key: tuple(first[key].shape) for key in self.keys}
       self._inputs = (images.clone(), labels.clone())
       dev = images.device
-      self._rows = torch.zeros(self.k, len(self.keys), dtype=torch.float32,
+      width = sum(first[key].numel() for key in self.keys)
+      self._rows = torch.zeros(self.k, width, dtype=torch.float32,
                                device=dev)
       self._row = torch.zeros(1, dtype=torch.int64, device=dev)
       d -= 1
@@ -570,11 +653,16 @@ class TrainChunk:
       self._graph(self.step.step_class()).replay()
       self.step.global_step += 1
     self._next_row += d
-    out = {key: self._rows[start:start + d, j].clone()
-           for j, key in enumerate(self.keys)}
+    out, off = {}, 0
+    for key in self.keys:
+      shape = self._shapes[key]
+      size = math.prod(shape)
+      out[key] = self._rows[start:start + d, off:off + size].reshape(
+          (d,) + shape).clone()
+      off += size
     if first is not None:
-      out = {key: torch.cat([first[key].float().reshape(1), out[key]])
-             for key in self.keys}
+      out = {key: torch.cat([first[key].float().reshape(
+          (1,) + self._shapes[key]), out[key]]) for key in self.keys}
     return out
 
   def _graph(self, cls: int) -> graphs.Graph:
@@ -588,7 +676,7 @@ class TrainChunk:
         if tuple(m) != self.keys:
           raise RuntimeError(f"the captured step's metrics {tuple(m)} are "
                              f"not the eager step's {self.keys}")
-        vec = torch.stack([m[key].float().reshape(()) for key in self.keys])
+        vec = torch.cat([m[key].float().reshape(-1) for key in self.keys])
         self._rows.index_copy_(0, self._row, vec.unsqueeze(0))
         self._row.add_(1)
 

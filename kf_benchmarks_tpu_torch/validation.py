@@ -6,14 +6,15 @@ forward-only inference and evaluation -- on synthetic data, on one device
 or data-parallel over torch.distributed, and the transformer_lm serving
 bench; anything else fails here with the reason, before any work starts.
 The rules of the flags the port shares with the JAX package are the JAX
-package's (validation.py:209-217, :371-480, :606-741, :817-900), with its
-messages.
+package's (validation.py:209-217, :371-480, :561-600, :606-741,
+:817-935), with its messages.
 """
 
 from __future__ import annotations
 
 import torch
 
+from kf_benchmarks_tpu_torch import faults
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.models import transformer_lm
 from kf_benchmarks_tpu_torch.ops import allreduce
@@ -27,7 +28,6 @@ ASYNC_PS_SEQUENTIAL_MAX_DEVICES = 32
 # error that names the ROADMAP item porting it (make_params and the CLI's
 # parser ask here before they call the flag unknown).
 _UNPORTED_FLAGS = {
-    "fp16_vars": ("16-bit parameters", "6b"),
     "mesh_shape": ("the named 2-D device mesh", "8"),
 }
 
@@ -72,6 +72,7 @@ def validate_cross_flags(params) -> None:
   validate_data_parallel_flags(params)
   validate_elastic_flags(params)
   validate_dispatch_flags(params)
+  validate_telemetry_flags(params)
   if params.attn_block:
     if params.model != "transformer_lm":
       raise ParamError(
@@ -179,8 +180,13 @@ def validate_mode_flags(p) -> None:
 
 
 def validate_optimizer_flags(p) -> None:
-  """Loss scaling and the learning-rate policy (the JAX package's rules
-  and messages, validation.py:647-649, :685-717)."""
+  """16-bit variables, loss scaling and the learning-rate policy (the JAX
+  package's rules and messages, validation.py:642-649, :685-717)."""
+  if p.fp16_vars and not p.use_fp16:
+    raise ParamError("--fp16_vars requires --use_fp16 (ref :1330-1331)")
+  if p.fp16_vars and p.gradient_repacking:
+    raise ParamError("--fp16_vars cannot be used with --gradient_repacking "
+                     "(ref :1284-1285)")
   if p.fp16_enable_auto_loss_scale and not p.use_fp16:
     raise ParamError("--fp16_enable_auto_loss_scale requires --use_fp16 "
                      "(ref :1334-1336)")
@@ -288,6 +294,17 @@ def check_grad_accum_divides(num_grad_accum: int, batch_size: int,
         "a divisible --batch_size")
 
 
+def world_size_of(p) -> int:
+  """The ranks a run has: --num_devices spawned ranks, or one a worker of
+  --worker_hosts. It stands for the JAX package's --num_devices in the
+  rules that count devices (its validation.py:650-652, :695): there
+  num_devices is the size of the one mesh that spans every worker
+  (benchmark.py:393-407), while a kfrun worker of the port runs at
+  --num_devices=1 (the --worker_hosts rule above), so its world is the
+  worker list."""
+  return max(p.num_devices, len(p.worker_hosts or []))
+
+
 def validate_data_parallel_flags(p) -> None:
   """The --variable_update family and its reduction flags."""
   if p.variable_update == "distributed_replicated":
@@ -308,7 +325,7 @@ def validate_data_parallel_flags(p) -> None:
       raise ParamError(f"--all_reduce_spec={p.all_reduce_spec}: {e}")
   if (p.variable_update == "parameter_server" and not p.cross_replica_sync
       and p.optimizer != "sgd"
-      and p.num_devices > ASYNC_PS_SEQUENTIAL_MAX_DEVICES):
+      and world_size_of(p) > ASYNC_PS_SEQUENTIAL_MAX_DEVICES):
     raise ParamError(
         "async parameter_server (--cross_replica_sync=false) with a "
         f"stateful optimizer ({p.optimizer}) applies num_devices "
@@ -316,7 +333,7 @@ def validate_data_parallel_flags(p) -> None:
         f"capped at {ASYNC_PS_SEQUENTIAL_MAX_DEVICES} devices. Use "
         "--optimizer=sgd (exact single-update collapse) or a "
         "synchronous --variable_update at this scale")
-  if p.hierarchical_copy and p.num_devices <= 1:
+  if p.hierarchical_copy and world_size_of(p) <= 1:
     raise ParamError("--hierarchical_copy requires more than one device "
                      "(ref :1310-1311)")
   if p.gradient_repacking and p.all_reduce_spec:
@@ -433,7 +450,12 @@ def validate_sharded_flags(p) -> None:
           "sequential-apply path serializes each replica's UNAVERAGED "
           "gradient through one shared full state copy "
           "(train_step.py); sharded state has no such copy")
-    if p.job_name or p.worker_hosts:
+    if p.job_name:
+      # The JAX package refuses --worker_hosts too: its multi-host mesh
+      # cannot gather the shard rows for a chief-only save. The port's
+      # workers are the ranks of one process group, and the checkpoint's
+      # rows meet in one all-gather over it (ShardedState.stacks), so a
+      # kfrun worker set may shard (the elastic rescale's world).
       raise ParamError(
           "--shard_optimizer_state is single-process for now: the "
           "checkpoint path saves the sharded optimizer state from "
@@ -471,12 +493,19 @@ def validate_sharded_flags(p) -> None:
             "each reducer owns the reduction granularity (ref: "
             "batch_allreduce.py:300-317 selects one algorithm); the "
             "sharded path's reduction IS the per-leaf reduce-scatter")
-    # The port's own two.
-    if p.elastic:
+    # --elastic composes: a resize is a checkpoint-restart, and the
+    # restarted world re-slices the saved (n, k) shard stacks onto its own
+    # size (checkpoint.py _reshard). A target the restart cannot take is
+    # refused at poll time (benchmark.py), not here: the target is only
+    # known mid-run.
+    if p.health_stats:
       raise ParamError(
-          "--elastic cannot be combined with --shard_optimizer_state yet: "
-          "a resize would resume the (n, k) shard rows at another world "
-          "size, the shard-rescale resume of ROADMAP Queue 1 item 6d")
+          "--health_stats cannot be combined with "
+          "--shard_optimizer_state: the in-step stats read the full "
+          "per-step update tree (telemetry.py health_partials), and "
+          "the sharded apply only materializes this device's 1/n "
+          "update shard. Drop the flag (auto-off with a note)")
+    # The port's own rule.
     if p.save_model_secs:
       raise ParamError(
           "--save_model_secs cannot be combined with "
@@ -494,3 +523,76 @@ def validate_sharded_flags(p) -> None:
         "removes. Add --shard_optimizer_state (which also brings its "
         "exclusion matrix: elementwise optimizers only, synchronous "
         "replicated/parameter_server only, no --staged_vars)")
+
+
+def validate_telemetry_flags(p) -> None:
+  """--health_stats and --fault_schedule (the JAX package's rules and
+  messages, validation.py:561-600, :902-935)."""
+  if p.fault_schedule:
+    # Malformed schedules fail at startup, not at the named step: a
+    # fault harness that silently skips its fault proves nothing.
+    try:
+      entries = faults.parse_schedule(p.fault_schedule)
+    except faults.FaultScheduleError as e:
+      raise ParamError(str(e))
+    if any(f.kind == "corrupt_ckpt" for f in entries) and not p.train_dir:
+      raise ParamError(
+          "--fault_schedule=corrupt_ckpt@... requires --train_dir: "
+          "there is no checkpoint to corrupt without one")
+    if any(f.kind in ("kill", "sigterm") for f in entries) \
+        and not p.train_dir:
+      raise ParamError(
+          "--fault_schedule kill/sigterm entries require --train_dir: "
+          "the one-shot-across-generations marker lives there "
+          "(faults.py) -- without it every relaunched generation "
+          "re-kills itself at the same step, and there is no "
+          "checkpoint to rejoin from anyway")
+    if any(f.kind == "drop_msg" for f in entries) and not p.elastic:
+      raise ParamError(
+          "--fault_schedule=drop_msg@... requires --elastic: the fault "
+          "suppresses a coordination-service poll, and without elastic "
+          "polling there is no message to drop -- the injection would "
+          "log success while testing nothing")
+    if any(f.kind == "heartbeat_delay" for f in entries) and (
+        not p.stall_watchdog_factor or
+        not (p.train_dir or p.health_stats)):
+      raise ParamError(
+          "--fault_schedule=heartbeat_delay@... requires a live stall "
+          "watchdog to starve: --stall_watchdog_factor > 0 plus a "
+          "telemetry session (--train_dir, or explicit --health_stats) "
+          "-- otherwise the injected silence is observed by nothing")
+    if p.eval or p.forward_only:
+      raise ParamError(
+          "--fault_schedule applies to training runs only (the faults "
+          "fire at train-dispatch boundaries); it cannot be combined "
+          "with --eval or --forward_only")
+  if p.health_stats:
+    # Explicit --health_stats (unset = auto-resolve, telemetry.py): the
+    # in-step stats read the APPLIED gradient tree and are only global
+    # values when that tree is replica-identical -- i.e. when the
+    # strategy reduces gradients replica-synchronously.
+    if p.eval or p.forward_only:
+      raise ParamError(
+          "--health_stats applies to training only (the stats are "
+          "computed from the step's gradient tree); it cannot be "
+          "combined with --eval or --forward_only")
+    if p.variable_update == "independent":
+      raise ParamError(
+          "--health_stats requires replica-synchronous gradient "
+          "reduction: --variable_update=independent never reduces, so "
+          "each replica's 'global' grad norm would be its own local "
+          "one. Drop the flag (auto-off) or use a replicated-family "
+          "mode")
+    if p.variable_update == "kungfu" and p.kungfu_option != "sync_sgd":
+      raise ParamError(
+          "--health_stats cannot be combined with --kungfu_option="
+          f"{p.kungfu_option}: gossip/model-averaging modes keep "
+          "per-replica gradient trees (parallel/strategies.py); only "
+          "sync_sgd reduces replica-synchronously")
+    if p.variable_update == "parameter_server" and not p.cross_replica_sync:
+      raise ParamError(
+          "--health_stats cannot be combined with async "
+          "parameter_server (--cross_replica_sync=false): the "
+          "sequential-apply path consumes each replica's UNAVERAGED "
+          "gradient (train_step.py sequential_apply), so no replica-"
+          "identical reduced tree exists for the stats to read")

@@ -2,8 +2,8 @@
 on the CPU.
 
 * ``bench_torch.py --device=cpu --model=trivial`` prints one JSON line
-  with bench.py's four keys (and without a card and without
-  ``--device=cpu`` it exits non-zero: no CPU fallback).
+  with bench.py's four keys and its ``health`` record (and without a card
+  and without ``--device=cpu`` it exits non-zero: no CPU fallback).
 * The CLI at ``--device=cpu --num_devices=4`` spawns four gloo ranks and
   only rank 0 prints: one banner, one total line, the global batch and
   rate; a failing rank makes it exit non-zero.
@@ -51,6 +51,38 @@ def test_bench_torch_prints_one_json_line():
                                                 abs=1e-3)
   assert record["world_size"] == 1
   assert "total images/sec" in proc.stderr
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_bench_torch_records_health(tmp_path, sharded):
+  """The line's "health" is bench.py's record, always asked for: its
+  max_grad_norm is the largest in-step grad norm of the same run (read
+  from the flight recorder of that run made in this process with a
+  --train_dir), no step non-finite, the loss scale 1 (f32 on the CPU), no
+  stall. Under --shard_optimizer_state the stats resolve off and it is
+  None."""
+  flags = dict(model="trivial", batch_size=2, num_batches=3,
+               num_warmup_batches=1)
+  argv = [os.path.join(REPO, "bench_torch.py"), "--device=cpu"] + [
+      "--%s=%s" % kv for kv in flags.items()]
+  proc = _run(argv + (["--shard_optimizer_state"] if sharded else []))
+  assert proc.returncode == 0, proc.stderr
+  health = json.loads(proc.stdout.strip().splitlines()[-1])["health"]
+  if sharded:
+    assert health is None
+    return
+  from kf_benchmarks_tpu_torch import benchmark
+  train_dir = str(tmp_path / "run")
+  benchmark.BenchmarkCNN(params_lib.make_params(
+      device="cpu", optimizer="momentum", variable_update="replicated",
+      train_dir=train_dir, **flags)).run()
+  rows = [json.loads(l) for l in
+          open(os.path.join(train_dir, "flight_recorder.jsonl"))]
+  assert len(rows) == 3
+  assert health == {
+      "max_grad_norm": round(max(r["health/grad_norm"] for r in rows), 4),
+      "nonfinite_steps": 0, "loss_scale_final": 1.0, "watchdog_stalls": 0}
+  assert health["max_grad_norm"] > 0
 
 
 def test_bench_torch_has_no_cpu_fallback():
@@ -117,7 +149,7 @@ def test_validation_accepts_every_ported_strategy(flags):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(fp16_vars=True), "Queue 1 item 6b"),
+    (dict(fp16_vars=True), "--fp16_vars requires --use_fp16"),
     (dict(shard_params=True), "requires --shard_optimizer_state"),
     (dict(reduce_bucket_mb=25), "requires --overlap_gradient_reduction"),
     (dict(variable_update="distributed_replicated"), "requires --job_name"),
@@ -159,16 +191,16 @@ def test_more_ranks_than_cards_is_refused():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--fp16_vars"], "Queue 1 item 6b"),
+    (["--fp16_vars"], "--fp16_vars requires --use_fp16"),
     (["--mesh_shape=2x1"], "Queue 1 item 8"),
     (["--shard_params=true"], "requires --shard_optimizer_state"),
     (["--reduce_bucket_mb=25"], "requires --overlap_gradient_reduction"),
 ])
 def test_cli_refuses_unported_flag_naming_roadmap(argv, match, capsys):
-  """The port does not define --fp16_vars and --mesh_shape; the CLI's
-  parser names their ROADMAP item instead of calling them unknown.
-  --shard_params and --reduce_bucket_mb alone are refused with the JAX
-  package's messages."""
+  """The port does not define --mesh_shape; the CLI's parser names its
+  ROADMAP item instead of calling it unknown. --fp16_vars without
+  --use_fp16, and --shard_params and --reduce_bucket_mb alone, are
+  refused with the JAX package's messages."""
   assert cli.main(["--device=cpu", "--model=trivial"] + argv) == 1
   assert match in capsys.readouterr().err
 

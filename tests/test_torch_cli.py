@@ -68,7 +68,8 @@ def test_validation_rejects_outside_the_slice(overrides, match):
 
 @pytest.mark.parametrize("overrides", [
     {"optimizer": "adagrad"}, {"kungfu_option": "ada_sgd"},
-    {"data_format": "NCHW"}, {"device": "tpu"}, {"fp16_vars": True}])
+    {"data_format": "NCHW"}, {"device": "tpu"},
+    {"health_grad_norm_sigma": 0.0}])
 def test_params_reject_unknown_values(overrides):
   with pytest.raises(ValueError):
     params_lib.make_params(**overrides)

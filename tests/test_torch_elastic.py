@@ -1,6 +1,7 @@
 """The port's launcher, cluster wiring, coordination service and elastic
 resize, on the CPU: elastic.py against the JAX package's, the adaptive
-batch size and kfrun's checkpoint-restart over gloo, and BASELINE config 4
+batch size and kfrun's checkpoint-restart over gloo (replicated, and the
+ZeRO rescale of sharded optimizer state), and BASELINE config 4
 (Inception-v3, KungFu pair averaging) at two ranks.
 
 The rank functions below are spawned by torch.multiprocessing, which
@@ -380,6 +381,54 @@ def test_kfrun_checkpoint_restart_2_to_1(tmp_path):
   assert restores == [7], text
   assert re.findall(r"Num devices: (\d+)", text) == ["2", "1"], text
   assert "total images/sec" in text.split("Restored checkpoint")[1]
+  assert checkpoint.latest_checkpoint(str(train_dir))[1] == 7 + 1 + 20
+
+
+def test_kfrun_zero_rescale_2_to_1(tmp_path):
+  """The elastic ZeRO rescale through kfrun: two workers train the
+  trivial model under --shard_optimizer_state (Nesterov momentum, each
+  rank's momentum a 1/2 shard), a RESIZE to one worker checkpoints the
+  (2, k) shard stacks at the scheduled step, and the relaunched worker
+  resumes them re-sliced to (1, k) (checkpoint._reshard) and finishes:
+  the checkpoints on either side of the restart hold (2, k) and (1, k)
+  stacks (tests/test_torch_sharded.py holds the re-slice bitwise)."""
+  coord_port = _free_port()
+  train_dir = tmp_path / "train"
+  logdir = tmp_path / "logs"
+  logdir.mkdir()
+  cmd = [sys.executable, "-m", "kf_benchmarks_tpu_torch.cli",
+         "--model=trivial", "--device=cpu", "--variable_update=replicated",
+         "--shard_optimizer_state", "--optimizer=momentum",
+         "--batch_size=2", "--num_batches=20", "--num_warmup_batches=1",
+         "--display_every=1", "--elastic", "--elastic_check_every_n_steps=2",
+         "--save_model_steps=40", "--max_ckpts_to_keep=0",
+         "--sync_on_finish", f"--train_dir={train_dir}",
+         f"--worker_hosts=127.0.0.1:{_free_port()},127.0.0.1:{_free_port()}"]
+  result = {}
+  t = threading.Thread(target=lambda: result.update(code=kfrun.launch(
+      2, cmd, logdir=str(logdir), base_port=coord_port, extra_env=_env())))
+  t.start()
+  log = logdir / "127.0.0.1.10000.stdout.log"
+  try:
+    deadline = time.time() + WAIT_S
+    while not log.exists() and time.time() < deadline:
+      time.sleep(0.05)
+    with coordination.CoordinatorClient(port=coord_port) as client:
+      client.resize(1)
+  finally:
+    t.join(timeout=WAIT_S)
+  assert not t.is_alive(), "kfrun did not finish"
+  text = log.read_text()
+  assert result.get("code") == 0, text
+  assert re.search(r"Elastic restart at step 6: workers 2 -> 1", text), text
+  assert re.findall(r"Restored checkpoint at global step (\d+)", text) == \
+      ["7"], text
+  saved = checkpoint.load_checkpoint(str(train_dir / "model.ckpt-7.pt"))
+  final = checkpoint.load_checkpoint(str(train_dir / "model.ckpt-28.pt"))
+  for snap, n in ((saved, 2), (final, 1)):
+    assert snap["opt_state_layout"] == "sharded"
+    assert {v.shape[0] for st in snap["optimizer"]["state"].values()
+            for v in st.values()} == {n}
   assert checkpoint.latest_checkpoint(str(train_dir))[1] == 7 + 1 + 20
 
 

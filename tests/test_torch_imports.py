@@ -56,3 +56,22 @@ def test_the_check_sees_a_planted_import(planted):
   proc = _check(planted)
   assert proc.returncode == 1, proc.stdout + proc.stderr
   assert "loaded:" in proc.stdout
+
+
+def test_the_walk_covers_the_telemetry_and_fault_modules():
+  """telemetry.py and faults.py are among the modules the check imports,
+  and each keeps its own copy of the JAX package's module rather than
+  importing it (the JAX package's faults.py is stdlib only, and is
+  still not imported)."""
+  import pkgutil
+  import kf_benchmarks_tpu_torch as pkg
+  names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                 pkg.__name__ + ".")}
+  for mod in ("telemetry", "faults", "metrics", "tracing", "kfrun"):
+    assert f"kf_benchmarks_tpu_torch.{mod}" in names
+  for mod in ("telemetry", "faults"):
+    with open(os.path.join(REPO, "kf_benchmarks_tpu_torch",
+                           mod + ".py")) as f:
+      src = f.read()
+    assert "kf_benchmarks_tpu." not in src.replace(
+        "kf_benchmarks_tpu/", "")

@@ -73,25 +73,46 @@ def _mode_cases(world, mode_flags, mode):
 
 def _ckpt_cases(world, path):
   """The LM under Adam: at world 2 four uninterrupted steps, and two saved
-  then two resumed; at world 4 the world-2 checkpoint restored."""
+  then two resumed; at world 4 the world-2 checkpoint restored, and two
+  steps from the init saved for the rescale to 2 and 1 ranks."""
   lm = lambda name, **kw: modes.case(name, "lm", world, {**ZERO, **ADAM},
                                      **kw)
   if world == 2:
     return [lm("ckpt_full", steps=4),
             lm("ckpt_half", steps=2, save=path, snapshot=True),
             lm("ckpt_resume", steps=2, restore=path)]
-  return [lm("ckpt_world4", steps=0, restore=path, snapshot=True)]
+  return [lm("ckpt_world4", steps=0, restore=path, snapshot=True),
+          lm("rescale_w4", steps=2, save=_RESULTS["rescale_w4"],
+             snapshot=True)]
+
+
+FP16 = dict(use_fp16=True, fp16_vars=True)
+FSDP = dict(ZERO, shard_params=True)
+
+
+def _fp16_cases(world):
+  """--fp16_vars at two ranks: the trivial model and the LM replicated
+  and under FSDP (bf16 shards, gathers and scatters); the LM at weight
+  decay 0, whose FSDP value over its block stack is reassociated
+  (tests/test_torch_fsdp.py)."""
+  return [modes.case(f"{m}_{name}16", m, world, {**flags, **FP16},
+                     snapshot=name == "fsdp",
+                     **({"weight_decay": 0.0} if m == "lm" else {}))
+          for m in ("trivial", "lm")
+          for name, flags in (("replicated", {}), ("fsdp", FSDP))]
 
 
 def torch_results(world, tmp_path_factory):
   if "ckpt" not in _RESULTS:
-    _RESULTS["ckpt"] = str(tmp_path_factory.mktemp("zero_ckpt") /
-                           "model.ckpt-2.pt")
+    root = tmp_path_factory.mktemp("zero_ckpt")
+    _RESULTS["ckpt"] = str(root / "model.ckpt-2.pt")
+    _RESULTS["rescale_w4"] = str(root / "rescale_w4.pt")
   if world == 4:
     torch_results(2, tmp_path_factory)
   if world not in _RESULTS:
     cases = (_mode_cases(world, ZERO, "zero") +
-             _ckpt_cases(world, _RESULTS["ckpt"]))
+             _ckpt_cases(world, _RESULTS["ckpt"]) +
+             (_fp16_cases(world) if world == 2 else []))
     _RESULTS[world] = worker.run_world(
         world, cases, tmp_path_factory.mktemp(f"zero{world}"))
   return _RESULTS[world]
@@ -238,7 +259,8 @@ def _jax_error(kw):
     dict(variable_update="independent"), dict(variable_update="kungfu"),
     dict(variable_update="horovod"),
     dict(variable_update="parameter_server", cross_replica_sync=False),
-    dict(worker_hosts=["h0:1", "h1:1"]), dict(optimizer="lars"),
+    dict(job_name="worker"), dict(optimizer="lars"),
+    dict(health_stats=True),
     dict(adaptive_batch_size=True), dict(track_grad_noise_scale=True),
     dict(overlap_gradient_reduction=True), dict(all_reduce_spec="psum"),
     dict(gradient_repacking=2), dict(agg_small_grads_max_bytes=64),
@@ -252,7 +274,8 @@ def test_refusals_carry_the_jax_message(kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(elastic=True), "Queue 1 item 6d"),
+    (dict(health_stats=True, elastic=True, train_dir="/nonexistent"),
+     "read the full per-step update tree"),
     (dict(save_model_secs=60), "--save_model_steps"),
 ])
 def test_refusals_of_the_port(kw, match):
@@ -265,9 +288,117 @@ def test_refusals_of_the_port(kw, match):
     dict(optimizer="rmsprop"), dict(steps_per_dispatch=4),
     dict(num_grad_accum=2, batch_size=4), dict(save_model_steps=5),
     dict(use_fp16=True, fp16_enable_auto_loss_scale=True),
+    dict(elastic=True), dict(use_fp16=True, fp16_vars=True),
+    dict(elastic=True, fault_schedule="drop_msg@4", train_dir="/tmp/d"),
 ])
 def test_compositions_are_admitted_as_in_jax(kw):
   kw = {**ZERO, **kw}
   validation.validate_cross_flags(port_params.make_params(device="cpu",
                                                           **kw))
   jax_validation.validate_cross_flags(jax_params.make_params(**kw))
+
+
+def test_zero_admits_kfrun_workers():
+  """The port lifts one JAX refusal: --shard_optimizer_state with
+  --worker_hosts. The JAX package's multi-host mesh cannot gather the
+  shard rows for a chief-only save; the port's kfrun workers are the
+  ranks of one process group, whose rows meet in one all-gather
+  (ShardedState.stacks), so the elastic rescale's world may shard."""
+  kw = {**ZERO, "worker_hosts": ["h0:1", "h1:1"]}
+  validation.validate_cross_flags(port_params.make_params(device="cpu",
+                                                          **kw))
+  assert "single-process" in _jax_error(kw)
+
+
+# -- --fp16_vars under FSDP ------------------------------------------------------
+
+@pytest.mark.parametrize("model", ["trivial", "lm"])
+def test_fsdp_rides_bf16_and_is_bitwise_replicated(model, tmp_path_factory):
+  """At two ranks the bf16-parameter FSDP step is bitwise the bf16
+  replicated step: the shards are bf16, so the packed all-gather and the
+  gather's reduce-scatter ride bf16 (the JAX package's
+  ``_gather_params_bwd`` wire), and the checkpoint keeps the bf16 rows as
+  they are."""
+  results = torch_results(2, tmp_path_factory)
+  modes.check_bitwise(results, f"{model}_fsdp16", f"{model}_replicated16")
+  for res in results:
+    got = res[f"{model}_fsdp16"]
+    assert got["shard_dtypes"] == ["torch.bfloat16"]
+    snap = got["snapshot"]
+    assert snap["params_layout"] == "sharded"
+    rows = [v for v in snap["model"].values() if v.dim() == 2]
+    assert rows and {v.dtype for v in rows} == {torch.bfloat16}
+    state = [v for st in snap["optimizer"]["state"].values()
+             for v in st.values()]
+    assert {v.dtype for v in state} == {torch.bfloat16}
+
+
+# -- the elastic rescale: 4 -> 2 -> 1 ranks ---------------------------------------
+
+def _replicated_snapshot(snap, model="lm"):
+  """A sharded snapshot's state desharded into the replicated layout."""
+  module = worker.port_model(model).make_module(worker.NCLASS)
+  shapes = [p.shape for p in module.parameters()]
+  out = {k: v for k, v in snap.items() if k != "opt_state_layout"}
+  opt = dict(snap["optimizer"])
+  opt["state"] = {
+      i: {k: v.reshape(-1)[:shapes[i].numel()].reshape(shapes[i])
+          if v.dim() == 2 else v[0] for k, v in st.items()}
+      for i, st in snap["optimizer"]["state"].items()}
+  out["optimizer"] = opt
+  return out
+
+
+def _rescale_results(tmp_path_factory):
+  """The world-4 checkpoint resumed at world 2 (ZeRO, and replicated from
+  its desharded state), one step each; the world-2 ZeRO checkpoint so made
+  resumed at world 1 (in this process) the same way."""
+  if "rescale" in _RESULTS:
+    return _RESULTS["rescale"]
+  w4 = torch_results(4, tmp_path_factory)[0]["rescale_w4"]["snapshot"]
+  root = tmp_path_factory.mktemp("rescale")
+  path4r, path2 = str(root / "w4_replicated.pt"), str(root / "w2.pt")
+  torch.save(_replicated_snapshot(w4), path4r)
+  lm = lambda name, world, flags, **kw: modes.case(name, "lm", world,
+                                                   {**flags, **ADAM}, **kw)
+  two = worker.run_world(2, [
+      lm("restored", 2, ZERO, steps=0, restore=_RESULTS["rescale_w4"],
+         snapshot=True),
+      lm("zero", 2, ZERO, steps=1, restore=_RESULTS["rescale_w4"],
+         save=path2, snapshot=True),
+      lm("replicated", 2, {}, steps=1, restore=path4r)],
+      tmp_path_factory.mktemp("rescale_w2"))
+  path2r = str(root / "w2_replicated.pt")
+  torch.save(_replicated_snapshot(two[0]["zero"]["snapshot"]), path2r)
+  one = {c["name"]: worker._train_case(c, 0, 1) for c in (
+      lm("restored", 1, ZERO, steps=0, restore=path2, snapshot=True),
+      lm("zero", 1, ZERO, steps=1, restore=path2),
+      lm("replicated", 1, {}, steps=1, restore=path2r))}
+  _RESULTS["rescale"] = {"w4": w4, 2: two, 1: [one]}
+  return _RESULTS["rescale"]
+
+
+@pytest.mark.parametrize("before,after", [(4, 2), (2, 1)])
+def test_zero_rescale_deshards_bitwise_and_steps_as_replicated(
+    before, after, tmp_path_factory):
+  """A ZeRO checkpoint of ``before`` ranks restored at ``after`` (the
+  elastic restart's resume, checkpoint._reshard): the optimizer state
+  desharded is bitwise the state before the resize, the weights equal,
+  and the next step is bitwise the port's replicated step at the new
+  world from that desharded state (its distance to it is 0 at 2 ranks
+  and at 1)."""
+  res = _rescale_results(tmp_path_factory)
+  saved = res["w4"] if before == 4 else res[2][0]["zero"]["snapshot"]
+  for rank_res in res[after]:
+    restored = rank_res["restored"]["snapshot"]
+    if after > 1:
+      assert restored["optimizer"]["state"][0]["exp_avg"].shape[0] == after
+    a, b = _optimizer_state(saved), _optimizer_state(restored)
+    assert a.keys() == b.keys()
+    for key in a:
+      assert torch.equal(a[key], b[key]), key
+    for name, v in saved["model"].items():
+      assert torch.equal(restored["model"][name], v), name
+    assert rank_res["zero"]["losses"] == rank_res["replicated"]["losses"]
+    assert torch.equal(rank_res["zero"]["weights"][-1],
+                       rank_res["replicated"]["weights"][-1])

@@ -43,6 +43,7 @@ from kf_benchmarks_tpu_torch import convert
 from kf_benchmarks_tpu_torch import optimizers
 from kf_benchmarks_tpu_torch import params as params_lib
 from kf_benchmarks_tpu_torch import train_step
+from kf_benchmarks_tpu_torch.models import model as model_lib
 from kf_benchmarks_tpu_torch.models import resnet_model
 from kf_benchmarks_tpu_torch.models import transformer_lm
 from kf_benchmarks_tpu_torch.models import trivial_model
@@ -123,21 +124,26 @@ def flax_layout(module):
   for key, t in module.state_dict().items():
     path, kind, index = convert.flax_source(key, t, module)
     name = path[1:] if index is None else path[1:] + (index,)
-    out[name] = convert.to_flax_layout(t.detach().numpy().copy(), kind)
+    out[name] = convert.to_flax_layout(
+        t.detach().float().numpy().copy(), kind)
   return out
 
 
 def _train_case(case, rank, world):
   model = port_model(case["model"])
-  module = model.make_module(NCLASS, torch.float32)
+  wd = case.get("weight_decay", WEIGHT_DECAY)
+  p = params_lib.make_params(device="cpu", num_devices=world,
+                             weight_decay=wd, **case["params"])
+  # --fp16_vars: bf16 compute over bf16 parameters (the f32 init rounded).
+  module = model.make_module(
+      NCLASS, torch.bfloat16 if p.fp16_vars else torch.float32)
   if "stacked" in case:
     state = convert.replica_state_dict(case["stacked"], rank, module)
   else:
     state = convert.flax_to_state_dict(case["variables"], module)
   module.load_state_dict(state)
-  wd = case.get("weight_decay", WEIGHT_DECAY)
-  p = params_lib.make_params(device="cpu", num_devices=world,
-                             weight_decay=wd, **case["params"])
+  if p.fp16_vars:
+    model_lib.cast_params(module, torch.bfloat16)
   step = make_step(model, module, p, case["lr"], wd)
   with torch.no_grad():
     step.strategy.broadcast_init([q.detach() for q in module.parameters()])
@@ -167,7 +173,9 @@ def _train_case(case, rank, world):
     final = flax_layout(module)
   out = {"losses": losses, "weights": weights, "final": final,
          "opt_bytes": opt_bytes, "param_bytes": param_bytes,
-         "buckets": num_buckets(step)}
+         "buckets": num_buckets(step),
+         "shard_dtypes": sorted({str(t.dtype) for t in step.sharding.shards})
+                         if step.sharding is not None else []}
   if "save" in case or case.get("snapshot"):
     snap = checkpoint.savable_state(module, step.optimizer, step.global_step,
                                     counters=step.counters(),
