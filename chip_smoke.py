@@ -238,7 +238,24 @@ the run with a non-zero exit and no result line:
                 more; its state at step 15 held as phase elastic holds its
                 resume, against two uninterrupted runs of 15 steps (in
                 this process); 13 + 13 launches a step in every run that
-                ran to its end.
+                ran to its end;
+ 25. input   -- the real-data input path (data/): builds the port's JPEG
+                codec and image-operation libraries with g++ and checks the
+                pinned SHA-256 of the decode of one fixed port-encoded
+                image; writes 1024 train and 256 validation TFRecords (64
+                distinct textured 500x375 JPEGs at quality 90, the port's
+                generator) into a temporary directory; times one host
+                thread's decode and train preprocessing a image; checks
+                that the first batch on the card is bitwise the CPU
+                preprocessor's from the same seed (normalised, bf16);
+                trains ResNet-50 (batch 256, bf16, momentum) on the records
+                through BenchmarkCNN, 8 warmup + 32 timed steps at K = 1
+                and K = 8 (losses bitwise equal, 13 + 13 launches a step)
+                and at K = 8 with --datasets_repeat_cached_sample; one
+                --eval pass over the validation records (it stops at their
+                end); K-A and K-B against their plain versions on the
+                inputs the K = 1 run gave them; images/sec,
+                feed_stall_fraction, queue depth and the host's CPU counts.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -272,7 +289,7 @@ ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
               "optim", "dispatch", "accum", "serve_graph", "fp16_vars",
-              "health", "faults")
+              "health", "faults", "input")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -3777,6 +3794,171 @@ def phase_faults(res):
 
 # -- main ----------------------------------------------------------------------
 
+# Phase input: the records it writes and the steps of each run.
+INPUT_TRAIN, INPUT_VALIDATION, INPUT_DISTINCT = 1024, 256, 64
+INPUT_WARMUP, INPUT_STEPS = 8, 32
+# The decode of jpeg.encode(textured_image(RandomState(0)), quality=90)
+# (kf_benchmarks_tpu_torch/data; tests/test_torch_jpeg.py pins it too).
+PINNED_DECODE_SHA256 = (
+    "30d6f913c0d32b98ccf6f763fe104d1606a07d092067fc6139f89eea04097b50")
+
+
+def input_params(data_dir, **kw):
+  return resnet_train_params(data_dir=data_dir, data_name="imagenet",
+                             display_every=INPUT_STEPS, **kw)
+
+
+def host_ms_per_image(fn, items):
+  t0 = time.perf_counter()
+  for i, item in enumerate(items):
+    fn(i, item)
+  return (time.perf_counter() - t0) / len(items) * 1e3
+
+
+def phase_input(res):
+  """The real-data input path: see the module docstring, item 25."""
+  import hashlib
+  import random
+  import tempfile
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch.data import datasets
+  from kf_benchmarks_tpu_torch.data import device_feed
+  from kf_benchmarks_tpu_torch.data import image_ops
+  from kf_benchmarks_tpu_torch.data import jpeg
+  from kf_benchmarks_tpu_torch.data import preprocessing
+  from kf_benchmarks_tpu_torch.data import tfrecord
+  from kf_benchmarks_tpu_torch.data import tfrecord_image_generator as gen
+  out = res["input"] = {}
+  t0 = time.time()
+  jpeg.library()
+  image_ops.library()
+  out["build_s"] = time.time() - t0
+  fixed = jpeg.encode(gen.textured_image(np.random.RandomState(0)),
+                      quality=90)
+  digest = hashlib.sha256(jpeg.decode(fixed).tobytes()).hexdigest()
+  check(digest == PINNED_DECODE_SHA256,
+        f"input: decode digest {digest}, pinned {PINNED_DECODE_SHA256}")
+  cpus = os.cpu_count()
+  affinity = len(os.sched_getaffinity(0))
+  out.update(cpu_count=cpus, sched_getaffinity=affinity)
+  log(f"input: codec and image ops built in {out['build_s']:.1f} s; pinned "
+      f"decode digest matches; host os.cpu_count() {cpus}, "
+      f"len(os.sched_getaffinity(0)) {affinity}")
+  calls = {"conv3x3_same": {}, "bn_relu_conv3x3_stats": {}}
+  with tempfile.TemporaryDirectory(prefix="kf_input_") as tmp:
+    data_dir = os.path.join(tmp, "imagenet")
+    t0 = time.time()
+    gen.write_textured_records(
+        data_dir, num_train=INPUT_TRAIN, num_validation=INPUT_VALIDATION,
+        num_distinct=INPUT_DISTINCT, quality=90)
+    out["write_s"] = time.time() - t0
+    shard = tfrecord.list_shards(data_dir, "train")[0]
+    parsed = [preprocessing.parse_example_proto(r)
+              for _, r in zip(range(INPUT_DISTINCT),
+                              tfrecord.read_records(shard))]
+    sizes = [len(p[0]) for p in parsed]
+    decode_ms = host_ms_per_image(lambda i, p: jpeg.decode(p[0]), parsed)
+    rng = random.Random(0)
+    train_ms = host_ms_per_image(
+        lambda i, p: preprocessing.train_image(p[0], 224, 224, p[2], i,
+                                               "bilinear", False, rng),
+        parsed)
+    out.update(decode_ms=decode_ms, train_image_ms=train_ms,
+               jpeg_bytes_mean=float(np.mean(sizes)))
+    log(f"input: {INPUT_TRAIN} + {INPUT_VALIDATION} records written in "
+        f"{out['write_s']:.1f} s (JPEGs {np.mean(sizes) / 1024:.1f} KiB "
+        f"mean); one host thread: full 500x375 decode {decode_ms:.3f} ms "
+        f"a image, train preprocessing to 224 (draft decode, crop, "
+        f"bilinear resize, flip) {train_ms:.3f} ms a image")
+    # The first batch on the card against the CPU preprocessor's.
+    bench = benchmark.BenchmarkCNN(input_params(data_dir, num_batches=1))
+    images, labels = bench._open_input("train")()
+    torch.cuda.synchronize()
+    bench._stop_input()
+    host = preprocessing.RecordInputImagePreprocessor(
+        batch_size=bench.batch_size, output_shape=(224, 224, 3), train=True,
+        seed=1234,
+        shift_ratio=0.0, num_threads=16).minibatches(
+            datasets.ImagenetDataset(data_dir), "train")
+    host_images, host_labels = next(host)
+    host.close()
+    ref = device_feed.normalize(torch.from_numpy(host_images), "unit",
+                                torch.bfloat16)
+    check(images.dtype == torch.bfloat16 and
+          torch.equal(images.cpu(), ref) and
+          torch.equal(labels.cpu(), torch.from_numpy(host_labels).long()),
+          "input: the first batch on the card is not the CPU "
+          "preprocessor's")
+    log(f"input: first batch on the card ({tuple(images.shape)} bf16, "
+        "normalised there) bitwise the CPU preprocessor's from the same "
+        "seed")
+    del bench, images, labels, ref
+    arms = {}
+    for label, k, extra in (("k1", 1, {}), ("k8", DISPATCH_K, {}),
+                            ("k8_cached", DISPATCH_K,
+                             {"datasets_repeat_cached_sample": True})):
+      keeping = (capturing_unit_inputs(calls) if label == "k1"
+                 else contextlib.nullcontext())
+      with keeping:
+        bench, stats, counts, peak = bench_arm(input_params(
+            data_dir, num_batches=INPUT_STEPS,
+            num_warmup_batches=INPUT_WARMUP, steps_per_dispatch=k, **extra))
+      steps = stats["steps_run"]
+      res.setdefault("counts_by_path", {})[f"input_{label}"] = counts
+      check_launches(f"input: {label}", counts, RESNET_LAUNCHES, steps)
+      fs = stats["feed_stats"]
+      check(fs is not None and fs["fetches"] > 0,
+            f"input: {label}: no feed stats")
+      arms[label] = dict(rate=stats["images_per_sec"],
+                         losses=stats["losses"], feed=fs, peak_gib=peak)
+      log(f"input: {label}: {stats['images_per_sec']:.2f} images/sec, "
+          f"feed_stall_fraction {fs['feed_stall_fraction']:.4f}, queue "
+          f"depth {fs['queue_depth_mean']:.2f} mean / "
+          f"{fs['queue_depth_max']} max (prefetch "
+          f"{fs['prefetch_batches']} batches), {fs['fetches']} fetches, "
+          f"peak memory {peak:.2f} GiB, launches {counts} in {steps} "
+          "steps")
+      log(f"input: {label}: losses {stats['losses']}")
+      del bench
+      gc.collect()
+      torch.cuda.empty_cache()
+    check(arms["k1"]["losses"] == arms["k8"]["losses"],
+          f"input: K={DISPATCH_K} losses differ from K=1")
+    log(f"input: K={DISPATCH_K} losses bitwise K=1; images/sec K=1 "
+        f"{arms['k1']['rate']:.2f}, K={DISPATCH_K} "
+        f"{arms['k8']['rate']:.2f}, K={DISPATCH_K} with "
+        f"--datasets_repeat_cached_sample {arms['k8_cached']['rate']:.2f}")
+    out["arms"] = arms
+    bench = benchmark.BenchmarkCNN(input_params(
+        data_dir, eval=True, num_eval_batches=4))
+    reset_launches()
+    stats = bench.run()
+    counts = benchmark.kernel_launches()
+    res["counts_by_path"]["input_eval"] = counts
+    check(stats["num_eval_batches"] == INPUT_VALIDATION // bench.batch_size,
+          f"input: eval scored {stats['num_eval_batches']} batches of "
+          f"{INPUT_VALIDATION} records")
+    check(counts.get("bn_relu_conv3x3_stats") == 13 and
+          not counts.get("conv3x3_same"),
+          f"input: eval launches {counts}")
+    out["eval"] = {k: stats[k] for k in ("top_1_accuracy", "top_5_accuracy",
+                                         "num_eval_batches")}
+    log(f"input: --eval over {INPUT_VALIDATION} validation records: "
+        f"{stats['num_eval_batches']} batch(es) of {bench.batch_size} (asked "
+        f"4: the stream ended), top-1 {stats['top_1_accuracy']:.4f}, "
+        f"launches {counts}")
+    del bench
+  for name, check_at in (("conv3x3_same", check_conv_at),
+                         ("bn_relu_conv3x3_stats", check_unit_at)):
+    at = calls[name]
+    check(at and all(n == 256 for n, *_ in at),
+          f"input: {name} shapes {sorted(at)}")  # the run's batch
+    for (n, h, w, c, co), given in sorted(at.items()):
+      res.setdefault(name, []).append(check_at(
+          f"input_{h}x{w}_{c}_{co}", n, h, w, c, co, None, given=given))
+    calls[name] = None
+
+
 def device_line() -> str:
   out = subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3834,7 +4016,7 @@ def main(argv=None) -> int:
            "dispatch": phase_dispatch, "accum": phase_accum,
            "serve_graph": phase_serve_graph,
            "fp16_vars": phase_fp16_vars, "health": phase_health,
-           "faults": phase_faults,
+           "faults": phase_faults, "input": phase_input,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}

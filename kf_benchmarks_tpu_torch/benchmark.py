@@ -33,7 +33,7 @@ JAX package, so they count toward the global step.
 Modes (JAX benchmark.py:694-701, :1149-1158, :2049-2211): --forward_only
 runs the same timed loop with the evaluation step (the module in eval
 mode, no gradient, no optimizer) and saves nothing; --eval scores the
-synthetic batch once, or, with --train_dir, every new checkpoint there
+synthetic batch (or one pass of the validation records) once, or, with --train_dir, every new checkpoint there
 (weights and batch-norm averages only) each --eval_interval_secs until 10
 polls find nothing new, and prints ``Accuracy @ 1 = ... Accuracy @ 5 =
 ... [N examples]``. Training evaluates the training batch after the steps
@@ -71,6 +71,16 @@ hands them and the bucket spec (ops/overlap.py) to the train step; the
 checkpoints hold the shard stacks, and mid-training eval reads the
 weights gathered.
 
+Real data (--data_dir; data/): each rank opens its own stream of the
+dataset's preprocessor (seed --tf_random_seed + rank + 7919 x the input
+incarnation, shift_ratio rank / world) through a DeviceFeeder
+(``_open_input``), after the build, so that a resumed run or an in-process
+rebuild reopens it at its incarnation. Every step reads the next batch:
+at K = 1 one batch, at K > 1 the next slot of the feeder's staged K-batch
+chunk (``RealInput``), and a K-step dispatch runs only over a whole chunk.
+--eval reads the validation shards once and stops at their end; the
+stats carry the feeder's ``stats()`` and its feed_stall_fraction.
+
 Timing: the device runs asynchronously. The warmup ends in a
 ``torch.cuda.synchronize()``; in the timed loop each dispatch's metrics are
 read two dispatches later through utils/pipeline.py, whose read-arrival
@@ -99,6 +109,7 @@ from kf_benchmarks_tpu_torch import tracing
 from kf_benchmarks_tpu_torch import train_step as train_step_lib
 from kf_benchmarks_tpu_torch import validation
 from kf_benchmarks_tpu_torch.data import datasets
+from kf_benchmarks_tpu_torch.data import device_feed
 from kf_benchmarks_tpu_torch.models import model as model_lib
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.ops import conv_bn
@@ -184,6 +195,50 @@ def dispatch_len(k: int, done_steps: int, num_batches: int,
   return n
 
 
+def feeder_prefetch(params) -> int:
+  """Host->device prefetch depth in batches: --input_prefetch_depth when
+  set, else the deeper of --datasets_prefetch_buffer_size and
+  --batch_group_size (the JAX package's feeder_prefetch,
+  benchmark.py:155-165)."""
+  if params.input_prefetch_depth:
+    return int(params.input_prefetch_depth)
+  return max(params.datasets_prefetch_buffer_size or 1,
+             params.batch_group_size or 1)
+
+
+class RealInput:
+  """The train loop's cursor over the real-data stream: one batch a step
+  (K = 1), or the slots of the feeder's staged (k, B, ...) chunks (K > 1),
+  so that every step reads the next batch of one stream at every K. The
+  current batch is the one the next step reads (mid-training eval scores
+  it, as the JAX package does)."""
+
+  def __init__(self, next_fn, chunked: bool):
+    self._next = next_fn
+    self.chunked = chunked
+    self.images, self.labels = next_fn()
+    self.cursor = 0
+
+  def whole_chunk(self, k: int) -> bool:
+    """Whether the next ``k`` steps are one whole staged chunk."""
+    return (self.chunked and self.cursor == 0 and
+            self.images.shape[0] == k)
+
+  def current(self):
+    if not self.chunked:
+      return self.images, self.labels
+    return self.images[self.cursor], self.labels[self.cursor]
+
+  def advance(self, n: int) -> None:
+    if not self.chunked:
+      self.images, self.labels = self._next()
+      return
+    self.cursor += n
+    if self.cursor >= self.images.shape[0]:
+      self.images, self.labels = self._next()
+      self.cursor = 0
+
+
 def accuracy_line(top1: float, top5: float, examples: int) -> str:
   return "Accuracy @ 1 = %.4f Accuracy @ 5 = %.4f [%d examples]" % (
       top1, top5, examples)
@@ -231,6 +286,14 @@ class BenchmarkCNN:
     self.faults = faults_lib.FaultInjector.from_params(
         params, rank=mesh.rank(), log_fn=lambda s: log_fn(s))
     self.nclass = model_config.IMAGENET_NUM_CLASSES
+    # --use_synthetic_gpu_images keeps the synthetic batch even with a
+    # --data_dir (JAX benchmark.py:373-378); validation.py admits only
+    # ImageNet records, whose 1001 classes are the synthetic batch's.
+    self.dataset = datasets.create_dataset(
+        None if params.use_synthetic_gpu_images else params.data_dir,
+        params.data_name)
+    self.synthetic = self.dataset.use_synthetic_gpu_inputs()
+    self._feeder = None
     self.model = model_config.get_model_config(params.model, params)
     if params.batch_size:
       self.model.set_batch_size(params.batch_size)
@@ -290,7 +353,9 @@ class BenchmarkCNN:
     log_fn("TensorFlow:   n/a (kf_benchmarks_tpu_torch, PyTorch %s)" %
            torch.__version__)
     log_fn("Model:       %s" % self.model.get_name())
-    log_fn("Dataset:     %s (synthetic)" % self.model.data_name)
+    log_fn("Dataset:     %s (%s)" % (
+        (self.model.data_name, "synthetic") if self.synthetic else
+        (self.dataset.name, self.dataset.data_dir)))
     log_fn("Mode:        %s" % ("forward-only" if p.forward_only else
                                    "evaluation" if p.eval else "training"))
     log_fn("Batch size:  %d global" % (self.batch_size * self.world_size))
@@ -307,6 +372,8 @@ class BenchmarkCNN:
     if p.variable_update == "kungfu":
       log_fn("KungFu:      %s" % p.kungfu_option)
     log_fn("==========")
+    for note in validation.noop_parity_notes(p):
+      log_fn(note)
 
   def _make_module(self):
     """(module, generator): the model's module made on the rank's device
@@ -390,7 +457,8 @@ class BenchmarkCNN:
       if self.input_incarnation:
         log_fn(f"Resumed input stream at incarnation "
                f"{self.input_incarnation}")
-    images, labels = self._synthetic_batch(gen)
+    images, labels = (self._synthetic_batch(gen) if self.synthetic
+                      else (None, None))
     if mesh.is_distributed():
       with torch.no_grad():
         self.strategy.broadcast_init(
@@ -420,6 +488,50 @@ class BenchmarkCNN:
     log_fn(f"Saved checkpoint at global step {step.global_step} in "
            f"{self.checkpoint_save_s[-1]:.3f} s")
 
+  # -- the real-data input stream ------------------------------------------
+
+  def _open_input(self, subset: str, chunk: int = 1):
+    """``next`` of a fresh input stream, closing the previous one: the
+    preprocessor of --data_dir's dataset through a DeviceFeeder (the JAX
+    package's _input_iterator / _make_feeder, benchmark.py:576-668). Each
+    rank reads its own stream: seed --tf_random_seed + rank + 7919 x the
+    input incarnation, shift_ratio rank / world (JAX :620-646). Training
+    streams stage ``chunk`` batches a fetch; --eval and --forward_only read
+    with eval-mode preprocessing (JAX :626)."""
+    p = self.params
+    self._stop_input()
+    pre = self.dataset.get_input_preprocessor(p.input_preprocessor)(
+        batch_size=self.batch_size,
+        output_shape=tuple(self.model.get_input_shapes(subset)[0][1:]),
+        train=(subset == "train") and not (p.eval or p.forward_only),
+        distortions=bool(p.distortions),
+        resize_method=p.resize_method,
+        seed=((p.tf_random_seed or 301) + mesh.rank() +
+              7919 * self.input_incarnation),
+        shift_ratio=mesh.rank() / max(self.world_size, 1),
+        num_threads=(p.datasets_num_private_threads or p.num_intra_threads
+                     or p.input_preprocessing_parallelism or 8),
+        repeat_cached_sample=bool(p.datasets_repeat_cached_sample),
+        use_caching=bool(p.datasets_use_caching))
+    self._feeder = device_feed.DeviceFeeder(
+        pre.minibatches(self.dataset, subset), self.device,
+        prefetch=max(feeder_prefetch(p), chunk), chunk=chunk,
+        normalization=pre.NORMALIZATION, dtype=self.compute_dtype)
+    return self._feeder.__next__
+
+  def _stop_input(self) -> None:
+    if self._feeder is not None:
+      self._feeder.stop()
+
+  def _open_train_input(self) -> Optional[RealInput]:
+    """The train loop's real-data cursor (None for the synthetic batch),
+    at the current incarnation."""
+    if self.synthetic:
+      return None
+    chunked = self.steps_per_dispatch > 1 and not self.params.forward_only
+    return RealInput(self._open_input(
+        "train", self.steps_per_dispatch if chunked else 1), chunked)
+
   def _rebuild(self, module, step, batch_per_device: int):
     """An adaptive-batch change in this process (the JAX package's
     _reshape_topology, :948-1010): the state goes through the
@@ -442,17 +554,26 @@ class BenchmarkCNN:
 
   # -- evaluation ---------------------------------------------------------
 
-  def _eval_once(self, eval_step, images, labels) -> Dict[str, Any]:
+  def _eval_once(self, eval_step, images, labels,
+                 next_batch=None) -> Dict[str, Any]:
     """--num_eval_batches (or --num_eval_epochs, else --num_batches)
-    evaluations of the batch, averaged (the JAX package's _eval_once,
-    benchmark.py:2049-2083); the mean loss is logged beside the
-    accuracies."""
+    evaluations, averaged (the JAX package's _eval_once,
+    benchmark.py:2049-2083): of the synthetic batch, or of the batches of
+    a one-pass validation stream (``next_batch``), which stops at its end;
+    the mean loss is logged beside the accuracies."""
     p = self.params
     num_eval = (p.num_eval_batches or self._num_eval_batches_from_epochs()
                 or self.num_batches)
     launches_before = kernel_launches()
     start = time.time()
-    accs = [eval_step(images, labels) for _ in range(num_eval)]
+    accs = []
+    for i in range(num_eval):
+      accs.append(eval_step(images, labels))
+      if next_batch is not None and i + 1 < num_eval:
+        try:
+          images, labels = next_batch()
+        except StopIteration:
+          break
     top1 = sum(float(a["top_1_accuracy"]) for a in accs) / len(accs)
     top5 = sum(float(a["top_5_accuracy"]) for a in accs) / len(accs)
     loss = sum(float(a["base_loss"]) for a in accs) / len(accs)
@@ -478,11 +599,32 @@ class BenchmarkCNN:
     evaluates its own copy of the batch; the accuracies are the mean
     over the ranks."""
     module, gen = self._make_module()
-    images, labels = self._synthetic_batch(gen)
+    images, labels = (self._synthetic_batch(gen) if self.synthetic
+                      else (None, None))
     eval_step = train_step_lib.EvalStep(self.model, module)
     if not self.params.train_dir:
-      return self._eval_once(eval_step, images, labels)
+      return self._eval_pass(eval_step, images, labels)
     return self._eval_poll_loop(module, eval_step, images, labels)
+
+  def _eval_pass(self, eval_step, images, labels) -> Dict[str, Any]:
+    """One scoring: the synthetic batch, or a fresh one-pass validation
+    stream, so that every checkpoint is scored on the same data (JAX
+    benchmark.py:2133-2149)."""
+    if self.synthetic:
+      return self._eval_once(eval_step, images, labels)
+    next_batch = self._open_input("validation")
+    try:
+      try:
+        images, labels = next_batch()
+      except StopIteration:
+        log_fn("Validation stream yielded no batches (fewer examples "
+               "than the batch size?)")
+        return {"top_1_accuracy": 0.0, "top_5_accuracy": 0.0,
+                "base_loss": float("nan"), "eval_images_per_sec": 0.0,
+                "num_eval_batches": 0, "kernel_launches": {}}
+      return self._eval_once(eval_step, images, labels, next_batch)
+    finally:
+      self._stop_input()
 
   def _eval_poll_loop(self, module, eval_step, images, labels):
     """The JAX package's _eval_poll_loop (benchmark.py:2151-2211): a
@@ -522,7 +664,7 @@ class BenchmarkCNN:
           continue
         checkpoint.restore_model(module, snapshot)
         log_fn(f"Evaluating checkpoint at global step {ckpt_step}")
-        results = self._eval_once(eval_step, images, labels)
+        results = self._eval_pass(eval_step, images, labels)
         results["global_step"] = ckpt_step
         last_evaluated_step = ckpt_step
         stale_polls = 0
@@ -601,6 +743,7 @@ class BenchmarkCNN:
     try:
       return self._train(tele)
     finally:
+      self._stop_input()
       if tele is not None:
         tele.close()
 
@@ -611,6 +754,8 @@ class BenchmarkCNN:
     t0 = time.time()
     module, step, images, labels = self.build()
     chunk = self._make_chunk(step)
+    # Real data: the stream opens at the incarnation the build resumed.
+    real = self._open_train_input()
     noise_ema, batch_policy, controller = self._elastic_setup()
     if (self.num_grad_accum > 1 and
         train_step_lib.batch_stats(module)):
@@ -629,11 +774,19 @@ class BenchmarkCNN:
     def run_dispatch(n: int) -> Dict[str, Any]:
       t_call = time.monotonic()
       if chunk is not None:
-        metrics = chunk(images, labels, n)
+        if real is None:
+          metrics = chunk(images, labels, n)
+        else:
+          # Real data: the steps read consecutive slots of the staged chunk.
+          metrics = chunk(real.images, real.labels, n, offset=real.cursor)
+          real.advance(n)
         if n == 1:
           metrics = {k: v[0] for k, v in metrics.items()}
-      else:
+      elif real is None:
         metrics = step(images, labels)
+      else:
+        metrics = step(*real.current())
+        real.advance(1)
       dt = time.monotonic() - t_call
       if dispatch_stats["compile_s"] is None:
         dispatch_stats["compile_s"] = dt
@@ -646,7 +799,7 @@ class BenchmarkCNN:
     # loop's (JAX benchmark.py:1330-1360).
     q, r = divmod(self.num_warmup_batches, K)
     for _ in range(q):
-      run_dispatch(K)
+      run_dispatch(K)  # on real data a whole staged chunk each
     for _ in range(r):
       run_dispatch(1)
     _sync(self.device)
@@ -739,7 +892,10 @@ class BenchmarkCNN:
     i = 0
     while i < self.num_batches:
       n = dispatch_len(K, i, self.num_batches, event_due)
-      if chunk is not None and n == K:
+      # A whole K-step dispatch; on real data only over one whole staged
+      # chunk (JAX benchmark.py:1590-1592).
+      if (chunk is not None and n == K and
+          (real is None or real.whole_chunk(K))):
         metrics = run_dispatch(K)
         i += K
         images_processed += K * self.batch_size * self.world_size
@@ -788,7 +944,8 @@ class BenchmarkCNN:
         # Mid-training eval and the early stop (JAX benchmark.py:
         # 1655-1672; ref: benchmark_cnn.py:2310-2324).
         acc = train_step_lib.EvalStep(
-            self.model, module, full_params=step.full_params)(images, labels)
+            self.model, module, full_params=step.full_params)(
+                *(real.current() if real is not None else (images, labels)))
         top1 = float(acc["top_1_accuracy"])
         top5 = float(acc["top_5_accuracy"])
         eval_results.append({"step": i, "top_1_accuracy": top1,
@@ -853,6 +1010,7 @@ class BenchmarkCNN:
             module, step, images, labels = self._rebuild(module, step,
                                                          proposed)
             chunk = self._make_chunk(step)
+            real = self._open_train_input()
             # Epoch-based eval schedules count examples: re-anchored at
             # the new global batch.
             self.eval_step_set = compute_eval_step_set(
@@ -883,6 +1041,16 @@ class BenchmarkCNN:
     if any(launches.values()):
       log_fn("Kernel launches: " + ", ".join(
           f"{k} {v}" for k, v in launches.items() if v))
+    feed_stats = self._feeder.stats() if self._feeder is not None else None
+    if feed_stats is not None and feed_stats["fetches"]:
+      stall = feed_stats["feed_stall_fraction"]
+      log_fn("Input feed: stall %s of wall (%.1f ms wait / %d fetches, "
+             "queue depth %.1f mean / %d max, prefetch %d)" % (
+                 "%.1f%%" % (100.0 * stall) if stall is not None else "n/a",
+                 1e3 * feed_stats["consumer_wait_s"], feed_stats["fetches"],
+                 feed_stats["queue_depth_mean"],
+                 feed_stats["queue_depth_max"],
+                 feed_stats["prefetch_batches"]))
     if controller is not None:
       controller.close()
     # The run-health summary (None without a telemetry session): what
@@ -920,4 +1088,9 @@ class BenchmarkCNN:
                                 if call_times else None),
         "health": health_summary,
         "health_stats": bool(p.health_stats),
+        # The input feed (None for the resident synthetic batch): the JAX
+        # package's feed_stall_fraction key and the feeder's whole stats.
+        "feed_stall_fraction": (feed_stats["feed_stall_fraction"]
+                                if feed_stats else None),
+        "feed_stats": feed_stats,
     }

@@ -1,0 +1,488 @@
+"""Host-side input preprocessing: the port's counterpart of the JAX
+package's data/preprocessing.py (:71-380, :606-660, :940-1002).
+
+The same record streams, crops, resizes, flips and colour jitter, drawn
+from the same ``random.Random`` streams (seeded ``seed + 7919 * i`` per
+batch position), so that the port's images are the JAX package's own. The
+JAX package decodes and transforms with PIL; the port uses its own JPEG codec
+(data/jpeg.py) and PIL-equivalent operations (data/image_ops.py), which give
+PIL's results to the bit, so it runs where there is no PIL.
+
+One difference of form: the host side yields **uint8** HWC batches, as PIL
+hands them to ``np.asarray``, and each preprocessor names the normalisation
+that the JAX package applies on the host (``NORMALIZATION``: ``"unit"`` for
+``x * (1 / 127.5) - 1``, ``"channel_means"`` for the official variant's
+``x - CHANNEL_MEANS``, None for batches that pass through as they are).
+data/device_feed.py applies it once the batch is on its device, which
+quarters the bytes that cross PCIe; the values are the ones the JAX package
+computes on the host.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import itertools
+import os
+import pickle
+import random
+from typing import Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+
+from kf_benchmarks_tpu_torch.data import example as example_lib
+from kf_benchmarks_tpu_torch.data import image_ops
+from kf_benchmarks_tpu_torch.data import jpeg
+from kf_benchmarks_tpu_torch.data import tfrecord
+
+# (ref: preprocessing.py:75-97 _RESIZE_METHOD_MAP + round_robin)
+_RESIZE_METHODS = ("nearest", "bilinear", "bicubic", "area")
+_METHOD_IDS = {"nearest": image_ops.NEAREST, "bilinear": image_ops.BILINEAR,
+               "bicubic": image_ops.BICUBIC, "area": image_ops.BOX}
+
+# The official variant's means, in [0, 255] (the official CHANNEL_MEANS).
+CHANNEL_MEANS = np.asarray([123.68, 116.779, 103.939], np.float32)
+
+
+def get_image_resize_method(resize_method: str, batch_position: int = 0):
+  """Round-robin per batch position (ref: preprocessing.py:85-127)."""
+  if resize_method != "round_robin":
+    return _METHOD_IDS[resize_method]
+  return _METHOD_IDS[_RESIZE_METHODS[batch_position % len(_RESIZE_METHODS)]]
+
+
+def normalized_image(images: np.ndarray) -> np.ndarray:
+  """[0, 255] -> [-1, 1] (ref: preprocessing.py:130-133)."""
+  return images.astype(np.float32) * (1.0 / 127.5) - 1.0
+
+
+# -- Example proto parsing (ref: preprocessing.py:27-81) ---------------------
+
+def parse_example_proto(record: bytes):
+  """Returns (image_buffer, label, bbox[N,4] ymin,xmin,ymax,xmax)."""
+  feats = example_lib.parse_example(record)
+  image_buffer = feats["image/encoded"][0]
+  label = int(np.asarray(feats["image/class/label"])[0])
+  def _coords(key):
+    v = feats.get(key)
+    return np.asarray(v, np.float32) if v is not None and len(v) else (
+        np.zeros((0,), np.float32))
+  xmin, ymin = _coords("image/object/bbox/xmin"), _coords(
+      "image/object/bbox/ymin")
+  xmax, ymax = _coords("image/object/bbox/xmax"), _coords(
+      "image/object/bbox/ymax")
+  bbox = np.stack([ymin, xmin, ymax, xmax], axis=-1) if len(xmin) else (
+      np.zeros((0, 4), np.float32))
+  return image_buffer, label, bbox
+
+
+# -- crop sampling (tf.image.sample_distorted_bounding_box semantics) --------
+
+def sample_distorted_bounding_box(
+    rng: random.Random, height: int, width: int, bboxes: np.ndarray,
+    min_object_covered: float = 0.1,
+    aspect_ratio_range: Tuple[float, float] = (0.75, 1.33),
+    area_range: Tuple[float, float] = (0.05, 1.0),
+    max_attempts: int = 100) -> Tuple[int, int, int, int]:
+  """Sample a crop window (y, x, h, w); whole image on failure (ref:
+  preprocessing.py:219-247 train_image's distorted crop)."""
+  img_area = float(height * width)
+  for _ in range(max_attempts):
+    aspect = rng.uniform(*aspect_ratio_range)
+    area = rng.uniform(*area_range) * img_area
+    # h * w = area; w / h = aspect  =>  h = sqrt(area / aspect)
+    h = int(round((area / aspect) ** 0.5))
+    w = int(round(h * aspect))
+    if h <= 0 or w <= 0 or h > height or w > width:
+      continue
+    y = rng.randint(0, height - h)
+    x = rng.randint(0, width - w)
+    if len(bboxes):
+      # min_object_covered: the crop must cover >= the fraction of at
+      # least one object box.
+      covered = False
+      for ymin, xmin, ymax, xmax in bboxes:
+        by0, bx0 = ymin * height, xmin * width
+        by1, bx1 = ymax * height, xmax * width
+        barea = max(by1 - by0, 0.0) * max(bx1 - bx0, 0.0)
+        if barea <= 0:
+          continue
+        iy = max(0.0, min(by1, y + h) - max(by0, y))
+        ix = max(0.0, min(bx1, x + w) - max(bx0, x))
+        if iy * ix >= min_object_covered * barea:
+          covered = True
+          break
+      if not covered:
+        continue
+    return y, x, h, w
+  return 0, 0, height, width
+
+
+# -- color distortion (ref: distort_color, preprocessing.py:268-308) ---------
+
+def distort_color(img: np.ndarray, batch_position: int,
+                  rng: random.Random) -> np.ndarray:
+  """Brightness/saturation/contrast jitter, order by batch position
+  (ref fast-mode orderings; hue omitted as in the reference's fast path)."""
+  def brightness(i):
+    # max_delta = 32/255 in [0,1] space == factor jitter around 1.
+    return image_ops.brightness(
+        i, 1.0 + rng.uniform(-32.0 / 255.0, 32.0 / 255.0))
+  def saturation(i):
+    return image_ops.color(i, rng.uniform(0.5, 1.5))
+  def contrast(i):
+    return image_ops.contrast(i, rng.uniform(0.5, 1.5))
+  if batch_position % 2 == 0:
+    ops = (brightness, saturation, contrast)
+  else:
+    ops = (brightness, contrast, saturation)
+  for op in ops:
+    img = op(img)
+  return img
+
+
+def _draft_decode(image_buffer: bytes, need_w: float,
+                  need_h: float) -> np.ndarray:
+  """DCT-domain reduced-scale decode: the scale PIL's ``draft`` picks when
+  the consumer needs only ``need_w x need_h`` of the full frame (1/2, 1/4
+  or 1/8; the reference's fuse_decode_and_crop analog, ref:
+  preprocessing.py:192-265). Callers rescale full-frame coordinates by the
+  returned image's size ratio."""
+  iw, ih, _ = jpeg.info(image_buffer)
+  scale = jpeg.draft_scale((iw, ih),
+                           (max(1, int(need_w)), max(1, int(need_h))))
+  return jpeg.decode(image_buffer, scale)
+
+
+def train_image(image_buffer: bytes, height: int, width: int,
+                bbox: np.ndarray, batch_position: int,
+                resize_method: str, distortions: bool,
+                rng: random.Random) -> np.ndarray:
+  """Distorted-crop training path -> uint8 HWC (ref: train_image,
+  preprocessing.py:192-265)."""
+  iw, ih, _ = jpeg.info(image_buffer)
+  # The crop is sampled in FULL-frame coordinates (the rng stream is
+  # independent of the decode scale), then the decode runs at the
+  # smallest DCT scale that still covers the target resolution inside
+  # the crop, and the coordinates are mapped onto the decoded frame.
+  y, x, h, w = sample_distorted_bounding_box(rng, ih, iw, bbox)
+  img = _draft_decode(image_buffer, iw * width / max(w, 1),
+                      ih * height / max(h, 1))
+  sx, sy = img.shape[1] / iw, img.shape[0] / ih
+  # fuse_decode_and_crop analog: crop before the (expensive) resize.
+  img = image_ops.crop(img, (int(x * sx), int(y * sy),
+                             max(int(x * sx) + 1, int((x + w) * sx)),
+                             max(int(y * sy) + 1, int((y + h) * sy))))
+  method = get_image_resize_method(resize_method, batch_position)
+  img = image_ops.resize(img, (width, height), method)
+  if rng.random() < 0.5:
+    img = image_ops.flip_left_right(img)
+  if distortions:
+    img = distort_color(img, batch_position, rng)
+  return np.ascontiguousarray(img)
+
+
+def eval_image(image_buffer: bytes, height: int, width: int,
+               batch_position: int, resize_method: str) -> np.ndarray:
+  """Central-crop-87.5% eval path -> uint8 HWC (ref: eval_image,
+  preprocessing.py:137-190)."""
+  # 87.5% central crop resized to HxW only needs ~H/0.875 of the frame.
+  img = _draft_decode(image_buffer, width / 0.875, height / 0.875)
+  ih, iw = img.shape[:2]
+  ch, cw = int(ih * 0.875), int(iw * 0.875)
+  y, x = (ih - ch) // 2, (iw - cw) // 2
+  img = image_ops.crop(img, (x, y, x + cw, y + ch))
+  method = get_image_resize_method(resize_method, batch_position)
+  return image_ops.resize(img, (width, height), method)
+
+
+# -- preprocessors -----------------------------------------------------------
+
+class InputPreprocessor:
+  """Base preprocessor (ref: preprocessing.py:311-548). Yields numpy
+  (images[batch, H, W, C], labels[int32]) with the images as
+  ``NORMALIZATION`` says."""
+
+  NORMALIZATION: Optional[str] = "unit"
+
+  def __init__(self, batch_size: int, output_shape: Sequence[int],
+               train: bool = True, distortions: bool = False,
+               resize_method: str = "bilinear", seed: int = 301,
+               shift_ratio: float = 0.0, num_threads: int = 8,
+               repeat_cached_sample: bool = False,
+               use_caching: bool = False):
+    self.batch_size = batch_size
+    self.height, self.width, self.depth = output_shape
+    self.train = train
+    self.distortions = distortions
+    self.resize_method = resize_method
+    self.seed = seed
+    self.shift_ratio = shift_ratio
+    self.num_threads = max(1, num_threads)
+    # --datasets_repeat_cached_sample: serve the first record forever to
+    # emulate memory-speed IO (ref: preprocessing create_dataset
+    # take(1).cache().repeat(), :879-882).
+    self.repeat_cached_sample = repeat_cached_sample
+    # --datasets_use_caching: hold the raw records in memory after the
+    # first pass (ref: ds.cache(), :254-258).
+    self.use_caching = use_caching
+
+  def minibatches(self, dataset, subset: str) -> Iterator[
+      Tuple[np.ndarray, np.ndarray]]:
+    raise NotImplementedError
+
+  def _record_stream(self, dataset, subset: str) -> Iterator[bytes]:
+    """Shared TFRecord shard stream: shift_ratio de-overlap (ref:
+    RecordInput shift_ratio, preprocessing.py:601-617), shard-order
+    shuffle + endless replay for training, ONE pass for eval (consumers
+    handle exhaustion -- see BenchmarkCNN._eval_once)."""
+    shards = tfrecord.list_shards(dataset.data_dir, subset)
+    shift = int(len(shards) * self.shift_ratio) % max(len(shards), 1)
+    shards = shards[shift:] + shards[:shift]
+    if self.repeat_cached_sample:
+      first = next(iter(tfrecord.read_records(shards[0])), None)
+      if first is None:
+        raise ValueError(
+            f"datasets_repeat_cached_sample: first shard {shards[0]} "
+            "contains no records")
+      while True:
+        yield first
+    rng = random.Random(self.seed)
+    cache = [] if self.use_caching else None
+    first_pass = True
+    while True:
+      if cache is not None and not first_pass:
+        order2 = list(cache)
+        if self.train:
+          rng.shuffle(order2)
+        yield from order2
+        continue
+      order = list(shards)
+      if self.train:
+        rng.shuffle(order)
+      for path in order:
+        for record in tfrecord.read_records(path):
+          if cache is not None:
+            cache.append(record)
+          yield record
+      first_pass = False
+      if not self.train:
+        break
+
+  def supports_datasets(self) -> bool:
+    return True
+
+
+class RecordInputImagePreprocessor(InputPreprocessor):
+  """TFRecord image classification pipeline
+  (ref: preprocessing.py:551-632)."""
+
+  def _preprocess_one(self, record: bytes, batch_position: int,
+                      rng: random.Random) -> Tuple[np.ndarray, int]:
+    image_buffer, label, bbox = parse_example_proto(record)
+    if self.train:
+      img = train_image(image_buffer, self.height, self.width, bbox,
+                        batch_position, self.resize_method,
+                        self.distortions, rng)
+    else:
+      img = eval_image(image_buffer, self.height, self.width,
+                       batch_position, self.resize_method)
+    return img, label
+
+  def minibatches(self, dataset, subset: str):
+    stream = self._record_stream(dataset, subset)
+    rngs = [random.Random(self.seed + 7919 * i)
+            for i in range(self.batch_size)]
+    # The codec's calls release the GIL, so the pool decodes in parallel.
+    pool = (concurrent.futures.ThreadPoolExecutor(self.num_threads)
+            if self.num_threads > 1 else None)
+    try:
+      while True:
+        records = list(itertools.islice(stream, self.batch_size))
+        if len(records) < self.batch_size:
+          return  # eval stream exhausted (train replays forever)
+        images = np.empty((self.batch_size, self.height, self.width,
+                           self.depth), np.uint8)
+        labels = np.empty(self.batch_size, np.int32)
+
+        def one(i, rec):
+          images[i], labels[i] = self._preprocess_one(rec, i, rngs[i])
+
+        if pool is None:
+          for i, rec in enumerate(records):
+            one(i, rec)
+        else:
+          for f in [pool.submit(one, i, rec)
+                    for i, rec in enumerate(records)]:
+            f.result()
+        yield images, labels
+    finally:
+      if pool is not None:
+        pool.shutdown(wait=False)
+
+
+class OfficialImagenetPreprocessor(RecordInputImagePreprocessor):
+  """The official-models ImageNet preprocessing variant
+  (ref: preprocessing.py:635-652 ImagenetPreprocessor).
+
+  Differences from the default pipeline: eval resizes preserving aspect
+  ratio so the short side is 256 then takes a central HxW crop (instead
+  of the 87.5% crop), train never color-distorts, and normalization
+  subtracts the ImageNet channel means in [0,255] space with no std
+  scaling (the official CHANNEL_MEANS convention)."""
+
+  NORMALIZATION = "channel_means"
+  CHANNEL_MEANS = CHANNEL_MEANS
+  RESIZE_MIN = 256
+
+  def _preprocess_one(self, record: bytes, batch_position: int,
+                      rng: random.Random):
+    image_buffer, label, bbox = parse_example_proto(record)
+    if self.train:
+      # Same crop/flip pipeline as the default path, bilinear, no color
+      # distortion (the official preprocess_image train path).
+      arr = train_image(image_buffer, self.height, self.width, bbox,
+                        batch_position, "bilinear", distortions=False,
+                        rng=rng)
+    else:
+      img = jpeg.decode(image_buffer)
+      ih, iw = img.shape[:2]
+      scale = self.RESIZE_MIN / min(iw, ih)
+      img = image_ops.resize(img, (max(int(iw * scale), self.width),
+                                   max(int(ih * scale), self.height)),
+                             image_ops.BILINEAR)
+      ih, iw = img.shape[:2]
+      x, y = (iw - self.width) // 2, (ih - self.height) // 2
+      arr = image_ops.crop(img, (x, y, x + self.width, y + self.height))
+    return arr, label
+
+
+class Cifar10ImagePreprocessor(InputPreprocessor):
+  """In-memory numpy CIFAR-10 pipeline (ref: preprocessing.py:653-741;
+  pickle loading ref: datasets.py:140-189)."""
+
+  def _read_data_files(self, dataset, subset: str) -> Tuple[np.ndarray,
+                                                            np.ndarray]:
+    if subset == "train":
+      names = [f"data_batch_{i}" for i in range(1, 6)]
+    else:
+      names = ["test_batch"]
+    images, labels = [], []
+    base = dataset.data_dir
+    sub = os.path.join(base, "cifar-10-batches-py")
+    if os.path.isdir(sub):
+      base = sub
+    for name in names:
+      with open(os.path.join(base, name), "rb") as f:
+        batch = pickle.load(f, encoding="bytes")
+      images.append(np.asarray(batch[b"data"], np.uint8))
+      labels.append(np.asarray(batch[b"labels"], np.int32))
+    # stored CHW row-major; reshape+transpose to HWC
+    data = np.concatenate(images).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return data, np.concatenate(labels)
+
+  def _distort(self, image: np.ndarray, rng: random.Random) -> np.ndarray:
+    padded = np.zeros((self.height + 8, self.width + 8, self.depth),
+                      image.dtype)
+    padded[4:4 + self.height, 4:4 + self.width] = image
+    y = rng.randint(0, 8)
+    x = rng.randint(0, 8)
+    out = padded[y:y + self.height, x:x + self.width]
+    if rng.random() < 0.5:
+      out = out[:, ::-1]
+    return out
+
+  def minibatches(self, dataset, subset: str):
+    all_images, all_labels = self._read_data_files(dataset, subset)
+    n = len(all_images)
+    rng = random.Random(self.seed)
+    nprng = np.random.RandomState(self.seed)
+    while True:
+      idx = nprng.randint(0, n, size=self.batch_size) if self.train else None
+      if idx is None:
+        # sequential epochs for eval
+        for start in range(0, n - self.batch_size + 1, self.batch_size):
+          sel = np.arange(start, start + self.batch_size)
+          yield all_images[sel], all_labels[sel].astype(np.int32)
+        continue
+      imgs = all_images[idx]
+      if self.train and self.distortions:
+        imgs = np.stack([self._distort(im, rng) for im in imgs])
+      yield np.ascontiguousarray(imgs), all_labels[idx].astype(np.int32)
+
+
+class TestImagePreprocessor(InputPreprocessor):
+  """Injects fake numpy data as "real" input (ref:
+  preprocessing.py:896-975). ``set_fake_data`` then iterate. The batches
+  pass through as they are, as in the JAX package (float32, no
+  normalisation)."""
+
+  NORMALIZATION = None
+
+  def __init__(self, *args, **kwargs):
+    super().__init__(*args, **kwargs)
+    self.fake_images: Optional[np.ndarray] = None
+    self.fake_labels: Optional[np.ndarray] = None
+    self.expected_subset: Optional[str] = None
+
+  def set_fake_data(self, images: np.ndarray, labels: np.ndarray) -> None:
+    self.fake_images = np.asarray(images)
+    self.fake_labels = np.asarray(labels)
+
+  def minibatches(self, dataset, subset: str):
+    del dataset
+    if self.expected_subset is not None:
+      assert subset == self.expected_subset, (subset, self.expected_subset)
+    assert self.fake_images is not None, "call set_fake_data first"
+    n = len(self.fake_images)
+    pos = 0
+    while True:
+      sel = [(pos + i) % n for i in range(self.batch_size)]
+      pos = (pos + self.batch_size) % n
+      yield (self.fake_images[sel].astype(np.float32),
+             self.fake_labels[sel].astype(np.int32))
+
+
+_PREPROCESSORS = {
+    "imagenet": RecordInputImagePreprocessor,
+    "cifar10": Cifar10ImagePreprocessor,
+    "test": TestImagePreprocessor,
+}
+
+# Preprocessors of the JAX package that the port does not run yet, with the
+# ROADMAP Queue 1 item that brings each.
+_NOT_PORTED = {
+    "coco": ("the COCO (ssd) preprocessor", "7"),
+    "librispeech": ("the LibriSpeech (deepspeech) preprocessor", "7"),
+    "multiprocess": ("--input_preprocessor=multiprocess, the "
+                     "process-parallel decode pool", "6g"),
+}
+
+
+def _refuse(key: str):
+  from kf_benchmarks_tpu_torch import validation  # noqa: PLC0415
+  what, item = _NOT_PORTED[key]
+  raise validation.ParamError(
+      f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def get_preprocessor(dataset_name: str, kind: str = "default"):
+  """Name -> preprocessor class (ref: datasets.py:208-229 maps)."""
+  if kind == "test":
+    return TestImagePreprocessor
+  if kind == "official_models_imagenet":
+    if dataset_name != "imagenet":
+      raise ValueError("official_models_imagenet preprocessing applies "
+                       f"to the imagenet dataset, not {dataset_name!r}")
+    return OfficialImagenetPreprocessor
+  if kind == "multiprocess":
+    _refuse("multiprocess")
+  if kind != "default":
+    raise ValueError(f"Unknown input preprocessor {kind!r}; expected "
+                     "'default', 'official_models_imagenet', "
+                     "'multiprocess', or 'test'")
+  if dataset_name in _NOT_PORTED:
+    _refuse(dataset_name)
+  if dataset_name not in _PREPROCESSORS:
+    raise NotImplementedError(
+        f"No input preprocessor for dataset {dataset_name!r}")
+  return _PREPROCESSORS[dataset_name]

@@ -50,7 +50,11 @@ class Graph:
     before = [dict(c) for c in _COUNTERS]
     self.graph = torch.cuda.CUDAGraph()
     try:
-      with torch.cuda.graph(self.graph, pool=pool):
+      # Thread-local: the input feed's thread (data/device_feed.py) copies
+      # and allocates on its own stream while the step is captured, and
+      # only this thread's calls may end the capture.
+      with torch.cuda.graph(self.graph, pool=pool,
+                            capture_error_mode="thread_local"):
         self.outputs = fn()
     finally:
       # The capture enqueued nothing: its counts move to the graph.

@@ -191,7 +191,7 @@ def decode_attention(q, k, v, pos, block: Optional[int] = None,
   if page_table is not None:
     raise NotImplementedError(
         "decode_attention: paged KV (page_table) is not ported yet "
-        "(ROADMAP Queue 1 item 15); the port serves the dense ring")
+        "(ROADMAP Queue 1 item 8); the port serves the dense ring")
   if impl not in ("tiled", "flash"):
     raise ValueError(f"impl must be 'tiled' or 'flash', got {impl!r}")
   b, tq, h, d = q.shape

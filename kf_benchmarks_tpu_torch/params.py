@@ -2,7 +2,8 @@
 
 A subset of kf_benchmarks_tpu/params.py (ref: benchmark_cnn.py:114-636):
 the CNN zoo of models/model_config.py and transformer_lm training,
-forward-only inference and evaluation on synthetic data, with the JAX
+forward-only inference and evaluation on synthetic data or on TFRecord
+ImageNet shards (--data_dir; data/), with the JAX
 package's optimizers, learning-rate policy and loss scaling, on one card or
 data-parallel over torch.distributed (spawned ranks, or kfrun workers
 joined through --worker_hosts; optionally with sharded optimizer state,
@@ -397,6 +398,78 @@ flags.DEFINE_float("serving_tenant_tokens_per_s", None,
                    "charged at submit against a token bucket); an "
                    "over-budget request is rejected. None = unmetered.",
                    lower_bound=0.0)
+
+# The input path (data/; ref :186-272).
+flags.DEFINE_string("data_dir", None,
+                    "Path to dataset; synthetic data if empty (ref :186-190).")
+flags.DEFINE_string("data_name", None,
+                    "Dataset name, sniffed from data_dir if empty "
+                    "(ref :191-194).")
+flags.DEFINE_boolean("distortions", False,
+                     "Enable full image distortions (ref :199-202; reference "
+                     "default True, flipped off here: synthetic-first).")
+flags.DEFINE_enum("resize_method", "bilinear",
+                  ("round_robin", "nearest", "bilinear", "bicubic", "area"),
+                  "Eval/train resize method (ref :195-198).")
+flags.DEFINE_string("input_preprocessor", "default",
+                    "Name of the input preprocessor to use "
+                    "(ref: benchmark_cnn.py:179-182).")
+flags.DEFINE_integer("input_prefetch_depth", None,
+                     "Host->device prefetch depth of the DeviceFeeder in "
+                     "batches (the StagingArea/MultiDeviceIterator buffer "
+                     "depth analog, ref: benchmark_cnn.py:2572-2600, "
+                     "preprocessing.py:368-399). None = derived: "
+                     "max(--datasets_prefetch_buffer_size, "
+                     "--batch_group_size). feed_stall_fraction in the "
+                     "benchmark stats shows whether the depth hides host "
+                     "preprocessing behind device compute.", lower_bound=1)
+flags.DEFINE_integer("batch_group_size", 1,
+                     "Number of batches the input feeder keeps in flight "
+                     "ahead of the step loop (ref :134-136; wired to the "
+                     "DeviceFeeder prefetch depth).", lower_bound=1)
+flags.DEFINE_integer("datasets_prefetch_buffer_size", 2,
+                     "Device prefetch depth (ref datasets_* :243-269).")
+flags.DEFINE_integer("datasets_num_private_threads", None,
+                     "Private threadpool for input pipeline (ref :248-253).")
+flags.DEFINE_integer("num_intra_threads", None,
+                     "Host compute threads (ref :203-208).")
+flags.DEFINE_integer("input_preprocessing_parallelism", 16,
+                     "Parallel parse/augment calls (ref map parallelism).")
+flags.DEFINE_boolean("datasets_use_caching", False,
+                     "Cache the input dataset in memory (ref :254-258).")
+flags.DEFINE_boolean("datasets_repeat_cached_sample", False,
+                     "Repeat the first input sample forever to emulate "
+                     "memory-speed IO (wired into the record stream; "
+                     "ref :259-263).")
+flags.DEFINE_boolean("use_synthetic_gpu_images", False,
+                     "Synthetic inputs even with a --data_dir (the "
+                     "reference's switch; synthetic is data_dir=None).")
+flags.DEFINE_boolean("use_datasets", True,
+                     "Must stay true: the port has one host input pipeline; "
+                     "the reference's legacy RecordInput path has no "
+                     "counterpart and false is rejected (ref :215-217).")
+flags.DEFINE_boolean("fuse_decode_and_crop", True,
+                     "No-op: the host pipeline always crops before the "
+                     "expensive resize (ref :227-230).")
+flags.DEFINE_boolean("distort_color_in_yiq", True,
+                     "No-op: color jitter runs as PIL's enhancers do, not "
+                     "the YIQ rotation (ref :231-234).")
+flags.DEFINE_boolean("datasets_use_prefetch", True,
+                     "No-op: the DeviceFeeder always prefetches "
+                     "(ref :243-247).")
+flags.DEFINE_integer("datasets_parallel_interleave_cycle_length", None,
+                     "No-op: shard reads interleave via the thread pool "
+                     "(ref :264-266).")
+flags.DEFINE_boolean("datasets_sloppy_parallel_interleave", False,
+                     "No-op (tf.data interleave knob, ref :267-269).")
+flags.DEFINE_integer("datasets_parallel_interleave_prefetch", None,
+                     "No-op (tf.data interleave knob, ref :270-272).")
+flags.DEFINE_boolean("use_multi_device_iterator", True,
+                     "No-op: the DeviceFeeder is the MultiDeviceIterator "
+                     "analog (ref :254-258).")
+flags.DEFINE_integer("multi_device_iterator_max_buffer_size", 1,
+                     "No-op (MultiDeviceIterator knob, ref :259-261).")
+
 
 Params = collections.namedtuple("Params", list(flags.param_specs.keys()))
 

@@ -590,9 +590,12 @@ class TrainChunk:
   counterpart of the JAX package's ``train_chunk`` (train_step.py:
   1036-1064), K steps of one program.
 
-  A call runs ``d`` (1 <= d <= K) steps of ``step`` on one batch and
-  returns each metric as a (d, *shape) tensor in step order (the health
-  vector's rows are (d, 5)). On the CPU, where the
+  A call runs ``d`` (1 <= d <= K) steps of ``step`` and returns each metric
+  as a (d, *shape) tensor in step order (the health vector's rows are
+  (d, 5)). The steps read one resident batch (the synthetic input), or,
+  with ``offset``, a staged (S, B, ...) chunk of real data: step j reads
+  slot ``offset + j``, so a short dispatch reads fewer slots. On the CPU,
+  where the
   caller has asked for the CPU, the d steps run one after another. On a
   CUDA device the first call runs its first step eagerly on a side stream
   (which builds and loads every kernel, makes the optimizer's state and
@@ -603,8 +606,9 @@ class TrainChunk:
   them once a dispatch; a call returns copies of its rows, which later
   dispatches do not overwrite. The graph reads the inputs, the rate, the
   loss scale and the counters from fixed device tensors: the chunk's own
-  copies of the first batch, into which each later call copies its batch
-  (the caller's tensors are never written). A strategy whose
+  copies of the first batch, into which each later call copies its batch,
+  or, from a staged chunk, each replay's slot before that replay (the
+  caller's tensors are never written). A strategy whose
   step has host-side classes (pair averaging's partner) has one graph per
   class, sharing one memory pool. There is no eager path on the card: a
   capture or replay failure raises.
@@ -624,32 +628,48 @@ class TrainChunk:
     self._next_row = 0      # its host mirror
 
   def __call__(self, images: torch.Tensor, labels: torch.Tensor,
-               d: int) -> Dict[str, torch.Tensor]:
+               d: int, offset: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
     if not 1 <= d <= self.k:
       raise ValueError(f"a dispatch runs 1..{self.k} steps, got {d}")
+    if offset is not None and not 0 <= offset <= images.shape[0] - d:
+      raise ValueError(f"slots {offset}..{offset + d - 1} of a chunk of "
+                       f"{images.shape[0]}")
+
+    def batch(j):
+      if offset is None:
+        return images, labels
+      return images[offset + j], labels[offset + j]
+
     if images.device.type != "cuda":
-      rows = [self.step(images, labels) for _ in range(d)]
+      rows = [self.step(*batch(j)) for j in range(d)]
       return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
     first = None
+    j0 = 0
     if self._inputs is None:
-      first = graphs.on_side_stream(lambda: self.step(images, labels))
+      first = graphs.on_side_stream(lambda: self.step(*batch(0)))
       self.keys = tuple(first)
       self._shapes = {key: tuple(first[key].shape) for key in self.keys}
-      self._inputs = (images.clone(), labels.clone())
+      self._inputs = tuple(x.clone() for x in batch(0))
       dev = images.device
       width = sum(first[key].numel() for key in self.keys)
       self._rows = torch.zeros(self.k, width, dtype=torch.float32,
                                device=dev)
       self._row = torch.zeros(1, dtype=torch.int64, device=dev)
-      d -= 1
-    else:
+      j0 = 1
+    elif offset is None:
       self._inputs[0].copy_(images)
       self._inputs[1].copy_(labels)
+    d -= j0
     if self._next_row + d > self.k:
       self._row.zero_()
       self._next_row = 0
     start = self._next_row
-    for _ in range(d):
+    for j in range(j0, j0 + d):
+      if offset is not None:
+        step_images, step_labels = batch(j)
+        self._inputs[0].copy_(step_images)
+        self._inputs[1].copy_(step_labels)
       self._graph(self.step.step_class()).replay()
       self.step.global_step += 1
     self._next_row += d

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 
 from kf_benchmarks_tpu_torch import faults
+from kf_benchmarks_tpu_torch import flags
+from kf_benchmarks_tpu_torch.data import datasets
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.models import transformer_lm
 from kf_benchmarks_tpu_torch.ops import allreduce
@@ -73,6 +75,7 @@ def validate_cross_flags(params) -> None:
   validate_elastic_flags(params)
   validate_dispatch_flags(params)
   validate_telemetry_flags(params)
+  validate_input_flags(params)
   if params.attn_block:
     if params.model != "transformer_lm":
       raise ParamError(
@@ -239,6 +242,63 @@ def validate_elastic_flags(p) -> None:
         f"--worker_hosts with --num_devices={p.num_devices}: a worker is "
         "one rank driving one device (cluster.py); launch one process a "
         "device (kfrun -np N) with --num_devices=1")
+
+
+# The input layer's reference-parity flags: accepted, and a note is logged
+# when one is set away from its default (the JAX package's
+# _NOOP_PARITY_FLAGS, benchmark.py:171-200).
+NOOP_PARITY_FLAGS = {
+    "fuse_decode_and_crop": "the host pipeline always crops before "
+                            "resizing",
+    "distort_color_in_yiq": "color jitter runs as PIL's enhancers do",
+    "datasets_use_prefetch": "the DeviceFeeder always prefetches",
+    "datasets_parallel_interleave_cycle_length": "shard reads interleave "
+                                                 "via the thread pool",
+    "datasets_sloppy_parallel_interleave": "tf.data knob",
+    "datasets_parallel_interleave_prefetch": "tf.data knob",
+    "use_multi_device_iterator": "the DeviceFeeder is the "
+                                 "MultiDeviceIterator analog",
+    "multi_device_iterator_max_buffer_size": "MultiDeviceIterator knob",
+}
+
+
+def noop_parity_notes(params):
+  """One note for each parity flag set away from its default."""
+  return [f"Note: --{name} is accepted for reference-CLI parity but has "
+          f"no effect in the port: {why}"
+          for name, why in NOOP_PARITY_FLAGS.items()
+          if getattr(params, name) != flags.param_specs[name].default_value]
+
+
+def validate_input_flags(p) -> None:
+  """The input path's refusals (the JAX package's validation.py:812-816
+  and the preprocessor map): --use_datasets=false, a dataset or
+  preprocessor the port does not run, a --data_dir under a model that does
+  not read images."""
+  if not p.use_datasets:
+    raise ParamError(
+        "--use_datasets=false is unsupported: the port has a single host "
+        "input pipeline (the reference's legacy RecordInput path, ref "
+        ":215-217/:601-617, has no counterpart)")
+  if not p.data_dir or p.use_synthetic_gpu_images:
+    return
+  try:
+    dataset = datasets.create_dataset(p.data_dir, p.data_name)
+  except ValueError as e:
+    raise ParamError(str(e)) from e
+  if p.model == "transformer_lm":
+    raise ParamError(
+        "--data_dir feeds image records; transformer_lm reads its seeded "
+        "token stream (a real corpus is not wired, as in the JAX package)")
+  if dataset.name != "imagenet":
+    raise ParamError(
+        f"--data_name={dataset.name}: the port's models are ImageNet "
+        "models; the cifar resnets, ssd and deepspeech are not ported yet "
+        "(ROADMAP Queue 1 item 7)")
+  try:
+    dataset.get_input_preprocessor(p.input_preprocessor)
+  except ValueError as e:  # ParamError included
+    raise ParamError(str(e)) from e
 
 
 def validate_dispatch_flags(p) -> None:

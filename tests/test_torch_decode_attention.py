@@ -140,7 +140,7 @@ def test_split_bounds_cover_the_admitted_keys():
 
 def test_paged_decode_raises():
   q, k, v = (torch.from_numpy(x) for x in _inputs(5))
-  with pytest.raises(NotImplementedError, match="item 15"):
+  with pytest.raises(NotImplementedError, match=r"item 8\)"):
     port_seq.decode_attention(q, k, v, torch.from_numpy(POS),
                               page_table=torch.zeros(B, 4, dtype=torch.int32))
   with pytest.raises(ValueError, match="impl"):
