@@ -255,7 +255,41 @@ the run with a non-zero exit and no result line:
                 --eval pass over the validation records (it stops at their
                 end); K-A and K-B against their plain versions on the
                 inputs the K = 1 run gave them; images/sec,
-                feed_stall_fraction, queue depth and the host's CPU counts.
+                feed_stall_fraction, queue depth and the host's CPU counts;
+ 26. aot     -- the frozen forward (aot.py): ResNet-50 v1.5 at batch 256,
+                bf16, exported by the CLI (--forward_only --aot_save_path)
+                at --trt_mode=FP16 and INT8 in a process each (artifact
+                bytes, INT8 under 0.35x FP16), each loaded in a fresh
+                process (--aot_load_path), captured as a CUDA graph and
+                timed, 5 warmup + 20 timed steps, beside phase infer's
+                in-process (eager) rate when it ran:
+                13 K-B and no K-A a forward, read from the process's log;
+                loading the INT8 export as the float mode fails on the
+                sidecar diff; in this process each program's
+                logits on one batch against the in-process eval forward
+                (FP16; INT8 against the forward on its dequantized
+                weights, within 2e-2 of the largest logit) and K-B
+                against its plain version on the loaded INT8 program's
+                own inputs at its four shapes;
+ 27. serve_variants -- the serving engine at the full-size LM (bf16,
+                flash) as dense, INT8 weights, the paged KV cache (page
+                128), speculative decoding (k 4, draft 2) and all three,
+                each on phase serve's two replays (128 requests, 32 new
+                tokens, 16/s and capacity) with the counts set to 0 just
+                before each and read just after; the INT8 gate on the
+                workload's first 8 prompts printed (the INT8 arms are
+                served directly: on random weights the gate fails); per
+                arm tokens/sec, TTFT and token latency p50/p99, the
+                captured decode step (and verify) at bucket 64 on the
+                device, peak memory, KV bytes against the dense slab,
+                captured programs, launches as the arm's path makes them
+                (6 a target layer stack, 2 a draft one; the paged decode
+                launches no decode kernel), acceptance, and the share of
+                requests with the dense arm's tokens; the INT8 step's
+                weight pass against the dense step's weight casts, each
+                alone in a CUDA graph; flash_decode on the INT8 arm's own
+                cache and the flash forward on the composed arm's own
+                verify rows (B 64 x 2048) against their plain versions.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -272,6 +306,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -279,17 +314,19 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
               "optim", "dispatch", "accum", "serve_graph", "fp16_vars",
-              "health", "faults", "input")
+              "health", "faults", "input", "aot", "serve_variants")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -3959,6 +3996,452 @@ def phase_input(res):
     calls[name] = None
 
 
+# -- the frozen forward and the serving variants ----------------------------------
+
+AOT_STEPS = (5, 20)  # warmup, timed of each loaded program
+
+
+class _NotingOps(TorchDispatchMode):
+  """Keeps clones of the inputs of the first call at each shape of the
+  kernels' custom ops made while the mode is on (the loaded program calls
+  them through the dispatcher, not through the wrappers), and lets the
+  calls through."""
+
+  def __init__(self, calls):
+    super().__init__()
+    self.calls = calls
+
+  def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+    name = str(func.name())
+    if name.startswith("kf_torch::"):
+      key = (name, tuple(tuple(a.shape) for a in args
+                         if isinstance(a, torch.Tensor)))
+      if key not in self.calls:
+        self.calls[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                else a for a in args)
+    return func(*args, **(kwargs or {}))
+
+
+def aot_cli(*flags):
+  """``python -m kf_benchmarks_tpu_torch.cli`` forward-only on ResNet-50
+  v1.5 at batch 256, bf16; the finished process, which must exit 0."""
+  cmd = [sys.executable, "-m", "kf_benchmarks_tpu_torch.cli",
+         "--model=resnet50", "--batch_size=256", "--use_fp16",
+         "--forward_only", *flags]
+  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+  check(proc.returncode == 0, f"aot: {' '.join(cmd[2:])} exited "
+        f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+  return proc
+
+
+def phase_aot(res):
+  """The frozen forward: ResNet-50 v1.5 at batch 256, bf16, exported by the
+  CLI at --trt_mode=FP16 and INT8 (one process each, which then runs one
+  forward-only step), each loaded in a fresh process, captured as a CUDA
+  graph and timed (5 warmup + 20 timed steps, its launch counts read from
+  its log: 13 K-B and no K-A a forward), beside phase infer's in-process
+  eager rate. In this process: an
+  INT8 load asked for the float mode must fail on the sidecar diff; each
+  loaded program's logits on one batch against the in-process eval forward
+  of the same weights (the FP16 program: bf16 rounding only; the INT8
+  program against the forward on its dequantized weights, and its
+  distance from the float forward), and K-B against its plain version on
+  the loaded INT8 program's own inputs. The artifacts live in a temporary
+  directory for the phase."""
+  warm, timed = AOT_STEPS
+  out = {}
+  with tempfile.TemporaryDirectory() as root:
+    _aot_in(res, out, root)
+  res["aot"] = out
+
+
+def _aot_in(res, out, root):
+  """Phase aot's work, its artifacts under ``root``."""
+  from kf_benchmarks_tpu_torch import aot
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import convert
+  from kf_benchmarks_tpu_torch import quantization
+  warm, timed = AOT_STEPS
+  paths = {m: os.path.join(root, f"resnet50_{m.lower()}.pt2")
+           for m in ("FP16", "INT8")}
+  for mode, path in paths.items():
+    t0 = time.time()
+    proc = aot_cli(f"--trt_mode={mode}", f"--aot_save_path={path}",
+                   "--num_batches=1", "--num_warmup_batches=0")
+    check(f"Exported frozen forward program to {path}" in proc.stdout,
+          f"aot: no export line\n{proc.stdout[-2000:]}")
+    out[mode] = {"bytes": os.path.getsize(path), "export_s": time.time() - t0,
+                 "sidecar": aot.read_signature(path)}
+  ratio = out["INT8"]["bytes"] / out["FP16"]["bytes"]
+  log(f"aot: export (CLI process, build + export + 1 step): FP16 "
+      f"{out['FP16']['bytes']} bytes in {out['FP16']['export_s']:.1f} s, "
+      f"INT8 {out['INT8']['bytes']} bytes in {out['INT8']['export_s']:.1f} "
+      f"s: INT8 / FP16 = {ratio:.4f}")
+  check(ratio < 0.35, f"aot: INT8 artifact {ratio:.3f} of the FP16 one")
+  infer = res.get("infer", {}).get("resnet50", {}).get("images_per_sec")
+  counts = dict.fromkeys(benchmark.kernel_launches(), 0)
+  for mode, path in paths.items():
+    proc = aot_cli(f"--trt_mode={mode}", f"--aot_load_path={path}",
+                   f"--num_batches={timed}", f"--num_warmup_batches={warm}",
+                   "--display_every=10")
+    m = re.search(r"^total images/sec: ([\d.]+)$", proc.stdout, re.M)
+    check(m and "Loaded frozen forward program" in proc.stdout and
+          "Captured the loaded program as a CUDA graph" in proc.stdout,
+          f"aot: load {mode}\n{proc.stdout[-2000:]}")
+    launched = launches_in(proc.stdout)
+    steps = warm + timed
+    rate = float(m.group(1))
+    out[mode].update(images_per_sec=rate, launches=launched)
+    log(f"aot: loaded {mode} program (fresh process, replayed as a CUDA "
+        f"graph): {rate:.2f} images/sec "
+        f"({warm} warmup + {timed} timed at batch 256; phase infer's "
+        f"in-process forward-only: "
+        f"{'%.2f' % infer if infer else 'not run in this call'}), launches "
+        f"{launched} = {launched.get('bn_relu_conv3x3_stats', 0) / steps:g} "
+        f"K-B a forward")
+    check(launched.get("bn_relu_conv3x3_stats") == 13 * steps and
+          not launched.get("conv3x3_same"),
+          f"aot {mode}: launches {launched}, want 13 K-B a forward")
+    for name, n in launched.items():
+      counts[name] += n
+  res.setdefault("counts_by_path", {})["aot"] = counts
+  # The entry the CLI's load goes through, asked for the float mode.
+  diff = "quantize_mode: sidecar='int8', requested=None"
+  try:
+    aot.load_forward(paths["INT8"], expect_quantize=None, device="cuda")
+    check(False, "aot: a float load of the INT8 export did not fail")
+  except ValueError as e:
+    check(diff in str(e), f"aot: a float load of the INT8 export: {e}")
+  log(f"aot: loading the INT8 export as the float mode fails with the "
+      f"sidecar diff ({diff})")
+  # Logits on one batch against the in-process forward of the same weights
+  # (the export's weights come from --tf_random_seed, as here).
+  bench = benchmark.BenchmarkCNN(resnet_params(forward_only=True))
+  module, _, images, _ = bench.build()
+  module.eval()
+  with torch.no_grad():
+    live = module(images).float()
+    fp16 = aot.load_forward(paths["FP16"], device="cuda")(images).float()
+    calls = {}
+    int8_fn = aot.load_forward(paths["INT8"], expect_quantize="int8",
+                               device="cuda")
+    with _NotingOps(calls):
+      int8 = int8_fn(images).float()
+    state = quantization.quantize_variables(
+        module.state_dict(), lambda k, t: convert.flax_source(k, t, module))
+    module.load_state_dict(quantization.dequantize_variables(state))
+    dq = module(images).float()
+  torch.cuda.synchronize()
+  scale = float(live.abs().max())
+  errs = {"fp16_vs_live": float((fp16 - live).abs().max()),
+          "int8_vs_dequantized": float((int8 - dq).abs().max()),
+          "int8_vs_live": float((int8 - live).abs().max())}
+  top1 = float((int8.argmax(1) == live.argmax(1)).float().mean())
+  log(f"aot: logits on one batch of 256 (max |logit| {scale:.4g}): FP16 "
+      f"program vs in-process forward max abs err {errs['fp16_vs_live']:.4g}"
+      f"; INT8 program vs the forward on its dequantized weights "
+      f"{errs['int8_vs_dequantized']:.4g}, vs the float forward "
+      f"{errs['int8_vs_live']:.4g} (top-1 agreement {top1:.4f})")
+  for key in ("fp16_vs_live", "int8_vs_dequantized"):
+    check(errs[key] <= 2e-2 * scale and math.isfinite(errs[key]),
+          f"aot: {key} max abs err {errs[key]} (tol 2e-2 max|logit|)")
+  out.update(logit_errs=errs, int8_top1_agreement=top1, logit_scale=scale)
+  kb = [(key, args) for key, args in calls.items()
+        if key[0] == "kf_torch::bn_relu_conv3x3_stats"]
+  check(len(kb) == 4, f"aot: K-B shapes in the loaded program {list(calls)}")
+  for i, (key, (x, sc, sh, w_k)) in enumerate(kb):
+    n, h, w, c = x.shape
+    res.setdefault("bn_relu_conv3x3_stats", []).append(check_unit_at(
+        f"aot_{h}x{w}_{c}", n, h, w, c, w_k.shape[0], seed=0,
+        given=(x, w_k.permute(1, 2, 3, 0).contiguous(), sc, sh)))
+  del bench, module
+
+
+SERVE_VARIANTS = (
+    ("dense", {}),
+    ("int8", {"quantize": "int8"}),
+    ("paged", {"kv_page_size": 128}),
+    ("speculative", {"speculative_k": 4, "draft_n_layers": 2}),
+    ("all3", {"quantize": "int8", "kv_page_size": 128, "speculative_k": 4,
+              "draft_n_layers": 2}),
+)
+
+
+@contextlib.contextmanager
+def capturing_decode_inputs(calls):
+  """Keeps clones of the first flash_decode call's inputs of each shape
+  made while the block runs, and lets the calls through."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  dec = fa.flash_decode
+
+  def noted(q, k, v, pos, scale=None):
+    key = (tuple(q.shape), tuple(k.shape))
+    if key not in calls:
+      calls[key] = (q.clone(), k.clone(), v.clone(), pos.clone(), scale)
+    return dec(q, k, v, pos, scale)
+
+  fa.flash_decode = noted
+  try:
+    yield
+  finally:
+    fa.flash_decode = dec
+
+
+def variant_launches(kw, stats, waves):
+  """The kernel launches an arm's replay must make: 6 layers a target
+  program, 2 a draft one; the paged decode runs the tiled gather (no
+  kernel has a block-table mode), so it launches no decode kernel."""
+  steps = stats["serving/decode_steps"]
+  rounds = stats["serving/spec_rounds"] or 0
+  layers = kw.get("draft_n_layers") or 6
+  return {"flash_decode": 0 if kw.get("kv_page_size") else layers * steps,
+          "flash_attention_fwd": layers * waves + 6 * rounds}
+
+
+def phase_serve_variants(res):
+  """The serving engine's decode-cost variants at the full-size LM (bf16,
+  flash, ladder 1/4/16/64/256): dense, INT8 weights, the paged KV cache
+  (page 128), speculative decoding (k 4, a 2-layer draft) and all three,
+  each on phase serve's two replays of the seeded poisson_workload (128
+  requests, 32 new tokens, at 16/s and at capacity), warm() first and the
+  launch counts set to 0 just before each replay and read just after. The
+  INT8 arms are served by the engine directly: on random weights the INT8
+  gate (decode.quantize_agreement on the workload's first 8 prompts) is
+  meant to fail, and the serving bench would fall back to dense; its
+  agreement and logit delta are printed. For each arm: tokens/sec, TTFT
+  and token latency, the captured decode step at bucket 64 (and verify at
+  bucket 64) on the device, peak memory, KV bytes against the dense slab,
+  captured programs, launches, acceptance, and the share of requests
+  whose tokens equal the dense arm's; the INT8 step's weight pass against
+  the dense step's casts; then flash_decode on the INT8 arm's own last
+  decode step and the flash forward on the composed arm's own last verify
+  rows (B x 2048), each against its plain version."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import metrics as metrics_lib
+  from kf_benchmarks_tpu_torch import tracing
+  from kf_benchmarks_tpu_torch.data import packing
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  from kf_benchmarks_tpu_torch.serving import engine as engine_lib
+  base = serve_spec()
+  variables = decode_lib.init_variables(base, seed=0)
+  lengths = packing.sample_document_lengths(
+      np.random.default_rng(0), 64, base.max_len,
+      mean_fraction=0.2).astype(np.int32)
+  workloads = {label: engine_lib.poisson_workload(
+      SERVE_REQUESTS, rate, base, seed=0, max_new_tokens=SERVE_MAX_NEW)
+      for label, rate, _ in SERVE_REPLAYS}
+  qspec = dataclasses.replace(base, quantize="int8")
+  probe = [r.prompt for _, r in workloads["offered"][:8]]
+  gate = decode_lib.quantize_agreement(qspec, variables, probe,
+                                       max_new_tokens=8, device="cuda")
+  log(f"serve_variants: INT8 gate on the workload's first 8 prompts: "
+      f"agreement {gate['agreement']:.4f} over {gate['total']} positions "
+      f"(bar {decode_lib.QUANTIZE_AGREEMENT_BAR}), max logit delta "
+      f"{gate['max_logit_delta']:.4g} of logit scale "
+      f"{gate['logit_scale']:.4g}: {'passed' if gate['passed'] else 'FAILED'}"
+      f" (the INT8 arms below are served directly)")
+  out = {"gate": gate}
+  dense_tokens = {}
+  counts_all = {}
+  slab = None
+  for arm, kw in SERVE_VARIANTS:
+    spec = dataclasses.replace(base, **kw)
+    out[arm] = {}
+    for label, rate, depth in SERVE_REPLAYS:
+      cfg = engine_lib.EngineConfig(spec=spec, max_new_tokens=SERVE_MAX_NEW,
+                                    max_queue_depth=depth)
+      exe = vexe = None
+      trace = tracing.activate(tracing.RunTrace(keep_spans=True))
+      metrics_lib.activate(metrics_lib.MetricRegistry())
+      try:
+        torch.cuda.reset_peak_memory_stats()
+        engine = engine_lib.ServingEngine(cfg, variables=variables,
+                                          device="cuda")
+        t0 = time.time()
+        n_warm = engine.warm()
+        warm_s = time.time() - t0
+        reset_launches()
+        results = engine.replay([(t, dataclasses.replace(r))
+                                 for t, r in workloads[label]])
+        counts = benchmark.kernel_launches()
+        stats = engine.stats()
+        ledger = trace.compile_ledger()["entries"]
+      finally:
+        tracing.deactivate()
+        metrics_lib.deactivate()
+      peak = torch.cuda.max_memory_allocated() / 2 ** 30
+      waves = sum(1 for s in trace.spans
+                  if (s["sub"], s["name"]) == ("serving", "prefill"))
+      ring = engine._ring_state()
+      kv_bytes = ring.k.nbytes + ring.v.nbytes
+      if arm == "dense" and label == "offered":
+        slab = kv_bytes
+      tokens = {r.rid: list(r.tokens) for r in results if r.status == "ok"}
+      if arm == "dense":
+        dense_tokens[label] = tokens
+      same = sum(tokens.get(rid) == t
+                 for rid, t in dense_tokens[label].items())
+      want = variant_launches(kw, stats, waves)
+      for name, n in counts.items():
+        check(n == want.get(name, 0), f"serve_variants {arm} {label}: {name} "
+              f"launched {n} times, want {want.get(name, 0)}")
+        counts_all[name] = counts_all.get(name, 0) + n
+      check(stats["serving/completed"] + stats["serving/shed"] ==
+            SERVE_REQUESTS and stats["serving/completed"] >= 120,
+            f"serve_variants {arm} {label}: {stats['serving/completed']} "
+            f"completed, {stats['serving/shed']} shed")
+      for r in results:
+        check(r.status != "ok" or (len(r.tokens) == SERVE_MAX_NEW and all(
+            0 <= t < spec.vocab for t in r.tokens)),
+            f"serve_variants {arm} {label}: request {r.rid} gave {r.tokens}")
+      check(all(e["captured"] for e in ledger) and
+            len(ledger) == n_warm <= (3 if spec.speculative_k else 2) * 5,
+            f"serve_variants {arm}: compile ledger {ledger}")
+      draft, accepted = (stats["serving/draft_tokens"],
+                         stats["serving/accepted_tokens"])
+      row = dict(
+          tokens_per_sec=stats["serving/tokens_per_sec"],
+          ttft_p50=stats["serving/ttft_p50"], ttft_p99=stats["serving/ttft_p99"],
+          token_latency_p50=stats["serving/token_latency_p50"],
+          token_latency_p99=stats["serving/token_latency_p99"],
+          completed=stats["serving/completed"], shed=stats["serving/shed"],
+          decode_steps=stats["serving/decode_steps"],
+          spec_rounds=stats["serving/spec_rounds"], waves=waves,
+          accept_rate=(accepted / draft if draft else None),
+          kv_pages_peak=stats["serving/kv_pages_in_use"],
+          same_as_dense=same, peak_gib=peak, kv_bytes=kv_bytes,
+          programs=len(ledger), warm_s=warm_s, launches=counts)
+      if label == "offered":
+        # The captured programs on the device at bucket 64: every slot
+        # decoding at positions drawn like the workload's prompts (paged:
+        # 64 x 16 distinct pages), and the verify over 64 rows.
+        exe = engine._decode_exe(64)
+        ring.pos[:64].copy_(torch.from_numpy(lengths))
+        engine._active_buf[:64].fill_(True)
+        if engine._pps:
+          engine._table_buf[:64].copy_(torch.arange(
+              1, 1 + 64 * engine._pps, dtype=torch.int32).reshape(64, -1))
+        row["decode64_ms"] = time_ms(exe, iters=20)
+        if spec.speculative_k:
+          vexe, _ = engine._verify_exe(64)
+          row["verify64_ms"] = time_ms(vexe, iters=5)
+        if arm == "int8":
+          row["decode_check"] = serve_decode_check(engine, spec)
+          row.update(weight_pass_ms(engine, spec))
+        if arm == "all3":
+          row["verify_check"] = serve_verify_check(engine)
+      out[arm][label] = row
+      log(f"serve_variants: {arm} {label}: {row['completed']} completed, "
+          f"{row['shed']} shed, {row['tokens_per_sec']:.1f} tokens/sec, TTFT "
+          f"p50 {row['ttft_p50'] * 1e3:.1f} ms p99 {row['ttft_p99'] * 1e3:.1f}"
+          f" ms, token latency p50 {row['token_latency_p50'] * 1e3:.2f} ms "
+          f"p99 {row['token_latency_p99'] * 1e3:.2f} ms; "
+          + (f"decode step at bucket 64 {row['decode64_ms']:.4f} ms; "
+             if "decode64_ms" in row else "")
+          + (f"verify at bucket 64 {row['verify64_ms']:.3f} ms; "
+             if "verify64_ms" in row else "")
+          + f"peak {peak:.2f} GiB, KV {kv_bytes / 2 ** 30:.3f} GiB "
+          f"({kv_bytes / slab:.3f} of the dense slab); {len(ledger)} "
+          f"captured programs in {warm_s:.1f} s; {row['decode_steps']} decode"
+          f" steps, {row['spec_rounds']} verify rounds, {waves} prefill "
+          f"waves; acceptance {row['accept_rate']}; tokens equal to the "
+          f"dense arm's for {same} of {len(dense_tokens[label])} requests; "
+          f"launches {counts}")
+      del engine, exe, vexe
+      gc.collect()
+      torch.cuda.empty_cache()
+    if kw.get("kv_page_size"):
+      check(out[arm]["offered"]["kv_bytes"] < slab,
+            f"serve_variants {arm}: paged KV not under the dense slab")
+  res.setdefault("counts_by_path", {})["serve_variants"] = counts_all
+  res["serve_variants"] = out
+
+
+def graph_ms(fn, replays=20):
+  """Device time of fn's work alone: captured once as a CUDA graph, the
+  mean over back-to-back replays by CUDA events."""
+  fn()
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    fn()
+  return time_ms(graph.replay, iters=replays)
+
+
+def weight_pass_ms(engine, spec):
+  """The device time of the INT8 decode step's weight pass (each quantized
+  block and head weight and the position table dequantized to bf16, as
+  ``_serving_view`` does inside the step; the embedding's 64 rows) against
+  the dense step's (the same weights cast whole from f32 to bf16; the
+  dense step gathers its embedding rows), each alone in a CUDA graph."""
+  from kf_benchmarks_tpu_torch import quantization
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  qvars = {k: v for k, v in engine.module.qvars.items()
+           if k != "embed.weight"}
+  dense = [quantization.dequantize(v) for v in qvars.values()
+           if quantization.is_quantized(v)]
+  out = {"dequantize_ms": graph_ms(
+      lambda: decode_lib._serving_view(spec, qvars)),
+         "dense_cast_ms": graph_ms(
+      lambda: [v.to(spec.dtype) for v in dense])}
+  log(f"serve_variants: the INT8 decode step's weight pass (every "
+      f"quantized weight but the embedding dequantized to bf16, "
+      f"{sum(v.numel() for v in dense)} elements) "
+      f"{out['dequantize_ms']:.4f} ms against the dense step's f32 -> bf16 "
+      f"casts of the same weights {out['dense_cast_ms']:.4f} ms (device "
+      f"time, each captured alone)")
+  return out
+
+
+def serve_decode_check(engine, spec):
+  """flash_decode against its plain version on the inputs of one more
+  eager decode step of the engine's own cache at bucket 64 (the run's
+  weights, K/V and positions)."""
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  calls = {}
+  view = engine._bucket_view(64)
+  active = engine._active_buf[:64]
+  with capturing_decode_inputs(calls):
+    decode_lib.decode_fn(spec)(engine.module, view.k, view.v, view.pos,
+                               view.tok, active)
+  key, args = next(iter(calls.items()))
+  res_row = {}
+  _, err = check_decode_case("serve_variants_int8_b64", *args)
+  log(f"serve_variants: flash_decode on the INT8 arm's own cache at q "
+      f"{list(key[0])} k {list(key[1])}: max abs err {err:.3g} (tol one "
+      f"bf16 ulp + 1e-3 max|ref|), two launches bitwise equal, NaN past pos"
+      f" invisible")
+  res_row["max_abs_err"] = err
+  return res_row
+
+
+def serve_verify_check(engine):
+  """The flash forward against its plain version on the inputs of one
+  eager verify of the composed arm's own last rows at bucket 64 (the
+  target's int8 weights and the run's histories and proposals): the
+  B x 2048 causal shape."""
+  from kf_benchmarks_tpu_torch.ops import flash_attention as fa
+  from kf_benchmarks_tpu_torch.serving import decode as decode_lib
+  _, rows = engine._verify_exe(64)
+  calls = {}
+  with capturing_flash_inputs(calls):
+    decode_lib.verify_fn(engine.spec)(engine.target, rows)
+  (qs, _, stride, causal), args = next(iter(calls.items()))
+  o, lse = fa.flash_attention_fwd(*args)
+  o_ref, lse_ref = fa.flash_attention_fwd_plain(*args)
+  torch.cuda.synchronize()
+  err, ok = bf16_close(o, o_ref)
+  lse_err = float(((lse - lse_ref).abs() / lse_ref.abs().clamp_min(1.0)).max())
+  log(f"serve_variants: flash forward on the composed arm's own verify "
+      f"q{list(qs)} (strides {stride}) causal={causal}: o max abs err "
+      f"{err:.3g} (tol one bf16 ulp + 1e-3 max|ref|), lse rel err "
+      f"{lse_err:.2g} (tol 1e-3)")
+  check(ok and lse_err <= 1e-3, "serve_variants: flash forward differs "
+        "from its plain version on the verify's inputs")
+  return {"max_abs_err": err, "lse_rel_err": lse_err, "shape": list(qs)}
+
+
 def device_line() -> str:
   out = subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4017,6 +4500,7 @@ def main(argv=None) -> int:
            "serve_graph": phase_serve_graph,
            "fp16_vars": phase_fp16_vars, "health": phase_health,
            "faults": phase_faults, "input": phase_input,
+           "aot": phase_aot, "serve_variants": phase_serve_variants,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}

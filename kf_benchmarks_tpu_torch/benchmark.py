@@ -71,6 +71,18 @@ hands them and the bucket spec (ops/overlap.py) to the train step; the
 checkpoints hold the shard stacks, and mid-training eval reads the
 weights gathered.
 
+The frozen forward (aot.py; JAX benchmark.py:699-775, :1160-1184):
+--forward_only --aot_save_path exports the built module's eval forward,
+weights folded in, at --trt_mode's precision (FP16 and INT8 compute in
+bf16; INT8 stores per-channel int8 weights) before the timed loop, which
+then runs as usual; --forward_only --aot_load_path loads such a program in
+this process (its sidecar's mode checked against --trt_mode first) and
+times it on a uniform random batch, with the forward-only step and total
+lines; on the card the loaded program is captured once as a CUDA graph
+and replayed (ops/graphs.py), the counterpart of calling the JAX
+package's compiled export: the host then launches one graph a step
+instead of walking the program's ~1600 nodes.
+
 Real data (--data_dir; data/): each rank opens its own stream of the
 dataset's preprocessor (seed --tf_random_seed + rank + 7919 x the input
 incarnation, shift_ratio rank / world) through a DeviceFeeder
@@ -114,6 +126,7 @@ from kf_benchmarks_tpu_torch.models import model as model_lib
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.ops import conv_bn
 from kf_benchmarks_tpu_torch.ops import flash_attention
+from kf_benchmarks_tpu_torch.ops import graphs
 from kf_benchmarks_tpu_torch.ops import overlap
 from kf_benchmarks_tpu_torch.ops import sharded
 from kf_benchmarks_tpu_torch.parallel import kungfu
@@ -550,7 +563,117 @@ class BenchmarkCNN:
     self.print_info()
     if self.params.eval:
       return self._run_eval()
+    if self.params.forward_only and self.params.aot_load_path:
+      return self._benchmark_aot_serving()
     return self._benchmark_train()
+
+  # -- the frozen forward --------------------------------------------------
+
+  def _export_forward(self, module) -> None:
+    """--aot_save_path: the built module's frozen forward, at --trt_mode's
+    precision (JAX benchmark.py:1160-1184)."""
+    from kf_benchmarks_tpu_torch import aot
+    from kf_benchmarks_tpu_torch.serving import engine as engine_lib
+    p = self.params
+    trt_mode = (p.trt_mode or "").upper()
+    export_dtype = {"FP32": torch.float32, "FP16": torch.bfloat16,
+                    "INT8": torch.bfloat16}.get(trt_mode, self.compute_dtype)
+    nbytes = aot.export_forward(
+        self.model, module.state_dict(), self.batch_size, p.aot_save_path,
+        nclass=self.nclass, dtype=export_dtype, quantize=trt_mode == "INT8",
+        fingerprint=engine_lib.config_fingerprint_key(p._asdict(),
+                                                      "aot_forward"),
+        device=self.device)
+    log_fn(f"Exported frozen forward program to {p.aot_save_path} "
+           f"({nbytes} bytes"
+           + (f", {trt_mode} serving precision" if trt_mode else "") + ")")
+
+  def _benchmark_aot_serving(self) -> Dict[str, Any]:
+    """Time a frozen forward program loaded in this process (JAX
+    benchmark.py:699-775): the load checks the sidecar's mode against
+    --trt_mode and the program's input against the batch, then warmup and
+    the timed loop, read through the lag-2 metrics pipeline. On the card
+    the program runs as one CUDA graph capture replayed each step. The
+    program returns logits only, so the loss column carries the mean
+    logit."""
+    from kf_benchmarks_tpu_torch import aot
+    p = self.params
+    shape = tuple(self.model.get_input_shapes("eval")[0])
+    trt_mode = (p.trt_mode or "").upper()
+    launches_before = kernel_launches()
+    serving_fn = aot.load_forward(
+        p.aot_load_path, expect_batch=self.batch_size, expect_shape=shape,
+        expect_quantize="int8" if trt_mode == "INT8" else None,
+        device=self.device)
+    log_fn(f"Loaded frozen forward program from {p.aot_load_path}")
+    gen = torch.Generator(device=self.device).manual_seed(
+        p.tf_random_seed or 0)
+    images = torch.rand(shape, generator=gen, device=self.device)
+    log_fn("Running warm up")
+    t0 = time.time()
+    with torch.no_grad():
+      step = lambda: serving_fn(images)
+      warm = lambda: [step() for _ in range(max(self.num_warmup_batches, 1))]
+      if self.device.type == "cuda":
+        # The warmup runs on a side stream, as a capture wants its first
+        # uses (kernel loads, workspaces) made there.
+        graphs.on_side_stream(warm)
+        graph = graphs.Graph(step)
+        log_fn("Captured the loaded program as a CUDA graph")
+
+        def step():
+          graph.replay()
+          return graph.outputs
+      else:
+        warm()
+      _sync(self.device)
+      log_fn("Warmup (load + %d steps): %.1f s" %
+             (max(self.num_warmup_batches, 1), time.time() - t0))
+      log_fn("Step\tImg/sec\ttotal_loss")
+      step_times = []
+      last_display_len = 0
+      pipe = pipeline_lib.MetricsPipeline(lag=2)
+
+      def handle(done):
+        nonlocal last_display_len
+        step_times.append(done.interval)
+        i1 = done.index
+        if i1 % self.display_every == 0 or i1 == self.num_batches:
+          log_fn(log_util.format_step_line(
+              i1, self.batch_size, step_times[last_display_len:],
+              float(done.metrics["mean_logit"])))
+          last_display_len = len(step_times)
+
+      loop_start = time.time()
+      pipe.reset_clock()
+      for i in range(self.num_batches):
+        out = step()
+        for done in pipe.push(i + 1, {"mean_logit": out.float().mean()}):
+          handle(done)
+      for done in pipe.flush():
+        handle(done)
+    total_time = time.time() - loop_start
+    images_per_sec = (self.num_batches * self.batch_size /
+                      max(total_time, 1e-9))
+    log_fn("-" * 64)
+    log_fn(log_util.format_total_line(images_per_sec))
+    log_fn("-" * 64)
+    launches = {k: v - launches_before[k]
+                for k, v in kernel_launches().items()}
+    if any(launches.values()):
+      log_fn("Kernel launches: " + ", ".join(
+          f"{k} {v}" for k, v in launches.items() if v))
+    return {
+        "num_workers": 1,
+        "num_steps": self.num_batches,
+        "average_wall_time": total_time / max(self.num_batches, 1),
+        "images_per_sec": images_per_sec,
+        "aot_load_path": p.aot_load_path,
+        "device": str(self.device),
+        "kernel_launches": launches,
+        "steps_run": max(self.num_warmup_batches, 1) + self.num_batches,
+        "last_average_loss": float(out.float().mean()),
+    }
 
   # -- evaluation ---------------------------------------------------------
 
@@ -753,6 +876,8 @@ class BenchmarkCNN:
     launches_before = kernel_launches()
     t0 = time.time()
     module, step, images, labels = self.build()
+    if p.forward_only and p.aot_save_path:
+      self._export_forward(module)
     chunk = self._make_chunk(step)
     # Real data: the stream opens at the incarnation the build resumed.
     real = self._open_train_input()

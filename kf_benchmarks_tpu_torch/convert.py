@@ -30,8 +30,15 @@ replicas diverged (independent, kungfu async_sgd or sma).
 
 ``flax_to_state_dict`` maps every flax leaf (every layer of a stacked one)
 exactly once onto every entry of the module's state_dict, and raises on any
-leaf left over or missing. The inputs are numpy arrays (``jax.device_get``
-of the flax tree), so this module needs no JAX.
+leaf left over or missing; ``state_dict_to_flax`` is its inverse. The inputs
+are numpy arrays (``jax.device_get`` of the flax tree), so this module needs
+no JAX.
+
+Quantized trees (quantization.py): a JAX ``{"__int8__": q, "__scale__":
+scale}`` leaf is the port's ``QTensor(q, scale)`` in the port's layout, the
+scale with the reduced axes kept (``flax_to_quantized_state``; the two
+directions of ``state_dict_to_flax`` take ``QTensor`` entries back), so
+the two packages' quantized trees compare element by element.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from kf_benchmarks_tpu_torch import quantization
 from kf_benchmarks_tpu_torch.models import transformer_lm
 
 _PORT_BLOCK = re.compile(r"^blocks\.(\d+)\.(\w+)$")
@@ -189,3 +197,97 @@ def replica_state_dict(stacked: Mapping, replica: int, module: nn.Module
   """Rank ``replica``'s state_dict from the replica-stacked flax
   variables."""
   return flax_to_state_dict(replica_variables(stacked, replica), module)
+
+
+_QKEY, _SKEY = "__int8__", "__scale__"
+
+
+def _is_flax_qleaf(value) -> bool:
+  return isinstance(value, Mapping) and _QKEY in value and _SKEY in value
+
+
+def _keepdim_scale(q_shape, scale: np.ndarray) -> np.ndarray:
+  """A JAX ``__scale__`` leaf with the axes its absmax reduced kept."""
+  axes = quantization._scale_axes(q_shape)
+  return scale.reshape([1 if i in axes else d for i, d in enumerate(q_shape)])
+
+
+def flax_to_quantized_state(qvariables: Mapping, module: nn.Module
+                            ) -> Dict[str, object]:
+  """The port's quantized state (``QTensor`` entries where the JAX tree has
+  ``{"__int8__", "__scale__"}`` leaves) from a JAX quantized tree."""
+  qleaves = {}
+
+  def strip(tree, prefix=()):
+    out = {}
+    for name, value in tree.items():
+      path = prefix + (name,)
+      if _is_flax_qleaf(value):
+        q = np.asarray(value[_QKEY])
+        qleaves[path] = (q.shape, np.asarray(value[_SKEY], np.float32))
+        # int8 values are exact in f32 (and bf16): the bridge's checks run
+        # on them, and they come back as int8 below.
+        out[name] = q.astype(np.float32)
+      elif isinstance(value, Mapping):
+        out[name] = strip(value, path)
+      else:
+        out[name] = value
+    return out
+
+  state = flax_to_state_dict(strip(qvariables), module)
+  out: Dict[str, object] = {}
+  for key, t in state.items():
+    path, kind, index = flax_source(key, t, module)
+    if path not in qleaves:
+      out[key] = t
+      continue
+    q_shape, scale = qleaves[path]
+    keep = _keepdim_scale(q_shape, scale)
+    if index is not None:
+      keep = keep[0]
+    out[key] = quantization.QTensor(
+        t.to(torch.int8),
+        torch.from_numpy(np.array(to_port_layout(keep, kind))))
+  return out
+
+
+def state_dict_to_flax(state: Mapping, module: nn.Module) -> Dict:
+  """The flax tree (nested dicts of numpy arrays) of a port state_dict, the
+  inverse of ``flax_to_state_dict``; stacked leaves are the layers stacked
+  in order. ``QTensor`` entries become ``{"__int8__", "__scale__"}``
+  leaves, with the scale of a stacked leaf taken from its first layer
+  (every layer of one stack holds the same scale)."""
+  ref = module.state_dict()
+  groups: Dict[Tuple[str, ...], list] = {}
+  for key, value in state.items():
+    path, kind, index = flax_source(key, ref[key], module)
+    groups.setdefault(path, []).append((-1 if index is None else index,
+                                        index is not None, kind, value))
+  tree: Dict = {}
+  for path, members in groups.items():
+    members.sort(key=lambda m: m[0])
+    stacked, kind = members[0][1], members[0][2]
+
+    def flax_np(t):
+      t = t.detach().cpu()
+      if t.dtype == torch.bfloat16:
+        t = t.float()
+      return to_flax_layout(t.numpy(), kind)
+
+    values = [m[3] for m in members]
+    if quantization.is_quantized(values[0]):
+      q = [flax_np(v.q) for v in values]
+      q = np.stack(q) if stacked else q[0]
+      scale = flax_np(values[0].scale)
+      axes = quantization._scale_axes(q.shape)
+      shape = tuple(d for i, d in enumerate(q.shape) if i not in axes)
+      leaf = {_QKEY: np.ascontiguousarray(q),
+              _SKEY: np.ascontiguousarray(scale).reshape(shape)}
+    else:
+      arrs = [flax_np(v) for v in values]
+      leaf = np.ascontiguousarray(np.stack(arrs) if stacked else arrs[0])
+    node = tree
+    for name in path[:-1]:
+      node = node.setdefault(name, {})
+    node[path[-1]] = leaf
+  return tree

@@ -2,9 +2,9 @@
 
 The port's counterpart of kf_benchmarks_tpu/models/transformer_lm.py: the
 training branch of ``_Block`` (:169-207) with its ``return_kv`` outputs,
-the dense-ring decode branch (:139-168), ``_TransformerLMModule.__call__``
-(:276-384) and ``_decode_call`` (:386-451) without the paged branch, and
-``TransformerLMModel``. Pre-LN blocks, learned
+the dense-ring and paged decode branches (:139-168, :89-132),
+``_TransformerLMModule.__call__`` (:276-384), ``_decode_call`` (:386-451)
+and ``TransformerLMModel``. Pre-LN blocks, learned
 positions, one Dense(3d) for q, k and v, the fused chunked LM head
 (ops/fused_loss.py). The forward and the decode step share every parameter,
 so one module (and one weight bridge, convert.py) serves both.
@@ -169,16 +169,34 @@ class Block(nn.Module):
     return (x, k, v) if return_kv else x
 
   def decode(self, x: torch.Tensor, pos: torch.Tensor, ck: torch.Tensor,
-             cv: torch.Tensor) -> torch.Tensor:
+             cv: torch.Tensor, page_table: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
     """One token per slot over this layer's KV ring: x (B, 1, d), pos (B,)
     absolute positions, ck/cv (B, T, H, Dh) ring buffers. The token's K/V
     are written into the ring at pos % T in place (an indexed copy of B
     rows; the JAX package selects over the whole ring), then it attends
-    over the slots s <= pos (parallel/sequence.py decode_attention)."""
+    over the slots s <= pos (parallel/sequence.py decode_attention).
+
+    With ``page_table`` (B, pages_per_slot), ck/cv are this layer's
+    (P, page, H, Dh) page pools: the write goes to pool row
+    ``table[b, r // page]`` at ``r % page`` for r = pos % (pages_per_slot
+    * page), and attention reads the slot's pages through the table (the
+    JAX package's paged branch, transformer_lm.py:89-132). A slot whose
+    table row is all 0 writes to the scratch page."""
     b, _, d = x.shape
-    t = ck.shape[1]
     h = self.ln1(x).to(self.dtype)
     qkv = self.qkv(h).reshape(b, 1, 3, self.n_heads, d // self.n_heads)
+    if page_table is not None:
+      page = ck.shape[1]
+      rpos = pos.long() % (page_table.shape[1] * page)
+      row = page_table.long().gather(1, (rpos // page)[:, None])[:, 0]
+      ck[row, rpos % page] = qkv[:, 0, 1].to(ck.dtype)
+      cv[row, rpos % page] = qkv[:, 0, 2].to(cv.dtype)
+      att = sequence.decode_attention(
+          qkv[:, :, 0], ck, cv, pos, block=page, impl=self.impl,
+          exact=self.decode_exact, q_block=page, page_table=page_table)
+      return self._mlp(x, att)
+    t = ck.shape[1]
     slot = pos.long() % t
     batch = torch.arange(b, device=x.device)
     ck[batch, slot] = qkv[:, 0, 1].to(ck.dtype)
@@ -265,19 +283,22 @@ class TransformerLM(nn.Module):
     return out, aux
 
   def decode(self, tokens: torch.Tensor, cache_k: torch.Tensor,
-             cache_v: torch.Tensor, pos: torch.Tensor):
+             cache_v: torch.Tensor, pos: torch.Tensor,
+             page_table: Optional[torch.Tensor] = None):
     """The single-token KV-ring decode step: ``tokens`` (B,) is each slot's
     current token at absolute position ``pos`` (B,); its K/V are written
     into the (L, B, T, H, Dh) caches at ``pos % T`` in place, and the
     returned (B, 1, V) logits (always the dense head) predict position
     ``pos + 1``. Returns (logits, (cache_k, cache_v)). The position row is
     ``pos % max_len``, the row the full forward adds at that position;
-    past the ring's length attention covers the trailing window."""
+    past the ring's length attention covers the trailing window. With
+    ``page_table`` (B, pages_per_slot) the caches are the (L, P, page, H,
+    Dh) page pools, shared by every layer's table (``Block.decode``)."""
     x = self.embed(tokens.long().reshape(-1, 1)).to(self.dtype)
     x = x + self.pos_embedding[pos.long() % self.max_len][:, None].to(
         self.dtype)
     for i, block in enumerate(self.blocks):
-      x = block.decode(x, pos, cache_k[i], cache_v[i])
+      x = block.decode(x, pos, cache_k[i], cache_v[i], page_table)
     hidden = self.ln_f(x).to(self.dtype)
     return hidden @ self.lm_head.to(self.dtype), (cache_k, cache_v)
 

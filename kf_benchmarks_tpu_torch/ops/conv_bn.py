@@ -17,11 +17,16 @@ The counterpart of the three Pallas probes in ``experiments/``:
   bf16 parameter as it is stored (a layout copy, no cast), its weight
   gradient then coming back in the parameter's dtype.
 
-Each wrapper takes NHWC activations, the JAX package's layout. On a CPU
-tensor it computes its plain PyTorch version (below it);
-on a CUDA tensor it launches its hand-written kernel or raises. There is no
-fallback from one to the other. ``LAUNCHES`` counts kernel launches per
-wrapper, so a run can show that its path went through the kernels.
+Each wrapper takes NHWC activations, the JAX package's layout, and calls
+its ``torch.library.custom_op`` (``torch.ops.kf_torch.*``): the op's CPU
+implementation is the plain PyTorch version (below), its CUDA
+implementation launches the hand-written kernel or raises, and its fake
+gives the output shapes, so ``torch.export`` (aot.py) records the op itself
+rather than tracing its plain decomposition, and a loaded program runs
+the kernel on the card. There is no fallback from one to the other.
+``LAUNCHES`` counts kernel launches per kernel, inside the op's CUDA
+implementation (so a loaded exported program's launches count too), and
+a run can show that its path went through the kernels.
 
 ``FusedBnReluConv3x3`` is the autograd unit the ResNet bottleneck uses for
 every stride-1 ``conv_b``: forward by K-B, input gradient by K-A, weight
@@ -231,11 +236,25 @@ def kmajor(w: torch.Tensor) -> torch.Tensor:
   return w.permute(3, 0, 1, 2).contiguous()
 
 
-def conv3x3_same_kmajor(x: torch.Tensor, w_k: torch.Tensor) -> torch.Tensor:
-  """K-A on K-major weights: y[N,H,W,CO] = conv3x3_SAME(x[N,H,W,C], w)
-  with w_k[o,dy,dx,c] = w[dy,dx,c,o]."""
-  if x.device.type == "cpu":
-    return conv3x3_same_plain(x, w_k.permute(1, 2, 3, 0))
+def _check_device(name: str, x: torch.Tensor) -> None:
+  if x.device.type not in ("cpu", "cuda"):
+    raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
+                     f"got {x.device}")
+
+
+@torch.library.custom_op("kf_torch::conv3x3_same", mutates_args=(),
+                         device_types="cpu")
+def _conv3x3_same_op(x: torch.Tensor, w_k: torch.Tensor) -> torch.Tensor:
+  return conv3x3_same_plain(x, w_k.permute(1, 2, 3, 0))
+
+
+@_conv3x3_same_op.register_fake
+def _(x, w_k):
+  return x.new_empty(*x.shape[:3], w_k.shape[0])
+
+
+@_conv3x3_same_op.register_kernel("cuda")
+def _conv3x3_same_cuda(x: torch.Tensor, w_k: torch.Tensor) -> torch.Tensor:
   _check_cuda("conv3x3_same", x, w_k, c_align=64, kmajor=True)
   n, h, wd, c = x.shape
   co = w_k.shape[0]
@@ -251,6 +270,13 @@ def conv3x3_same_kmajor(x: torch.Tensor, w_k: torch.Tensor) -> torch.Tensor:
   _raise_on_error("conv3x3_same", err)
   LAUNCHES["conv3x3_same"] += 1
   return y
+
+
+def conv3x3_same_kmajor(x: torch.Tensor, w_k: torch.Tensor) -> torch.Tensor:
+  """K-A on K-major weights: y[N,H,W,CO] = conv3x3_SAME(x[N,H,W,C], w)
+  with w_k[o,dy,dx,c] = w[dy,dx,c,o]."""
+  _check_device("conv3x3_same", x)
+  return torch.ops.kf_torch.conv3x3_same(x, w_k)
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -271,8 +297,29 @@ def bn_relu_conv3x3_stats(x: torch.Tensor, sc: torch.Tensor,
 
   x [N,H,W,C] and w_k [CO,3,3,C] bf16 on the card; sc, sh [C] f32.
   """
-  if x.device.type == "cpu":
-    return bn_relu_conv3x3_stats_plain(x, sc, sh, w_k.permute(1, 2, 3, 0))
+  _check_device("bn_relu_conv3x3_stats", x)
+  return torch.ops.kf_torch.bn_relu_conv3x3_stats(x, sc, sh, w_k)
+
+
+@torch.library.custom_op("kf_torch::bn_relu_conv3x3_stats", mutates_args=(),
+                         device_types="cpu")
+def _bn_relu_conv3x3_stats_op(x: torch.Tensor, sc: torch.Tensor,
+                              sh: torch.Tensor, w_k: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+  return bn_relu_conv3x3_stats_plain(x, sc, sh, w_k.permute(1, 2, 3, 0))
+
+
+@_bn_relu_conv3x3_stats_op.register_fake
+def _(x, sc, sh, w_k):
+  co = w_k.shape[0]
+  return (x.new_empty(*x.shape[:3], co),
+          x.new_empty(2, co, dtype=accum(x).dtype))
+
+
+@_bn_relu_conv3x3_stats_op.register_kernel("cuda")
+def _bn_relu_conv3x3_stats_cuda(x: torch.Tensor, sc: torch.Tensor,
+                                sh: torch.Tensor, w_k: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
   name = "bn_relu_conv3x3_stats"
   _check_cuda(name, x, w_k, c_align=64, kmajor=True)
   n, h, wd, c = x.shape

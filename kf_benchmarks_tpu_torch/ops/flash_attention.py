@@ -28,7 +28,12 @@ and lse = +inf.
 
 Each wrapper computes its plain PyTorch version (below it) on a CPU tensor
 and launches its kernel on a CUDA tensor or raises; there is no fallback
-from one to the other. ``LAUNCHES`` counts kernel launches per wrapper.
+from one to the other. The forward and the decode kernel are
+``torch.library.custom_op``s (``torch.ops.kf_torch.flash_attention_fwd``
+and ``flash_decode``): CPU implementation the plain version, CUDA
+implementation the launch, a fake for the shapes, so an exported program
+(aot.py) records the op and runs the kernel on the card. ``LAUNCHES``
+counts kernel launches per kernel, where the kernel is enqueued.
 ``FlashAttention`` is the autograd Function: forward by the forward kernel
 (saving lse), backward by the two backward kernels.
 """
@@ -293,13 +298,44 @@ def _ptr(x):
   return None if x is None else x.data_ptr()
 
 
+def _check_device(name: str, q: torch.Tensor) -> None:
+  if q.device.type not in ("cpu", "cuda"):
+    raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
+                     f"got {q.device}")
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None, q_seg=None,
                         kv_seg=None) -> Tuple[torch.Tensor, torch.Tensor]:
   """(o (B, Lq, H, D), lse (B, H, Lq) f32) = softmax attention."""
   scale = default_scale(q) if scale is None else scale
-  if q.device.type == "cpu":
-    return flash_attention_fwd_plain(q, k, v, causal, scale, q_seg, kv_seg)
+  if q.device.type != "cpu":
+    _check_scale("flash_attention_fwd", scale)
+  _check_device("flash_attention_fwd", q)
+  return torch.ops.kf_torch.flash_attention_fwd(q, k, v, bool(causal),
+                                                float(scale), q_seg, kv_seg)
+
+
+@torch.library.custom_op("kf_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool, scale: float,
+                            q_seg: Optional[torch.Tensor],
+                            kv_seg: Optional[torch.Tensor]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+  o, lse = flash_attention_fwd_plain(q, k, v, causal, scale, q_seg, kv_seg)
+  return o.contiguous(), lse  # the kernel's (and the fake's) layout
+
+
+@_flash_attention_fwd_op.register_fake
+def _(q, k, v, causal, scale, q_seg, kv_seg):
+  b, lq, h, _ = q.shape
+  return (q.new_empty(*q.shape[:3], v.shape[3]),
+          q.new_empty(b, h, lq, dtype=accum(q).dtype))
+
+
+@_flash_attention_fwd_op.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, causal, scale, q_seg, kv_seg):
   q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
   _check_scale("flash_attention_fwd", scale)
   _check_qkv("flash_attention_fwd", q, k, v, q_seg, kv_seg)
@@ -525,8 +561,24 @@ def flash_decode(q, k, v, pos, scale: Optional[float] = None) -> torch.Tensor:
   one launch of the kernel (``decode_plan`` splits a row's keys over a
   cluster of blocks); on a CPU tensor ``flash_decode_plain``."""
   scale = default_scale(q) if scale is None else scale
-  if q.device.type == "cpu":
-    return flash_decode_plain(q, k, v, pos, scale)
+  _check_device("flash_decode", q)
+  return torch.ops.kf_torch.flash_decode(q, k, v, pos, float(scale))
+
+
+@torch.library.custom_op("kf_torch::flash_decode", mutates_args=(),
+                         device_types="cpu")
+def _flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, scale: float) -> torch.Tensor:
+  return flash_decode_plain(q, k, v, pos, scale)
+
+
+@_flash_decode_op.register_fake
+def _(q, k, v, pos, scale):
+  return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@_flash_decode_op.register_kernel("cuda")
+def _flash_decode_cuda(q, k, v, pos, scale):
   pos = pos.to(torch.int32)
   _check_decode(q, k, v, pos)
   b, _, h, d = q.shape

@@ -11,16 +11,16 @@ kf_benchmarks_tpu/parallel/sequence.py:
   (sequence.py:763): here the hand-written CUDA kernels of
   ops/flash_attention.py, with the plain versions on the CPU;
 * ``decode_attention`` -- single-query attention over the serving KV ring
-  (sequence.py:554), dense ring only: ``flash`` onto the decode kernels of
+  (sequence.py:554): ``flash`` onto the decode kernels of
   ops/flash_attention.py, ``tiled`` the ``_block_update`` online softmax,
-  ``exact`` the full-sequence oracle.
+  ``exact`` the full-sequence oracle; and over the paged KV pool
+  (sequence.py:612-640), the tiled gather schedule.
 
 Masking follows the JAX package: ``_NEG`` in place of -inf, a causal mask
 aligned at the top left (``arange(lq)[:, None] >= arange(lk)``), segment
 ids compared by equality (padding id 0 attends padding, so no row of a
 packed batch is ever fully masked). The ring, zigzag and Ulysses schedules
-(sequence parallelism across devices) and the paged KV decode are not ported
-yet.
+(sequence parallelism across devices) are not ported yet.
 """
 
 from __future__ import annotations
@@ -186,17 +186,28 @@ def decode_attention(q, k, v, pos, block: Optional[int] = None,
     causal mask at row T - 1 admits every slot, the fast path's windowed
     semantics.
 
-  ``page_table`` (the paged KV pool) is not ported yet and raises.
+  ``page_table`` switches to the paged KV layout (serving/decode.py paged
+  caches): ``k``/``v`` are then page POOLS (P, page, H, D) shared by the
+  slots, and ``page_table`` (B, pages_per_slot) int maps slot b's logical
+  page j to a pool row; row 0 is the scratch page that unallocated entries
+  name. The fast path, whatever ``impl``, is the dense ``tiled`` schedule
+  with each block gathered from the pool and the block pinned to the page
+  size (the JAX package's tiled gather, sequence.py:612-640: no flash
+  kernel of either package has a block-table mode), so its inputs, block
+  by block, are the values of a dense ring holding the same tokens, and
+  its result is bitwise the dense tiled path's at ``block = page``.
+  ``exact=True`` gathers the dense (B, T, H, D) view out of the pool and
+  runs the dense oracle (a test mode: materialising the view is what
+  paging avoids).
   """
-  if page_table is not None:
-    raise NotImplementedError(
-        "decode_attention: paged KV (page_table) is not ported yet "
-        "(ROADMAP Queue 1 item 8); the port serves the dense ring")
   if impl not in ("tiled", "flash"):
     raise ValueError(f"impl must be 'tiled' or 'flash', got {impl!r}")
   b, tq, h, d = q.shape
-  t = k.shape[1]
   scale = flash_lib.default_scale(q) if scale is None else scale
+  if page_table is not None:
+    return _paged_decode_attention(q, k, v, pos, page_table, block, impl,
+                                   scale, exact, q_block)
+  t = k.shape[1]
   if exact:
     rows = torch.clamp(pos.long(), max=t - 1)
     batch = torch.arange(b, device=q.device)
@@ -226,4 +237,34 @@ def decode_attention(q, k, v, pos, block: Optional[int] = None,
     mask = admitted[:, None, None, k0:k0 + blk]
     m, l, o = _block_update(q, k[:, k0:k0 + blk], v[:, k0:k0 + blk], m, l, o,
                             scale, mask)
+  return _finish(o, l, q.dtype)
+
+
+def _paged_decode_attention(q, k, v, pos, page_table, block, impl, scale,
+                            exact, q_block):
+  """decode_attention over the (P, page, H, D) pools through the
+  (B, pages_per_slot) page table."""
+  b, tq, h, d = q.shape
+  page = k.shape[1]
+  pps = page_table.shape[1]
+  table = page_table.long()
+  if exact:
+    kd = k[table].reshape(b, pps * page, h, d)
+    vd = v[table].reshape(b, pps * page, h, d)
+    return decode_attention(q, kd, vd, pos, block=block, impl=impl,
+                            scale=scale, exact=True, q_block=q_block)
+  acc_dtype = accum(q).dtype
+  m = torch.full((b, h, tq), _NEG, dtype=acc_dtype, device=q.device)
+  l = torch.zeros((b, h, tq), dtype=acc_dtype, device=q.device)
+  o = torch.zeros((b, tq, h, d), dtype=acc_dtype, device=q.device)
+  kpos = torch.arange(page, device=q.device)
+  zero = torch.zeros((), dtype=v.dtype, device=v.device)
+  for j in range(pps):
+    ids = table[:, j]
+    admitted = pos.long()[:, None] >= j * page + kpos[None, :]   # (B, page)
+    # V zeroed past pos, as the dense tiled path does: a non-finite stale
+    # value on a page (or the scratch page) cannot reach P V.
+    vj = torch.where(admitted[:, :, None, None], v[ids], zero)
+    m, l, o = _block_update(q, k[ids], vj, m, l, o, scale,
+                            admitted[:, None, None, :])
   return _finish(o, l, q.dtype)

@@ -10,8 +10,10 @@ joined through --worker_hosts; optionally with sharded optimizer state,
 sharded parameters or the overlapped reduction), in f32 or bf16
 parameters (--fp16_vars), with checkpoints, elastic resize and the
 adaptive batch size, training-health telemetry and fault injection, and the
-transformer_lm serving bench (serving/bench.py). Names, defaults and
-meanings follow the JAX package (the serving bench's ``--serving_requests``,
+transformer_lm serving bench (serving/bench.py) with its INT8, paged-KV
+and speculative variants, and the frozen forward export (aot.py). Names,
+defaults and meanings follow the JAX package (the serving bench's
+``--serving_requests``,
 ``--serving_rate`` and ``--serving_tenants`` are arguments of the JAX
 package's bench.py), except ``device``, which defaults to the card.
 validation.py rejects every value outside the port.
@@ -398,6 +400,59 @@ flags.DEFINE_float("serving_tenant_tokens_per_s", None,
                    "charged at submit against a token bucket); an "
                    "over-budget request is rejected. None = unmetered.",
                    lower_bound=0.0)
+flags.DEFINE_enum("serving_quantize", None, ("int8",),
+                  "Weight-only quantization of the served model: 'int8' "
+                  "stores per-output-channel {int8, f32 scale} weights "
+                  "(quantization.py) dequantized inside every serving "
+                  "program -- the counterpart of the reference's "
+                  "--trt_mode=INT8 (ref :615-620). The serving bench "
+                  "gates it on greedy agreement with the float weights "
+                  "and serves the dense arm, saying so, when the gate "
+                  "fails. None = float weights.")
+flags.DEFINE_integer("serving_kv_page_size", None,
+                     "Paged KV cache: replace the dense per-slot (T_max) "
+                     "ring slab with a shared fixed-size page pool and "
+                     "per-request page tables at this page size "
+                     "(tokens/page; must divide the context length). "
+                     "None = the dense ring slab.", lower_bound=1)
+flags.DEFINE_integer("serving_speculative_k", None,
+                     "Speculative decoding: a shallow draft proposes k "
+                     "tokens per target dispatch; the target verifies all "
+                     "k in ONE prefill-shaped call (greedy output stays "
+                     "token-identical to plain greedy). Requires "
+                     "--serving_draft_layers.", lower_bound=2)
+flags.DEFINE_integer("serving_draft_layers", None,
+                     "Depth of the speculative draft model (the served "
+                     "transformer_lm truncated; must be < its layer "
+                     "count). Only meaningful with "
+                     "--serving_speculative_k.", lower_bound=1)
+
+# The frozen forward export (aot.py; ref: _preprocess_graph :2405-2525,
+# --trt_mode :615-620).
+flags.DEFINE_string("aot_save_path", None,
+                    "Forward-only mode: export the frozen forward program "
+                    "(torch.export, weights folded in as constants) to "
+                    "this path with a signature sidecar -- the "
+                    "serving-graph/TensorRT analog (ref trt_mode :615-620, "
+                    "_preprocess_graph :2405-2525).")
+flags.DEFINE_string("aot_load_path", None,
+                    "Forward-only mode: load a frozen forward program "
+                    "exported via --aot_save_path and benchmark ITS "
+                    "images/sec -- the serving benchmark on the frozen "
+                    "artifact.")
+flags.DEFINE_string("trt_mode", "",
+                    "Precision of the frozen serving export (the TensorRT-"
+                    "conversion analog, ref :615-620): FP32, FP16 (bf16 "
+                    "compute on the card), or INT8 (weight-only "
+                    "post-training quantization, quantization.py, bf16 "
+                    "compute). Requires --forward_only with "
+                    "--aot_save_path; empty keeps the run's compute dtype.")
+flags.DEFINE_boolean("freeze_when_forward_only", False,
+                     "Accepted for parity: freezing IS the export "
+                     "(--aot_save_path folds the weights into constants; "
+                     "ref :155-157).")
+flags.DEFINE_integer("trt_max_workspace_size_bytes", 4 << 30,
+                     "No-op in the port (TensorRT knob, ref :619-620).")
 
 # The input path (data/; ref :186-272).
 flags.DEFINE_string("data_dir", None,

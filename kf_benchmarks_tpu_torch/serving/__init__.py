@@ -1,18 +1,20 @@
 """Serving path: continuous-batching LM inference on the card.
 
-The port's counterpart of kf_benchmarks_tpu/serving/ on its dense,
-single-device path:
+The port's counterpart of kf_benchmarks_tpu/serving/ on one device:
 
-* ``decode.py`` -- the KV-ring decode programs: packed prefill
+* ``decode.py`` -- the KV-cache decode programs: packed prefill
   (mixed-length prompts in one pass, riding data/packing.py), the
   single-token decode step (models/transformer_lm.py ``decode``; attention =
   parallel/sequence.py ``decode_attention``, the hand-written decode
   kernel of csrc/flash_decode.cu under ``attn_impl='flash'``), greedy
-  sampling, caches updated in place.
+  sampling, caches updated in place; the decode-cost variants: INT8
+  weights dequantized inside every program, the paged KV pool, and the
+  speculative verify program with its truncated draft.
 * ``engine.py`` -- the host-side request engine: a bounded bucket-ladder
   set of prepared programs, continuous in-flight batching vs static
-  batch-and-drain, SLO-aware admission control, request spans on the
-  ``RunTrace`` timeline and ``serving/*`` metrics.
+  batch-and-drain, SLO-aware admission control, the page allocator and
+  the speculative rounds, request spans on the ``RunTrace`` timeline and
+  ``serving/*`` metrics.
 * ``bench.py`` -- ``python -m kf_benchmarks_tpu_torch.serving.bench``: a
   seeded request trace replayed through the engine, one JSON line.
 """

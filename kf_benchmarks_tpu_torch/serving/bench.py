@@ -6,7 +6,9 @@ line.
     python -m kf_benchmarks_tpu_torch.serving.bench --device=cpu
 
 The port's counterpart of the JAX package's ``bench.py --serving``
-(bench.py:288-440) without the decode-cost variants and the run store. On
+(bench.py:288-440), with its decode-cost variants (--serving_quantize,
+--serving_kv_page_size, --serving_speculative_k with
+--serving_draft_layers; bench.py:318-333) and without the run store. On
 the card (the default ``--device=gpu``, which fails without one; there is
 no CPU fallback) it serves the zoo transformer_lm at full size, 128
 requests at 16 requests/s with 32 new tokens each; ``--device=cpu`` serves a
@@ -16,8 +18,15 @@ parameters; the attention is ``KF_TRANSFORMER_LM_ATTN`` (``tiled`` or
 ``flash``, models/transformer_lm.py). The engine prepares every program of
 its ladder (``warm``) before the replay, so TTFT measures the system.
 
+Before serving a quantized spec the bench runs the INT8 gate
+(decode.py ``quantize_agreement``) on the first 8 prompts of the seeded
+workload; below the bar it serves the dense arm instead and says so on
+stderr (bench.py:362-381). On random-init weights the gate is meant to
+fail: their argmax margins are razor-thin.
+
 The JSON line carries the JAX line's keys: metric, value, unit, retries,
-compile_ledger, decode_variant, every non-None ``serving/*`` stat, the
+compile_ledger, decode_variant (the variants of the arm served),
+quantize_gate (when one ran), every non-None ``serving/*`` stat, the
 per-tenant block, git_rev and platform (``gpu`` or ``cpu``), plus the
 device's name.
 """
@@ -25,6 +34,7 @@ device's name.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,6 +49,7 @@ from kf_benchmarks_tpu_torch import params as params_lib
 from kf_benchmarks_tpu_torch import tracing
 from kf_benchmarks_tpu_torch import validation
 from kf_benchmarks_tpu_torch.models import transformer_lm
+from kf_benchmarks_tpu_torch.serving import decode as decode_lib
 from kf_benchmarks_tpu_torch.serving import engine as engine_lib
 from kf_benchmarks_tpu_torch.serving.decode import LMSpec
 
@@ -84,12 +95,23 @@ def run(params) -> Dict[str, Any]:
   on_gpu = params.device == "gpu"
   dtype = torch.bfloat16 if params.use_fp16 else torch.float32
   impl = transformer_lm.attn_impl()
+  # Decode-cost variants, absent when off so a variant-free spec's
+  # fingerprint is the one it always was.
+  variant_kw = {}
+  if params.serving_quantize:
+    variant_kw["quantize"] = params.serving_quantize
+  if params.serving_kv_page_size:
+    variant_kw["kv_page_size"] = params.serving_kv_page_size
+  if params.serving_speculative_k:
+    variant_kw["speculative_k"] = params.serving_speculative_k
+    variant_kw["draft_n_layers"] = params.serving_draft_layers
   if on_gpu:
-    spec = LMSpec(attn_impl=impl, dtype=dtype)
+    spec = LMSpec(attn_impl=impl, dtype=dtype, **variant_kw)
     n_req, rate, max_new = 128, 16.0, 32
   else:
     spec = LMSpec(vocab=256, d_model=64, n_layers=2, n_heads=4, d_ff=128,
-                  max_len=128, attn_block=32, attn_impl=impl, dtype=dtype)
+                  max_len=128, attn_block=32, attn_impl=impl, dtype=dtype,
+                  **variant_kw)
     n_req, rate, max_new = 24, 8.0, 8
   ladder_kw = ({"bucket_ladder": validation.parse_bucket_ladder(
       params.serving_bucket_ladder)} if params.serving_bucket_ladder else {})
@@ -110,11 +132,28 @@ def run(params) -> Dict[str, Any]:
       n_req, rate, spec, seed=0, max_new_tokens=cfg.max_new_tokens,
       tenants=tenants)
 
+  device = "cuda" if on_gpu else "cpu"
+  variables = decode_lib.init_variables(spec, seed=0)
+  quantize_gate = None
+  if spec.quantize:
+    # The INT8 gate on a probe slice of the same seeded workload: below
+    # the bar the dense arm is served, and the line says why.
+    probe = [req.prompt for _, req in workload[:8]]
+    quantize_gate = decode_lib.quantize_agreement(
+        spec, variables, probe, max_new_tokens=min(8, cfg.max_new_tokens),
+        device=device)
+    if not quantize_gate["passed"]:
+      print(f"serving bench: int8 gate FAILED (agreement "
+            f"{quantize_gate['agreement']:.4f} < "
+            f"{decode_lib.QUANTIZE_AGREEMENT_BAR}) -- serving the dense arm "
+            "instead", file=sys.stderr, flush=True)
+      spec = dataclasses.replace(spec, quantize=None)
+      cfg = dataclasses.replace(cfg, spec=spec)
+
   trace = tracing.activate(tracing.RunTrace())
   metrics_lib.activate(metrics_lib.MetricRegistry())
   try:
-    engine = engine_lib.ServingEngine(
-        cfg, seed=0, device="cuda" if on_gpu else "cpu")
+    engine = engine_lib.ServingEngine(cfg, variables=variables, device=device)
     n_warm = engine.warm()
     print(f"serving bench: {n_warm} program(s) prepared across ladder "
           f"{cfg.bucket_ladder}", file=sys.stderr, flush=True)
@@ -131,9 +170,16 @@ def run(params) -> Dict[str, Any]:
       "retries": 0,
       "compile_ledger": {"shapes": ledger["shapes"],
                          "total_compile_s": ledger["total_compile_s"]},
-      "decode_variant": {"quantize": None, "paged_kv": None,
-                         "speculative_k": None, "model_shards": None},
+      "decode_variant": {"quantize": spec.quantize,
+                         "paged_kv": spec.kv_page_size or None,
+                         "speculative_k": spec.speculative_k or None,
+                         "model_shards": spec.model_shards or None},
   }
+  if quantize_gate is not None:
+    record["quantize_gate"] = {
+        "agreement": round(quantize_gate["agreement"], 6),
+        "max_logit_delta": round(quantize_gate["max_logit_delta"], 6),
+        "passed": quantize_gate["passed"]}
   record.update({k: _round(v) for k, v in stats.items()
                  if v is not None and k != "serving_tenants"})
   tenant_block = {t: {k: _round(v) for k, v in block.items()

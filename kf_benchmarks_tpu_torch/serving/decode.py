@@ -1,9 +1,10 @@
 """KV-cache LM decode programs for the serving engine.
 
-The port's counterpart of kf_benchmarks_tpu/serving/decode.py on its dense,
-single-device path (the INT8, paged-KV, speculative and tensor-parallel
-variants are not ported yet). Two programs, each a plain function of the
-served module that the engine prepares per bucket:
+The port's counterpart of kf_benchmarks_tpu/serving/decode.py on one
+device, with its decode-cost variants (INT8 weights, the paged KV cache,
+speculative decoding; the tensor-parallel one is not ported, ROADMAP
+Queue 1 item 11). Three programs, each a plain function of the served
+module that the engine prepares per bucket:
 
 * **prefill** (``prefill_fn``) -- mixed-length prompts, first-fit packed
   into one ``(B_pack, 3, T)`` stack (data/packing.py ``pack_prompts``),
@@ -12,36 +13,70 @@ served module that the engine prepares per bucket:
   states at the prompts' last positions; no (B, T, V) logits) and its
   per-layer K/V span, sliced out of its packed row.
 * **decode step** (``decode_fn``) -- one token per slot through
-  ``TransformerLM.decode``: write K/V into the ring at ``pos % T``, attend
-  over ``slot <= pos``, greedy-sample the next token.
+  ``TransformerLM.decode``: write K/V into the ring at ``pos % T`` (or into
+  the slot's page of the pool), attend over ``slot <= pos``, greedy-sample
+  the next token.
+* **verify** (``verify_fn``, speculative decoding) -- one full forward over
+  (B, max_len) token rows whose greedy argmax at every position is taken
+  chunk by chunk along T, so no (B, T, V) logits tensor exists.
 
-``CacheState`` holds the ``(L, B, T, H, Dh)`` K/V rings and the per-slot
-``pos``/``tok`` vectors. Every program runs under ``torch.no_grad()``, and
-the caches are updated IN PLACE (the decode step's ring writes, the prefill
-install's scatter): the counterpart of the JAX package's buffer donation,
-so a step's only traffic besides the ring is its (B,) vectors.
+``CacheState`` holds the ``(L, B, T, H, Dh)`` K/V rings, or with
+``spec.kv_page_size`` the shared ``(L, P, page, H, Dh)`` page pools, and
+the per-slot ``pos``/``tok`` vectors. Every program runs under
+``torch.no_grad()``, and the caches are updated IN PLACE (the decode step's
+writes, the prefill install's scatter): the counterpart of the JAX
+package's buffer donation, so a step's only traffic besides the cache is
+its (B,) vectors and, paged, its page table.
 
 ``variables`` are the module's ``state_dict`` (f32 parameters); a flax
 variable tree of ``_TransformerLMModule`` converts with
-``convert.flax_to_state_dict``.
+``convert.flax_to_state_dict``. Under ``spec.quantize='int8'`` they are the
+quantized state (quantization.py ``QTensor`` entries, ``prepare_variables``)
+and the served module is a ``QuantizedLM``: its weights stay int8 on the
+device and every program dequantizes them inside the call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
+from kf_benchmarks_tpu_torch import convert
+from kf_benchmarks_tpu_torch import quantization
 from kf_benchmarks_tpu_torch.models import transformer_lm as lm
+
+# Paged-KV pool sizing: the pool provisions this fraction of the dense
+# slab's pages (bucket x pages_per_slot) plus the scratch page, floored at
+# one full sequence + scratch so a max-length request always fits an empty
+# pool (the JAX package's KV_POOL_FRACTION).
+KV_POOL_FRACTION = 0.5
+
+# The verifier's greedy argmax runs max_len / 8 positions of logits at a
+# time (gcd-clamped so the chunk divides max_len).
+VERIFY_CHUNK_DENOM = 8
+
+# The INT8 gate: minimum prefix-conditioned next-token agreement with the
+# f32 arm for quantized serving to be admitted.
+QUANTIZE_AGREEMENT_BAR = 0.99
 
 
 @dataclasses.dataclass(frozen=True)
 class LMSpec:
   """The served LM's shape; the defaults are the zoo transformer_lm.
   ``max_len`` is both the ring length and the packed-prefill width.
-  ``dtype`` is the compute and cache dtype; parameters stay f32."""
+  ``dtype`` is the compute and cache dtype; parameters stay f32.
+
+  The decode-cost variants, all off by default and None in ``config()``
+  when off (so a variant-off fingerprint is the one it was before them):
+  ``quantize='int8'`` (per-output-channel INT8 weights dequantized inside
+  every program), ``kv_page_size`` (the paged KV pool), ``speculative_k``
+  with ``draft_n_layers`` (a truncated draft proposes k tokens a target
+  verify). ``model_shards`` (tensor-parallel serving) is refused."""
   vocab: int = lm.VOCAB
   d_model: int = lm.D_MODEL
   n_layers: int = lm.N_LAYERS
@@ -54,6 +89,11 @@ class LMSpec:
   decode_exact: bool = False
   dtype: Any = torch.float32
   param_dtype: Any = torch.float32
+  quantize: Optional[str] = None
+  kv_page_size: int = 0
+  speculative_k: int = 0
+  draft_n_layers: int = 0
+  model_shards: int = 0
 
   def __post_init__(self):
     if self.attn_impl not in ("tiled", "flash"):
@@ -62,10 +102,43 @@ class LMSpec:
     if self.param_dtype != torch.float32:
       raise ValueError(f"param_dtype must be float32 (the port keeps f32 "
                        f"parameters), got {self.param_dtype}")
+    if self.quantize not in (None, "int8"):
+      raise ValueError(
+          f"quantize must be None or 'int8', got {self.quantize!r}")
+    if self.kv_page_size < 0 or (
+        self.kv_page_size and self.max_len % self.kv_page_size):
+      raise ValueError(
+          f"kv_page_size ({self.kv_page_size}) must be positive and "
+          f"divide max_len ({self.max_len}): partial pages would break "
+          "the page-table <-> ring position bijection")
+    if self.speculative_k < 0 or self.draft_n_layers < 0:
+      raise ValueError("speculative_k/draft_n_layers must be >= 0")
+    if self.speculative_k == 1:
+      raise ValueError(
+          "speculative_k must be >= 2: one proposal per target verify "
+          "is strictly slower than plain decode (a verify dispatch "
+          "costs a full forward)")
+    if self.speculative_k and not (
+        0 < self.draft_n_layers < self.n_layers):
+      raise ValueError(
+          f"speculative_k={self.speculative_k} requires a draft spec: "
+          f"0 < draft_n_layers ({self.draft_n_layers}) < n_layers "
+          f"({self.n_layers})")
+    if self.draft_n_layers and not self.speculative_k:
+      raise ValueError(
+          "draft_n_layers without speculative_k is inert -- set both")
+    if self.model_shards:
+      raise ValueError(
+          "model_shards (tensor-parallel serving) is not ported yet "
+          "(ROADMAP Queue 1 item 11)")
 
   @property
   def head_dim(self) -> int:
     return self.d_model // self.n_heads
+
+  @property
+  def pages_per_slot(self) -> int:
+    return self.max_len // self.kv_page_size if self.kv_page_size else 0
 
   def config(self) -> dict:
     """The fingerprint payload of the engine's prepared programs."""
@@ -77,13 +150,22 @@ class LMSpec:
         "attn_block": self.attn_block, "attn_impl": self.attn_impl,
         "scan_layers": self.scan_layers, "decode_exact": self.decode_exact,
         "dtype": name(self.dtype), "param_dtype": name(self.param_dtype),
+        "quantize": self.quantize,
+        "kv_page_size": self.kv_page_size or None,
+        "speculative_k": self.speculative_k or None,
+        "draft_n_layers": self.draft_n_layers or None,
+        "model_shards": self.model_shards or None,
     }
 
 
 class CacheState(NamedTuple):
-  """The decode state: ``k``/``v`` (L, B, T, H, Dh) rings; ``pos`` (B,)
-  int32 absolute position of each slot's CURRENT token; ``tok`` (B,) int32
-  that token (not yet in the cache: the next decode step writes it)."""
+  """The decode state: ``k``/``v`` (L, B, T, H, Dh) rings, or the
+  (L, P, page, H, Dh) page pools under ``spec.kv_page_size`` (pool row 0
+  is the scratch page: never allocated, it takes the writes of
+  unallocated table entries); ``pos`` (B,) int32 absolute position of
+  each slot's CURRENT token; ``tok`` (B,) int32 that token (not yet in
+  the cache: the next decode step writes it). The paged slots' page
+  tables are the engine's (serving/engine.py), handed to each step."""
   k: torch.Tensor
   v: torch.Tensor
   pos: torch.Tensor
@@ -116,23 +198,147 @@ def init_variables(spec: LMSpec, seed: int = 0) -> Dict[str, torch.Tensor]:
   return module.state_dict()
 
 
-def load_module(spec: LMSpec, variables: Dict[str, torch.Tensor],
-                device, fused_head: bool = True) -> lm.TransformerLM:
-  """The served module holding ``variables``, on ``device``, in eval
-  mode."""
+def leaf_sources(spec: LMSpec):
+  """``sources`` of quantization.quantize_variables for this LM: each
+  entry's flax leaf, so the per-layer ``blocks.<i>`` tensors quantize as
+  the JAX package's scanned stack (one scale per output feature shared by
+  the layers)."""
+  return lambda key, _t: convert.lm_leaf_of(key, spec.scan_layers)
+
+
+def draft_spec(spec: LMSpec) -> LMSpec:
+  """The speculative draft's spec: the same LM truncated to
+  ``draft_n_layers``; quantize and kv_page_size carry over (the engine's
+  step loop, caches and decode programs run the draft)."""
+  if not spec.speculative_k:
+    raise ValueError("draft_spec needs speculative_k > 0")
+  return dataclasses.replace(spec, n_layers=spec.draft_n_layers,
+                             speculative_k=0, draft_n_layers=0)
+
+
+def truncate_variables(spec: LMSpec, variables):
+  """Draft weights from the TARGET's by layer truncation: the embedding,
+  positional table, final LN and head, and the first ``draft_n_layers``
+  blocks. Float state only; quantize AFTER truncation so the draft gets
+  scales over its own layers."""
+  if not spec.speculative_k:
+    raise ValueError("truncate_variables needs speculative_k > 0")
+  if not spec.scan_layers:
+    raise ValueError(
+        "truncate_variables slices the scanned block stack; "
+        "scan_layers=False lays blocks out as separate modules")
+  if quantization.has_quantized_leaves(variables):
+    raise ValueError("truncate a float tree, then prepare_variables")
+  d = spec.draft_n_layers
+  return {k: v for k, v in variables.items()
+          if not (k.startswith("blocks.") and int(k.split(".")[1]) >= d)}
+
+
+def prepare_variables(spec: LMSpec, variables):
+  """The state the spec's programs take: the INT8 quantized state under
+  ``spec.quantize``. Idempotent: an already quantized state passes
+  through."""
+  if spec.quantize == "int8" and not quantization.has_quantized_leaves(
+      variables):
+    variables = quantization.quantize_variables(variables,
+                                                leaf_sources(spec))
+  return variables
+
+
+def _serving_view(spec: LMSpec, variables):
+  """Inside-the-program weight view: ``QTensor`` entries dequantized to
+  the compute dtype, the float entries as they are. The JAX package
+  dequantizes to param_dtype (f32) and its Dense layers then cast to the
+  compute dtype; ``q * scale`` is rounded once either way, so the values
+  are the same, and the f32 copy is never written."""
+  return quantization.dequantize_variables(variables, spec.dtype)
+
+
+class _Method(nn.Module):
+  """``module.<method>`` as a forward, for ``torch.func.functional_call``."""
+
+  def __init__(self, module: nn.Module, method: str):
+    super().__init__()
+    self.module = module
+    self.method = method
+
+  def forward(self, *args, **kwargs):
+    return getattr(self.module, self.method)(*args, **kwargs)
+
+
+class QuantizedLM:
+  """The served module of a quantized spec: the module's structure (its
+  own parameters on the meta device, never read) and the quantized state
+  on the serving device. Its ``__call__`` and ``decode`` dequantize the
+  weights (``_serving_view``) and run the module on them, so inside a
+  captured program every call reads the int8 weights. ``decode`` takes
+  only the B embedding rows it reads: it dequantizes ``q[tokens]`` (the
+  same values, each element being ``q * scale`` of its column) and looks
+  them up by row index, where dequantizing the whole 32768-row table
+  would be a third of the step's weight pass."""
+
+  def __init__(self, spec: LMSpec, module: lm.TransformerLM, qvars):
+    self.spec = spec
+    self.qvars = qvars
+    self._forward = _Method(module, "forward")
+    self._decode = _Method(module, "decode")
+
+  def _call(self, wrapper, qvars, args, kwargs):
+    view = {"module." + k: v for k, v in
+            _serving_view(self.spec, qvars).items()}
+    return torch.func.functional_call(wrapper, view, args, kwargs)
+
+  def __call__(self, *args, **kwargs):
+    return self._call(self._forward, self.qvars, args, kwargs)
+
+  def decode(self, tokens, *args, **kwargs):
+    embed = self.qvars["embed.weight"]
+    if not quantization.is_quantized(embed):
+      return self._call(self._decode, self.qvars, (tokens,) + args, kwargs)
+    rows = tokens.reshape(-1).long()
+    qvars = dict(self.qvars)
+    qvars["embed.weight"] = quantization.QTensor(embed.q[rows], embed.scale)
+    index = torch.arange(rows.shape[0], device=rows.device)
+    return self._call(self._decode, qvars, (index,) + args, kwargs)
+
+
+def load_module(spec: LMSpec, variables, device, fused_head: bool = True):
+  """The served module holding ``variables``, on ``device``, in eval mode:
+  the ``TransformerLM`` itself, or for a quantized state a
+  ``QuantizedLM`` whose int8 weights are on ``device``."""
   module = forward_module(spec, fused_head)
+  if quantization.has_quantized_leaves(variables):
+    return QuantizedLM(spec, module.to("meta").eval(),
+                       quantization.to_device(variables, device))
   module.load_state_dict(variables)
   return module.to(device).eval()
 
 
-def init_cache(spec: LMSpec, bucket: int, device) -> CacheState:
-  shape = (spec.n_layers, bucket, spec.max_len, spec.n_heads,
-           spec.head_dim)
+def kv_pool_pages(spec: LMSpec, bucket: int) -> int:
+  """Pool size P of a paged cache for ``bucket`` slots: the scratch page
+  plus KV_POOL_FRACTION of the dense slab's pages, floored at one full
+  sequence -- strictly below the dense slab for every bucket > 1."""
+  pps = spec.pages_per_slot
+  return max(pps + 1, 1 + math.ceil(bucket * pps * KV_POOL_FRACTION))
+
+
+def init_cache(spec: LMSpec, bucket: int, device,
+               slots: Optional[int] = None) -> CacheState:
+  """Zero caches for ``bucket`` slots: the dense rings, or the page pools
+  sized for ``bucket`` (``kv_pool_pages``); ``pos``/``tok`` have ``slots``
+  rows (default ``bucket``)."""
+  if spec.kv_page_size:
+    shape = (spec.n_layers, kv_pool_pages(spec, bucket), spec.kv_page_size,
+             spec.n_heads, spec.head_dim)
+  else:
+    shape = (spec.n_layers, bucket, spec.max_len, spec.n_heads,
+             spec.head_dim)
+  rows = bucket if slots is None else slots
   return CacheState(
       k=torch.zeros(shape, dtype=spec.dtype, device=device),
       v=torch.zeros(shape, dtype=spec.dtype, device=device),
-      pos=torch.zeros(bucket, dtype=torch.int32, device=device),
-      tok=torch.zeros(bucket, dtype=torch.int32, device=device))
+      pos=torch.zeros(rows, dtype=torch.int32, device=device),
+      tok=torch.zeros(rows, dtype=torch.int32, device=device))
 
 
 def decode_fn(spec: LMSpec):
@@ -143,14 +349,27 @@ def decode_fn(spec: LMSpec):
   (their ring write lands on their own row, which the next prefill
   re-installs wholesale). Everything stays on the device, so the step is
   one CUDA graph a bucket (serving/engine.py)."""
-  del spec  # the module carries the shape
+  def advance(logits, pos, tok, active):
+    nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+    tok.copy_(torch.where(active, nxt, tok))
+    pos.add_(active.to(torch.int32))
+
+  if spec.kv_page_size:
+    @torch.no_grad()
+    def paged_step(module, cache_k, cache_v, pos, tok, page_table, active):
+      """The paged step: ``page_table`` (B, pages_per_slot) int32 maps each
+      slot's logical pages to pool rows; inactive and free slots carry an
+      all-0 row, so their writes land on the scratch page."""
+      logits, _ = module.decode(tok, cache_k, cache_v, pos, page_table)
+      advance(logits, pos, tok, active)
+      return tok, cache_k, cache_v, pos
+
+    return paged_step
 
   @torch.no_grad()
   def step(module, cache_k, cache_v, pos, tok, active):
     logits, _ = module.decode(tok, cache_k, cache_v, pos)
-    nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
-    tok.copy_(torch.where(active, nxt, tok))
-    pos.add_(active.to(torch.int32))
+    advance(logits, pos, tok, active)
     return tok, cache_k, cache_v, pos
 
   return step
@@ -218,18 +437,81 @@ def install_prefill(cache: CacheState, ek, ev, first, lengths,
   wave of padding alone would write entry 0's span into the last row, so
   the engine's rings keep a spare last row that its padding entries name.
   Fixed shapes and device indices: no host read."""
-  device = cache.k.device
-  b = cache.k.shape[1]
+  src, dst = _install_slots(cache, first, lengths, slots)
+  cache.k[:, dst] = ek[src].transpose(0, 1).to(cache.k.dtype)
+  cache.v[:, dst] = ev[src].transpose(0, 1).to(cache.v.dtype)
+  return cache
+
+
+def _install_slots(cache: CacheState, first, lengths, slots):
+  """``pos``/``tok`` of a wave's entries into their slots, padding entries
+  (an out-of-range slot) repeating entry 0's write; returns (src, dst),
+  the entry each slot row takes and the rows written."""
+  device = cache.pos.device
+  b = cache.pos.shape[0]
   slots = slots.to(device, torch.long)
   n = slots.shape[0]
   src = torch.where(slots < b, torch.arange(n, device=device),
                     torch.zeros_like(slots))
   dst = slots[src].clamp(max=b - 1)
-  cache.k[:, dst] = ek[src].transpose(0, 1).to(cache.k.dtype)
-  cache.v[:, dst] = ev[src].transpose(0, 1).to(cache.v.dtype)
   cache.pos[dst] = lengths.to(device, torch.int32)[src]
   cache.tok[dst] = first.to(device)[src]
+  return src, dst
+
+
+def install_prefill_paged(cache: CacheState, ek, ev, first, lengths, slots,
+                          req_tables) -> CacheState:
+  """Paged prefill install, in place: each request's (L, T, H, Dh) span is
+  cut into pages_per_slot pages and written to the pool rows
+  ``req_tables`` (B_pack, pages_per_slot) names, in logical page order;
+  ``pos``/``tok`` go to ``slots`` as ``install_prefill`` puts them. The
+  JAX package marks unallocated pages and padding rows with an
+  out-of-range id and drops their writes; here they name the scratch page
+  0, which takes them (fixed shapes and device indices, so the install
+  is part of the captured prefill)."""
+  l_, page = cache.k.shape[0], cache.k.shape[2]
+  bpk, _, t, h_, dh = ek.shape
+  pps = t // page
+  ids = req_tables.to(cache.k.device, torch.long).reshape(-1)
+
+  def paginate(arr):
+    # (B_pack, L, T, H, Dh) -> (L, B_pack * pps, page, H, Dh), slot-major,
+    # page-minor, as ids flattens.
+    pag = arr.reshape(bpk, l_, pps, page, h_, dh).transpose(0, 1)
+    return pag.reshape(l_, bpk * pps, page, h_, dh)
+
+  cache.k[:, ids] = paginate(ek).to(cache.k.dtype)
+  cache.v[:, ids] = paginate(ev).to(cache.v.dtype)
+  _install_slots(cache, first, lengths, slots)
   return cache
+
+
+def verify_chunk(spec: LMSpec) -> int:
+  """Sequence-chunk width of the verify program's argmax head (divides
+  max_len)."""
+  return math.gcd(spec.max_len, max(1, spec.max_len // VERIFY_CHUNK_DENOM))
+
+
+def verify_fn(spec: LMSpec):
+  """``(module, tokens) -> preds``: the speculative TARGET verifier. One
+  full forward over (B, max_len) token rows; ``preds[b, t]`` (int32) is
+  the target's greedy choice for position t + 1 given ``tokens[b, :t+1]``.
+  The fused head keeps it logits-free in the large: the argmax runs
+  ``verify_chunk`` positions at a time, so the biggest logits tensor is
+  (B, chunk, V). Fixed shapes: one CUDA graph a bucket."""
+  chunk = verify_chunk(spec)
+
+  @torch.no_grad()
+  def verify(module, tokens):
+    head, _aux = module(tokens)
+    kernel = head.kernel.to(spec.dtype)
+    t = head.hidden.shape[1]
+    preds = [torch.argmax(head.hidden[:, c:c + chunk].to(spec.dtype)
+                          @ kernel, dim=-1).to(torch.int32)
+             for c in range(0, t, chunk)]
+    return torch.cat(preds, dim=1)
+
+  return verify
 
 
 @torch.no_grad()
@@ -252,3 +534,59 @@ def reference_generate(spec: LMSpec, variables, prompt,
     out.append(nxt)
     toks.append(nxt)
   return (out[0] if out else None), out
+
+
+@torch.no_grad()
+def quantize_agreement(spec: LMSpec, variables, prompts,
+                       max_new_tokens: int, device="cpu") -> Dict[str, Any]:
+  """The INT8 accuracy gate on a seeded probe: the f32 arm's greedy rows
+  (teacher-forced through ``verify_fn``'s full forward, all prompts in one
+  batch), then the QUANTIZED model's greedy choice at every generated
+  position scored against them, and the max logit delta of the
+  dequantized dense-head forward over the first 4 rows.
+
+  ``spec`` must set ``quantize``; ``variables`` is the float state. Returns
+  {agreement, total, max_logit_delta, logit_scale, passed}, ``passed`` =
+  agreement >= QUANTIZE_AGREEMENT_BAR. Random-init weights are the
+  adversarial case (argmax margins are razor-thin)."""
+  if not spec.quantize:
+    raise ValueError("quantize_agreement needs a quantized spec")
+  fspec = dataclasses.replace(spec, quantize=None)
+  qvars = prepare_variables(spec, variables)
+  fmodule = load_module(fspec, variables, device)
+  qmodule = load_module(spec, qvars, device)
+  fvf, qvf = verify_fn(fspec), verify_fn(spec)
+  n = len(prompts)
+  rows = np.zeros((n, spec.max_len), np.int32)
+  lens = []
+  for i, prompt in enumerate(prompts):
+    p = np.asarray(prompt, np.int32).reshape(-1)
+    p = p[:max(1, spec.max_len - max_new_tokens)]
+    rows[i, :p.size] = p
+    lens.append(p.size)
+  q0 = list(lens)
+  for _ in range(max_new_tokens):
+    preds = fvf(fmodule, torch.from_numpy(rows).to(device)).cpu().numpy()
+    for i in range(n):
+      if lens[i] < spec.max_len:
+        rows[i, lens[i]] = preds[i, lens[i] - 1]
+        lens[i] += 1
+  qpreds = qvf(qmodule, torch.from_numpy(rows).to(device)).cpu().numpy()
+  total = agree = 0
+  for i in range(n):
+    for t in range(q0[i], lens[i]):
+      total += 1
+      agree += int(qpreds[i, t - 1] == rows[i, t])
+  agreement = agree / max(total, 1)
+  del fmodule, qmodule
+  dense = load_module(fspec, variables, device, fused_head=False)
+  probe = torch.from_numpy(rows[:min(n, 4)]).to(device)
+  ref, _ = dense(probe)
+  dense.load_state_dict(quantization.dequantize_variables(
+      qvars, spec.param_dtype))
+  got, _ = dense(probe)
+  delta = float((got.float() - ref.float()).abs().max())
+  scale = float(ref.float().abs().max())
+  return {"agreement": agreement, "total": total,
+          "max_logit_delta": delta, "logit_scale": scale,
+          "passed": agreement >= QUANTIZE_AGREEMENT_BAR}

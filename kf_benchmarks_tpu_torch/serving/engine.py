@@ -1,8 +1,8 @@
 """Request-driven serving engine: continuous batching and admission control.
 
-The port's counterpart of kf_benchmarks_tpu/serving/engine.py on its
-non-variant paths (the INT8, paged-KV, speculative and tensor-parallel
-variants, and the ``/metrics`` endpoint, are not ported yet):
+The port's counterpart of kf_benchmarks_tpu/serving/engine.py on one
+device (the tensor-parallel variant and the ``/metrics`` endpoint are not
+ported yet, ROADMAP Queue 1 items 11 and 10):
 
 * **Bounded program set** -- decode and prefill run only at bucket-ladder
   batch widths (default 1/4/16/64/256). Each (program, bucket) is one
@@ -27,6 +27,24 @@ variants, and the ``/metrics`` endpoint, are not ported yet):
   expiry at coalesce time, a per-tenant token bucket, and SLO burn-rate
   monitoring (metrics.SLOMonitor); sheds are results and ``serving/*``
   metrics, never exceptions.
+* **Decode-cost variants** (spec-driven, composable) -- ``spec.quantize``
+  serves the INT8 state, dequantized inside every program;
+  ``spec.kv_page_size`` runs the paged KV pool with this engine as the
+  page ALLOCATOR: the pool is sized once for the top bucket
+  (``kv_pool_pages``; static, like the dense rings, so a captured program
+  never sees it move), a request's pages are granted for its whole
+  lifetime at prefill and returned at completion, and pool exhaustion
+  requeues the wave's remainder (a shed path, never an exception). The
+  slots' page tables are host numpy, the authority; each decode replay
+  first copies them into the static device table its graph reads.
+  ``spec.speculative_k`` runs draft-propose / target-verify rounds: the
+  step loop (decode and prefill programs, the KV cache) runs the DRAFT
+  (by default the target's first ``draft_n_layers`` layers), and the
+  target runs once a round, a captured verify program per bucket over a
+  static (bucket, max_len) token buffer; every emitted token is the
+  target's own argmax, so greedy output is token-identical to plain
+  greedy decode. The draft-cache rewind after a round is host
+  bookkeeping and one write of the slots' ``pos``/``tok``.
 * **Observability** -- request spans on the active RunTrace ("serving"
   lane), TTFT and per-token latency samples, ``serving/*`` keys in the
   port's metrics.SCHEMA.
@@ -55,6 +73,7 @@ import numpy as np
 import torch
 
 from kf_benchmarks_tpu_torch import metrics as metrics_lib
+from kf_benchmarks_tpu_torch import quantization
 from kf_benchmarks_tpu_torch import tracing as tracing_lib
 from kf_benchmarks_tpu_torch.data import packing as packing_lib
 from kf_benchmarks_tpu_torch.ops import graphs
@@ -147,10 +166,12 @@ class ServingEngine:
 
   Synchronous: callers drive it with ``submit`` + ``drain`` or
   ``replay(workload)`` (wall-clock arrival offsets). ``variables`` is the
-  served module's state_dict (default: ``init_variables(spec, seed)``);
-  ``device`` is the card unless the caller asks for the CPU. On the card
-  the programs are CUDA graphs; ``_eager_programs=True`` (not a flag: for a
-  comparison of the two) runs the same programs eagerly there.
+  served module's state_dict (default: ``init_variables(spec, seed)``),
+  float or already quantized; ``draft_variables`` the speculative draft's
+  (default: the target's truncation); ``device`` is the card unless the
+  caller asks for the CPU. On the card the programs are CUDA graphs;
+  ``_eager_programs=True`` (not a flag: for a comparison of the two) runs
+  the same programs eagerly there.
   """
 
   _SLO_BURN_KEYS = {
@@ -163,7 +184,8 @@ class ServingEngine:
   def __init__(self, config: EngineConfig, variables=None, seed: int = 0,
                time_fn: Callable[[], float] = time.monotonic,
                sleep_fn: Callable[[float], None] = time.sleep,
-               recorder=None, device="cuda", _eager_programs: bool = False):
+               recorder=None, device="cuda", draft_variables=None,
+               _eager_programs: bool = False):
     self.cfg = config
     self.spec = config.spec
     self.device = torch.device(device)
@@ -171,13 +193,38 @@ class ServingEngine:
     self._pool = None            # the graphs' shared memory pool
     self._ring: Optional[decode_lib.CacheState] = None
     self._active_buf: Optional[torch.Tensor] = None
+    self._table_buf: Optional[torch.Tensor] = None
     self._prefill_bufs: Dict[int, Dict[str, torch.Tensor]] = {}
+    self._verify_bufs: Dict[int, torch.Tensor] = {}
     self._time = time_fn
     self._sleep = sleep_fn
-    self.variables = (variables if variables is not None
-                      else decode_lib.init_variables(self.spec, seed))
-    self.module = decode_lib.load_module(self.spec, self.variables,
-                                         self.device)
+    raw = (variables if variables is not None
+           else decode_lib.init_variables(self.spec, seed))
+    self.variables = decode_lib.prepare_variables(self.spec, raw)
+    # The step loop (decode, prefill, the cache) runs _step_spec on
+    # self.module: the draft when speculative, where the target's module
+    # (self.target) runs the verify program alone.
+    if self.spec.speculative_k:
+      self._step_spec = decode_lib.draft_spec(self.spec)
+      if draft_variables is None:
+        # Self-drafting default: the target's first draft_n_layers.
+        base = raw
+        if quantization.has_quantized_leaves(base):
+          base = quantization.dequantize_variables(base,
+                                                   self.spec.param_dtype)
+        draft_variables = decode_lib.truncate_variables(self.spec, base)
+      self.draft_variables = decode_lib.prepare_variables(self._step_spec,
+                                                          draft_variables)
+      self.module = decode_lib.load_module(self._step_spec,
+                                           self.draft_variables, self.device)
+      self.target = decode_lib.load_module(self.spec, self.variables,
+                                           self.device)
+    else:
+      self._step_spec = self.spec
+      self.draft_variables = None
+      self.module = decode_lib.load_module(self.spec, self.variables,
+                                           self.device)
+      self.target = self.module
     self._queue: collections.deque = collections.deque()
     self._results: Dict[Any, RequestResult] = {}
     self._order: List[Any] = []
@@ -186,6 +233,20 @@ class ServingEngine:
     self._slots: List[Optional[dict]] = []
     self._decode_exes: Dict[int, Callable] = {}
     self._prefill_exes: Dict[int, Callable] = {}
+    self._verify_exes: Dict[int, Callable] = {}
+    # Paged-KV allocator (spec.kv_page_size): host page tables, one row a
+    # slot of the static buffers (the spare row included); pool row 0 is
+    # the scratch page, never allocated.
+    self._pps = self._step_spec.pages_per_slot
+    self._free_pages: List[int] = []
+    self._table_np = (np.zeros((config.bucket_ladder[-1] + 1, self._pps),
+                               np.int32) if self._pps else None)
+    self._kv_pages_peak = 0
+    self._kv_fraction_peak = 0.0
+    self._spec_rounds = 0
+    self._draft_tokens = 0
+    self._accepted_tokens = 0
+    self._accept_lens: List[float] = []
     self._arrivals = 0
     self._shed = 0
     self._completed = 0
@@ -239,6 +300,13 @@ class ServingEngine:
       self._shed_request(req, "empty_prompt")
       return False
     if prompt_len > self.spec.max_len:
+      self._shed_request(req, "prompt_too_long")
+      return False
+    if self.spec.speculative_k and (
+        prompt_len + self._max_new(req) + self.spec.speculative_k
+        > self.spec.max_len):
+      # Verify rows are history ++ proposals laid out flat in a
+      # (B, max_len) token batch: the whole lifetime must fit up front.
       self._shed_request(req, "prompt_too_long")
       return False
     if not self._tenant_admit(tenant, prompt_len + self._max_new(req), now):
@@ -322,17 +390,30 @@ class ServingEngine:
   # -- prepared programs (the bounded set) -------------------------------------
 
   def _ring_state(self) -> decode_lib.CacheState:
-    """The static rings and slot vectors: the top bucket's rows plus a
-    spare last row."""
+    """The static cache and slot vectors: the top bucket's rows plus a
+    spare last row (paged: the pool sized for the top bucket, and the
+    device page table the decode programs read)."""
     if self._ring is None:
-      rows = self.cfg.bucket_ladder[-1] + 1
-      self._ring = decode_lib.init_cache(self.spec, rows, self.device)
+      top = self.cfg.bucket_ladder[-1]
+      rows = top + 1
+      if self._pps:
+        self._ring = decode_lib.init_cache(self._step_spec, top, self.device,
+                                           slots=rows)
+        self._table_buf = torch.zeros((rows, self._pps), dtype=torch.int32,
+                                      device=self.device)
+        self._free_pages = list(range(1, self._ring.k.shape[1]))
+      else:
+        self._ring = decode_lib.init_cache(self._step_spec, rows,
+                                           self.device)
       self._active_buf = torch.zeros(rows, dtype=torch.bool,
                                      device=self.device)
     return self._ring
 
   def _bucket_view(self, bucket: int) -> decode_lib.CacheState:
     ring = self._ring_state()
+    if self._pps:  # the pool is shared by every bucket
+      return decode_lib.CacheState(k=ring.k, v=ring.v, pos=ring.pos[:bucket],
+                                   tok=ring.tok[:bucket])
     return decode_lib.CacheState(k=ring.k[:, :bucket], v=ring.v[:, :bucket],
                                  pos=ring.pos[:bucket], tok=ring.tok[:bucket])
 
@@ -365,16 +446,22 @@ class ServingEngine:
 
   def _decode_exe(self, bucket: int) -> Callable:
     if bucket not in self._decode_exes:
-      step = decode_lib.decode_fn(self.spec)
+      step = decode_lib.decode_fn(self._step_spec)
       module = self.module
       view = self._bucket_view(bucket)
       active = self._active_buf[:bucket]
       # Dummy run: no slot active, so tokens and positions stay; each
-      # slot's ring write is the one its next real step makes.
+      # slot's ring write is the one its next real step makes (paged: the
+      # slots' tables as they stand, all 0 for a free slot).
       active.fill_(False)
-      self._decode_exes[bucket] = self._prepare(
-          "serving_decode", bucket,
-          lambda: step(module, view.k, view.v, view.pos, view.tok, active))
+      if self._pps:
+        table = self._table_buf[:bucket]
+        table.copy_(torch.from_numpy(self._table_np[:bucket]))
+        fn = lambda: step(module, view.k, view.v, view.pos, view.tok, table,
+                          active)
+      else:
+        fn = lambda: step(module, view.k, view.v, view.pos, view.tok, active)
+      self._decode_exes[bucket] = self._prepare("serving_decode", bucket, fn)
     return self._decode_exes[bucket]
 
   def _prefill_exe(self, bucket: int) -> Tuple[Callable,
@@ -382,7 +469,7 @@ class ServingEngine:
     """The prefill-and-install program of a PACK bucket (the wave's size,
     independent of the decode bucket) and its input buffers."""
     if bucket not in self._prefill_exes:
-      prefill = decode_lib.prefill_fn(self.spec)
+      prefill = decode_lib.prefill_fn(self._step_spec)
       module = self.module
       ring = self._ring_state()
       idx = lambda: torch.zeros(bucket, dtype=torch.int32, device=self.device)
@@ -390,14 +477,23 @@ class ServingEngine:
                                     dtype=torch.int32, device=self.device),
               "rows": idx(), "last_pos": idx(), "offsets": idx(),
               "lengths": idx(),
-              # Dummy run: every entry padding, into the spare row.
-              "slots": idx().fill_(ring.k.shape[1] - 1)}
+              # Dummy run: every entry padding, into the spare row (paged:
+              # its pages into the scratch page).
+              "slots": idx().fill_(ring.pos.shape[0] - 1)}
+      if self._pps:
+        bufs["tables"] = torch.zeros((bucket, self._pps), dtype=torch.int32,
+                                     device=self.device)
 
       def program():
         first, ek, ev = prefill(module, bufs["packed"], bufs["rows"],
                                 bufs["last_pos"], bufs["offsets"])
-        decode_lib.install_prefill(ring, ek, ev, first, bufs["lengths"],
-                                   bufs["slots"])
+        if self._pps:
+          decode_lib.install_prefill_paged(ring, ek, ev, first,
+                                           bufs["lengths"], bufs["slots"],
+                                           bufs["tables"])
+        else:
+          decode_lib.install_prefill(ring, ek, ev, first, bufs["lengths"],
+                                     bufs["slots"])
         return first
 
       self._prefill_bufs[bucket] = bufs
@@ -405,17 +501,38 @@ class ServingEngine:
                                                  program)
     return self._prefill_exes[bucket], self._prefill_bufs[bucket]
 
+  def _verify_exe(self, bucket: int) -> Tuple[Callable, torch.Tensor]:
+    """The speculative TARGET's verify program of a decode bucket and its
+    static (bucket, max_len) token buffer (undonated, as in the JAX
+    engine: its only inputs are the weights and the rows)."""
+    if bucket not in self._verify_exes:
+      verify = decode_lib.verify_fn(self.spec)
+      target = self.target
+      rows = torch.zeros((bucket, self.spec.max_len), dtype=torch.int32,
+                         device=self.device)
+      self._verify_bufs[bucket] = rows
+      self._verify_exes[bucket] = self._prepare(
+          "serving_verify", bucket, lambda: verify(target, rows))
+    return self._verify_exes[bucket], self._verify_bufs[bucket]
+
+  def _program_count(self) -> int:
+    return (len(self._decode_exes) + len(self._prefill_exes)
+            + len(self._verify_exes))
+
   def warm(self, buckets: Optional[Sequence[int]] = None) -> int:
-    """Prepare the decode and prefill programs for ``buckets`` (default:
-    the whole ladder) before serving, so the first wave's TTFT measures
-    the system and not first-use set-up. Returns how many were made."""
+    """Prepare the decode and prefill (and, speculative, verify) programs
+    for ``buckets`` (default: the whole ladder) before serving, so the
+    first wave's TTFT measures the system and not first-use set-up.
+    Returns how many were made."""
     n = 0
     for b in (buckets if buckets is not None else self.cfg.bucket_ladder):
       b = bucket_for(int(b), self.cfg.bucket_ladder)
-      before = len(self._decode_exes) + len(self._prefill_exes)
+      before = self._program_count()
       self._decode_exe(b)
       self._prefill_exe(b)
-      n += len(self._decode_exes) + len(self._prefill_exes) - before
+      if self.spec.speculative_k:
+        self._verify_exe(b)
+      n += self._program_count() - before
     return n
 
   # -- the serving loop --------------------------------------------------------
@@ -456,8 +573,16 @@ class ServingEngine:
     keep = torch.tensor(active_idx + [0] * (target - len(active_idx)),
                         dtype=torch.long, device=self.device)
     ring = self._ring_state()
-    ring.k[:, :target] = ring.k[:, keep]
-    ring.v[:, :target] = ring.v[:, keep]
+    if self._pps:
+      # The pool stays (its page ids with it); the active slots' table
+      # rows move with them and every other row names the scratch page,
+      # so a pad row's writes land nowhere live.
+      table = np.zeros_like(self._table_np)
+      table[:len(active_idx)] = self._table_np[active_idx]
+      self._table_np = table
+    else:
+      ring.k[:, :target] = ring.k[:, keep]
+      ring.v[:, :target] = ring.v[:, keep]
     ring.pos[:target] = ring.pos[keep]
     ring.tok[:target] = ring.tok[keep]
     self._cache = self._bucket_view(target)
@@ -480,6 +605,15 @@ class ServingEngine:
       wave.append(req)
     return wave
 
+  def _pages_needed(self, prompt_len: int, max_new: int) -> int:
+    """Pages a request needs for its WHOLE lifetime (prompt + budget +
+    speculative lookahead), allocated once at prefill; at most
+    pages_per_slot, where the slot's positions wrap inside its pages as
+    the dense ring's do."""
+    page = self._step_spec.kv_page_size
+    need = prompt_len + max_new + self.spec.speculative_k
+    return min(self._pps, -(-need // page))
+
   def _prefill_wave(self, wave: List[Request]) -> None:
     self._ensure_bucket(self._active_count() + len(wave))
     free = [i for i, s in enumerate(self._slots) if s is None]
@@ -488,13 +622,22 @@ class ServingEngine:
     prompts = [np.asarray(r.prompt, np.int32) for r in wave]
     packed_np, placements = packing_lib.pack_prompts(
         prompts, self.spec.max_len, pack_bucket)
-    placed: List[Tuple[Request, np.ndarray, Tuple[int, int]]] = []
+    placed: List[Tuple[Request, np.ndarray, Tuple[int, int], int]] = []
     overflow: List[Request] = []
+    ring = self._ring_state()
+    avail_pages = len(self._free_pages)
     for req, prm, place in zip(wave, prompts, placements):
-      if place is None or len(placed) >= min(len(free), pack_bucket):
+      need = (self._pages_needed(prm.size, self._max_new(req))
+              if self._pps else 0)
+      if (place is None or len(placed) >= min(len(free), pack_bucket)
+          or need > avail_pages):
+        # Pool exhaustion lands here too: the request requeues and retries
+        # once completions free pages (an empty engine always fits one:
+        # the pool holds at least one sequence and the scratch page).
         overflow.append(req)
       else:
-        placed.append((req, prm, place))
+        avail_pages -= need
+        placed.append((req, prm, place, need))
     # Requests that did not fit go back to the queue head, in order.
     for req in reversed(overflow):
       self._queue.appendleft(req)
@@ -507,13 +650,25 @@ class ServingEngine:
             "last_pos": np.zeros((pack_bucket,), np.int32),
             "lengths": np.zeros((pack_bucket,), np.int32),
             # Padding entries install into the rings' spare row.
-            "slots": np.full((pack_bucket,), self._ring_state().k.shape[1] - 1,
+            "slots": np.full((pack_bucket,), ring.pos.shape[0] - 1,
                              np.int32)}
-    for i, (req, prm, (row, off)) in enumerate(placed):
+    page_lists: List[List[int]] = []
+    if self._pps:
+      # Unallocated pages and padding rows install into the scratch page.
+      host["tables"] = np.zeros((pack_bucket, self._pps), np.int32)
+    for i, (req, prm, (row, off), need) in enumerate(placed):
       host["rows"][i], host["offsets"][i] = row, off
       host["lengths"][i] = prm.size
       host["last_pos"][i] = off + prm.size - 1
       host["slots"][i] = free[i]
+      if self._pps:
+        pages = [self._free_pages.pop() for _ in range(need)]
+        page_lists.append(pages)
+        self._table_np[free[i], :] = 0
+        self._table_np[free[i], :need] = pages
+        host["tables"][i, :need] = pages
+    if self._pps:
+      self._note_pages()
     trace = tracing_lib.active()
     with trace.span("serving", "prefill", requests=len(placed),
                     bucket=pack_bucket):
@@ -523,20 +678,43 @@ class ServingEngine:
       # The value fetch = completion.
       first_np = first[:len(placed)].cpu().numpy()
     now = self._time()
-    for i, (req, _prm, _place) in enumerate(placed):
-      ttft = self._note_first_token(req, now)
-      slot = {"req": req, "tokens": [int(first_np[i])], "t_first": now,
-              "ttft": ttft}
+    for i, (req, prm, _place, _need) in enumerate(placed):
+      if self.spec.speculative_k:
+        # The prefill ran the DRAFT: its first token is a proposal; TTFT
+        # and the first emitted token come from the first verify round.
+        slot = {"req": req, "tokens": [], "history": prm.copy(),
+                "props": [int(first_np[i])], "t_first": None, "ttft": None}
+      else:
+        ttft = self._note_first_token(req, now)
+        slot = {"req": req, "tokens": [int(first_np[i])], "t_first": now,
+                "ttft": ttft}
+      if self._pps:
+        slot["pages"] = page_lists[i]
       self._slots[free[i]] = slot
-      if len(slot["tokens"]) >= self._max_new(req):
-        self._complete(free[i], now)
-      self._tokens_out += 1
+      if not self.spec.speculative_k:
+        if len(slot["tokens"]) >= self._max_new(req):
+          self._complete(free[i], now)
+        self._tokens_out += 1
+
+  def _note_pages(self) -> None:
+    pool = self._ring_state().k.shape[1]
+    in_use = pool - 1 - len(self._free_pages)
+    fraction = in_use / max(pool - 1, 1)
+    self._kv_pages_peak = max(self._kv_pages_peak, in_use)
+    self._kv_fraction_peak = max(self._kv_fraction_peak, fraction)
+    reg = metrics_lib.active()
+    reg.set("serving/kv_pages_in_use", in_use)
+    reg.set("serving/kv_page_fraction", fraction)
 
   def _run_decode_exe(self, active_np: np.ndarray) -> np.ndarray:
-    """One batched decode step; updates the cache in place and returns the
-    sampled tokens."""
+    """One batched decode step of the step model (the draft, when
+    speculative); updates the cache in place and returns the sampled
+    tokens."""
     exe = self._decode_exe(self._bucket)
     self._active_buf[:self._bucket].copy_(torch.from_numpy(active_np))
+    if self._pps:
+      self._table_buf[:self._bucket].copy_(
+          torch.from_numpy(self._table_np[:self._bucket]))
     nxt, _, _, _ = exe()
     nxt_np = nxt.cpu().numpy()  # the value fetch = completion
     self._decode_steps += 1
@@ -570,9 +748,103 @@ class ServingEngine:
       if len(slot["tokens"]) >= self._max_new(slot["req"]):
         self._complete(i, now)
 
+  def _speculative_round(self) -> None:
+    """One draft-propose / target-verify round (the JAX engine's).
+
+    k - 1 draft decode steps extend every active slot's proposals (a slot
+    fresh from prefill already holds the draft's first one, so it offers
+    k; a continuing slot offers k - 1). ONE verify of the target then
+    scores every slot's row = confirmed history ++ proposals, and the
+    engine accepts the longest agreeing prefix plus the verifier's own
+    next token (the bonus), so every emitted token is the target's greedy
+    argmax. Acceptance is capped at len(proposals) - 1, so every confirmed
+    position keeps the K/V the draft wrote while proposing; the rewind
+    then sets each slot's ``pos``/``tok`` to its last emitted token, whose
+    K/V the next draft step writes (over a rejected proposal's)."""
+    trace = tracing_lib.active()
+    t0 = self._time()
+    bucket = self._bucket
+    active_np = np.array([s is not None for s in self._slots], np.bool_)
+    n_active = int(active_np.sum())
+    for _ in range(self.spec.speculative_k - 1):
+      nxt_np = self._run_decode_exe(active_np)
+      for i, slot in enumerate(self._slots):
+        if slot is not None:
+          slot["props"].append(int(nxt_np[i]))
+    rows_np = np.zeros((bucket, self.spec.max_len), np.int32)
+    for i, slot in enumerate(self._slots):
+      if slot is None:
+        continue
+      row = np.concatenate([slot["history"],
+                            np.asarray(slot["props"], np.int32)])
+      rows_np[i, :row.size] = row
+    exe, rows = self._verify_exe(bucket)
+    with trace.span("serving", "verify", active=n_active, bucket=bucket):
+      rows.copy_(torch.from_numpy(rows_np))
+      preds = exe().cpu().numpy()  # the value fetch = completion
+    now = self._time()
+    self._spec_rounds += 1
+    self._fill_sum += n_active / max(bucket, 1)
+    reg = metrics_lib.active()
+    reg.inc("serving/spec_rounds")
+    reg.set("serving/active", n_active)
+    ring = self._ring_state()
+    new_pos = ring.pos[:bucket].cpu().numpy().copy()
+    new_tok = ring.tok[:bucket].cpu().numpy().copy()
+    emitted_total = round_draft = round_accepted = 0
+    for i, slot in enumerate(list(self._slots)):
+      if slot is None:
+        continue
+      history, props = slot["history"], slot["props"]
+      q0 = history.size
+      # props[j] sits at row position q0 + j; the target's choice for that
+      # position is preds[i, q0 + j - 1].
+      agree = 0
+      while (agree < len(props)
+             and props[agree] == preds[i, q0 + agree - 1]):
+        agree += 1
+      a = min(agree, len(props) - 1)
+      emit = [int(x) for x in props[:a]] + [int(preds[i, q0 + a - 1])]
+      emit = emit[:self._max_new(slot["req"]) - len(slot["tokens"])]
+      accepted = float(min(a, len(emit)))
+      round_draft += len(props)
+      round_accepted += int(accepted)
+      self._accept_lens.append(accepted)
+      trace.add_sample("serving/accept_len", accepted)
+      reg.observe("serving/accept_len", accepted)
+      slot["tokens"].extend(emit)
+      slot["history"] = np.concatenate([history,
+                                        np.asarray(emit, np.int32)])
+      slot["props"] = []
+      new_pos[i] = slot["history"].size - 1
+      new_tok[i] = emit[-1]
+      if slot["t_first"] is None:
+        slot["t_first"] = now
+        slot["ttft"] = self._note_first_token(slot["req"], now)
+      emitted_total += len(emit)
+      if len(slot["tokens"]) >= self._max_new(slot["req"]):
+        self._complete(i, now)
+    self._draft_tokens += round_draft
+    self._accepted_tokens += round_accepted
+    reg.inc("serving/draft_tokens", round_draft)
+    reg.inc("serving/accepted_tokens", round_accepted)
+    ring.pos[:bucket].copy_(torch.from_numpy(new_pos))
+    ring.tok[:bucket].copy_(torch.from_numpy(new_tok))
+    self._tokens_out += emitted_total
+    per_tok = (now - t0) / max(emitted_total, 1)
+    self._token_lat.append(per_tok)
+    trace.add_sample("serving/token_latency", per_tok)
+    reg.observe("serving/token_latency_s", per_tok)
+
   def _complete(self, slot_idx: int, now: float) -> None:
     slot = self._slots[slot_idx]
     self._slots[slot_idx] = None
+    if self._pps:
+      # Return the slot's pages; its table row names the scratch page, so
+      # the freed slot's (inactive) writes never reach a page a later
+      # request owns.
+      self._free_pages.extend(slot["pages"])
+      self._table_np[slot_idx, :] = 0
     req = slot["req"]
     tenant = req.tenant
     self._completed += 1
@@ -615,7 +887,10 @@ class ServingEngine:
       if wave:
         self._prefill_wave(wave)
     if self._active_count():
-      self._decode_step()
+      if self.spec.speculative_k:
+        self._speculative_round()
+      else:
+        self._decode_step()
 
   def drain(self) -> List[RequestResult]:
     """Serve until queue and slots are empty; every result so far in
@@ -686,7 +961,7 @@ class ServingEngine:
   def stats(self) -> Dict[str, Any]:
     """Flat registered-key stats of the run so far (the serving bench's
     JSON payload). The decode-cost variant keys (paged KV, speculative) are
-    None, as the JAX engine reports them with the variants off."""
+    None when their variant is off, as the JAX engine reports them."""
     wall = self._wall()
     pct = tracing_lib.percentile
     out = {
@@ -709,11 +984,17 @@ class ServingEngine:
       out[f"serving/ttft_p{q}"] = pct(self._ttfts, q)
     for q in (50, 90, 99):
       out[f"serving/token_latency_p{q}"] = pct(self._token_lat, q)
-    for key in ("serving/kv_pages_in_use", "serving/kv_page_fraction",
-                "serving/spec_rounds", "serving/draft_tokens",
-                "serving/accepted_tokens", "serving/accept_len_p50",
-                "serving/accept_len_p90", "serving/accept_len_p99"):
-      out[key] = None
+    paged, spec_k = bool(self._pps), bool(self.spec.speculative_k)
+    out["serving/kv_pages_in_use"] = self._kv_pages_peak if paged else None
+    out["serving/kv_page_fraction"] = (self._kv_fraction_peak if paged
+                                       else None)
+    out["serving/spec_rounds"] = self._spec_rounds if spec_k else None
+    out["serving/draft_tokens"] = self._draft_tokens if spec_k else None
+    out["serving/accepted_tokens"] = (self._accepted_tokens if spec_k
+                                      else None)
+    for q in (50, 90, 99):
+      out[f"serving/accept_len_p{q}"] = (pct(self._accept_lens, q)
+                                         if spec_k else None)
     out["serving/slo_alerts"] = float(len(self.slo.alerts))
     for objective, keys in self._SLO_BURN_KEYS.items():
       for key, window in zip(keys, ("fast", "slow")):

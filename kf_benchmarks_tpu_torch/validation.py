@@ -2,11 +2,12 @@
 
 The port's counterpart of kf_benchmarks_tpu/validation.py. The port runs
 the CNN zoo of models/model_config.py and transformer_lm -- training,
-forward-only inference and evaluation -- on synthetic data, on one device
-or data-parallel over torch.distributed, and the transformer_lm serving
-bench; anything else fails here with the reason, before any work starts.
-The rules of the flags the port shares with the JAX package are the JAX
-package's (validation.py:209-217, :371-480, :561-600, :606-741,
+forward-only inference (and its frozen export) and evaluation -- on
+synthetic data, on one device or data-parallel over torch.distributed, and
+the transformer_lm serving bench with its decode-cost variants; anything
+else fails here with the reason, before any work starts. The rules of the
+flags the port shares with the JAX package are the JAX package's
+(validation.py:209-217, :230-256, :371-480, :561-600, :606-741, :755-805,
 :817-935), with its messages.
 """
 
@@ -31,6 +32,9 @@ ASYNC_PS_SEQUENTIAL_MAX_DEVICES = 32
 # parser ask here before they call the flag unknown).
 _UNPORTED_FLAGS = {
     "mesh_shape": ("the named 2-D device mesh", "8"),
+    "serving_model_shards": ("tensor-parallel serving across cards, on "
+                             "parallel/tensor.py of item 8", "11"),
+    "metrics_port": ("the live /metrics and /healthz endpoint", "10"),
 }
 
 
@@ -76,6 +80,8 @@ def validate_cross_flags(params) -> None:
   validate_dispatch_flags(params)
   validate_telemetry_flags(params)
   validate_input_flags(params)
+  validate_serving_flags(params)
+  validate_aot_flags(params)
   if params.attn_block:
     if params.model != "transformer_lm":
       raise ParamError(
@@ -108,6 +114,86 @@ def validate_cross_flags(params) -> None:
       raise ParamError(
           f"--device=gpu needs --use_fp16 for --model={params.model}: "
           f"{kernels} have no f32 variant yet")
+
+
+def validate_serving_flags(p) -> None:
+  """The decode-cost variants' cross rules (the JAX package's
+  validation.py:230-256, with its messages): the page size divides the
+  serving context, speculative k comes with the draft depth and the draft
+  depth with k. LMSpec checks the draft depth against the layer count."""
+  page = p.serving_kv_page_size
+  if page is not None and transformer_lm.SEQ_LEN % page:
+    raise ParamError(
+        f"--serving_kv_page_size={page} must divide the serving "
+        f"context length ({transformer_lm.SEQ_LEN}): partial pages would "
+        "break the page-table <-> ring position bijection "
+        "(serving/decode.py)")
+  spec_k, draft_layers = p.serving_speculative_k, p.serving_draft_layers
+  if spec_k is not None and draft_layers is None:
+    raise ParamError(
+        f"--serving_speculative_k={spec_k} requires a draft spec: set "
+        "--serving_draft_layers (< the served model's layer count; "
+        "serving/decode.py draft_spec)")
+  if draft_layers is not None and spec_k is None:
+    raise ParamError(
+        f"--serving_draft_layers={draft_layers} is inert without "
+        "--serving_speculative_k (the draft only runs inside "
+        "speculative rounds)")
+  if draft_layers is not None and draft_layers >= transformer_lm.N_LAYERS:
+    raise ParamError(
+        f"--serving_draft_layers={draft_layers} must be below the served "
+        f"model's layer count ({transformer_lm.N_LAYERS}): the draft is "
+        "its truncation (serving/decode.py draft_spec)")
+
+
+def validate_aot_flags(p) -> None:
+  """--trt_mode and the AOT paths (the JAX package's
+  validation.py:755-805, with its messages), and the port's refusal of
+  an FP32 export on the card."""
+  trt_mode = (p.trt_mode or "").upper()
+  if trt_mode and trt_mode not in ("FP32", "FP16", "INT8"):
+    raise ParamError(f"--trt_mode: unknown mode {p.trt_mode!r}; the "
+                     "serving-export precisions are FP32, FP16, INT8 "
+                     "(ref :615-620)")
+  if trt_mode and not (p.aot_save_path or p.aot_load_path):
+    # The JAX package asks for --aot_save_path alone, and then cannot
+    # state an INT8 artifact's mode when it loads one (its loader diffs
+    # --trt_mode against the sidecar); the port also takes it with
+    # --aot_load_path, as the mode the artifact must have.
+    raise ParamError("--trt_mode sets the precision of the frozen "
+                     "serving export and requires --forward_only with "
+                     "--aot_save_path (the TRT conversion analog, ref "
+                     ":615-620, :2466-2486), or with --aot_load_path the "
+                     "precision the loaded artifact was exported at")
+  if p.aot_load_path and not p.forward_only:
+    raise ParamError("--aot_load_path requires --forward_only (the "
+                     "frozen artifact has no training program; ref: "
+                     "TRT serving path, benchmark_cnn.py:2405-2525)")
+  if p.aot_save_path and not p.forward_only:
+    raise ParamError("--aot_save_path requires --forward_only (the "
+                     "export freezes the inference program, the analog "
+                     "of the reference's forward-only graph freeze; ref: "
+                     "benchmark_cnn.py:2405-2525)")
+  if p.aot_load_path and p.aot_save_path:
+    raise ParamError("At most one of --aot_load_path and --aot_save_path "
+                     "may be set")
+  if trt_mode == "FP32" and p.device == "gpu":
+    # The kernels on the exported path read bf16 only (validation's
+    # --use_fp16 rule for --device=gpu).
+    raise ParamError(
+        "--trt_mode=FP32 exports an f32 forward, and the port's kernels "
+        "have no f32 variant yet (ROADMAP Queue 2 item 2); export FP16 or "
+        "INT8 (bf16 compute) on the card, or FP32 with --device=cpu")
+  if (p.aot_save_path or p.aot_load_path) and \
+      p.model == "transformer_lm":
+    raise ParamError(
+        "--aot_save_path / --aot_load_path export the image models' "
+        "frozen forward (models with an images input); transformer_lm "
+        "serves through the serving bench (serving/bench.py)")
+  if (p.aot_save_path or p.aot_load_path) and p.num_devices > 1:
+    raise ParamError(
+        "--aot_save_path / --aot_load_path run on one device: the export "
+        "freezes one replica's forward")
 
 
 def eval_during_training_enabled(params) -> bool:
@@ -259,6 +345,10 @@ NOOP_PARITY_FLAGS = {
     "use_multi_device_iterator": "the DeviceFeeder is the "
                                  "MultiDeviceIterator analog",
     "multi_device_iterator_max_buffer_size": "MultiDeviceIterator knob",
+    "freeze_when_forward_only": "freezing is the --aot_save_path export "
+                                "(the weights become its constants)",
+    "trt_max_workspace_size_bytes": "TensorRT knob; --trt_mode itself is "
+                                    "validated",
 }
 
 

@@ -139,12 +139,21 @@ def test_split_bounds_cover_the_admitted_keys():
 
 
 def test_paged_decode_raises():
+  """An impl other than tiled or flash raises on the dense and the paged
+  path alike. The paged mode (a page table over (P, page, H, D) pools) is
+  ported: it no longer raises, and its cases against the JAX package are
+  in tests/test_torch_serving_variants.py."""
   q, k, v = (torch.from_numpy(x) for x in _inputs(5))
-  with pytest.raises(NotImplementedError, match=r"item 8\)"):
-    port_seq.decode_attention(q, k, v, torch.from_numpy(POS),
-                              page_table=torch.zeros(B, 4, dtype=torch.int32))
+  table = torch.arange(B * 4, dtype=torch.int32).reshape(B, 4)
+  pool_k, pool_v = (x.reshape(B * 4, T // 4, H, D) for x in (k, v))
+  out = port_seq.decode_attention(q, pool_k, pool_v, torch.from_numpy(POS),
+                                  page_table=table)
+  assert out.shape == (B, 1, H, D) and bool(torch.isfinite(out).all())
   with pytest.raises(ValueError, match="impl"):
     port_seq.decode_attention(q, k, v, torch.from_numpy(POS), impl="ring")
+  with pytest.raises(ValueError, match="impl"):
+    port_seq.decode_attention(q, pool_k, pool_v, torch.from_numpy(POS),
+                              impl="ring", page_table=table)
 
 
 def test_decode_wrappers_reject_other_devices():

@@ -78,3 +78,23 @@ def test_the_walk_covers_the_telemetry_and_fault_modules():
       src = f.read()
     assert "kf_benchmarks_tpu." not in src.replace(
         "kf_benchmarks_tpu/", "")
+
+
+@pytest.mark.parametrize("module", ["kf_benchmarks_tpu_torch.quantization",
+                                    "kf_benchmarks_tpu_torch.aot"])
+def test_quantization_and_aot_alone_load_neither_jax_nor_pil(module):
+  """The two modules of the frozen export keep their own copies of the JAX
+  package's quantization.py and aot.py: imported alone, in a fresh
+  interpreter, they load no JAX, no JAX package and no PIL."""
+  code = (f"import sys; sys.path.insert(0, {REPO!r}); import {module}; "
+          "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+          "('jax', 'flax', 'PIL', 'kf_benchmarks_tpu')); print(bad); "
+          "sys.exit(1 if bad else 0)")
+  env = {k: v for k, v in os.environ.items()
+         if k not in ("PYTHONPATH", "JAX_PLATFORMS")}
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, cwd=REPO, env=env, timeout=240)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  with open(os.path.join(REPO, *module.split(".")) + ".py") as f:
+    src = f.read()
+  assert "kf_benchmarks_tpu." not in src.replace("kf_benchmarks_tpu/", "")
