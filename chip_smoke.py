@@ -242,16 +242,25 @@ the run with a non-zero exit and no result line:
  25. input   -- the real-data input path (data/): builds the port's JPEG
                 codec and image-operation libraries with g++ and checks the
                 pinned SHA-256 of the decode of one fixed port-encoded
-                image; writes 1024 train and 256 validation TFRecords (64
+                image, and that a progressive (SOF2) fixture PIL wrote
+                (tests/fixtures/progressive_97x61.jpg) decodes to the
+                SHA-256 of PIL's pixels; writes 1024 train and 256
+                validation TFRecords (64
                 distinct textured 500x375 JPEGs at quality 90, the port's
                 generator) into a temporary directory; times one host
                 thread's decode and train preprocessing a image; checks
                 that the first batch on the card is bitwise the CPU
-                preprocessor's from the same seed (normalised, bf16);
-                trains ResNet-50 (batch 256, bf16, momentum) on the records
-                through BenchmarkCNN, 8 warmup + 32 timed steps at K = 1
-                and K = 8 (losses bitwise equal, 13 + 13 launches a step)
-                and at K = 8 with --datasets_repeat_cached_sample; one
+                preprocessor's from the same seed (normalised, bf16), and
+                that --input_preprocessor=multiprocess's first batch is
+                bitwise the host's serial decode of the same records on
+                the same streams; trains ResNet-50 (batch 256, bf16,
+                momentum) on the records through BenchmarkCNN, 8 warmup +
+                16 timed steps at K = 1 and K = 8 (losses bitwise equal,
+                13 + 13 launches a step), at K = 8 with
+                --datasets_repeat_cached_sample, and through the process
+                pool at K = 1 and K = 8 (its worker count, dispatch ms a
+                batch; losses of its two arms bitwise equal) and at K = 8
+                with 7 workers (--datasets_num_private_threads=7); one
                 --eval pass over the validation records (it stops at their
                 end); K-A and K-B against their plain versions on the
                 inputs the K = 1 run gave them; images/sec,
@@ -261,7 +270,7 @@ the run with a non-zero exit and no result line:
                 at --trt_mode=FP16 and INT8 in a process each (artifact
                 bytes, INT8 under 0.35x FP16), each loaded in a fresh
                 process (--aot_load_path), captured as a CUDA graph and
-                timed, 5 warmup + 20 timed steps, beside phase infer's
+                timed, 3 warmup + 10 timed steps, beside phase infer's
                 in-process (eager) rate when it ran:
                 13 K-B and no K-A a forward, read from the process's log;
                 loading the INT8 export as the float mode fails on the
@@ -290,6 +299,25 @@ the run with a non-zero exit and no result line:
                 alone in a CUDA graph; flash_decode on the INT8 arm's own
                 cache and the flash forward on the composed arm's own
                 verify rows (B 64 x 2048) against their plain versions.
+ 28. models  -- the image-classification zoo through BenchmarkCNN, bf16
+                (--use_fp16), 3 warmup + 10 timed steps each at its
+                published image size and default batch: vgg16 (224, 64),
+                alexnet (227, 512), overfeat (231, 32), lenet (28, 32),
+                googlenet (224, 32), inception4 (299, 32), mobilenet (224,
+                32), official_resnet18 and official_resnet50 (224, 32),
+                and on CIFAR-10 alexnet (32, 128; at rate 0.001: its own
+                0.1 diverges on the synthetic images, in the JAX package
+                too), densenet40_k12 (32, 64),
+                resnet56 and resnet56_v2 (32, 128), with the counts set to
+                0 just before the runs and read just after: images/sec,
+                peak memory, finite loss, K-A / K-B launches a step equal
+                to the fused units each network has (0, 8, 13, 9; written
+                down before the first run); then each network's bf16
+                card forward against the port's f32 CPU forward at the
+                same weights (batch 8, batch norms on batch statistics,
+                dropout off; cosine >= 0.9, and the card's f32 forward
+                with plain convs >= 0.9999); then K-A and K-B against
+                their plain versions at every shape the runs gave them.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's error, time, bound and library time. The
@@ -326,7 +354,8 @@ ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "flash_grad", "lm_train", "lm_parity", "decode", "serve",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
               "optim", "dispatch", "accum", "serve_graph", "fp16_vars",
-              "health", "faults", "input", "aot", "serve_variants")
+              "health", "faults", "input", "aot", "serve_variants",
+              "models")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -3833,11 +3862,18 @@ def phase_faults(res):
 
 # Phase input: the records it writes and the steps of each run.
 INPUT_TRAIN, INPUT_VALIDATION, INPUT_DISTINCT = 1024, 256, 64
-INPUT_WARMUP, INPUT_STEPS = 8, 32
+INPUT_WARMUP, INPUT_STEPS = 8, 16
 # The decode of jpeg.encode(textured_image(RandomState(0)), quality=90)
 # (kf_benchmarks_tpu_torch/data; tests/test_torch_jpeg.py pins it too).
 PINNED_DECODE_SHA256 = (
     "30d6f913c0d32b98ccf6f763fe104d1606a07d092067fc6139f89eea04097b50")
+# A progressive (SOF2) 97x61 4:2:0 file with restart intervals that PIL
+# wrote, and the SHA-256 of PIL's RGB pixels of it
+# (tests/test_torch_jpeg_progressive.py holds both against PIL).
+PROGRESSIVE_FIXTURE = os.path.join("tests", "fixtures",
+                                   "progressive_97x61.jpg")
+PROGRESSIVE_PIL_SHA256 = (
+    "036969b271c389484c1cb94d7aa3c30b6996a56789ee912bebfd8e716be30412")
 
 
 def input_params(data_dir, **kw):
@@ -3875,11 +3911,22 @@ def phase_input(res):
   digest = hashlib.sha256(jpeg.decode(fixed).tobytes()).hexdigest()
   check(digest == PINNED_DECODE_SHA256,
         f"input: decode digest {digest}, pinned {PINNED_DECODE_SHA256}")
+  with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         PROGRESSIVE_FIXTURE), "rb") as f:
+    progressive = f.read()
+  check(progressive[progressive.index(b"\xff\xc2") + 1] == 0xC2,
+        "input: the progressive fixture has no SOF2 frame")
+  digest = hashlib.sha256(jpeg.decode(progressive).tobytes()).hexdigest()
+  check(digest == PROGRESSIVE_PIL_SHA256,
+        f"input: progressive decode digest {digest}, PIL's "
+        f"{PROGRESSIVE_PIL_SHA256}")
   cpus = os.cpu_count()
   affinity = len(os.sched_getaffinity(0))
   out.update(cpu_count=cpus, sched_getaffinity=affinity)
   log(f"input: codec and image ops built in {out['build_s']:.1f} s; pinned "
-      f"decode digest matches; host os.cpu_count() {cpus}, "
+      f"decode digest matches; the progressive fixture "
+      f"({PROGRESSIVE_FIXTURE}, {len(progressive)} bytes) decodes to PIL's "
+      f"pixels (SHA-256); host os.cpu_count() {cpus}, "
       f"len(os.sched_getaffinity(0)) {affinity}")
   calls = {"conv3x3_same": {}, "bn_relu_conv3x3_stats": {}}
   with tempfile.TemporaryDirectory(prefix="kf_input_") as tmp:
@@ -3929,11 +3976,39 @@ def phase_input(res):
     log(f"input: first batch on the card ({tuple(images.shape)} bf16, "
         "normalised there) bitwise the CPU preprocessor's from the same "
         "seed")
+    # The process pool's first batch against the host's serial decode of
+    # the same records on the same streams.
+    serial = preprocessing.RecordInputImagePreprocessor(
+        batch_size=bench.batch_size, output_shape=(224, 224, 3), train=True,
+        seed=1234, shift_ratio=0.0, num_threads=1).minibatches(
+            datasets.ImagenetDataset(data_dir), "train")
+    serial_images, serial_labels = next(serial)
+    serial.close()
+    del bench, images, labels
+    bench = benchmark.BenchmarkCNN(input_params(
+        data_dir, num_batches=1, input_preprocessor="multiprocess"))
+    images, labels = bench._open_input("train")()
+    torch.cuda.synchronize()
+    workers = bench.preprocessor.num_processes
+    bench._stop_input()
+    ref = device_feed.normalize(torch.from_numpy(serial_images), "unit",
+                                torch.bfloat16)
+    check(torch.equal(images.cpu(), ref) and
+          torch.equal(labels.cpu(), torch.from_numpy(serial_labels).long()),
+          "input: the process pool's first batch on the card is not the "
+          "host's serial decode")
+    log(f"input: the process pool's ({workers} workers) first batch on the "
+        "card bitwise the host's serial decode of the same records on the "
+        "same streams")
     del bench, images, labels, ref
     arms = {}
+    pool = {"input_preprocessor": "multiprocess"}
     for label, k, extra in (("k1", 1, {}), ("k8", DISPATCH_K, {}),
                             ("k8_cached", DISPATCH_K,
-                             {"datasets_repeat_cached_sample": True})):
+                             {"datasets_repeat_cached_sample": True}),
+                            ("mp_k1", 1, pool), ("mp_k8", DISPATCH_K, pool),
+                            ("mp_k8_w7", DISPATCH_K,
+                             dict(pool, datasets_num_private_threads=7))):
       keeping = (capturing_unit_inputs(calls) if label == "k1"
                  else contextlib.nullcontext())
       with keeping:
@@ -3948,6 +4023,16 @@ def phase_input(res):
             f"input: {label}: no feed stats")
       arms[label] = dict(rate=stats["images_per_sec"],
                          losses=stats["losses"], feed=fs, peak_gib=peak)
+      pre = bench.preprocessor
+      if extra.get("input_preprocessor") == "multiprocess":
+        arms[label].update(
+            workers=pre.num_processes, dispatch_calls=pre.dispatch_calls,
+            dispatch_ms_a_batch=(1e3 * pre.dispatch_seconds /
+                                 max(pre.dispatch_calls, 1)))
+        log(f"input: {label}: process pool of {pre.num_processes} workers "
+            f"(os.cpu_count() {cpus}, len(os.sched_getaffinity(0)) "
+            f"{affinity}), dispatch {arms[label]['dispatch_ms_a_batch']:.3f}"
+            f" ms a batch over {pre.dispatch_calls} batches")
       log(f"input: {label}: {stats['images_per_sec']:.2f} images/sec, "
           f"feed_stall_fraction {fs['feed_stall_fraction']:.4f}, queue "
           f"depth {fs['queue_depth_mean']:.2f} mean / "
@@ -3961,6 +4046,17 @@ def phase_input(res):
       torch.cuda.empty_cache()
     check(arms["k1"]["losses"] == arms["k8"]["losses"],
           f"input: K={DISPATCH_K} losses differ from K=1")
+    check(arms["mp_k1"]["losses"] == arms["mp_k8"]["losses"],
+          f"input: the pool's K={DISPATCH_K} losses differ from its K=1")
+    log(f"input: process pool: K={DISPATCH_K} losses bitwise K=1; "
+        f"images/sec K=1 {arms['mp_k1']['rate']:.2f} (thread pool "
+        f"{arms['k1']['rate']:.2f}), K={DISPATCH_K} "
+        f"{arms['mp_k8']['rate']:.2f} (thread pool "
+        f"{arms['k8']['rate']:.2f}; 7 workers "
+        f"{arms['mp_k8_w7']['rate']:.2f}); feed_stall_fraction K=1 "
+        f"{arms['mp_k1']['feed']['feed_stall_fraction']:.4f}, "
+        f"K={DISPATCH_K} {arms['mp_k8']['feed']['feed_stall_fraction']:.4f} "
+        f"(7 workers {arms['mp_k8_w7']['feed']['feed_stall_fraction']:.4f})")
     log(f"input: K={DISPATCH_K} losses bitwise K=1; images/sec K=1 "
         f"{arms['k1']['rate']:.2f}, K={DISPATCH_K} "
         f"{arms['k8']['rate']:.2f}, K={DISPATCH_K} with "
@@ -3996,9 +4092,168 @@ def phase_input(res):
     calls[name] = None
 
 
+# -- models: the image-classification zoo -------------------------------------
+
+MODELS_RUNS = (
+    # (label, model, dataset, image size, batch, fused units a step, extra
+    # flags): the fused units are the stride-1 3x3s that follow a conv's
+    # batch norm and ReLU with 64-aligned channels (builder.fusable_conv3x3
+    # and ConvNetBuilder.finish), each launching K-B once and K-A once a
+    # step.
+    ("vgg16", "vgg16", "imagenet", 224, 64, 0, {}),
+    ("alexnet", "alexnet", "imagenet", 227, 512, 0, {}),
+    ("overfeat", "overfeat", "imagenet", 231, 32, 0, {}),
+    ("lenet", "lenet", "imagenet", 28, 32, 0, {}),
+    ("googlenet", "googlenet", "imagenet", 224, 32, 0, {}),
+    ("inception4", "inception4", "imagenet", 299, 32, 0, {}),
+    ("mobilenet", "mobilenet", "imagenet", 224, 32, 0, {}),
+    ("official_resnet18", "official_resnet18", "imagenet", 224, 32, 8, {}),
+    ("official_resnet50", "official_resnet50", "imagenet", 224, 32, 13, {}),
+    # The CIFAR AlexNet has no batch norm: at its own rate, 0.1 (or 0.01),
+    # the synthetic images in [0, 255] drive its loss to 1e20 and past
+    # within 10 steps, the JAX package's on the CPU as the port's.
+    ("alexnet_cifar10", "alexnet", "cifar10", 32, 128, 0,
+     dict(init_learning_rate=0.001)),
+    ("densenet40_k12", "densenet40_k12", "cifar10", 32, 64, 0, {}),
+    ("resnet56", "resnet56", "cifar10", 32, 128, 9, {}),
+    ("resnet56_v2", "resnet56_v2", "cifar10", 32, 128, 9, {}),
+)
+MODELS_WARMUP, MODELS_STEPS = 3, 10
+MODELS_COSINE_BATCH = 8
+# The bf16 card forward against the f32 CPU forward, and the f32 card
+# forward (every conv plain) against the same: bf16 rounding grows through
+# a deep random network's batch norms at batch 8 (Inception-v4 read 0.93),
+# f32 rounding does not.
+MODELS_COSINE_MIN = {"bf16": 0.9, "f32": 0.9999}
+
+
+def models_params(model, data_name, batch, **flags):
+  from kf_benchmarks_tpu_torch import params as params_lib
+  return params_lib.make_params(
+      model=model, data_name=data_name, batch_size=batch, use_fp16=True,
+      num_batches=MODELS_STEPS, num_warmup_batches=MODELS_WARMUP,
+      display_every=MODELS_STEPS, device="gpu", **flags)
+
+
+def models_cosine(model, nclass, seed):
+  """{"bf16", "f32"}: the cosine of the card's bf16 forward's logits, and
+  of its f32 forward's (every conv plain: the kernels are bf16), against
+  the port's own f32 CPU forward at the same weights and images (batch
+  8): the batch norms on batch statistics, dropout off."""
+  from kf_benchmarks_tpu_torch.models import builder
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  with torch.device("cuda"):
+    card = model.make_module(nclass, torch.bfloat16, generator=gen)
+    card32 = model.make_module(nclass, torch.float32)
+  cpu = model.make_module(nclass, torch.float32)
+  state = card.state_dict()
+  card32.load_state_dict(state)
+  cpu.load_state_dict({k: v.cpu() for k, v in state.items()})
+  if isinstance(card32, builder.GraphNet):
+    card32.fuse = False
+  old = model.get_batch_size()
+  model.set_batch_size(MODELS_COSINE_BATCH)
+  images, _ = model.get_synthetic_inputs(gen, nclass, torch.device("cuda"))
+  model.set_batch_size(old)
+  outs = []
+  for net, x in ((card, images), (card32, images), (cpu, images.cpu())):
+    net.eval()
+    for m in net.modules():
+      if isinstance(m, builder.CompactBatchNorm):
+        m.train()
+    with torch.no_grad():
+      y = net(x)
+    outs.append((y[0] if isinstance(y, tuple) else y).float().cpu()
+                .flatten().double())
+  ref = outs[-1]
+  return {k: float(o @ ref / (o.norm() * ref.norm()))
+          for k, o in zip(("bf16", "f32"), outs)}
+
+
+def phase_models(res):
+  """The image-classification zoo (ROADMAP Queue 1 item 7a): see the
+  module docstring, item 28."""
+  from kf_benchmarks_tpu_torch import benchmark
+  out = res["models"] = {}
+  shapes = {label: {"conv3x3_same": set(), "bn_relu_conv3x3_stats": set()}
+            for label, *_ in MODELS_RUNS}
+  reset_launches()
+  for label, model, data_name, size, batch, fused, flags in MODELS_RUNS:
+    params = models_params(model, data_name, batch, **flags)
+    bench = benchmark.BenchmarkCNN(params)
+    check(bench.model.image_size == size and bench.batch_size == batch,
+          f"models {label}: image size {bench.model.image_size}, batch "
+          f"{bench.batch_size}, want {size} and {batch}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = benchmark.kernel_launches()
+    with noting_unit_shapes(shapes[label]):
+      stats = bench.run()
+    after = benchmark.kernel_launches()
+    launched = {k: after[k] - before[k] for k in after}
+    steps = stats["steps_run"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(np.isfinite(stats["last_average_loss"]),
+          f"models {label}: loss not finite")
+    for name in ("conv3x3_same", "bn_relu_conv3x3_stats"):
+      check(launched[name] == fused * steps,
+            f"models {label}: {name} launched {launched[name]} times in "
+            f"{steps} steps, want {fused} a step")
+    for name, n in launched.items():
+      if name not in ("conv3x3_same", "bn_relu_conv3x3_stats"):
+        check(not n, f"models {label}: {name} launched {n} times")
+    out[label] = dict(model=bench.model.get_name(), dataset=data_name,
+                      image_size=size, batch=batch, steps=steps,
+                      images_per_sec=stats["images_per_sec"],
+                      peak_gib=peak, launches=launched,
+                      loss=stats["last_average_loss"],
+                      fused_a_step=fused)
+    log(f"models {label}: {bench.model.get_name()} on {data_name}, "
+        f"{size}x{size}, batch {batch}, {steps} steps ({MODELS_WARMUP} "
+        f"warmup + {MODELS_STEPS} timed), {stats['images_per_sec']:.2f} "
+        f"images/sec, peak memory {peak:.2f} GiB, loss "
+        f"{stats['last_average_loss']:.4f}, launches {launched} ({fused} + "
+        f"{fused} a step wanted)")
+    del bench
+    gc.collect()
+    torch.cuda.empty_cache()
+  res.setdefault("counts_by_path", {})["models"] = \
+      benchmark.kernel_launches()
+  # Outside the counted window: the forward cosines and the kernels at the
+  # new shapes.
+  from kf_benchmarks_tpu_torch.data import datasets
+  from kf_benchmarks_tpu_torch.models import model_config
+  for i, (label, model, data_name, *_rest) in enumerate(MODELS_RUNS):
+    m = model_config.get_model_config(model, None, data_name)
+    cos = models_cosine(m, datasets.create_dataset(None, data_name)
+                        .num_classes, 70 + i)
+    out[label]["forward_cosine"] = cos
+    for kind, floor in MODELS_COSINE_MIN.items():
+      check(cos[kind] >= floor,
+            f"models {label}: {kind} card forward's cosine {cos[kind]:.6f} "
+            f"against the f32 CPU forward, want >= {floor}")
+    log(f"models {label}: card forward against the f32 CPU forward "
+        f"(batch {MODELS_COSINE_BATCH}, same weights): cosine bf16 "
+        f"{cos['bf16']:.6f}, f32 (plain convs) {cos['f32']:.8f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+  seed = 90
+  for label, *_ in MODELS_RUNS:
+    noted = shapes[label]
+    todo = (("conv3x3_same", check_conv_at,
+             noted["conv3x3_same"] | noted["bn_relu_conv3x3_stats"]),
+            ("bn_relu_conv3x3_stats", check_unit_at,
+             noted["bn_relu_conv3x3_stats"]))
+    for name, check_at, at in todo:
+      for n, h, w, c, co in sorted(at):
+        res.setdefault(name, []).append(check_at(
+            f"models_{label}_{h}x{w}_{c}_{co}", n, h, w, c, co, seed=seed))
+        seed += 1
+
+
 # -- the frozen forward and the serving variants ----------------------------------
 
-AOT_STEPS = (5, 20)  # warmup, timed of each loaded program
+AOT_STEPS = (3, 10)  # warmup, timed of each loaded program
 
 
 class _NotingOps(TorchDispatchMode):
@@ -4501,6 +4756,7 @@ def main(argv=None) -> int:
            "fp16_vars": phase_fp16_vars, "health": phase_health,
            "faults": phase_faults, "input": phase_input,
            "aot": phase_aot, "serve_variants": phase_serve_variants,
+           "models": phase_models,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}

@@ -122,6 +122,7 @@ from kf_benchmarks_tpu_torch import train_step as train_step_lib
 from kf_benchmarks_tpu_torch import validation
 from kf_benchmarks_tpu_torch.data import datasets
 from kf_benchmarks_tpu_torch.data import device_feed
+from kf_benchmarks_tpu_torch.data import preprocessing
 from kf_benchmarks_tpu_torch.models import model as model_lib
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.ops import conv_bn
@@ -298,16 +299,18 @@ class BenchmarkCNN:
     # dispatch from crossing one (JAX benchmark.py:434-440).
     self.faults = faults_lib.FaultInjector.from_params(
         params, rank=mesh.rank(), log_fn=lambda s: log_fn(s))
-    self.nclass = model_config.IMAGENET_NUM_CLASSES
     # --use_synthetic_gpu_images keeps the synthetic batch even with a
-    # --data_dir (JAX benchmark.py:373-378); validation.py admits only
-    # ImageNet records, whose 1001 classes are the synthetic batch's.
+    # --data_dir (JAX benchmark.py:373-378). The dataset picks the model
+    # map and the classes: ImageNet's 1001, CIFAR-10's 10.
     self.dataset = datasets.create_dataset(
         None if params.use_synthetic_gpu_images else params.data_dir,
         params.data_name)
+    self.nclass = self.dataset.num_classes
     self.synthetic = self.dataset.use_synthetic_gpu_inputs()
     self._feeder = None
-    self.model = model_config.get_model_config(params.model, params)
+    self.preprocessor = None  # the real-data input stream's, once opened
+    self.model = model_config.get_model_config(params.model, params,
+                                               self.dataset.name)
     if params.batch_size:
       self.model.set_batch_size(params.batch_size)
     self.batch_size = self.model.get_batch_size()
@@ -513,7 +516,13 @@ class BenchmarkCNN:
     with eval-mode preprocessing (JAX :626)."""
     p = self.params
     self._stop_input()
-    pre = self.dataset.get_input_preprocessor(p.input_preprocessor)(
+    cls = self.dataset.get_input_preprocessor(p.input_preprocessor)
+    # The process pool yields views of its ring, which the feeder copies
+    # into pinned memory at once: a chunk's K batches within K + 2 buffers.
+    pool = ({"num_buffers": chunk + 2}
+            if issubclass(cls, preprocessing.MultiprocessImagePreprocessor)
+            else {})
+    pre = cls(
         batch_size=self.batch_size,
         output_shape=tuple(self.model.get_input_shapes(subset)[0][1:]),
         train=(subset == "train") and not (p.eval or p.forward_only),
@@ -525,7 +534,8 @@ class BenchmarkCNN:
         num_threads=(p.datasets_num_private_threads or p.num_intra_threads
                      or p.input_preprocessing_parallelism or 8),
         repeat_cached_sample=bool(p.datasets_repeat_cached_sample),
-        use_caching=bool(p.datasets_use_caching))
+        use_caching=bool(p.datasets_use_caching), **pool)
+    self.preprocessor = pre
     self._feeder = device_feed.DeviceFeeder(
         pre.minibatches(self.dataset, subset), self.device,
         prefetch=max(feeder_prefetch(p), chunk), chunk=chunk,
@@ -1176,6 +1186,13 @@ class BenchmarkCNN:
                  feed_stats["queue_depth_mean"],
                  feed_stats["queue_depth_max"],
                  feed_stats["prefetch_batches"]))
+      pre = self.preprocessor
+      if isinstance(pre, preprocessing.MultiprocessImagePreprocessor):
+        log_fn("Decode pool: %d worker processes, dispatch %.3f ms a "
+               "batch (%d batches)" % (
+                   pre.num_processes,
+                   1e3 * pre.dispatch_seconds / max(pre.dispatch_calls, 1),
+                   pre.dispatch_calls))
     if controller is not None:
       controller.close()
     # The run-health summary (None without a telemetry session): what

@@ -2,15 +2,20 @@
 
 The JAX package keeps every layer of a CNN at the top level of its flax
 variable tree under the ConvNetBuilder's layer name (``conv_stem``, ``resnet_v10_a``,
-``resnet_v10_a_bn``, ``affine0``, ...). The port nests the bottleneck
-layers (``resnet_v1<k>_<part>``, or ``resnet_v2<k>_<part>`` in ResNet v2
-with its ``_preact_bn``, -> ``blocks.<k>.<part>``; the module's
-``block_prefix`` says which) and keeps the other names: ResNet v2's
-``final_bn``, and Inception's ``conv<n>`` / ``conv<n>_bn`` in the JAX
-builder's counter order (builder.GraphNet registers them under those
-names). Leaves:
+``resnet_v10_a_bn``, ``affine0``, ...). The port's ResNet-50/101/152
+nests the bottleneck layers (``resnet_v1<k>_<part>``, or
+``resnet_v2<k>_<part>`` in ResNet v2 with its ``_preact_bn``, ->
+``blocks.<k>.<part>``; the module's ``block_prefix`` says which) and keeps
+the other names (ResNet v2's ``final_bn``). Every network recorded
+through builder.ConvNetBuilder (Inception, VGG, AlexNet, OverFeat, LeNet,
+GoogLeNet, the official and CIFAR ResNets, DenseNet) registers its layers
+under the JAX builder's names in its counter order (``conv<n>`` /
+``conv<n>_bn``, ``batchnorm<n>``, ``resblk<k>_a``, ``affine<n>``), and
+MobileNet under flax's own (``Conv_<i>``, ``BatchNorm_<i>``,
+``Dense_0``), so those map name for name. Leaves:
 
-  conv   ``kernel`` HWIO       -> ``weight`` OIHW
+  conv   ``kernel`` HWIO       -> ``weight`` OIHW (a depthwise conv's
+         [kh, kw, 1, C] -> [C, 1, kh, kw]); ``bias`` as is
   dense  ``kernel`` (in, out)  -> ``weight`` (out, in); ``bias`` as is
   BN     params ``scale`` (absent in a batch norm without scale, as
          Inception's) / ``bias``, batch_stats ``mean``/``var`` as is

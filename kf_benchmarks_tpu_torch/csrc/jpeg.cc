@@ -2,9 +2,12 @@
 // libjpeg(-turbo) gives through PIL, at full and reduced (DCT-domain) scale,
 // and a baseline encoder for the record generator.
 //
-// Decode: 8-bit sequential Huffman (SOF0 / SOF1), 1, 3 or 4 components at
-// any sampling factors, any DHT/DQT tables, restart intervals, interleaved
-// or one-component scans. The output stage is libjpeg's: the integer
+// Decode: 8-bit Huffman, sequential (SOF0 / SOF1) or progressive (SOF2), 1,
+// 3 or 4 components at any sampling factors, any DHT/DQT tables, restart
+// intervals, interleaved or one-component scans. A progressive file's scans
+// (jdphuff.c: DC first and refinement, AC first with end-of-band runs, AC
+// refinement with correction bits) build the whole image's coefficients,
+// which then take the same output stage as a sequential file's. The output stage is libjpeg's: the integer
 // ("islow") IDCT, its reduced 4x4 / 2x2 / 1x1 IDCTs for the 1/2, 1/4 and 1/8
 // scales (each component's DCT size picked as jdmaster.c picks it, so that
 // chroma is scaled by the IDCT rather than upsampled where it can be),
@@ -12,9 +15,11 @@
 // fixed-point YCbCr -> RGB of jdcolor.c. Four-component files are CMYK, or
 // YCCK under an Adobe marker with transform 2, and come out as RGB the way
 // PIL's ``convert("RGB")`` makes them (it reads Adobe CMYK inverted).
-// Progressive, arithmetic-coded, lossless and 12-bit frames are refused
-// with the frame type named; truncated or corrupt data is an error, never a
-// guess.
+// Arithmetic-coded, lossless, hierarchical and 12-bit frames are refused
+// with the frame type named, and so is a progressive file whose scans leave
+// some of AC coefficients 1-9 incomplete: libjpeg would smooth its blocks
+// (jdcoefct.c block smoothing), which this codec does not do. Truncated or
+// corrupt data is an error, never a guess.
 //
 // Encode: baseline YCbCr (4:4:4, 4:2:2 or 4:2:0) or grayscale with the
 // standard tables of the JPEG specification (Annex K) scaled by a quality
@@ -401,6 +406,9 @@ struct Component {
   int bw = 0, bh = 0;  // blocks of the coefficient array (MCU-padded)
   int dc_pred = 0;
   bool quant_latched = false;
+  // Progressive: the Al of the last scan that coded each coefficient (in
+  // zigzag order), -1 before any (libjpeg's coef_bits).
+  int coef_bits[64];
   uint16_t qt[64];  // natural order
   std::vector<int16_t> coef;
 };
@@ -420,6 +428,11 @@ struct Decoder {
   int adobe_transform = -1;
   bool frame = false;
   bool scanned = false;
+  bool progressive = false;
+  // The scan being decoded: spectral selection and successive
+  // approximation, and the end-of-band run of a progressive AC scan.
+  int ss = 0, se = 63, ah = 0, al = 0;
+  int eobrun = 0;
 
   Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
 
@@ -458,11 +471,11 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
           parse_sof(m, end);
+          progressive = m == 0xC2;
           if (stop_at_frame) return;
           break;
-        case 0xC2:
-          fail("progressive JPEG (SOF2) is not supported");
         case 0xC3:
           fail("lossless JPEG (SOF3) is not supported");
         case 0xC5:
@@ -544,6 +557,7 @@ struct Decoder {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
     }
     frame = true;
   }
@@ -587,8 +601,6 @@ struct Decoder {
       c->td = t >> 4;
       c->ta = t & 15;
       if (c->td > 3 || c->ta > 3) fail("corrupt JPEG: bad SOS tables");
-      if (!dc[c->td].defined || !ac[c->ta].defined)
-        fail("corrupt JPEG: SOS uses an undefined Huffman table");
       if (!c->quant_latched) {
         if (!qt_defined[c->tq])
           fail("corrupt JPEG: a component's quantization table is missing");
@@ -597,9 +609,26 @@ struct Decoder {
       }
       sc[i] = c;
     }
-    int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0)
+    ss = u8();
+    se = u8();
+    int ahal = u8();
+    ah = ahal >> 4;
+    al = ahal & 15;
+    if (progressive) {
+      check_progression(sc, ns);
+    } else if (ss != 0 || se != 63 || ahal != 0) {
       fail("corrupt JPEG: a sequential scan with spectral selection");
+    }
+    // The Huffman tables the scan reads (jdphuff.c: a DC refinement reads
+    // none, an AC scan no DC table, a DC scan no AC table).
+    for (int i = 0; i < ns; ++i) {
+      bool need_dc = !progressive || (ss == 0 && ah == 0);
+      bool need_ac = !progressive || ss != 0;
+      if ((need_dc && !dc[sc[i]->td].defined) ||
+          (need_ac && !ac[sc[i]->ta].defined))
+        fail("corrupt JPEG: SOS uses an undefined Huffman table");
+    }
+    eobrun = 0;
     pos = end;
     for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
 
@@ -633,6 +662,7 @@ struct Decoder {
         br.at_marker = false;
         next_rst = (next_rst + 1) & 7;
         for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+        eobrun = 0;
         todo = restart_interval;
       }
       int mx = m % mcus_x, my = m / mcus_x;
@@ -643,7 +673,12 @@ struct Decoder {
           for (int bx = 0; bx < bwn; ++bx) {
             int row = my * bh + by, col = mx * bwn + bx;
             int16_t* blk = &c->coef[((size_t)row * c->bw + col) * 64];
-            decode_block(br, *c, blk);
+            if (!progressive)
+              decode_block(br, *c, blk);
+            else if (ss == 0)
+              ah == 0 ? decode_dc_first(br, *c, blk) : decode_dc_refine(br, blk);
+            else
+              ah == 0 ? decode_ac_first(br, *c, blk) : decode_ac_refine(br, *c, blk);
           }
       }
       if (restart_interval) --todo;
@@ -676,6 +711,135 @@ struct Decoder {
         k += 15;
       }
     }
+  }
+
+  // -- progressive scans (jdphuff.c) ----------------------------------------
+
+  // start_pass_phuff_decoder's checks, as errors: libjpeg stops on an
+  // illegal spectral selection or approximation and only warns on a bogus
+  // progression (a refinement that does not follow the bits already sent),
+  // which a conforming encoder never writes; both raise here.
+  void check_progression(Component* const* sc, int ns) {
+    bool bad = false;
+    if (ss == 0) {
+      if (se != 0) bad = true;
+    } else {
+      if (ss > se || se > 63) bad = true;
+      if (ns != 1) bad = true;
+    }
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad)
+      fail("corrupt JPEG: illegal progressive scan (Ss=" +
+           std::to_string(ss) + " Se=" + std::to_string(se) + " Ah=" +
+           std::to_string(ah) + " Al=" + std::to_string(al) + ")");
+    for (int i = 0; i < ns; ++i) {
+      int* bits = sc[i]->coef_bits;
+      if (ss != 0 && bits[0] < 0)
+        fail("corrupt JPEG: progressive AC scan before the DC scan");
+      for (int k = ss; k <= se; ++k) {
+        if (ah != std::max(bits[k], 0))
+          fail("corrupt JPEG: bogus progressive successive approximation");
+        bits[k] = al;
+      }
+    }
+  }
+
+  void decode_dc_first(BitReader& br, Component& c, int16_t* blk) {
+    int t = br.decode(dc[c.td]);
+    if (t > 15) fail("corrupt JPEG: bad DC magnitude");
+    c.dc_pred += t ? extend(br.bits(t), t) : 0;
+    blk[0] = (int16_t)(c.dc_pred * (1 << al));
+  }
+
+  void decode_dc_refine(BitReader& br, int16_t* blk) {
+    if (br.bits(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  void decode_ac_first(BitReader& br, Component& c, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& h = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(h);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) fail("corrupt JPEG: AC run past the band's end");
+        blk[kNatural[k]] = (int16_t)(extend(br.bits(s), s) * (1 << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + br.bits(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // One correction bit for an already-nonzero coefficient.
+  void refine_nonzero(BitReader& br, int16_t* coef) {
+    int p1 = 1 << al;
+    if (br.bits(1) && (*coef & p1) == 0)
+      *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef - p1);
+  }
+
+  void decode_ac_refine(BitReader& br, Component& c, int16_t* blk) {
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& h = ac[c.ta];
+      for (; k <= se; ++k) {
+        int rs = br.decode(h);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) fail("corrupt JPEG: bad AC refinement magnitude");
+          s = br.bits(1) ? (1 << al) : -(1 << al);
+        } else if (r != 15) {
+          eobrun = (1 << r) + br.bits(r);
+          break;  // the rest of the band is the end-of-band run's
+        }
+        // Pass the nonzero coefficients (a correction bit each) and r zero
+        // ones; the new coefficient lands on the zero after them.
+        for (; k <= se; ++k) {
+          int16_t* coef = &blk[kNatural[k]];
+          if (*coef != 0) {
+            refine_nonzero(br, coef);
+          } else if (--r < 0) {
+            break;
+          }
+        }
+        if (s) {
+          if (k > se) fail("corrupt JPEG: AC run past the band's end");
+          blk[kNatural[k]] = (int16_t)s;
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = &blk[kNatural[k]];
+        if (*coef != 0) refine_nonzero(br, coef);
+      }
+      --eobrun;
+    }
+  }
+
+  // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
+  // image whose DC is known for every component while some of AC 1-9 are
+  // not yet complete (libjpeg-turbo 2.1 and later look at 1-9; earlier
+  // versions at 1-5, a subset).
+  bool block_smoothing() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (int ci = 0; ci < ncomp; ++ci) {
+      const Component& c = comp[ci];
+      if (!c.quant_latched || c.coef_bits[0] < 0) return false;
+      for (int k = 0; k <= 9; ++k)
+        if (c.qt[kNatural[k]] == 0) return false;
+      for (int k = 1; k <= 9; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
   }
 
   // -- output stage --------------------------------------------------------
@@ -792,6 +956,9 @@ struct Decoder {
 
   void render(int scale, uint8_t* rgb, int out_w, int out_h) {
     if (!scanned) fail("truncated JPEG: no scan");
+    if (block_smoothing())
+      fail("progressive JPEG (SOF2) whose scans leave AC coefficients 1-9 "
+           "incomplete (libjpeg's block smoothing) is not supported");
     int min_size = 8 / scale;
     std::vector<std::vector<uint8_t>> planes(ncomp);
     for (int ci = 0; ci < ncomp; ++ci) {

@@ -9,9 +9,13 @@ and 1/8 scale libjpeg's reduced IDCTs, which is what PIL's ``draft`` asks for
 built with g++ into build/host/ at first use (ops/_build.py). A ctypes call
 releases the GIL, so the preprocessor's thread pool decodes in parallel.
 
-Every failure raises ValueError: a frame type the codec does not decode
-(progressive, arithmetic-coded, lossless, 12-bit) is named, and truncated or
-corrupt data never decodes to a guess.
+Baseline, extended-sequential and progressive (SOF2) Huffman files decode;
+a progressive file's scans fill the whole image's coefficients before the
+same output stage runs. Every failure raises ValueError: a frame type the
+codec does not decode (arithmetic-coded, lossless, hierarchical, 12-bit) is
+named, and so is a progressive file whose scans stop before AC coefficients
+1-9 are complete, which libjpeg would block-smooth; truncated or corrupt
+data never decodes to a guess.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@ package's data/preprocessing.py (:71-380, :606-660, :940-1002).
 
 The same record streams, crops, resizes, flips and colour jitter, drawn
 from the same ``random.Random`` streams (seeded ``seed + 7919 * i`` per
-batch position), so that the port's images are the JAX package's own. The
+batch position; the process pool's ``seed + 7919 * i + 104729 * batch``),
+so that the port's images are the JAX package's own. The
 JAX package decodes and transforms with PIL; the port uses its own JPEG codec
 (data/jpeg.py) and PIL-equivalent operations (data/image_ops.py), which give
 PIL's results to the bit, so it runs where there is no PIL.
@@ -16,15 +17,28 @@ that the JAX package applies on the host (``NORMALIZATION``: ``"unit"`` for
 data/device_feed.py applies it once the batch is on its device, which
 quarters the bytes that cross PCIe; the values are the ones the JAX package
 computes on the host.
+
+``--input_preprocessor=multiprocess`` (``MultiprocessImagePreprocessor``)
+decodes in spawned worker processes, out of the GIL's way. This module is
+what a worker imports: it and its imports (the codec, the image operations,
+the record and Example readers, numpy) must never import torch, which would
+cost each worker seconds and hundreds of MiB and touch CUDA; the one torch
+import, validation's, is made lazily in ``_refuse`` and the logger's in the
+pool's constructor, both in the parent.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import itertools
 import os
 import pickle
+import queue as queue_lib
 import random
+import sys
+import time
+import types
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -320,6 +334,246 @@ class RecordInputImagePreprocessor(InputPreprocessor):
         pool.shutdown(wait=False)
 
 
+def _mp_decode_worker(task_q, done_q, shm_name, buf_shape, in_shm_name,
+                      in_shape, pre_bytes):
+  """Decode worker of MultiprocessImagePreprocessor (the JAX package's
+  _mp_decode_worker, data/preprocessing.py:383-423), in a SPAWNED process:
+  takes one task per contiguous batch slice -- (buffer, batch index,
+  entries), each entry locating a record's bytes in the shared input ring
+  or carrying them inline when they overflowed its staging slot --, decodes
+  with the pickled preprocessor's single-image path, writes each uint8
+  image straight into its final slot of the shared output ring and posts
+  ONE done message for the slice."""
+  from multiprocessing import shared_memory  # noqa: PLC0415
+  pre = pickle.loads(pre_bytes)
+  shm = shared_memory.SharedMemory(name=shm_name)
+  in_shm = shared_memory.SharedMemory(name=in_shm_name)
+  ring = np.ndarray(buf_shape, np.uint8, buffer=shm.buf)
+  in_ring = np.ndarray(in_shape, np.uint8, buffer=in_shm.buf)
+  try:
+    while True:
+      task = task_q.get()
+      if task is None:
+        return
+      buf, batch_idx, entries = task
+      labels = []
+      err = None
+      for pos, off, length, inline in entries:
+        record = (inline if inline is not None
+                  else bytes(in_ring[buf, off:off + length]))
+        # Deterministic per-(position, batch) stream: a worker holds no
+        # state across batches, so the stream is derived, not advanced.
+        rng = random.Random(pre.seed + 7919 * pos + 104729 * batch_idx)
+        try:
+          ring[buf, pos], label = pre._preprocess_one(record, pos, rng)
+          labels.append((pos, int(label)))
+        except Exception as e:  # noqa: BLE001 -- raised in the parent
+          err = (pos, repr(e))
+          break
+      # One message a slice; the count covers the whole slice even on an
+      # error (the parent raises before it uses the batch).
+      done_q.put((buf, len(entries), labels, err))
+  finally:
+    del ring, in_ring
+    shm.close()
+    in_shm.close()
+
+
+@contextlib.contextmanager
+def _bare_main():
+  """Hides the parent's ``__main__`` while workers are spawned: a spawned
+  child re-imports the parent's main module (the CLI, which imports torch)
+  unless that module names neither a spec nor a file. The swap lasts the
+  ``Process.start`` calls; the trainer's thread meanwhile runs the step,
+  which reads nothing of ``__main__``."""
+  main = sys.modules["__main__"]
+  sys.modules["__main__"] = types.ModuleType("__main__")
+  try:
+    yield
+  finally:
+    sys.modules["__main__"] = main
+
+
+class MultiprocessImagePreprocessor(RecordInputImagePreprocessor):
+  """Process-parallel TFRecord image pipeline (the JAX package's
+  MultiprocessImagePreprocessor, data/preprocessing.py:426-604): decode
+  worker PROCESSES, so decode scales past the one core that the GIL-bound
+  parts of the thread pool leave it.
+
+  * Workers are spawned, never forked: the parent holds CUDA state. They
+    import this module and nothing of torch; the codec's libraries are
+    built by the parent (under ops/_build.py's lock) and loaded by each.
+  * Each worker writes each image into its final slot of a shared-memory
+    output ring of ``num_buffers`` (at least 2) global batches, uint8 HWC
+    as the thread pool yields them (data/device_feed.py normalises on the
+    device). The raw records are staged in a shared input ring of
+    ``input_bytes_per_image`` (256 KiB) a slot; a record larger than its
+    slot travels inline in the task message.
+  * One task and one done message per contiguous slice of a batch, never
+    one per image. Batches are dispatched one ahead, so the workers decode
+    batch k+1 while the consumer holds batch k; ``dispatch_seconds`` /
+    ``dispatch_calls`` total the parent's staging and enqueueing.
+  * Position i of batch b draws from ``random.Random(seed + 7919 * i +
+    104729 * b)``: with the same records and seed, the batches are the JAX
+    pool's, and batch 0 is the thread pool's.
+  * ``num_threads`` is the worker count, capped by default at the cores
+    this process may run on; an explicit ``num_processes`` is honoured,
+    with a warning when it oversubscribes them.
+  * A worker that dies (killed, or crashed in a decode) makes the next
+    batch raise within about half a second, never hang.
+  * Each batch is a view of its ring slot (images and labels), valid
+    until the consumer asks for ``num_buffers - 1`` more batches: the
+    DeviceFeeder copies it into pinned memory at once (a chunk of K
+    batches within K + 2 buffers), so that copy out of the ring is the
+    only host copy. A consumer that keeps batches copies them.
+  """
+
+  def __init__(self, *args, num_processes: Optional[int] = None,
+               num_buffers: int = 3,
+               input_bytes_per_image: int = 256 << 10, **kwargs):
+    super().__init__(*args, **kwargs)
+    cores = len(os.sched_getaffinity(0))
+    if num_processes:
+      self.num_processes = max(1, num_processes)
+      if self.num_processes > cores:
+        from kf_benchmarks_tpu_torch.utils import log as log_util  # noqa: PLC0415
+        log_util.log_fn(
+            f"Decode pool oversubscribed: {self.num_processes} workers "
+            f"on {cores} available core(s); workers beyond the cores only "
+            "contend for them")
+    else:
+      self.num_processes = min(self.num_threads, cores)
+    self.num_buffers = max(2, num_buffers)
+    self.input_bytes_per_image = max(1, int(input_bytes_per_image))
+    self.dispatch_seconds = 0.0
+    self.dispatch_calls = 0
+
+  def minibatches(self, dataset, subset: str):
+    import multiprocessing  # noqa: PLC0415
+    from multiprocessing import shared_memory  # noqa: PLC0415
+    jpeg.library()  # built here once; each worker loads the build
+    image_ops.library()
+    ctx = multiprocessing.get_context("spawn")
+    stream = self._record_stream(dataset, subset)
+    shape = (self.num_buffers, self.batch_size, self.height, self.width,
+             self.depth)
+    shm = shared_memory.SharedMemory(create=True, size=int(np.prod(shape)))
+    ring = np.ndarray(shape, np.uint8, buffer=shm.buf)
+    in_shape = (self.num_buffers,
+                self.batch_size * self.input_bytes_per_image)
+    in_shm = shared_memory.SharedMemory(create=True,
+                                        size=int(np.prod(in_shape)))
+    in_ring = np.ndarray(in_shape, np.uint8, buffer=in_shm.buf)
+    task_q = ctx.Queue()
+    done_q = ctx.Queue()
+    pre_bytes = pickle.dumps(self)
+    workers = [
+        ctx.Process(target=_mp_decode_worker,
+                    args=(task_q, done_q, shm.name, shape, in_shm.name,
+                          in_shape, pre_bytes),
+                    daemon=True, name=f"decode-worker-{i}")
+        for i in range(self.num_processes)]
+    with _bare_main():
+      for w in workers:
+        w.start()
+    remaining = [0] * self.num_buffers
+    labels_buf = [np.empty(self.batch_size, np.int32)
+                  for _ in range(self.num_buffers)]
+
+    def dispatch(batch_idx: int) -> bool:
+      records = list(itertools.islice(stream, self.batch_size))
+      if len(records) < self.batch_size:
+        return False
+      t0 = time.perf_counter()
+      buf = batch_idx % self.num_buffers
+      remaining[buf] = self.batch_size
+      cap = in_shape[1]
+      off = 0
+      entries = []
+      for pos, rec in enumerate(records):
+        if off + len(rec) <= cap:
+          in_ring[buf, off:off + len(rec)] = np.frombuffer(rec, np.uint8)
+          entries.append((pos, off, len(rec), None))
+          off += len(rec)
+        else:
+          entries.append((pos, 0, 0, rec))
+      per = -(-self.batch_size // self.num_processes)
+      for start in range(0, self.batch_size, per):
+        task_q.put((buf, batch_idx, entries[start:start + per]))
+      self.dispatch_seconds += time.perf_counter() - t0
+      self.dispatch_calls += 1
+      return True
+
+    def collect(buf: int) -> None:
+      while remaining[buf] > 0:
+        # A worker killed hard never posts its slice: poll liveness before
+        # each wait, so the trainer raises instead of hanging (or running
+        # on with fewer workers than it was given).
+        dead = [w for w in workers if not w.is_alive()]
+        if dead:
+          raise RuntimeError(
+              f"{len(dead)} decode worker(s) died (exit codes "
+              f"{[w.exitcode for w in dead]}) with {remaining[buf]} "
+              "images outstanding")
+        try:
+          b, count, labels, err = done_q.get(timeout=0.5)
+        except queue_lib.Empty:
+          continue
+        if err is not None:
+          raise RuntimeError(f"decode worker failed at buffer {b} "
+                             f"position {err[0]}: {err[1]}")
+        for pos, label in labels:
+          labels_buf[b][pos] = label
+        remaining[b] -= count
+
+    try:
+      if not dispatch(0):
+        return
+      batch_idx = 0
+      while True:
+        has_next = dispatch(batch_idx + 1)
+        buf = batch_idx % self.num_buffers
+        collect(buf)
+        yield ring[buf], labels_buf[buf]
+        if not has_next:
+          return
+        batch_idx += 1
+    finally:
+      # A worker that died may have held a queue's lock: then the others
+      # are killed, not asked to finish.
+      abandoned = any(not w.is_alive() for w in workers)
+      if not abandoned:
+        for _ in workers:
+          task_q.put(None)
+      # Drain the done queue while the workers exit: a worker blocked on
+      # flushing its last done message would never join.
+      deadline = time.monotonic() + (0.0 if abandoned else 5.0)
+      for w in workers:
+        while w.is_alive() and time.monotonic() < deadline:
+          try:
+            while True:
+              done_q.get_nowait()
+          except queue_lib.Empty:
+            pass
+          w.join(timeout=0.1)
+        if w.is_alive():
+          w.kill()
+          w.join()
+      task_q.close()
+      done_q.close()
+      if abandoned:
+        task_q.cancel_join_thread()
+      else:
+        task_q.join_thread()
+      del ring, in_ring
+      for m in (shm, in_shm):
+        try:
+          m.close()
+        except BufferError:
+          pass  # a consumer still holds a view; the mapping goes with it
+        m.unlink()
+
+
 class OfficialImagenetPreprocessor(RecordInputImagePreprocessor):
   """The official-models ImageNet preprocessing variant
   (ref: preprocessing.py:635-652 ImagenetPreprocessor).
@@ -451,10 +705,8 @@ _PREPROCESSORS = {
 # Preprocessors of the JAX package that the port does not run yet, with the
 # ROADMAP Queue 1 item that brings each.
 _NOT_PORTED = {
-    "coco": ("the COCO (ssd) preprocessor", "7"),
-    "librispeech": ("the LibriSpeech (deepspeech) preprocessor", "7"),
-    "multiprocess": ("--input_preprocessor=multiprocess, the "
-                     "process-parallel decode pool", "6g"),
+    "coco": ("the COCO (ssd) preprocessor", "7b"),
+    "librispeech": ("the LibriSpeech (deepspeech) preprocessor", "7b"),
 }
 
 
@@ -469,19 +721,22 @@ def get_preprocessor(dataset_name: str, kind: str = "default"):
   """Name -> preprocessor class (ref: datasets.py:208-229 maps)."""
   if kind == "test":
     return TestImagePreprocessor
+  if dataset_name in _NOT_PORTED:
+    _refuse(dataset_name)
   if kind == "official_models_imagenet":
     if dataset_name != "imagenet":
       raise ValueError("official_models_imagenet preprocessing applies "
                        f"to the imagenet dataset, not {dataset_name!r}")
     return OfficialImagenetPreprocessor
   if kind == "multiprocess":
-    _refuse("multiprocess")
+    if dataset_name != "imagenet":
+      raise ValueError("multiprocess preprocessing applies to the "
+                       f"imagenet dataset, not {dataset_name!r}")
+    return MultiprocessImagePreprocessor
   if kind != "default":
     raise ValueError(f"Unknown input preprocessor {kind!r}; expected "
                      "'default', 'official_models_imagenet', "
                      "'multiprocess', or 'test'")
-  if dataset_name in _NOT_PORTED:
-    _refuse(dataset_name)
   if dataset_name not in _PREPROCESSORS:
     raise NotImplementedError(
         f"No input preprocessor for dataset {dataset_name!r}")

@@ -1,5 +1,7 @@
 """Layers of the CNN models: batch norm, conv, pools, spatial mean, affine,
-and a ConvNetBuilder for the column-parallel (Inception) networks.
+dropout, local response normalisation, and a ConvNetBuilder on which the
+zoo's networks are recorded (column-parallel Inception modules, residual
+adds, dense concatenations, auxiliary heads).
 
 The port's counterpart of kf_benchmarks_tpu/models/builder.py. The JAX
 package builds each network imperatively through a ConvNetBuilder inside one
@@ -26,6 +28,7 @@ takes f32 ``sc``/``sh``; the running averages stay f32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -150,28 +153,41 @@ def _pair(k: Union[int, Sequence[int]]) -> Tuple[int, int]:
 
 
 class Conv(nn.Module):
-  """2-D conv, no bias (every conv of the ported models feeds a batch
-  norm).
+  """2-D conv, with a bias only where no batch norm follows it (the JAX
+  builder's ``use_bias=not use_bn and bias is not None``, builder.py:206).
 
   ``k`` and ``stride`` are an int or (height, width). ``mode`` as in the
   JAX builder (builder.py:176-226): ``SAME_RESNET`` pads k-1 in total,
   half before, with stride > 1 and is ``SAME`` with stride 1; ``SAME`` is
   TF's (pad after when the total is odd); ``VALID`` pads nothing. Weight
   OIHW f32, Glorot-uniform (the Keras default the reference inherits,
-  builder.py:195).
+  builder.py:195) or, given ``stddev``, a normal cut at two standard
+  deviations; the bias starts at ``bias``. ``groups`` > 1 is a grouped
+  (depthwise, when it equals the channels) conv, weight [CO, C/groups,
+  kh, kw].
   """
 
   def __init__(self, cin: int, cout: int, k, stride=1,
-               mode: str = "SAME", generator: Optional[torch.Generator] = None):
+               mode: str = "SAME", generator: Optional[torch.Generator] = None,
+               bias: Optional[float] = None, stddev: Optional[float] = None,
+               groups: int = 1):
     super().__init__()
     if mode not in ("SAME", "SAME_RESNET", "VALID"):
       raise ValueError(f"Invalid conv mode {mode!r}")
     self.k, self.stride, self.mode = _pair(k), _pair(stride), mode
+    self.groups = groups
     kh, kw = self.k
-    self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
-    limit = math.sqrt(6.0 / (kh * kw * cin + kh * kw * cout))
+    self.weight = nn.Parameter(torch.empty(cout, cin // groups, kh, kw))
     with torch.no_grad():
-      self.weight.uniform_(-limit, limit, generator=generator)
+      if stddev is None:
+        fan = kh * kw * cin // groups
+        limit = math.sqrt(6.0 / (fan + kh * kw * cout // groups))
+        self.weight.uniform_(-limit, limit, generator=generator)
+      else:
+        nn.init.trunc_normal_(self.weight, 0.0, stddev, -2 * stddev,
+                              2 * stddev, generator=generator)
+    self.bias = (None if bias is None else
+                 nn.Parameter(torch.full((cout,), float(bias))))
 
   def pads(self, h: int, w: int) -> Tuple[int, int, int, int]:
     """(top, bottom, left, right)."""
@@ -191,9 +207,12 @@ class Conv(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     t, b, l, r = self.pads(x.shape[2], x.shape[3])
     w = self.weight.to(x.dtype, memory_format=torch.channels_last)
+    bias = None if self.bias is None else self.bias.to(x.dtype)
     if t == b and l == r:
-      return F.conv2d(x, w, stride=self.stride, padding=(t, l))
-    return F.conv2d(F.pad(x, (l, r, t, b)), w, stride=self.stride)
+      return F.conv2d(x, w, bias, stride=self.stride, padding=(t, l),
+                      groups=self.groups)
+    return F.conv2d(F.pad(x, (l, r, t, b)), w, bias, stride=self.stride,
+                    groups=self.groups)
 
 
 def mpool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
@@ -242,16 +261,19 @@ def spatial_mean(x: torch.Tensor) -> torch.Tensor:
 
 class Affine(nn.Module):
   """Fully connected layer (builder.py:277-309, init :288-294): weight (out, in) f32 from a
-  fan-in truncated normal (std sqrt(f/in), f = 2 before a relu, else 1;
-  cut at two standard deviations as flax's truncated_normal), bias 0."""
+  fan-in truncated normal (std sqrt(f/in), f = 2 before a relu, else 1, or
+  ``stddev``; cut at two standard deviations as flax's truncated_normal),
+  bias ``bias``."""
 
   def __init__(self, cin: int, cout: int, activation: Optional[str] = "relu",
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               stddev: Optional[float] = None, bias: float = 0.0):
     super().__init__()
     self.activation = activation
-    std = math.sqrt((2.0 if activation == "relu" else 1.0) / cin)
+    std = stddev if stddev is not None else math.sqrt(
+        (2.0 if activation == "relu" else 1.0) / cin)
     self.weight = nn.Parameter(torch.empty(cout, cin))
-    self.bias = nn.Parameter(torch.zeros(cout))
+    self.bias = nn.Parameter(torch.full((cout,), float(bias)))
     with torch.no_grad():
       nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
                             generator=generator)
@@ -259,11 +281,31 @@ class Affine(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     x = x.reshape(x.shape[0], -1)
     y = F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
-    if self.activation == "relu":
-      y = torch.relu(y)
-    elif self.activation not in (None, "linear"):
-      raise KeyError(f"Invalid activation type {self.activation!r}")
-    return y
+    return activate(y, self.activation)
+
+
+def lrn(x: torch.Tensor, depth_radius: int, bias: float, alpha: float,
+        beta: float) -> torch.Tensor:
+  """TF's local response normalisation (builder.py:387-406 of the JAX
+  package): ``x / (bias + alpha * sum_{c-r..c+r} x^2) ^ beta`` over the
+  channels of an NCHW-shaped tensor. ``alpha`` multiplies the sum itself
+  (``F.local_response_norm`` would divide it by the window first). The
+  sum of squares runs in f32."""
+  sq = accum(x).square().unsqueeze(1)  # [N, 1, C, H, W]
+  window = 2 * depth_radius + 1
+  sums = F.avg_pool3d(sq, (window, 1, 1), stride=1,
+                      padding=(depth_radius, 0, 0), divisor_override=1)
+  return (accum(x) / (bias + alpha * sums.squeeze(1)).pow(beta)).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, keep_prob: float,
+            generator: torch.Generator) -> torch.Tensor:
+  """Inverted dropout (flax ``nn.Dropout(rate=1 - keep_prob)``): keep each
+  element with probability ``keep_prob`` (a uniform draw from
+  ``generator`` below it) and scale the kept ones by 1 / keep_prob."""
+  keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+  return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
 
 
 def fusable_conv3x3(cin: int, cout: int, k, stride, mode: str,
@@ -285,11 +327,18 @@ def fusable_conv3x3(cin: int, cout: int, k, stride, mode: str,
   return fwd is None and bwd is None
 
 
-def _activate(x: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+def activate(x: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+  """The JAX builder's activations (builder.py:27-38)."""
   if activation in (None, "linear"):
     return x
   if activation == "relu":
     return torch.relu(x)
+  if activation == "relu6":
+    return torch.clamp(x, 0.0, 6.0)
+  if activation == "tanh":
+    return torch.tanh(x)
+  if activation == "sigmoid":
+    return torch.sigmoid(x)
   raise KeyError(f"Invalid activation type {activation!r}")
 
 
@@ -303,11 +352,33 @@ class _Step:
     self.kind, self.src, self.dst, self.args = kind, src, dst, args
 
 
-class GraphNet(nn.Module):
+class SeededDropout:
+  """Mixin of a network with dropout: its masks come from a generator of
+  its own on the input's device, seeded with ``dropout_seed`` (drawn from
+  the build's generator, so from the run's seed)."""
+
+  dropout_seed = 0
+  _dropout_gen: Optional[torch.Generator] = None
+
+  def seed_dropout(self, generator: Optional[torch.Generator]) -> None:
+    if generator is not None:
+      self.dropout_seed = int(torch.randint(
+          0, 2 ** 62, (1,), generator=generator, device=generator.device))
+
+  def dropout_generator(self, device: torch.device) -> torch.Generator:
+    g = self._dropout_gen
+    if g is None or g.device != device:
+      g = torch.Generator(device=device).manual_seed(self.dropout_seed)
+      self._dropout_gen = g
+    return g
+
+
+class GraphNet(SeededDropout, nn.Module):
   """A network recorded by ``ConvNetBuilder``: its layers are this module's
   children under their flax names (``conv0``, ``conv0_bn``, ...,
   ``affine0``), and ``forward`` replays the recorded calls on NHWC images,
-  returning f32 logits.
+  returning f32 logits, or (logits, auxiliary logits) for a network with
+  an auxiliary head.
 
   A conv whose input is the batch norm and ReLU of the conv before it,
   which nothing else reads, and whose shape the fused unit takes
@@ -316,6 +387,8 @@ class GraphNet(nn.Module):
   ReLU in its prologue and returns the statistics of its own batch norm.
   ``fused`` names those convs; ``fuse = False`` before the first call runs
   every conv plain (the tests' reference path).
+
+  Dropout acts in training mode only (``SeededDropout``).
   """
 
   def __init__(self, dtype: torch.dtype):
@@ -323,13 +396,15 @@ class GraphNet(nn.Module):
     self.dtype = dtype
     self.steps: List[_Step] = []
     self.fused: List[str] = []
+    self.outputs: List[int] = []
     self.fuse = True
 
-  def forward(self, images: torch.Tensor) -> torch.Tensor:
+  def forward(self, images: torch.Tensor):
     vals: Dict[int, object] = {0: model.to_model_input(images, self.dtype)}
     for step in self.steps:
       vals[step.dst] = getattr(self, "_" + step.kind)(step, vals)
-    return accum(vals[self.steps[-1].dst])
+    outs = [accum(vals[o]) for o in self.outputs]
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
   def _conv(self, step: _Step, vals):
     a = step.args
@@ -351,7 +426,17 @@ class GraphNet(nn.Module):
       return y, sums
     if bn is not None:
       y = bn(y, sums=sums)
-    return _activate(y, a["activation"])
+    return activate(y, a["activation"])
+
+  def _bn(self, step: _Step, vals):
+    return getattr(self, step.args["name"])(vals[step.src])
+
+  def _act(self, step: _Step, vals):
+    return activate(vals[step.src], step.args["activation"])
+
+  def _add(self, step: _Step, vals):
+    a, b = step.src
+    return vals[a] + vals[b]
 
   def _pool(self, step: _Step, vals):
     a = step.args
@@ -368,17 +453,33 @@ class GraphNet(nn.Module):
     return nhwc(x).reshape(x.shape[0], -1) if x.dim() == 4 else x
 
   def _affine(self, step: _Step, vals):
-    return getattr(self, step.args["name"])(vals[step.src])
+    return getattr(self, step.args["name"])(self._flatten(step, vals))
+
+  def _lrn(self, step: _Step, vals):
+    a = step.args
+    return lrn(vals[step.src], a["depth_radius"], a["bias"], a["alpha"],
+               a["beta"])
+
+  def _dropout(self, step: _Step, vals):
+    x = vals[step.src]
+    if not self.training or step.args["keep_prob"] >= 1.0:
+      return x
+    return dropout(x, step.args["keep_prob"],
+                   self.dropout_generator(x.device))
 
 
 class ConvNetBuilder:
-  """Records the JAX builder's calls (builder.py:111-338 of the JAX
-  package: conv, mpool, apool, inception_module, spatial_mean, reshape,
-  affine) onto a ``GraphNet``, naming layers with the same counters, so
-  the flax variable names and the port's state_dict keys coincide. Nodes
-  are ints (0 = the input); ``top`` is the newest, as the JAX builder's
-  ``top_layer``. Shapes (C, H, W) are tracked so each conv's route is
-  picked when it is built. Call ``finish()`` after the last layer."""
+  """Records the JAX builder's calls (builder.py:111-406 of the JAX
+  package: conv, mpool, apool, reshape, affine, inception_module,
+  spatial_mean, dropout, batch_norm, lrn, switch_to_aux_top_layer) onto a
+  ``GraphNet``, naming layers with the same counters, so the flax variable
+  names and the port's state_dict keys coincide. ``relu``, ``add`` and
+  ``concat`` stand for the jnp operations the JAX models apply to
+  ``top_layer`` between builder calls (the residual adds, DenseNet's
+  concatenation). Nodes are ints (0 = the input); ``top`` is the newest, as
+  the JAX builder's ``top_layer``. Shapes (C, H, W) are tracked so each
+  conv's route is picked when it is built. Call ``finish()`` after the last
+  layer."""
 
   def __init__(self, net: GraphNet, image_size: int, depth: int = 3,
                generator: Optional[torch.Generator] = None):
@@ -392,6 +493,7 @@ class ConvNetBuilder:
     self.shapes: Dict[int, Tuple[int, int, int]] = {
         0: (depth, image_size, image_size)}
     self.top = 0
+    self.aux_top: Optional[int] = None
 
   @property
   def top_size(self) -> int:
@@ -409,30 +511,50 @@ class ConvNetBuilder:
     self.top = dst
     return dst
 
+  @contextlib.contextmanager
+  def switch_to_aux_top_layer(self):
+    """Redirects the calls onto the auxiliary head (builder.py:161-174)."""
+    if self.aux_top is None:
+      raise RuntimeError("aux_top_layer not set")
+    self.top, self.aux_top = self.aux_top, self.top
+    try:
+      yield
+    finally:
+      self.top, self.aux_top = self.aux_top, self.top
+
+  def _batch_norm_module(self, features: int, decay=None, scale=None,
+                         epsilon=None) -> CompactBatchNorm:
+    cfg = self.batch_norm_config
+    return CompactBatchNorm(
+        features, cfg["decay"] if decay is None else decay,
+        cfg["epsilon"] if epsilon is None else epsilon,
+        use_scale=cfg["scale"] if scale is None else scale)
+
   def conv(self, num_out_channels: int, k_height: int, k_width: int,
            d_height: int = 1, d_width: int = 1, mode: str = "SAME",
            input_layer: Optional[int] = None,
+           num_channels_in: Optional[int] = None,
            use_batch_norm: Optional[bool] = None,
-           activation: Optional[str] = "relu", name: Optional[str] = None):
+           stddev: Optional[float] = None,
+           activation: Optional[str] = "relu", bias: Optional[float] = 0.0,
+           name: Optional[str] = None):
+    del num_channels_in  # read from the input's shape
     src = self.top if input_layer is None else input_layer
     use_bn = self.use_batch_norm if use_batch_norm is None \
         else use_batch_norm
-    if not use_bn:
-      raise NotImplementedError(
-          "a conv without batch norm carries a bias in the JAX builder; "
-          "no ported model has one")
     name = name or self._name("conv")
     cin, h, w = self.shapes[src]
     conv = Conv(cin, num_out_channels, (k_height, k_width),
-                (d_height, d_width), mode, generator=self.generator)
+                (d_height, d_width), mode, generator=self.generator,
+                bias=None if use_bn or bias is None else bias,
+                stddev=stddev)
     self.net.add_module(name, conv)
-    cfg = self.batch_norm_config
-    self.net.add_module(name + "_bn", CompactBatchNorm(
-        num_out_channels, cfg["decay"], cfg["epsilon"],
-        use_scale=cfg["scale"]))
+    if use_bn:
+      self.net.add_module(name + "_bn",
+                          self._batch_norm_module(num_out_channels))
     oh, ow = conv.out_size(h, w)
     return self._add("conv", src, (num_out_channels, oh, ow), name=name,
-                     bn=True, activation=activation,
+                     bn=use_bn, activation=activation,
                      fusable=fusable_conv3x3(
                          cin, num_out_channels, conv.k, conv.stride, mode,
                          h, w))
@@ -480,34 +602,90 @@ class ConvNetBuilder:
           raise KeyError(
               f"Invalid layer type for inception module: {op_name!r}")
         col_layers[c].append(self.top)
-    ends = [layers[-1] for layers in col_layers]
-    _, h, w = self.shapes[ends[0]]
-    return self._add("concat", ends,
-                     (sum(self.shapes[e][0] for e in ends), h, w))
+    return self.concat([layers[-1] for layers in col_layers])
 
-  def spatial_mean(self):
-    c, _, _ = self.shapes[self.top]
-    return self._add("mean", self.top, (c, 1, 1))
+  def concat(self, layers: Sequence[int]) -> int:
+    """``jnp.concatenate`` of ``layers`` on the channel axis."""
+    _, h, w = self.shapes[layers[0]]
+    return self._add("concat", list(layers),
+                     (sum(self.shapes[e][0] for e in layers), h, w))
+
+  def spatial_mean(self, input_layer: Optional[int] = None):
+    src = self.top if input_layer is None else input_layer
+    c, _, _ = self.shapes[src]
+    return self._add("mean", src, (c, 1, 1))
+
+  def reshape(self, shape, input_layer: Optional[int] = None):
+    """The JAX builder's ``reshape([-1, C*H*W])`` of an NHWC tensor
+    (builder.py:268-274): the models' only use, flattening before an
+    affine."""
+    src = self.top if input_layer is None else input_layer
+    c, h, w = self.shapes[src]
+    if len(shape) != 2 or shape[0] != -1 or shape[1] != c * h * w:
+      raise ValueError(f"reshape to {list(shape)} of a [-1, {h}, {w}, {c}] "
+                       "tensor: only the flatten is supported")
+    return self._add("flatten", src, (c * h * w, 1, 1))
 
   def flatten(self):
-    """The JAX builder's ``reshape([-1, C*H*W])`` of an NHWC tensor."""
     c, h, w = self.shapes[self.top]
-    return self._add("flatten", self.top, (c * h * w, 1, 1))
+    return self.reshape([-1, c * h * w])
 
-  def affine(self, num_out_channels: int, activation: Optional[str] = "relu"):
-    name = self._name("affine")
-    self.net.add_module(name, Affine(self.top_size, num_out_channels,
-                                     activation, generator=self.generator))
-    return self._add("affine", self.top, (num_out_channels, 1, 1),
-                     name=name)
+  def affine(self, num_out_channels: int, input_layer: Optional[int] = None,
+             num_channels_in: Optional[int] = None, bias: float = 0.0,
+             stddev: Optional[float] = None,
+             activation: Optional[str] = "relu", name: Optional[str] = None):
+    del num_channels_in
+    src = self.top if input_layer is None else input_layer
+    name = name or self._name("affine")
+    c, h, w = self.shapes[src]
+    self.net.add_module(name, Affine(c * h * w, num_out_channels, activation,
+                                     generator=self.generator,
+                                     stddev=stddev, bias=bias))
+    return self._add("affine", src, (num_out_channels, 1, 1), name=name)
 
-  def finish(self) -> GraphNet:
-    """Picks the fused route: a fusable conv whose input node is written
-    by a conv with batch norm and ReLU and read by nothing else."""
+  def dropout(self, keep_prob: float = 0.5,
+              input_layer: Optional[int] = None):
+    """(builder.py:349-357) Note keep_prob, not rate."""
+    src = self.top if input_layer is None else input_layer
+    self._name("dropout")
+    return self._add("dropout", src, self.shapes[src], keep_prob=keep_prob)
+
+  def batch_norm(self, input_layer: Optional[int] = None, decay=None,
+                 scale=None, epsilon=None, name: Optional[str] = None):
+    """A batch norm as a layer of its own (builder.py:359-385), with the
+    builder's ``batch_norm_config`` unless overridden."""
+    src = self.top if input_layer is None else input_layer
+    name = name or self._name("batchnorm")
+    self.net.add_module(name, self._batch_norm_module(
+        self.shapes[src][0], decay, scale, epsilon))
+    return self._add("bn", src, self.shapes[src], name=name)
+
+  def lrn(self, depth_radius: int, bias: float, alpha: float, beta: float,
+          input_layer: Optional[int] = None):
+    """(builder.py:387-406) see ``lrn``."""
+    src = self.top if input_layer is None else input_layer
+    return self._add("lrn", src, self.shapes[src], depth_radius=depth_radius,
+                     bias=bias, alpha=alpha, beta=beta)
+
+  def relu(self, input_layer: Optional[int] = None):
+    src = self.top if input_layer is None else input_layer
+    return self._add("act", src, self.shapes[src], activation="relu")
+
+  def add(self, a: int, b: int):
+    """The residual sum ``a + b``."""
+    return self._add("add", [a, b], self.shapes[a])
+
+  def finish(self, outputs: Optional[Sequence[int]] = None) -> GraphNet:
+    """Names the network's outputs (the top, by default) and picks the
+    fused route: a fusable conv whose input node is written by a conv with
+    batch norm and ReLU and read by nothing else."""
+    self.net.outputs = list(outputs) if outputs is not None else [self.top]
     readers: Dict[int, int] = {}
     for step in self.net.steps:
       for s in (step.src if isinstance(step.src, list) else [step.src]):
         readers[s] = readers.get(s, 0) + 1
+    for o in self.net.outputs:
+      readers[o] = readers.get(o, 0) + 1
     writer = {step.dst: step for step in self.net.steps}
     for step in self.net.steps:
       prod = writer.get(step.src) if step.kind == "conv" else None
@@ -517,4 +695,51 @@ class ConvNetBuilder:
         prod.args["defer"] = True
         step.args["fused_from"] = prod.args["name"]
         self.net.fused.append(step.args["name"])
+    if any(step.kind == "dropout" for step in self.net.steps):
+      self.net.seed_dropout(self.generator)
     return self.net
+
+
+FUSED_UNIT_KERNELS = (
+    "the fused BN-ReLU-conv3x3 kernel (csrc/bn_relu_conv3x3_stats.cu) and "
+    "the conv3x3 kernel")
+
+
+class BuilderModel(model.CNNModel):
+  """A CNN model whose network is recorded through ``ConvNetBuilder`` from
+  ``add_inference(cnn)``, the JAX model's own method (the JAX package's
+  _CNNModule, model.py:101-143): the final affine layer to ``nclass``
+  unless ``skip_final_affine_layer``, and the auxiliary head's affine when
+  ``add_inference`` set ``cnn.aux_top``."""
+
+  def add_inference(self, cnn: ConvNetBuilder) -> None:
+    raise NotImplementedError
+
+  def skip_final_affine_layer(self) -> bool:
+    return False
+
+  def make_module(self, nclass, dtype=torch.float32, generator=None):
+    """The network, its convolutions in channels_last memory."""
+    net = GraphNet(dtype)
+    cnn = ConvNetBuilder(net, self.image_size, self.depth,
+                         generator=generator)
+    self.add_inference(cnn)
+    outputs = [cnn.top if self.skip_final_affine_layer()
+               else cnn.affine(nclass, activation="linear")]
+    if cnn.aux_top is not None:
+      with cnn.switch_to_aux_top_layer():
+        outputs.append(cnn.affine(nclass, activation="linear"))
+    return cnn.finish(outputs).to(memory_format=torch.channels_last)
+
+  def _meta_net(self) -> GraphNet:
+    """The network built on the meta device, which allocates nothing."""
+    with torch.device("meta"):
+      return self.make_module(2)
+
+  def bf16_kernels(self) -> str:
+    """The fused unit's kernels when some conv of the network takes them."""
+    return FUSED_UNIT_KERNELS if self._meta_net().fused else ""
+
+  def draws_dropout(self) -> bool:
+    return any(step.kind == "dropout" and step.args["keep_prob"] < 1.0
+               for step in self._meta_net().steps)

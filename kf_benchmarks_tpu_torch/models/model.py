@@ -57,6 +57,11 @@ class Model:
   def bf16_kernels(self) -> str:
     return ""
 
+  def draws_dropout(self) -> bool:
+    """Whether the training step draws dropout masks (from a generator of
+    the network's own, which a captured step cannot replay yet)."""
+    return False
+
   def get_input_shapes(self, subset: str) -> List[List[int]]:
     raise NotImplementedError
 
@@ -104,14 +109,20 @@ class CNNModel(Model):
                            device=device)
     return images, labels
 
-  def loss_function(self, logits: torch.Tensor,
-                    labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy (model.py:193-208), in f32."""
+  def loss_function(self, logits, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy (model.py:193-208), in f32, plus 0.4 of
+    the auxiliary head's when ``logits`` is (logits, auxiliary logits)."""
+    if isinstance(logits, tuple):
+      main, aux = logits
+      return (F.cross_entropy(accum(main), labels) +
+              0.4 * F.cross_entropy(accum(aux), labels))
     return F.cross_entropy(accum(logits), labels)
 
-  def accuracy_function(self, logits: torch.Tensor, labels: torch.Tensor
+  def accuracy_function(self, logits, labels: torch.Tensor
                         ) -> Dict[str, torch.Tensor]:
-    """top-1 / top-5 fractions."""
+    """top-1 / top-5 fractions (of the main logits)."""
+    if isinstance(logits, tuple):
+      logits = logits[0]
     top1 = (logits.argmax(-1) == labels).float().mean()
     top5_pred = logits.topk(min(5, logits.shape[-1]), -1).indices
     top5 = (top5_pred == labels[:, None]).any(-1).float().mean()

@@ -1,4 +1,5 @@
-"""ResNet-50/101/152, v1.5 and v2, for ImageNet.
+"""ResNet-50/101/152, v1.5 and v2, for ImageNet, and the CIFAR-10
+ResNets 20/32/44/56/110, v1 and v2.
 
 The port's counterpart of kf_benchmarks_tpu/models/resnet_model.py (the
 bottleneck at :27-78, the ImageNet network at :145-160, the per-model
@@ -19,6 +20,19 @@ kernels K-B forward and K-A backward. In v2 that is ``relu(a_bn(a))`` in
 front and ``b_bn`` behind, the same unit. Everything else -- the stem, the
 stride-2 3x3s, the 1x1s and the other batch norms -- stays plain PyTorch
 ops, as the JAX package leaves those to XLA.
+
+The CIFAR-10 ResNets (:215-297 there; 32x32 input, batch 128, the rate
+0.1 / 0.01 / 0.001 / 0.0002 at epochs 82, 123 and 300) are recorded
+through builder.ConvNetBuilder with the JAX package's calls and names
+(``conv_stem``, ``resblk<k>_a`` / ``_b`` / ``_shortcut`` with their
+``_bn``, v2's ``resblk<k>_preact_bn`` and ``final_bn``, ``affine0``); so is
+``bottleneck_block``, which official_resnet_model.py's networks use. A
+basic block's second 3x3 conv takes the fused unit (ops/conv_bn.py) where
+its channels allow, as the ImageNet bottleneck's does: in the CIFAR
+ResNets that is every block of the 64-channel stage. v2's ``conv -> batch
+norm -> ReLU`` before that conv (the JAX model's ``conv``,
+``batch_norm(name + "_a_bn")``, relu) is recorded as one conv with its
+batch norm, which has the same names and the same arithmetic.
 """
 
 from __future__ import annotations
@@ -166,20 +180,37 @@ class ResnetModel(model.CNNModel):
             "and the conv3x3 kernel")
 
   def get_learning_rate(self, global_step, batch_size):
-    """0.1 scaled by batch/256, piecewise at epochs 30/60/80/90, after a
-    linear warmup from 0 over 5 epochs. A tensor step gives the device
-    form (learning_rate.make_learning_rate_fn)."""
-    num_batches_per_epoch = IMAGENET_NUM_TRAIN_IMAGES / float(batch_size)
-    rescaled_lr = 0.1 * batch_size / 256.0
-    step = (global_step.float() if isinstance(global_step, torch.Tensor)
-            else float(global_step))
-    lr = rescaled_lr
-    for epoch, factor in zip((30, 60, 80, 90), (0.1, 0.01, 0.001, 1e-4)):
-      lr = learning_rate.where(step >= epoch * num_batches_per_epoch,
-                               rescaled_lr * factor, lr)
-    warmup_steps = int(5 * num_batches_per_epoch)
-    return learning_rate.where(step < warmup_steps,
-                               rescaled_lr * step / max(warmup_steps, 1), lr)
+    return imagenet_learning_rate(global_step, batch_size)
+
+
+def imagenet_learning_rate(global_step, batch_size):
+  """0.1 scaled by batch/256, piecewise at epochs 30/60/80/90, after a
+  linear warmup from 0 over 5 epochs. A tensor step gives the device form
+  (learning_rate.make_learning_rate_fn)."""
+  num_batches_per_epoch = IMAGENET_NUM_TRAIN_IMAGES / float(batch_size)
+  rescaled_lr = 0.1 * batch_size / 256.0
+  step = (global_step.float() if isinstance(global_step, torch.Tensor)
+          else float(global_step))
+  lr = rescaled_lr
+  for epoch, factor in zip((30, 60, 80, 90), (0.1, 0.01, 0.001, 1e-4)):
+    lr = learning_rate.where(step >= epoch * num_batches_per_epoch,
+                             rescaled_lr * factor, lr)
+  warmup_steps = int(5 * num_batches_per_epoch)
+  return learning_rate.where(step < warmup_steps,
+                             rescaled_lr * step / max(warmup_steps, 1), lr)
+
+
+def piecewise_learning_rate(global_step, boundaries, values):
+  """``values[i]`` from step ``boundaries[i - 1]`` on (``values[0]``
+  before the first); a tensor step gives the device form."""
+  step = (global_step.float() if isinstance(global_step, torch.Tensor)
+          else float(global_step))
+  lr = values[0]
+  for b, v in zip(boundaries, values[1:]):
+    lr = learning_rate.where(step >= b, v, lr)
+  if isinstance(step, torch.Tensor) and not isinstance(lr, torch.Tensor):
+    lr = torch.full_like(step, lr)
+  return lr
 
 
 def create_resnet50_model(params=None):
@@ -208,3 +239,116 @@ def create_resnet152_model(params=None):
 
 def create_resnet152_v2_model(params=None):
   return ResnetModel("resnet152_v2", (3, 8, 36, 3), params=params)
+
+
+# -- the builder-recorded ResNets (the JAX package's blocks, :27-121) --------
+
+def bottleneck_block(cnn, depth: int, depth_bottleneck: int, stride: int,
+                     version: str):
+  """Bottleneck unit (resnet_model.py:27-78 of the JAX package): 1x1,
+  3x3, 1x1 and a shortcut; v1 strides the first 1x1, v1.5 and v2 the
+  3x3."""
+  input_layer, in_size = cnn.top, cnn.top_size
+  v2 = version == "v2"
+  name = cnn._name("resnet_v2" if v2 else "resnet_v1")
+  preact = (cnn.relu(cnn.batch_norm(name=name + "_preact_bn")) if v2
+            else input_layer)
+  if in_size != depth or stride != 1:
+    shortcut = cnn.conv(depth, 1, 1, stride, stride, mode="SAME_RESNET",
+                        input_layer=preact, use_batch_norm=not v2,
+                        activation=None, bias=None, name=name + "_shortcut")
+  else:
+    shortcut = input_layer
+  s1, s3 = (stride, 1) if version == "v1" else (1, stride)
+  cnn.conv(depth_bottleneck, 1, 1, s1, s1, input_layer=preact,
+           use_batch_norm=True, activation="relu", bias=None,
+           name=name + "_a")
+  cnn.conv(depth_bottleneck, 3, 3, s3, s3, mode="SAME_RESNET",
+           use_batch_norm=True, activation="relu", bias=None,
+           name=name + "_b")
+  cnn.conv(depth, 1, 1, 1, 1, use_batch_norm=not v2, activation=None,
+           bias=None, name=name + "_c")
+  cnn.add(cnn.top, shortcut)
+  if not v2:
+    cnn.relu()
+
+
+def residual_block(cnn, depth: int, stride: int, version: str):
+  """Two-3x3 unit (resnet_model.py:81-121 of the JAX package)."""
+  input_layer, in_size = cnn.top, cnn.top_size
+  v2 = version == "v2"
+  name = cnn._name("resblk")
+  body_in = (cnn.relu(cnn.batch_norm(name=name + "_preact_bn")) if v2
+             else input_layer)
+  if in_size != depth or stride != 1:
+    shortcut = cnn.conv(depth, 1, 1, stride, stride, mode="SAME_RESNET",
+                        input_layer=body_in, use_batch_norm=not v2,
+                        activation=None, bias=None, name=name + "_shortcut")
+  else:
+    shortcut = input_layer
+  cnn.conv(depth, 3, 3, stride, stride, mode="SAME_RESNET",
+           input_layer=body_in, use_batch_norm=True, activation="relu",
+           bias=None, name=name + "_a")
+  cnn.conv(depth, 3, 3, 1, 1, use_batch_norm=not v2, activation=None,
+           bias=None, name=name + "_b")
+  cnn.add(cnn.top, shortcut)
+  if not v2:
+    cnn.relu()
+
+
+# The batch norm of every ResNet layer (resnet_model.py:155).
+BN_CONFIG = {"decay": 0.9, "epsilon": 1e-5, "scale": True}
+CIFAR10_NUM_TRAIN_IMAGES = 50000
+
+
+class ResnetCifar10Model(builder.BuilderModel):
+  """CIFAR-10 ResNet-N (resnet_model.py:215-258 of the JAX package): a
+  3x3 stem to 16 channels, three stages of (N - 2) / 6 basic blocks at
+  16, 32 and 64 channels, v1 or v2 from the name."""
+
+  data_name = "cifar10"
+
+  def __init__(self, model_name: str, layer_counts, params=None):
+    self.version = "v2" if "v2" in model_name else "v1"
+    super().__init__(model_name, 32, 128, 0.1, layer_counts=layer_counts,
+                     params=params)
+
+  def add_inference(self, cnn):
+    v2 = self.version == "v2"
+    cnn.use_batch_norm = not v2
+    cnn.batch_norm_config = dict(BN_CONFIG)
+    cnn.conv(16, 3, 3, 1, 1, use_batch_norm=not v2,
+             activation=None if v2 else "relu", bias=None,
+             name="conv_stem")
+    for i, depth in enumerate((16, 32, 64)):
+      for j in range(self.layer_counts[i]):
+        residual_block(cnn, depth, 2 if (j == 0 and i > 0) else 1,
+                       self.version)
+    if v2:
+      cnn.relu(cnn.batch_norm(name="final_bn"))
+    cnn.spatial_mean()
+
+  def get_learning_rate(self, global_step, batch_size):
+    """0.1, 0.01, 0.001, 0.0002 at epochs 82, 123, 300
+    (resnet_model.py:249-258)."""
+    per_epoch = CIFAR10_NUM_TRAIN_IMAGES // batch_size
+    return piecewise_learning_rate(
+        global_step, [per_epoch * e for e in (82, 123, 300)],
+        [0.1, 0.01, 0.001, 0.0002])
+
+
+def _cifar(name: str, depth: int):
+  n = (depth - 2) // 6
+  return lambda params=None: ResnetCifar10Model(name, (n, n, n), params)
+
+
+create_resnet20_cifar_model = _cifar("resnet20", 20)
+create_resnet20_v2_cifar_model = _cifar("resnet20_v2", 20)
+create_resnet32_cifar_model = _cifar("resnet32", 32)
+create_resnet32_v2_cifar_model = _cifar("resnet32_v2", 32)
+create_resnet44_cifar_model = _cifar("resnet44", 44)
+create_resnet44_v2_cifar_model = _cifar("resnet44_v2", 44)
+create_resnet56_cifar_model = _cifar("resnet56", 56)
+create_resnet56_v2_cifar_model = _cifar("resnet56_v2", 56)
+create_resnet110_cifar_model = _cifar("resnet110", 110)
+create_resnet110_v2_cifar_model = _cifar("resnet110_v2", 110)

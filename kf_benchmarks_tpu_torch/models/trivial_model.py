@@ -35,3 +35,14 @@ class TrivialModel(model.CNNModel):
 
   def make_module(self, nclass, dtype=torch.float32, generator=None):
     return TrivialNet(self.image_size, nclass, dtype, generator)
+
+
+class TrivialCifar10Model(TrivialModel):
+  """The trivial model at CIFAR-10's 32x32 (trivial_model.py:18-27 of the
+  JAX package)."""
+
+  data_name = "cifar10"
+
+  def __init__(self, params=None):
+    super().__init__(params)
+    self.image_size = 32

@@ -13,6 +13,8 @@ flags the port shares with the JAX package are the JAX package's
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from kf_benchmarks_tpu_torch import faults
@@ -67,11 +69,29 @@ def parse_bucket_ladder(ladder: str):
   return buckets
 
 
+def run_dataset_name(params) -> Optional[str]:
+  """The name of the run's dataset (benchmark.py's create_dataset call),
+  or None where its flags do not name one (validate_input_flags says
+  why)."""
+  try:
+    return datasets.create_dataset(
+        None if params.use_synthetic_gpu_images else params.data_dir,
+        params.data_name).name
+  except ValueError:
+    return None
+
+
 def validate_cross_flags(params) -> None:
-  if params.model not in model_config.list_models():
+  data_name = run_dataset_name(params)
+  reason = model_config.not_ported_error(params.model, data_name)
+  if reason:
+    raise ParamError(reason)
+  if params.model not in model_config.list_models(data_name):
     raise ParamError(
-        f"--model={params.model} is not ported yet; the port runs "
-        f"{', '.join(model_config.list_models())}")
+        f"--model={params.model} is not a model of the "
+        f"{data_name or 'imagenet'} dataset (as in the JAX package's "
+        "registry); the port runs "
+        f"{', '.join(model_config.list_models(data_name))}")
   validate_mode_flags(params)
   validate_sharded_flags(params)
   validate_optimizer_flags(params)
@@ -108,12 +128,17 @@ def validate_cross_flags(params) -> None:
           "--device=gpu but no CUDA device is available "
           "(torch.cuda.is_available() is False); pass --device=cpu to run "
           "the plain PyTorch versions on the CPU")
-    kernels = model_config.get_model_config(params.model,
-                                            params).bf16_kernels()
+    model = model_config.get_model_config(params.model, params, data_name)
+    kernels = model.bf16_kernels()
     if kernels and not params.use_fp16:
       raise ParamError(
           f"--device=gpu needs --use_fp16 for --model={params.model}: "
           f"{kernels} have no f32 variant yet")
+    if (params.steps_per_dispatch or 1) > 1 and model.draws_dropout():
+      raise ParamError(
+          f"--steps_per_dispatch > 1 captures the training step on the "
+          f"card; --model={params.model} draws dropout masks from a "
+          "generator of its own, which the capture does not register yet")
 
 
 def validate_serving_flags(p) -> None:
@@ -380,11 +405,6 @@ def validate_input_flags(p) -> None:
     raise ParamError(
         "--data_dir feeds image records; transformer_lm reads its seeded "
         "token stream (a real corpus is not wired, as in the JAX package)")
-  if dataset.name != "imagenet":
-    raise ParamError(
-        f"--data_name={dataset.name}: the port's models are ImageNet "
-        "models; the cifar resnets, ssd and deepspeech are not ported yet "
-        "(ROADMAP Queue 1 item 7)")
   try:
     dataset.get_input_preprocessor(p.input_preprocessor)
   except ValueError as e:  # ParamError included

@@ -13,8 +13,10 @@ libjpeg-turbo, which is what the JAX package decodes with.
   bytes is within 1 level of PIL's.
 * Determinism: the SHA-256 of the decode of one fixed port-encoded textured
   image is pinned (chip_smoke.py pins the same constant on the card's host).
-* Refusals: progressive, arithmetic-coded, lossless, 12-bit, truncated and
-  non-JPEG data raise ValueError.
+* Refusals: a progressive file that libjpeg would block-smooth (its scan
+  script stops before the last refinement), arithmetic-coded, lossless,
+  12-bit, truncated and non-JPEG data raise ValueError. Complete progressive
+  files decode (tests/test_torch_jpeg_progressive.py).
 """
 
 import hashlib
@@ -150,6 +152,13 @@ def _with_sof(data, marker, precision=None):
   return bytes(out)
 
 
+def _without_last_scan(data):
+  """A progressive file without its last scan (the final luma AC
+  refinement): libjpeg decodes it with block smoothing."""
+  last = data.rindex(b"\xff\xda")
+  return data[:last] + b"\xff\xd9"
+
+
 @pytest.mark.parametrize("kind,match", [
     ("progressive", r"progressive JPEG \(SOF2\)"),
     ("arithmetic", r"arithmetic-coded JPEG \(SOF9\)"),
@@ -162,7 +171,8 @@ def test_refusals_raise_value_error(kind, match):
   img = _image(96, 64, seed=6)
   base = _pil_jpeg(img)
   data = {
-      "progressive": lambda: _pil_jpeg(img, progressive=True),
+      "progressive": lambda: _without_last_scan(
+          _pil_jpeg(img, progressive=True)),
       "arithmetic": lambda: _with_sof(base, 0xC9),
       "lossless": lambda: _with_sof(base, 0xC3),
       "12-bit": lambda: _with_sof(base, 0xC1, precision=12),

@@ -325,7 +325,7 @@ def test_record_streams_match_jax(tmp_path, case):
 
 @pytest.mark.parametrize("name,kind,item", [
     ("coco", "default", "7"), ("librispeech", "default", "7"),
-    ("imagenet", "multiprocess", "6g")])
+    ("coco", "multiprocess", "7b")])
 def test_unported_preprocessors_are_refused(name, kind, item):
   with pytest.raises(validation.ParamError,
                      match=f"ROADMAP Queue 1 item {item}"):
