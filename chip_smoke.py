@@ -91,7 +91,7 @@ the run with a non-zero exit and no result line:
                 (the step captured as a CUDA graph with its NCCL
                 collectives and replayed) bitwise equal to the eager ones;
                 13 K-A and 13 K-B launches a step in
-                every run; then 5 warmup + 20 timed steps of BenchmarkCNN
+                every run; then 2 warmup + 4 timed steps of BenchmarkCNN
                 under each, beside the single-device run's images/sec, and
                 the time of one reduction of the full gradient set, per
                 tensor and packed (back-to-back CUDA events: the host paces
@@ -108,8 +108,8 @@ the run with a non-zero exit and no result line:
                 stack's L2 reassociated: losses and weights within
                 DP_FSDP_LM_RTOL); 13 + 13 K-A / K-B launches a ResNet step,
                 12 + 6 + 6 flash launches an LM step; each with its
-                images/sec (or sequences/sec) from 3 warmup + 8 timed
-                steps, the peak memory its build and checked steps add,
+                images/sec from 2 warmup + 4 timed steps (sequences/sec
+                from 3 + 8), the peak memory its build and checked steps add,
                 and its bucket count;
  14. zoo     -- BASELINE configs 4 and 5's models: BenchmarkCNN on
                 ResNet-152 v1.5 and on Inception-v3 (kungfu async_sgd, pair
@@ -126,8 +126,10 @@ the run with a non-zero exit and no result line:
                 kungfu, --elastic --adaptive_batch_size, --train_dir, and
                 --sync_on_finish: the coordinator's exit barrier)
                 through `python -m kf_benchmarks_tpu_torch.kfrun -np 1`, no
-                warmup: 6 steps twice uninterrupted, then 3 steps, a
-                checkpoint, and 3 more in a new process resumed from it;
+                warmup: 6 steps twice uninterrupted and 3 steps and a
+                checkpoint, the three launches at once, then 3 more in a
+                new process resumed from it (beside phase faults' launch
+                and phase aot's exports when those phases run, EARLY);
                 the resumed state at step 6 (parameters, batch-norm
                 averages, momentum buffers, step) bitwise equal to the
                 first uninterrupted run's if the two uninterrupted runs are
@@ -138,7 +140,7 @@ the run with a non-zero exit and no result line:
                 times;
  16. infer   -- --forward_only through BenchmarkCNN: ResNet-50 v1.5 at batch
                 256, bf16, and transformer_lm (flash attention) at batch 8,
-                5 warmup + 20 timed steps each, the counts set to 0 just
+                5 warmup + 12 timed steps each, the counts set to 0 just
                 before each run and read just after (13 K-B and 0 K-A a
                 ResNet step; 6 flash-forward launches an LM step, no
                 backward kernel); images/sec, sequences/sec, peak memory;
@@ -152,7 +154,8 @@ the run with a non-zero exit and no result line:
                 over that directory (one poll, 4 eval batches): it must
                 score the step-6 checkpoint with 13 K-B launches a batch and
                 the top-1 / top-5 of the eval step in this process on the
-                same restored weights and batch; then 6 steps with
+                same restored weights and batch; while the training
+                process runs, 6 steps in this process with
                 --eval_during_training_every_n_steps=2 evaluate after steps
                 2, 4 and 6 and end bitwise at the state of the same run
                 without evals (if two such runs are bitwise equal);
@@ -169,7 +172,7 @@ the run with a non-zero exit and no result line:
                 it is skipped with the momentum buffers unchanged;
  19. dispatch -- --steps_per_dispatch through BenchmarkCNN: ResNet-50
                 (batch 256, bf16, momentum) and transformer_lm (batch 8,
-                flash), 8 warmup + 20 timed steps each at K = 1 (eager
+                flash), 8 warmup + 12 timed steps each at K = 1 (eager
                 steps) and K = 8 (the step captured as a CUDA graph and
                 replayed, train_step.TrainChunk) from one seed: per-step
                 losses and final weights bitwise equal, equal launches a
@@ -199,7 +202,7 @@ the run with a non-zero exit and no result line:
                 64 of each arm, their busy share read as in dispatch;
  22. fp16_vars -- --fp16_vars (bf16 parameters and optimizer state):
                 ResNet-50 (batch 256) and transformer_lm (batch 8, flash),
-                4 warmup + 16 timed steps at K = 1 and K = 8, and without
+                4 warmup + 8 timed steps at K = 1 and K = 8, and without
                 the flag at K = 8, each through BenchmarkCNN with the counts
                 set to 0 just before and read just after: every parameter
                 and optimizer buffer bf16, 13 + 13 K-A / K-B and 12 + 6 + 6
@@ -221,7 +224,7 @@ the run with a non-zero exit and no result line:
                 train with SGD, which keeps none); images/sec,
                 sequences/sec and peak memory with the flag and without;
  23. health  -- ResNet-50 at batch 256 with --health_stats --train_dir, 4
-                warmup + 16 timed steps at K = 1 and K = 8 and with the
+                warmup + 8 timed steps at K = 1 and K = 8 and with the
                 stats off at K = 8: one flight-recorder row a timed step
                 and the run-end dump, the rows' health vectors and the
                 losses of K = 8 bitwise K = 1, grad_norm within 1e-4 of
@@ -237,7 +240,8 @@ the run with a non-zero exit and no result line:
                 at step 6 (step 4's checkpoint torn on disk) and takes 9
                 more; its state at step 15 held as phase elastic holds its
                 resume, against two uninterrupted runs of 15 steps (in
-                this process); 13 + 13 launches a step in every run that
+                this process; the launch runs in phase elastic, or here
+                beside them); 13 + 13 launches a step in every run that
                 ran to its end;
  25. input   -- the real-data input path (data/): builds the port's JPEG
                 codec and image-operation libraries with g++ and checks the
@@ -255,7 +259,7 @@ the run with a non-zero exit and no result line:
                 bitwise the host's serial decode of the same records on
                 the same streams; trains ResNet-50 (batch 256, bf16,
                 momentum) on the records through BenchmarkCNN, 8 warmup +
-                16 timed steps at K = 1 and K = 8 (losses bitwise equal,
+                8 timed steps at K = 1 and K = 8 (losses bitwise equal,
                 13 + 13 launches a step), at K = 8 with
                 --datasets_repeat_cached_sample, and through the process
                 pool at K = 1 and K = 8 (its worker count, dispatch ms a
@@ -267,10 +271,11 @@ the run with a non-zero exit and no result line:
                 feed_stall_fraction, queue depth and the host's CPU counts;
  26. aot     -- the frozen forward (aot.py): ResNet-50 v1.5 at batch 256,
                 bf16, exported by the CLI (--forward_only --aot_save_path)
-                at --trt_mode=FP16 and INT8 in a process each (artifact
-                bytes, INT8 under 0.35x FP16), each loaded in a fresh
-                process (--aot_load_path), captured as a CUDA graph and
-                timed, 3 warmup + 10 timed steps, beside phase infer's
+                at --trt_mode=FP16 and INT8 in a process each, the two at
+                once (in phase elastic when it runs; artifact bytes, INT8
+                under 0.35x FP16), each loaded, one after the other, in a
+                fresh process (--aot_load_path), captured as a CUDA graph
+                and timed, 3 warmup + 10 timed steps, beside phase infer's
                 in-process (eager) rate when it ran:
                 13 K-B and no K-A a forward, read from the process's log;
                 loading the INT8 export as the float mode fails on the
@@ -283,7 +288,7 @@ the run with a non-zero exit and no result line:
  27. serve_variants -- the serving engine at the full-size LM (bf16,
                 flash) as dense, INT8 weights, the paged KV cache (page
                 128), speculative decoding (k 4, draft 2) and all three,
-                each on phase serve's two replays (128 requests, 32 new
+                each on phase serve's two replays (32 requests, 32 new
                 tokens, 16/s and capacity) with the counts set to 0 just
                 before each and read just after; the INT8 gate on the
                 workload's first 8 prompts printed (the INT8 arms are
@@ -318,9 +323,26 @@ the run with a non-zero exit and no result line:
                 dropout off; cosine >= 0.9, and the card's f32 forward
                 with plain convs >= 0.9999); then K-A and K-B against
                 their plain versions at every shape the runs gave them.
+                Also NASNet-A mobile (224, 32), large (331, 16) and CIFAR
+                (32, 32), NCF (ids, 2048) and SSD300 (300, 32, on
+                synthetic COCO targets; 13 fused units), and, outside the
+                counted window, AlexNet, VGG16, MobileNet and NASNet-CIFAR
+                at --steps_per_dispatch=8: 8 steps as one captured
+                dispatch bitwise 8 single steps, losses and parameters;
+ 29. detect  -- SSD300 at batch 32 on 384 + 64 generated COCO records (the
+                port's generator, data/coco_record_generator.py): one
+                step saved as a checkpoint, then 2 warmup + 8 timed steps
+                warm-started from it (--backbone_model_path), K-A and K-B
+                13 a step, images/sec and the feed stall; then --eval of
+                that run's checkpoint over the validation records: the
+                per-image predictions, NMS and the COCO mAP through the
+                numpy evaluator (near 0 on untrained weights; the check is
+                that the path runs end to end), K-B 13 a batch.
 
-Before the last line it prints the card's name and power limit and one
-JSON line with every kernel's error, time, bound and library time. The
+Every process it starts shares one bytecode cache under build/pycache
+(``_use_bytecode_cache``). Before the last line it prints the card's name
+and power limit and one JSON line with every kernel's error, time, bound
+and library time. The
 last line is {"ok": true, "device": {...}}. ``--phases=build,conv`` runs a
 subset (the result line is printed only when every phase ran);
 ``--phases=build,profile`` traces three ResNet-50 training steps with
@@ -345,6 +367,25 @@ import sys
 import tempfile
 import time
 
+
+def _use_bytecode_cache() -> None:
+  """Keeps compiled bytecode under build/pycache in the checkout (git
+  ignores build/) for this process and every process it starts. Where
+  the interpreter is told to write none (PYTHONDONTWRITEBYTECODE) and its
+  site-packages ship none, each process compiles torch's Python sources
+  anew: about 10 s of a CLI process's start on an H100 host, which this
+  script starts some twenty of."""
+  cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "pycache")
+  sys.pycache_prefix = cache
+  sys.dont_write_bytecode = False
+  os.environ["PYTHONPYCACHEPREFIX"] = cache
+  os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
+if __name__ == "__main__":
+  _use_bytecode_cache()
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -355,7 +396,7 @@ ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
               "optim", "dispatch", "accum", "serve_graph", "fp16_vars",
               "health", "faults", "input", "aot", "serve_variants",
-              "models")
+              "models", "detect")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
@@ -1536,7 +1577,9 @@ def phase_lm_profile(res):
 # The serving phases' LM: the zoo transformer_lm at full size (vocab 32768,
 # d 512, 6 layers, 8 heads, d_ff 2048, ring 2048), bf16 over f32 params,
 # flash attention, the default ladder (1, 4, 16, 64, 256).
-SERVE_REQUESTS, SERVE_MAX_NEW = 128, 32
+# 32 requests: a quarter of the JAX bench's 128 (bench.py:336), a depth
+# cut that keeps the whole run within its time limit.
+SERVE_REQUESTS, SERVE_MAX_NEW = 32, 32
 # (label, offered requests/s, queue bound): the JAX bench's own chip
 # configuration (bench.py:336), and the capacity replay, which offers the
 # same requests at once with a queue that sheds none.
@@ -1774,10 +1817,6 @@ DP_CASES = (
     ("overlap", dict(overlap_gradient_reduction=True,
                      compact_gradient_transfer=False), "bitwise"),
 )
-# The sharded and overlapped cases: their timed runs are short, and they
-# log their peak memory and buckets.
-DP_MODE_CASES = ("zero", "zero_fsdp", "overlap")
-DP_MODE_TIMED = dict(num_batches=8, num_warmup_batches=3)
 # transformer_lm at its published size (label, flags, check): the LM's FSDP
 # step sums its block stack's L2 shard-locally and all-reduces it (the JAX
 # package's _l2_loss_mixed), the exact value reassociated, so its losses
@@ -1849,7 +1888,7 @@ def dp_params(**flags):
   from kf_benchmarks_tpu_torch import params as params_lib
   return params_lib.make_params(
       model="resnet50", batch_size=256, use_fp16=True, optimizer="momentum",
-      num_batches=20, num_warmup_batches=5, display_every=10, device="gpu",
+      num_batches=4, num_warmup_batches=2, display_every=10, device="gpu",
       **flags)
 
 
@@ -1999,8 +2038,6 @@ def phase_dp(res):
     log(f"dp {label}: NCCL world 1, losses {losses}: {verdict} against "
         "the single-device step")
     check(ok, f"dp {label}: differs from the single-device step")
-    if label in DP_MODE_CASES:
-      params = params._replace(**DP_MODE_TIMED)
     before = benchmark.kernel_launches()
     stats = cli.rank_main(0, params, mesh.local_init_method())
     after = benchmark.kernel_launches()
@@ -2317,16 +2354,77 @@ def phase_zoo(res):
         seed += 1
 
 
+# -- launches of later phases made early ---------------------------------------
+
+# Phase elastic's second round (one worker) leaves most of the card's memory
+# and of the host's cores idle. When phases faults and aot are in the run,
+# that round also runs faults' faulted launch and aot's two exports, and
+# the phase waits for all of them, so none of their work overlaps a timed
+# phase. name -> the finished launch's results (and its directory, which
+# the consuming phase removes).
+EARLY = {}
+
+
+def timed_waits(waits):
+  """{name: zero-argument function waiting for a process} -> {name:
+  (its result, seconds from now until it returned)}: the waits run on
+  threads, so each is timed to its own end; a failed one raises here."""
+  import concurrent.futures
+  t0 = time.time()
+  with concurrent.futures.ThreadPoolExecutor(len(waits)) as pool:
+    futures = {name: pool.submit(lambda fn=fn: (fn(), time.time() - t0))
+               for name, fn in waits.items()}
+    return {name: f.result() for name, f in futures.items()}
+
+
+def early_waits(phases):
+  """Starts the launches of faults and aot that ``phases`` will consume;
+  returns their waits for ``timed_waits``, which store their results in
+  EARLY."""
+  waits = {}
+  if "faults" in phases:
+    root = tempfile.mkdtemp(prefix="faults_early_")
+    started = fault_start(root, "faulted", FAULT_STEPS,
+                          "corrupt_ckpt@6,kill@7")
+
+    def faults_wait(started=started, root=root):
+      out, err = fault_finish(started)
+      return dict(out=out, err=err, root=root)
+    waits["faults"] = faults_wait
+  if "aot" in phases:
+    root = tempfile.mkdtemp(prefix="aot_early_")
+    paths = aot_paths(root)
+    for mode, started in aot_exports(paths).items():
+      waits[f"aot_{mode}"] = (
+          lambda started=started, path=paths[mode], root=root:
+          dict(text=aot_finish(started), path=path, root=root))
+  return waits
+
+
+def store_early(done):
+  """Files timed_waits' results of early_waits' launches in EARLY."""
+  for name, (result, seconds) in done.items():
+    EARLY[name] = dict(result, seconds=seconds)
+
+
+def drop_early():
+  """Removes what no phase consumed (a run that ended early)."""
+  import shutil
+  for entry in EARLY.values():
+    shutil.rmtree(entry["root"], ignore_errors=True)
+  EARLY.clear()
+
+
 # -- elastic: BASELINE config 5 through kfrun -----------------------------------
 
 ELASTIC_STEPS = 6
 
 
-def elastic_arc(root, name, num_batches):
-  """One launch of BASELINE config 5's command through ``python -m
+def elastic_start(root, name, num_batches):
+  """Starts one launch of BASELINE config 5's command through ``python -m
   kf_benchmarks_tpu_torch.kfrun -np 1``: ResNet-152, batch 128, bf16,
   kungfu, --elastic --adaptive_batch_size, its checkpoints in
-  root/<name>, no warmup steps. Returns the worker's stdout."""
+  root/<name>, no warmup steps. Returns what ``elastic_finish`` reads."""
   from kf_benchmarks_tpu_torch.parallel import mesh
   train_dir = os.path.join(root, name)
   logdir = os.path.join(root, name + "_logs")
@@ -2343,14 +2441,25 @@ def elastic_arc(root, name, num_batches):
          "--worker_hosts=" + mesh.local_init_method()[len("tcp://"):]]
   # A worker killed by a signal leaves its Python stack in its log.
   env = {**os.environ, "PYTHONFAULTHANDLER": "1"}
-  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                        env=env)
+  proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, env=env)
+  return name, logdir, proc
+
+
+def elastic_finish(started):
+  """Waits for a launch of ``elastic_start``; the worker's stdout."""
+  name, logdir, proc = started
+  try:
+    _, kf_err = proc.communicate(timeout=300)
+  except subprocess.TimeoutExpired:
+    proc.kill()
+    _, kf_err = proc.communicate()
   with open(os.path.join(logdir, "127.0.0.1.10000.stdout.log")) as f:
     out = f.read()
   with open(os.path.join(logdir, "127.0.0.1.10000.stderr.log")) as f:
     err = f.read()
   check(proc.returncode == 0, f"elastic {name}: kfrun exited "
-        f"{proc.returncode}\nkfrun: {proc.stderr[-2000:]}\nworker stdout: "
+        f"{proc.returncode}\nkfrun: {kf_err[-2000:]}\nworker stdout: "
         f"{out[-2000:]}\nworker stderr: {err[-4000:]}")
   return out
 
@@ -2398,10 +2507,24 @@ def phase_elastic(res):
   # Four ResNet-152 checkpoints of 460 MiB: removed when read.
   with tempfile.TemporaryDirectory(prefix="elastic_") as root:
     half = ELASTIC_STEPS // 2
-    logs = {"whole_a": elastic_arc(root, "whole_a", ELASTIC_STEPS),
-            "whole_b": elastic_arc(root, "whole_b", ELASTIC_STEPS),
-            "arc_1": elastic_arc(root, "arcs", half),
-            "arc_2": elastic_arc(root, "arcs", half)}
+    # The two uninterrupted runs and the first arc share the card (three
+    # workers of 19 GiB at their peak); the second arc resumes beside the
+    # early launches (EARLY).
+    started = [elastic_start(root, "whole_a", ELASTIC_STEPS),
+               elastic_start(root, "whole_b", ELASTIC_STEPS),
+               elastic_start(root, "arcs", half)]
+    logs = dict(zip(("whole_a", "whole_b", "arc_1"),
+                    [elastic_finish(s) for s in started]))
+    arc_2 = elastic_start(root, "arcs", half)
+    waits = {"arc_2": lambda: elastic_finish(arc_2),
+             **early_waits(res.get("phases", ()))}
+    done = timed_waits(waits)
+    logs["arc_2"] = done.pop("arc_2")[0]
+    store_early(done)
+    if done:
+      log(f"elastic: the second arc ran beside {', '.join(done)} (phases "
+          f"faults and aot, made early): " + ", ".join(
+              f"{k} {v:.1f} s" for k, (_, v) in done.items()))
     # The port runs this path in the workers: their counts, each from 0.
     from kf_benchmarks_tpu_torch import benchmark
     counts = dict.fromkeys(benchmark.kernel_launches(), 0)
@@ -2454,7 +2577,7 @@ def phase_elastic(res):
 
 # -- infer: forward-only ResNet-50 and transformer_lm ----------------------------
 
-INFER_STEPS = (5, 20)  # warmup, timed
+INFER_STEPS = (5, 12)  # warmup, timed
 
 
 @contextlib.contextmanager
@@ -2494,7 +2617,7 @@ def eval_logits(module, images):
 
 def phase_infer(res):
   """--forward_only through BenchmarkCNN: ResNet-50 v1.5 at batch 256,
-  bf16, and transformer_lm (flash attention) at batch 8, 5 warmup + 20
+  bf16, and transformer_lm (flash attention) at batch 8, 5 warmup + 12
   timed steps each, with the launch counts set to 0 just before each run
   and read just after (K-B 13 a ResNet step and K-A 0; the flash forward
   6 an LM step, no checkpoint recompute under no_grad). K-B at every shape
@@ -2660,16 +2783,33 @@ EVAL_BATCHES = 4
 EVAL_LOSS_RTOL = 1e-4
 
 
-def resnet_cli(*flags):
-  """``python -m kf_benchmarks_tpu_torch.cli`` on ResNet-50 v1.5 at batch
-  256, bf16, Nesterov momentum, with ``flags``; its stdout."""
+def resnet_start(*flags):
+  """Starts ``python -m kf_benchmarks_tpu_torch.cli`` on ResNet-50 v1.5 at
+  batch 256, bf16, Nesterov momentum, with ``flags``; ``resnet_finish``
+  waits for it."""
   cmd = [sys.executable, "-m", "kf_benchmarks_tpu_torch.cli",
          "--model=resnet50", "--batch_size=256", "--use_fp16",
          "--optimizer=momentum", *flags]
-  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+  return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+
+
+def resnet_finish(started):
+  """The stdout of a ``resnet_start`` process, which must exit 0."""
+  cmd, proc = started
+  try:
+    out, err = proc.communicate(timeout=600)
+  except subprocess.TimeoutExpired:
+    proc.kill()
+    out, err = proc.communicate()
   check(proc.returncode == 0, f"eval: {' '.join(cmd[2:])} exited "
-        f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-  return proc.stdout
+        f"{proc.returncode}\n{out[-2000:]}\n{err[-3000:]}")
+  return out
+
+
+def resnet_cli(*flags):
+  """``resnet_start`` and ``resnet_finish``: one process run to its end."""
+  return resnet_finish(resnet_start(*flags))
 
 
 def resnet_params(**flags):
@@ -2688,7 +2828,8 @@ def phase_eval(res):
   and top-5 equal to the eval step's in this process on the same restored
   weights and batch and its mean loss within EVAL_LOSS_RTOL of that
   step's (the seeded init's loss lies farther off, so a missing or partial
-  restore fails), and 13 K-B launches an eval batch; then 6 steps in
+  restore fails), and 13 K-B launches an eval batch; while the training
+  process runs, 6 steps in
   this process with --eval_during_training_every_n_steps=2 must evaluate
   after steps 2, 4 and 6 and end with the batch-norm averages (and every
   other tensor) of the same run without the evals: bitwise if two runs
@@ -2703,10 +2844,29 @@ def phase_eval(res):
     train_dir = os.path.join(root, "ckpt")
     t0 = time.time()
     # A rate that moves every weight well past rounding in 6 steps (the
-    # model's own is still warming up).
-    resnet_cli(f"--num_batches={EVAL_STEPS}", "--num_warmup_batches=0",
-               "--init_learning_rate=0.1", f"--train_dir={train_dir}",
-               "--save_model_steps=3", "--display_every=3")
+    # model's own is still warming up). The process runs while the runs
+    # with and without mid-training evals take their steps here.
+    training = resnet_start(
+        f"--num_batches={EVAL_STEPS}", "--num_warmup_batches=0",
+        "--init_learning_rate=0.1", f"--train_dir={train_dir}",
+        "--save_model_steps=3", "--display_every=3")
+    runs = {}
+    for name, flags in (("plain_a", {}), ("plain_b", {}),
+                        ("evals", dict(eval_during_training_every_n_steps=2))):
+      stats = benchmark.BenchmarkCNN(resnet_params(
+          num_batches=EVAL_STEPS, num_warmup_batches=0, display_every=2,
+          train_dir=os.path.join(root, name), **flags)).run()
+      runs[name], _, _ = checkpoint.load_latest_checkpoint(
+          os.path.join(root, name))
+      if flags:
+        steps = [e["step"] for e in stats["eval_results"]]
+        log(f"eval: mid-training evals after steps {steps}: " + ", ".join(
+            f"top-1 {e['top_1_accuracy']:.4f}" for e in
+            stats["eval_results"]))
+        check(steps == [2, 4, 6], f"eval: evals after steps {steps}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_finish(training)
     train_s = time.time() - t0
     check([s for s, _ in checkpoint.all_checkpoints(train_dir)] == [3, 6],
           "eval: the training process did not save steps 3 and 6")
@@ -2748,8 +2908,9 @@ def phase_eval(res):
     acc = eval_step(images, labels)
     here = (float(acc["top_1_accuracy"]), float(acc["top_5_accuracy"]))
     here_loss = float(acc["base_loss"])
-    log(f"eval: training process (6 steps, checkpoints at 3 and 6) "
-        f"{train_s:.1f} s, eval process {eval_s:.1f} s: step 6 scored "
+    log(f"eval: training process (6 steps, checkpoints at 3 and 6; beside "
+        f"the three runs in this process) {train_s:.1f} s, eval process "
+        f"{eval_s:.1f} s: step 6 scored "
         f"top-1 {top1:.4f} top-5 {top5:.4f} loss {loss:.6f} over "
         f"{m[0][2]} examples; in-process eval step on the restored "
         f"weights top-1 {here[0]:.4f} top-5 {here[1]:.4f} loss "
@@ -2765,20 +2926,6 @@ def phase_eval(res):
           f"eval: the seeded init's loss {init_loss} is within 100 "
           f"tolerances of the restored weights' {here_loss}")
     del bench, module, snap, init
-    runs = {}
-    for name, flags in (("plain_a", {}), ("plain_b", {}),
-                        ("evals", dict(eval_during_training_every_n_steps=2))):
-      stats = benchmark.BenchmarkCNN(resnet_params(
-          num_batches=EVAL_STEPS, num_warmup_batches=0, display_every=2,
-          train_dir=os.path.join(root, name), **flags)).run()
-      runs[name], _, _ = checkpoint.load_latest_checkpoint(
-          os.path.join(root, name))
-      if flags:
-        steps = [e["step"] for e in stats["eval_results"]]
-        log(f"eval: mid-training evals after steps {steps}: " + ", ".join(
-            f"top-1 {e['top_1_accuracy']:.4f}" for e in
-            stats["eval_results"]))
-        check(steps == [2, 4, 6], f"eval: evals after steps {steps}")
   noise = state_distances(runs["plain_b"], runs["plain_a"])
   got = state_distances(runs["evals"], runs["plain_a"])
   bitwise = max(noise.values()) == 0.0
@@ -2971,7 +3118,7 @@ def loss_scale_overflow():
 # -- multi-step dispatch, accumulation, captured serving programs -------------
 
 DISPATCH_K = 8
-DISPATCH_WARMUP, DISPATCH_STEPS = 8, 20
+DISPATCH_WARMUP, DISPATCH_STEPS = 8, 12
 # The busy share's window: this many steps of each arm (one dispatch of
 # them at K = 8), profiled after as many warm and as many timed.
 BUSY_STEPS = 4
@@ -3011,7 +3158,7 @@ def check_launches(label, counts, per_step, steps):
 
 def phase_dispatch(res):
   """--steps_per_dispatch through BenchmarkCNN: ResNet-50 (batch 256, bf16,
-  momentum) and transformer_lm (batch 8, flash), each 8 warmup + 20 timed
+  momentum) and transformer_lm (batch 8, flash), each 8 warmup + 12 timed
   steps at K = 1 (eager steps) and at K = 8 (one CUDA graph replayed a
   step) from the same seed; losses and final weights bitwise equal, equal
   launches a step; the rate, compile_s, dispatch_overhead_s, peak memory
@@ -3260,7 +3407,7 @@ def tick_clock(tick_s=1e-3):
 
 
 def phase_serve_graph(res):
-  """Replay (a) -- 128 requests at 16/s, 32 new tokens each -- through the
+  """Replay (a) -- 32 requests at 16/s, 32 new tokens each -- through the
   engine with its programs eager and with them captured (the default on
   the card). On the wall clock: tokens/sec, TTFT and token latency of
   both, launches 6 a decode step and 6 a prefill wave, at most
@@ -3401,7 +3548,7 @@ def phase_serve_graph(res):
 
 # -- fp16_vars, health, faults ---------------------------------------------------
 
-FP16_WARMUP, FP16_STEPS = 4, 16
+FP16_WARMUP, FP16_STEPS = 4, 8
 
 
 def weight_casts(module, fn, n=2):
@@ -3771,10 +3918,10 @@ def phase_health(res):
 FAULT_STEPS = 9
 
 
-def fault_run(root, name, num_batches, schedule=None):
-  """One launch of ResNet-50 (batch 256, bf16, Nesterov, a checkpoint
-  every 2 steps, no warmup) through ``kfrun -np 1 --restart-on-failure``;
-  returns the worker's stdout and kfrun's stderr."""
+def fault_start(root, name, num_batches, schedule=None):
+  """Starts one launch of ResNet-50 (batch 256, bf16, Nesterov, a
+  checkpoint every 2 steps, no warmup) through ``kfrun -np 1
+  --restart-on-failure``; ``fault_finish`` waits for it."""
   train_dir = os.path.join(root, name)
   logdir = os.path.join(root, name + "_logs")
   os.makedirs(logdir, exist_ok=True)
@@ -3789,14 +3936,24 @@ def fault_run(root, name, num_batches, schedule=None):
   if schedule:
     cmd.append(f"--fault_schedule={schedule}")
   env = {**os.environ, "PYTHONFAULTHANDLER": "1"}
-  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                        env=env)
+  return name, logdir, subprocess.Popen(
+      cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def fault_finish(started):
+  """The worker's stdout and kfrun's stderr of a ``fault_start`` launch."""
+  name, logdir, proc = started
+  try:
+    _, err = proc.communicate(timeout=300)
+  except subprocess.TimeoutExpired:
+    proc.kill()
+    _, err = proc.communicate()
   with open(os.path.join(logdir, "127.0.0.1.10000.stdout.log")) as f:
     out = f.read()
   check(proc.returncode == 0, f"faults {name}: kfrun exited "
-        f"{proc.returncode}\nkfrun: {proc.stderr[-2000:]}\nworker: "
+        f"{proc.returncode}\nkfrun: {err[-2000:]}\nworker: "
         f"{out[-3000:]}")
-  return out, proc.stderr
+  return out, err
 
 
 def phase_faults(res):
@@ -3804,27 +3961,23 @@ def phase_faults(res):
   docstring, item 24. The two uninterrupted runs are BenchmarkCNN in this
   process (same seed, same checkpoints), with their counts set to 0 just
   before each and read just after."""
+  import shutil
   import tempfile
   from kf_benchmarks_tpu_torch import benchmark
   from kf_benchmarks_tpu_torch import checkpoint
   gc.collect()
   torch.cuda.empty_cache()
   total = 6 + FAULT_STEPS
+  early = EARLY.pop("faults", None)
   with tempfile.TemporaryDirectory(prefix="faults_") as root:
-    t0 = time.time()
-    out, err = fault_run(root, "faulted", FAULT_STEPS,
-                         "corrupt_ckpt@6,kill@7")
-    faulted_s = time.time() - t0
-    check("worker died (exit 9); rejoining np=1" in err,
-          f"faults: kfrun did not rejoin the killed worker: {err[-1000:]}")
-    check("fault injected: kill at step 7" in out and
-          "fault corrupt_ckpt: truncated model.ckpt-4.pt" in out,
-          "faults: the faults did not fire")
-    check(re.findall(r"Restored checkpoint at global step (\d+)", out) ==
-          ["6"], "faults: the rejoined worker did not resume at step 6")
-    # The worker that ran to its end (the killed one prints no counts).
-    counts = launches_in(out)
-    check_launches("faults faulted", counts, RESNET_LAUNCHES, FAULT_STEPS)
+    # The faulted launch ran in phase elastic (EARLY), or runs in its own
+    # processes while the two uninterrupted runs take their steps here.
+    faulted_root = early["root"] if early else root
+    if early is None:
+      t0 = time.time()
+      started = fault_start(root, "faulted", FAULT_STEPS,
+                            "corrupt_ckpt@6,kill@7")
+    counts = {}
     for name in ("whole_a", "whole_b"):
       _, stats, launched, _ = bench_arm(resnet_train_params(
           num_batches=total, num_warmup_batches=0, display_every=total,
@@ -3834,18 +3987,38 @@ def phase_faults(res):
       counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
       gc.collect()
       torch.cuda.empty_cache()
+    if early is None:
+      out, err = fault_finish(started)
+      faulted_s = time.time() - t0
+    else:
+      out, err, faulted_s = early["out"], early["err"], early["seconds"]
+    check("worker died (exit 9); rejoining np=1" in err,
+          f"faults: kfrun did not rejoin the killed worker: {err[-1000:]}")
+    check("fault injected: kill at step 7" in out and
+          "fault corrupt_ckpt: truncated model.ckpt-4.pt" in out,
+          "faults: the faults did not fire")
+    check(re.findall(r"Restored checkpoint at global step (\d+)", out) ==
+          ["6"], "faults: the rejoined worker did not resume at step 6")
+    # The worker that ran to its end (the killed one prints no counts).
+    launched = launches_in(out)
+    check_launches("faults faulted", launched, RESNET_LAUNCHES, FAULT_STEPS)
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
     res.setdefault("counts_by_path", {})["faults"] = counts
     snaps = {}
     for name in ("faulted", "whole_a", "whole_b"):
       snaps[name], _, step = checkpoint.load_latest_checkpoint(
-          os.path.join(root, name))
+          os.path.join(faulted_root if name == "faulted" else root, name))
       check(step == total, f"faults {name}: last step {step}")
+  if early:
+    shutil.rmtree(early["root"], ignore_errors=True)
   noise = state_distances(snaps["whole_b"], snaps["whole_a"])
   resumed = state_distances(snaps["faulted"], snaps["whole_a"])
   bitwise = max(noise.values()) == 0.0
   over = {k: (v, noise[k]) for k, v in resumed.items() if v > noise[k]}
   log(f"faults: killed after step 7 and rejoined from step 6 (step 4's "
-      f"checkpoint torn): {faulted_s:.1f} s for both generations; two "
+      f"checkpoint torn): {faulted_s:.1f} s for both generations ("
+      f"{'in phase elastic' if early else 'beside the two runs here'}); "
+      f"two "
       f"uninterrupted runs {'bitwise equal' if bitwise else 'differ'} "
       f"(largest tensor distance {max(noise.values()):.3g}); the rejoined "
       f"run against the first: largest {max(resumed.values()):.3g}, "
@@ -3862,7 +4035,7 @@ def phase_faults(res):
 
 # Phase input: the records it writes and the steps of each run.
 INPUT_TRAIN, INPUT_VALIDATION, INPUT_DISTINCT = 1024, 256, 64
-INPUT_WARMUP, INPUT_STEPS = 8, 16
+INPUT_WARMUP, INPUT_STEPS = 8, 8
 # The decode of jpeg.encode(textured_image(RandomState(0)), quality=90)
 # (kf_benchmarks_tpu_torch/data; tests/test_torch_jpeg.py pins it too).
 PINNED_DECODE_SHA256 = (
@@ -4117,22 +4290,44 @@ MODELS_RUNS = (
     ("densenet40_k12", "densenet40_k12", "cifar10", 32, 64, 0, {}),
     ("resnet56", "resnet56", "cifar10", 32, 128, 9, {}),
     ("resnet56_v2", "resnet56_v2", "cifar10", 32, 128, 9, {}),
+    # NASNet-A mobile, large and CIFAR, NCF and SSD300 (ROADMAP Queue 1
+    # item 7b). NCF has no image size. SSD300's 13 basic blocks each run
+    # their second 3x3 as the fused unit (models/ssd_model.py).
+    ("nasnet", "nasnet", "imagenet", 224, 32, 0, {}),
+    ("nasnetlarge", "nasnetlarge", "imagenet", 331, 16, 0, {}),
+    ("nasnet_cifar10", "nasnet", "cifar10", 32, 32, 0, {}),
+    ("ncf", "ncf", "imagenet", None, 2048, 0, {}),
+    ("ssd300", "ssd300", "coco", 300, 32, 13, {}),
 )
 MODELS_WARMUP, MODELS_STEPS = 3, 10
 MODELS_COSINE_BATCH = 8
 # The bf16 card forward against the f32 CPU forward, and the f32 card
-# forward (every conv plain) against the same: bf16 rounding grows through
-# a deep random network's batch norms at batch 8 (Inception-v4 read 0.93),
-# f32 rounding does not.
+# forward (every conv plain) against the same. bf16 rounding grows through
+# a deep random network's batch norms at batch 8, in the JAX package as in
+# the port: on the CPU (tests/test_torch_zoo_bf16.py) the JAX package's own
+# bf16 forward reads cosine 0.933527 against its f32 forward on
+# Inception-v4 (the port's 0.934769), 0.991754 on official_resnet50 and
+# 0.993694 on mobilenet, and the port's bf16 logits lie no further from
+# JAX's than JAX's bf16 from its f32. So 0.9 stays the floor: the drift is
+# bf16's, not the port's. f32 rounding does not grow so.
 MODELS_COSINE_MIN = {"bf16": 0.9, "f32": 0.9999}
+# Captured steps of the networks that draw dropout or drop path (label,
+# model, dataset, batch): K = 8 bitwise eight single steps.
+MODELS_CAPTURED = (("alexnet", "alexnet", "imagenet", 512),
+                   ("vgg16", "vgg16", "imagenet", 64),
+                   ("mobilenet", "mobilenet", "imagenet", 32),
+                   ("nasnet_cifar10", "nasnet", "cifar10", 32))
+MODELS_CAPTURED_K = 8
 
 
 def models_params(model, data_name, batch, **flags):
   from kf_benchmarks_tpu_torch import params as params_lib
+  kw = dict(num_batches=MODELS_STEPS, num_warmup_batches=MODELS_WARMUP,
+            display_every=MODELS_STEPS, device="gpu")
+  kw.update(flags)
   return params_lib.make_params(
       model=model, data_name=data_name, batch_size=batch, use_fp16=True,
-      num_batches=MODELS_STEPS, num_warmup_batches=MODELS_WARMUP,
-      display_every=MODELS_STEPS, device="gpu", **flags)
+      **kw)
 
 
 def models_cosine(model, nclass, seed):
@@ -4170,6 +4365,39 @@ def models_cosine(model, nclass, seed):
           for k, o in zip(("bf16", "f32"), outs)}
 
 
+def models_captured(label, model, data_name, batch):
+  """MODELS_CAPTURED_K steps of ``model`` as one captured dispatch
+  (--steps_per_dispatch) against the same steps one at a time, from one
+  seed: the losses and every parameter bitwise equal (the dropout and
+  drop-path draws read the step counter on the device)."""
+  from kf_benchmarks_tpu_torch import benchmark
+  k = MODELS_CAPTURED_K
+  runs = {}
+  for kk in (1, k):
+    bench = benchmark.BenchmarkCNN(models_params(
+        model, data_name, batch, steps_per_dispatch=kk,
+        num_batches=k, num_warmup_batches=0, display_every=k))
+    stats = bench.run()
+    runs[kk] = (stats, [q.detach().clone() for q in
+                        bench.final["module"].parameters()])
+    del bench
+  (s1, p1), (sk, pk) = runs[1], runs[k]
+  same_losses = list(s1["losses"]) == list(sk["losses"])
+  same_params = all(torch.equal(a, b) for a, b in zip(p1, pk))
+  check(len(s1["losses"]) == k and same_losses and same_params,
+        f"models {label}: K = {k} captured steps differ from {k} single "
+        f"steps (losses {s1['losses']} / {sk['losses']}, parameters equal "
+        f"{same_params})")
+  check(len(set(s1["losses"])) > 1,
+        f"models {label}: the {k} steps' losses are all equal")
+  log(f"models {label}: {k} steps at K = {k} (one captured dispatch) "
+      f"bitwise {k} single steps: losses {[round(v, 6) for v in s1['losses']]}"
+      f", {len(p1)} parameter tensors equal")
+  gc.collect()
+  torch.cuda.empty_cache()
+  return {"k": k, "losses": list(s1["losses"]), "bitwise": True}
+
+
 def phase_models(res):
   """The image-classification zoo (ROADMAP Queue 1 item 7a): see the
   module docstring, item 28."""
@@ -4181,8 +4409,9 @@ def phase_models(res):
   for label, model, data_name, size, batch, fused, flags in MODELS_RUNS:
     params = models_params(model, data_name, batch, **flags)
     bench = benchmark.BenchmarkCNN(params)
-    check(bench.model.image_size == size and bench.batch_size == batch,
-          f"models {label}: image size {bench.model.image_size}, batch "
+    got_size = getattr(bench.model, "image_size", None)
+    check(got_size == size and bench.batch_size == batch,
+          f"models {label}: image size {got_size}, batch "
           f"{bench.batch_size}, want {size} and {batch}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4209,7 +4438,8 @@ def phase_models(res):
                       loss=stats["last_average_loss"],
                       fused_a_step=fused)
     log(f"models {label}: {bench.model.get_name()} on {data_name}, "
-        f"{size}x{size}, batch {batch}, {steps} steps ({MODELS_WARMUP} "
+        f"{f'{size}x{size}' if size else 'ids'}, batch {batch}, {steps} "
+        f"steps ({MODELS_WARMUP} "
         f"warmup + {MODELS_STEPS} timed), {stats['images_per_sec']:.2f} "
         f"images/sec, peak memory {peak:.2f} GiB, loss "
         f"{stats['last_average_loss']:.4f}, launches {launched} ({fused} + "
@@ -4219,6 +4449,8 @@ def phase_models(res):
     torch.cuda.empty_cache()
   res.setdefault("counts_by_path", {})["models"] = \
       benchmark.kernel_launches()
+  for label, model, data_name, batch in MODELS_CAPTURED:
+    out[label]["captured"] = models_captured(label, model, data_name, batch)
   # Outside the counted window: the forward cosines and the kernels at the
   # new shapes.
   from kf_benchmarks_tpu_torch.data import datasets
@@ -4251,6 +4483,93 @@ def phase_models(res):
         seed += 1
 
 
+# -- detect: SSD300 on generated COCO records ----------------------------------
+
+DETECT_RECORDS = (384, 64)  # train, validation
+DETECT_BATCH = 32
+DETECT_WARMUP, DETECT_STEPS = 2, 8
+DETECT_LAUNCHES = {"conv3x3_same": 13, "bn_relu_conv3x3_stats": 13}
+
+
+def detect_params(data_dir, **kw):
+  from kf_benchmarks_tpu_torch import params as params_lib
+  return params_lib.make_params(
+      model="ssd300", data_name="coco", data_dir=data_dir,
+      batch_size=DETECT_BATCH, use_fp16=True, optimizer="momentum",
+      device="gpu", display_every=DETECT_STEPS, **kw)
+
+
+def phase_detect(res):
+  """SSD300 on generated COCO records: see the module docstring, item
+  29."""
+  from kf_benchmarks_tpu_torch import benchmark, checkpoint
+  from kf_benchmarks_tpu_torch.data import coco_record_generator
+  out = res["detect"] = {}
+  with tempfile.TemporaryDirectory() as root:
+    data_dir = os.path.join(root, "coco")
+    t0 = time.time()
+    coco_record_generator.write_fake_coco(
+        data_dir, num_train=DETECT_RECORDS[0],
+        num_validation=DETECT_RECORDS[1])
+    log(f"detect: wrote {DETECT_RECORDS[0]} + {DETECT_RECORDS[1]} COCO "
+        f"records (300x300) and the annotation file in "
+        f"{time.time() - t0:.1f} s")
+    # The checkpoint the warm start reads: one step of another run.
+    first = benchmark.BenchmarkCNN(detect_params(
+        data_dir, num_batches=1, num_warmup_batches=0,
+        train_dir=os.path.join(root, "backbone")))
+    first.run()
+    backbone, _ = checkpoint.latest_checkpoint(os.path.join(root,
+                                                            "backbone"))
+    saved = first.final["module"].state_dict()
+    del first
+    bench, stats, counts, peak = bench_arm(detect_params(
+        data_dir, num_batches=DETECT_STEPS,
+        num_warmup_batches=DETECT_WARMUP, backbone_model_path=backbone,
+        train_dir=os.path.join(root, "run")))
+    steps = stats["steps_run"]
+    check(np.isfinite(stats["last_average_loss"]),
+          "detect: SSD300's loss is not finite")
+    check_launches("detect train", counts, DETECT_LAUNCHES, steps)
+    stall = stats["feed_stall_fraction"]
+    log(f"detect: SSD300 on the records, batch {DETECT_BATCH}, bf16, "
+        f"{steps} steps ({DETECT_WARMUP} warmup + {DETECT_STEPS} timed), "
+        f"warm-started from {os.path.basename(backbone)} "
+        f"({len(saved)} tensors): {stats['images_per_sec']:.2f} images/sec, "
+        f"feed stall {stall if stall is None else round(stall, 4)}, peak "
+        f"memory {peak:.2f} GiB, loss {stats['last_average_loss']:.4f}, "
+        f"launches {counts} (13 + 13 a step wanted)")
+    del bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Evaluation on the validation records: the trained run's checkpoint,
+    # the per-image predictions and the mAP.
+    before = benchmark.kernel_launches()
+    ev = benchmark.BenchmarkCNN(detect_params(
+        data_dir, eval=True, train_dir=os.path.join(root, "run")))
+    results = ev.run()
+    eval_counts = {k: v - before[k]
+                   for k, v in benchmark.kernel_launches().items()}
+    n = results.get("num_eval_images", 0)
+    check(n == DETECT_RECORDS[1] and "COCO/AP" in results and
+          np.isfinite(results["COCO/AP"]),
+          f"detect: eval scored {n} images, results {sorted(results)}")
+    batches = -(-DETECT_RECORDS[1] // DETECT_BATCH)
+    check_launches("detect eval", eval_counts,
+                   {"bn_relu_conv3x3_stats": 13}, batches)
+    log(f"detect: eval of {n} validation images ({batches} batches, "
+        f"{results['eval_images_per_sec']:.2f} images/sec): COCO mAP "
+        f"{results['COCO/AP']:.4f}, AP50 {results['COCO/AP50']:.4f} "
+        f"({results.get('coco_evaluator')} evaluator; untrained weights: "
+        f"near 0 is expected), K-B launches {eval_counts}")
+  res.setdefault("counts_by_path", {})["detect"] = {
+      k: counts[k] + eval_counts[k] for k in counts}
+  out.update(images_per_sec=stats["images_per_sec"], feed_stall=stall,
+             steps=steps, launches=counts, eval_launches=eval_counts,
+             coco_ap=results["COCO/AP"], coco_ap50=results["COCO/AP50"],
+             evaluator=results.get("coco_evaluator"), peak_gib=peak)
+
+
 # -- the frozen forward and the serving variants ----------------------------------
 
 AOT_STEPS = (3, 10)  # warmup, timed of each loaded program
@@ -4277,25 +4596,36 @@ class _NotingOps(TorchDispatchMode):
     return func(*args, **(kwargs or {}))
 
 
-def aot_cli(*flags):
-  """``python -m kf_benchmarks_tpu_torch.cli`` forward-only on ResNet-50
-  v1.5 at batch 256, bf16; the finished process, which must exit 0."""
+def aot_start(*flags):
+  """Starts ``python -m kf_benchmarks_tpu_torch.cli`` forward-only on
+  ResNet-50 v1.5 at batch 256, bf16; ``aot_finish`` waits for it."""
   cmd = [sys.executable, "-m", "kf_benchmarks_tpu_torch.cli",
          "--model=resnet50", "--batch_size=256", "--use_fp16",
          "--forward_only", *flags]
-  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+  return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+
+
+def aot_finish(started):
+  """The stdout of the process of ``aot_start``, which must exit 0."""
+  cmd, proc = started
+  try:
+    out, err = proc.communicate(timeout=600)
+  except subprocess.TimeoutExpired:
+    proc.kill()
+    out, err = proc.communicate()
   check(proc.returncode == 0, f"aot: {' '.join(cmd[2:])} exited "
-        f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-  return proc
+        f"{proc.returncode}\n{out[-2000:]}\n{err[-3000:]}")
+  return out
 
 
 def phase_aot(res):
   """The frozen forward: ResNet-50 v1.5 at batch 256, bf16, exported by the
-  CLI at --trt_mode=FP16 and INT8 (one process each, which then runs one
-  forward-only step), each loaded in a fresh process, captured as a CUDA
-  graph and timed (5 warmup + 20 timed steps, its launch counts read from
-  its log: 13 K-B and no K-A a forward), beside phase infer's in-process
-  eager rate. In this process: an
+  CLI at --trt_mode=FP16 and INT8 (one process each, the two at once, each
+  then running one forward-only step), each loaded in a fresh process
+  alone, captured as a CUDA graph and timed (AOT_STEPS, its launch counts
+  read from its log: 13 K-B and no K-A a forward), beside phase infer's
+  in-process eager rate. In this process: an
   INT8 load asked for the float mode must fail on the sidecar diff; each
   loaded program's logits on one batch against the in-process eval forward
   of the same weights (the FP16 program: bf16 rounding only; the INT8
@@ -4310,25 +4640,49 @@ def phase_aot(res):
   res["aot"] = out
 
 
+def aot_paths(root):
+  """{mode: the export's path under ``root``}."""
+  return {m: os.path.join(root, f"resnet50_{m.lower()}.pt2")
+          for m in ("FP16", "INT8")}
+
+
+def aot_exports(paths):
+  """Starts the two exports at once: {mode: ``aot_start``'s launch}."""
+  return {mode: aot_start(f"--trt_mode={mode}", f"--aot_save_path={path}",
+                          "--num_batches=1", "--num_warmup_batches=0")
+          for mode, path in paths.items()}
+
+
 def _aot_in(res, out, root):
-  """Phase aot's work, its artifacts under ``root``."""
+  """Phase aot's work, its artifacts under ``root`` (or where phase
+  elastic's early exports left them)."""
+  import shutil
   from kf_benchmarks_tpu_torch import aot
   from kf_benchmarks_tpu_torch import benchmark
   from kf_benchmarks_tpu_torch import convert
   from kf_benchmarks_tpu_torch import quantization
   warm, timed = AOT_STEPS
-  paths = {m: os.path.join(root, f"resnet50_{m.lower()}.pt2")
-           for m in ("FP16", "INT8")}
+  # The two exports run at once (each timed to its own end), here or in
+  # phase elastic (EARLY); each load below runs alone, as it is timed.
+  early = {m: EARLY.pop(f"aot_{m}", None) for m in ("FP16", "INT8")}
+  if all(early.values()):
+    paths = {m: e["path"] for m, e in early.items()}
+    texts = {m: (e["text"], e["seconds"]) for m, e in early.items()}
+  else:
+    paths = aot_paths(root)
+    texts = timed_waits({
+        mode: (lambda started=started: aot_finish(started))
+        for mode, started in aot_exports(paths).items()})
   for mode, path in paths.items():
-    t0 = time.time()
-    proc = aot_cli(f"--trt_mode={mode}", f"--aot_save_path={path}",
-                   "--num_batches=1", "--num_warmup_batches=0")
-    check(f"Exported frozen forward program to {path}" in proc.stdout,
-          f"aot: no export line\n{proc.stdout[-2000:]}")
-    out[mode] = {"bytes": os.path.getsize(path), "export_s": time.time() - t0,
+    text, seconds = texts[mode]
+    check(f"Exported frozen forward program to {path}" in text,
+          f"aot: no export line\n{text[-2000:]}")
+    out[mode] = {"bytes": os.path.getsize(path), "export_s": seconds,
                  "sidecar": aot.read_signature(path)}
   ratio = out["INT8"]["bytes"] / out["FP16"]["bytes"]
-  log(f"aot: export (CLI process, build + export + 1 step): FP16 "
+  log(f"aot: export (two CLI processes at once"
+      f"{', in phase elastic' if all(early.values()) else ''}, build + "
+      f"export + 1 step, each until it ended): FP16 "
       f"{out['FP16']['bytes']} bytes in {out['FP16']['export_s']:.1f} s, "
       f"INT8 {out['INT8']['bytes']} bytes in {out['INT8']['export_s']:.1f} "
       f"s: INT8 / FP16 = {ratio:.4f}")
@@ -4336,14 +4690,15 @@ def _aot_in(res, out, root):
   infer = res.get("infer", {}).get("resnet50", {}).get("images_per_sec")
   counts = dict.fromkeys(benchmark.kernel_launches(), 0)
   for mode, path in paths.items():
-    proc = aot_cli(f"--trt_mode={mode}", f"--aot_load_path={path}",
-                   f"--num_batches={timed}", f"--num_warmup_batches={warm}",
-                   "--display_every=10")
-    m = re.search(r"^total images/sec: ([\d.]+)$", proc.stdout, re.M)
-    check(m and "Loaded frozen forward program" in proc.stdout and
-          "Captured the loaded program as a CUDA graph" in proc.stdout,
-          f"aot: load {mode}\n{proc.stdout[-2000:]}")
-    launched = launches_in(proc.stdout)
+    text = aot_finish(aot_start(
+        f"--trt_mode={mode}", f"--aot_load_path={path}",
+        f"--num_batches={timed}", f"--num_warmup_batches={warm}",
+        "--display_every=10"))
+    m = re.search(r"^total images/sec: ([\d.]+)$", text, re.M)
+    check(m and "Loaded frozen forward program" in text and
+          "Captured the loaded program as a CUDA graph" in text,
+          f"aot: load {mode}\n{text[-2000:]}")
+    launched = launches_in(text)
     steps = warm + timed
     rate = float(m.group(1))
     out[mode].update(images_per_sec=rate, launches=launched)
@@ -4410,6 +4765,9 @@ def _aot_in(res, out, root):
         f"aot_{h}x{w}_{c}", n, h, w, c, w_k.shape[0], seed=0,
         given=(x, w_k.permute(1, 2, 3, 0).contiguous(), sc, sh)))
   del bench, module
+  for e in early.values():
+    if e:
+      shutil.rmtree(e["root"], ignore_errors=True)
 
 
 SERVE_VARIANTS = (
@@ -4457,7 +4815,7 @@ def phase_serve_variants(res):
   """The serving engine's decode-cost variants at the full-size LM (bf16,
   flash, ladder 1/4/16/64/256): dense, INT8 weights, the paged KV cache
   (page 128), speculative decoding (k 4, a 2-layer draft) and all three,
-  each on phase serve's two replays of the seeded poisson_workload (128
+  each on phase serve's two replays of the seeded poisson_workload (32
   requests, 32 new tokens, at 16/s and at capacity), warm() first and the
   launch counts set to 0 just before each replay and read just after. The
   INT8 arms are served by the engine directly: on random weights the INT8
@@ -4543,7 +4901,8 @@ def phase_serve_variants(res):
               f"launched {n} times, want {want.get(name, 0)}")
         counts_all[name] = counts_all.get(name, 0) + n
       check(stats["serving/completed"] + stats["serving/shed"] ==
-            SERVE_REQUESTS and stats["serving/completed"] >= 120,
+            SERVE_REQUESTS and stats["serving/completed"] >=
+            SERVE_REQUESTS - SERVE_REQUESTS // 16,
             f"serve_variants {arm} {label}: {stats['serving/completed']} "
             f"completed, {stats['serving/shed']} shed")
       for r in results:
@@ -4742,7 +5101,7 @@ def main(argv=None) -> int:
   torch.backends.cudnn.allow_tf32 = False
   log(f"chip_smoke: torch {torch.__version__}, CUDA {torch.version.cuda}, "
       f"{torch.cuda.get_device_name(0)}")
-  res = {"counts": {}}
+  res = {"counts": {}, "phases": phases}
   table = {"build": phase_build, "conv": phase_conv, "unit": phase_unit,
            "train": phase_train, "parity": phase_parity,
            "flash": phase_flash, "flash_grad": phase_flash_grad,
@@ -4756,19 +5115,22 @@ def main(argv=None) -> int:
            "fp16_vars": phase_fp16_vars, "health": phase_health,
            "faults": phase_faults, "input": phase_input,
            "aot": phase_aot, "serve_variants": phase_serve_variants,
-           "models": phase_models,
+           "models": phase_models, "detect": phase_detect,
            "serve_profile": phase_serve_profile,
            "conv_tiles": phase_conv_tiles,
            "profile": phase_profile, "lm_profile": phase_lm_profile}
-  for name in phases:
-    t0 = time.time()
-    log(f"== phase {name}")
-    table[name](res)
-    # What a phase kept alive -- CUDA graphs' private pools, engines' rings
-    # -- goes before the next one.
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"== phase {name} done in {time.time() - t0:.1f} s")
+  try:
+    for name in phases:
+      t0 = time.time()
+      log(f"== phase {name}")
+      table[name](res)
+      # What a phase kept alive -- CUDA graphs' private pools, engines'
+      # rings -- goes before the next one.
+      gc.collect()
+      torch.cuda.empty_cache()
+      log(f"== phase {name} done in {time.time() - t0:.1f} s")
+  finally:
+    drop_early()
   log(device_line())
   log(json.dumps(kernels_line(res, res["counts"])))
   if phases != list(ALL_PHASES):

@@ -123,6 +123,7 @@ from kf_benchmarks_tpu_torch import validation
 from kf_benchmarks_tpu_torch.data import datasets
 from kf_benchmarks_tpu_torch.data import device_feed
 from kf_benchmarks_tpu_torch.data import preprocessing
+from kf_benchmarks_tpu_torch.models import builder
 from kf_benchmarks_tpu_torch.models import model as model_lib
 from kf_benchmarks_tpu_torch.models import model_config
 from kf_benchmarks_tpu_torch.ops import conv_bn
@@ -241,7 +242,8 @@ class RealInput:
   def current(self):
     if not self.chunked:
       return self.images, self.labels
-    return self.images[self.cursor], self.labels[self.cursor]
+    return self.images[self.cursor], train_step_lib.tree_map(
+        lambda t: t[self.cursor], self.labels)
 
   def advance(self, n: int) -> None:
     if not self.chunked:
@@ -401,6 +403,10 @@ class BenchmarkCNN:
       module = model_lib.cast_params(
           self.model.make_module(self.nclass, self.compute_dtype,
                                  generator=gen), self.param_dtype)
+    if isinstance(module, builder.SeededDropout):
+      # NASNet's drop-path schedule runs over the resolved run length (JAX
+      # benchmark.py:552, train_step.py:339-346).
+      module.total_steps = self.num_batches
     return module, gen
 
   def _synthetic_batch(self, gen: torch.Generator):
@@ -426,6 +432,17 @@ class BenchmarkCNN:
     ``broadcast_init``."""
     p = self.params
     module, gen = self._make_module()
+    t_restore = None
+    if snapshot is None and p.train_dir:
+      t_restore = time.time()
+      try:
+        snapshot, _, _ = checkpoint.load_latest_checkpoint(p.train_dir)
+        self.input_incarnation = int(snapshot.get("input_incarnation", 0))
+        load_s = time.time() - t_restore
+      except checkpoint.CheckpointNotFoundException:
+        t_restore = None
+    if p.backbone_model_path and snapshot is None:
+      self._load_backbone(module)
     if p.forward_only:
       step = train_step_lib.EvalStep(self.model, module)
     else:
@@ -449,15 +466,9 @@ class BenchmarkCNN:
           single_l2_loss_op=p.single_l2_loss_op,
           num_grad_accum=self.num_grad_accum, sharding=sharding,
           overlap=overlap.build(p), health_stats=bool(p.health_stats))
-    t_restore = None
-    if snapshot is None and p.train_dir:
-      t_restore = time.time()
-      try:
-        snapshot, _, _ = checkpoint.load_latest_checkpoint(p.train_dir)
-        self.input_incarnation = int(snapshot.get("input_incarnation", 0))
-      except checkpoint.CheckpointNotFoundException:
-        t_restore = None
     restored_step = None
+    if t_restore is not None:
+      t_restore = time.time() - load_s  # the load and the restore alone
     if snapshot is not None:
       if p.forward_only:
         restored_step = checkpoint.restore_model(module, snapshot)
@@ -480,6 +491,17 @@ class BenchmarkCNN:
         self.strategy.broadcast_init(
             [q.detach() for q in module.parameters()])
     return module, step, images, labels
+
+  def _load_backbone(self, module) -> None:
+    """--backbone_model_path: the matching variables of a checkpoint of
+    the port, before training (skipped on resume, whose state is further
+    trained; JAX benchmark.py:1115-1127)."""
+    path = self.params.backbone_model_path
+    n = checkpoint.restore_backbone(module, path)
+    if not n:
+      raise ValueError(f"--backbone_model_path={path} matched no variables "
+                       "of this model (wrong checkpoint?)")
+    log_fn(f"Loaded {n} backbone tensors from {path}")
 
   def _save_checkpoint(self, module, step, incarnation_bump: int = 0
                        ) -> None:
@@ -732,12 +754,42 @@ class BenchmarkCNN:
     evaluates its own copy of the batch; the accuracies are the mean
     over the ranks."""
     module, gen = self._make_module()
+    if (hasattr(self.model, "evaluate_real_data") and
+        not self.synthetic):
+      return self._eval_detection(module)
     images, labels = (self._synthetic_batch(gen) if self.synthetic
                       else (None, None))
     eval_step = train_step_lib.EvalStep(self.model, module)
     if not self.params.train_dir:
       return self._eval_pass(eval_step, images, labels)
     return self._eval_poll_loop(module, eval_step, images, labels)
+
+  def _eval_detection(self, module) -> Dict[str, Any]:
+    """A detection model's evaluation on records (JAX benchmark.py:
+    2121-2136): the newest checkpoint of --train_dir if there is one, then
+    the model's own pass over the validation records, which accumulates
+    its predictions per image and scores them (COCO mAP)."""
+    p = self.params
+    if p.train_dir:
+      try:
+        snapshot, _, _ = checkpoint.load_latest_checkpoint(p.train_dir)
+        checkpoint.restore_model(module, snapshot)
+      except checkpoint.CheckpointNotFoundException:
+        pass
+    start = time.time()
+    results = self.model.evaluate_real_data(
+        module, p, self.dataset, self.device, self.compute_dtype,
+        num_batches=p.num_eval_batches)
+    n = results.get("num_eval_images", 0)
+    results["eval_images_per_sec"] = n / max(time.time() - start, 1e-9)
+    if "COCO/AP" not in results:
+      log_fn("COCO mAP: not computed (%s) [%d examples]" % (
+          results.get("coco_map_note", "no note"), n))
+    else:
+      log_fn("COCO mAP = %.4f, AP50 = %.4f (%s evaluator) [%d examples]" % (
+          results["COCO/AP"], results["COCO/AP50"],
+          results.get("coco_evaluator"), n))
+    return results
 
   def _eval_pass(self, eval_step, images, labels) -> Dict[str, Any]:
     """One scoring: the synthetic batch, or a fresh one-pass validation

@@ -206,6 +206,24 @@ def load_latest_checkpoint(train_dir: str):
       f"({skipped} corrupt file(s) skipped)")
 
 
+def restore_backbone(module: nn.Module, path: str) -> int:
+  """A warm start from a checkpoint of the port at ``path``: each of the
+  module's variables (parameters and batch-norm averages) whose name and
+  shape the checkpoint's model has is copied in (the JAX package's
+  ``restore_backbone``, checkpoint.py:374-415 there: an SSD300
+  checkpoint, or any whose layers share the backbone's names). Returns
+  the count of variables loaded."""
+  model = load_checkpoint(path).get("model", {})
+  restored = 0
+  with torch.no_grad():
+    for name, t in module.state_dict().items():
+      src = model.get(name)
+      if src is not None and tuple(src.shape) == tuple(t.shape):
+        t.copy_(src)
+        restored += 1
+  return restored
+
+
 def restore_state(module: nn.Module, optimizer: torch.optim.Optimizer,
                   snapshot: Dict, sharding=None) -> int:
   """Loads a snapshot into the module (strictly: every key, every shape)

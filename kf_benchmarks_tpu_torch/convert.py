@@ -8,11 +8,12 @@ nests the bottleneck layers (``resnet_v1<k>_<part>``, or
 ``blocks.<k>.<part>``; the module's ``block_prefix`` says which) and keeps
 the other names (ResNet v2's ``final_bn``). Every network recorded
 through builder.ConvNetBuilder (Inception, VGG, AlexNet, OverFeat, LeNet,
-GoogLeNet, the official and CIFAR ResNets, DenseNet) registers its layers
-under the JAX builder's names in its counter order (``conv<n>`` /
-``conv<n>_bn``, ``batchnorm<n>``, ``resblk<k>_a``, ``affine<n>``), and
-MobileNet under flax's own (``Conv_<i>``, ``BatchNorm_<i>``,
-``Dense_0``), so those map name for name. Leaves:
+GoogLeNet, the official and CIFAR ResNets, DenseNet, SSD300) registers
+its layers under the JAX builder's names in its counter order
+(``conv<n>`` / ``conv<n>_bn``, ``batchnorm<n>``, ``resblk<k>_a``,
+``affine<n>``), and MobileNet and NASNet under flax's own (``Conv_<i>``,
+``BatchNorm_<i>``, ``Dense_<i>``), so those map name for name; NCF's
+embeddings keep flax's names and their ``embedding`` leaf as is. Leaves:
 
   conv   ``kernel`` HWIO       -> ``weight`` OIHW (a depthwise conv's
          [kh, kw, 1, C] -> [C, 1, kh, kw]); ``bias`` as is

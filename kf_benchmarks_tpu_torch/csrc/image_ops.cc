@@ -254,4 +254,67 @@ int kfi_enhance(const uint8_t* rgb, size_t n, int kind, double factor,
   return -1;
 }
 
+// convert("HSV") of n RGB pixels (PIL's rgb2hsv_row, after colorsys.py):
+// v the largest channel, s and h in [0, 255], truncated, with PIL's mix of
+// float and double arithmetic.
+void kfi_rgb_to_hsv(const uint8_t* rgb, size_t n, uint8_t* out) {
+  for (size_t i = 0; i < n; ++i) {
+    const uint8_t r = rgb[3 * i], g = rgb[3 * i + 1], b = rgb[3 * i + 2];
+    const uint8_t maxc = r > g ? (r > b ? r : b) : (g > b ? g : b);
+    const uint8_t minc = r < g ? (r < b ? r : b) : (g < b ? g : b);
+    uint8_t uh = 0, us = 0;
+    if (minc != maxc) {
+      float cr = (float)(maxc - minc);
+      float s = cr / (float)maxc;
+      float rc = ((float)(maxc - r)) / cr;
+      float gc = ((float)(maxc - g)) / cr;
+      float bc = ((float)(maxc - b)) / cr;
+      float h;
+      if (r == maxc) {
+        h = bc - gc;
+      } else if (g == maxc) {
+        h = 2.0 + rc - bc;
+      } else {
+        h = 4.0 + gc - rc;
+      }
+      h = fmod((h / 6.0 + 1.0), 1.0);
+      int ih = (int)(h * 255.0), is = (int)(s * 255.0);
+      uh = (uint8_t)(ih < 0 ? 0 : ih > 255 ? 255 : ih);
+      us = (uint8_t)(is < 0 ? 0 : is > 255 ? 255 : is);
+    }
+    out[3 * i] = uh;
+    out[3 * i + 1] = us;
+    out[3 * i + 2] = maxc;
+  }
+}
+
+// convert("RGB") of n HSV pixels (PIL's hsv2rgb).
+void kfi_hsv_to_rgb(const uint8_t* hsv, size_t n, uint8_t* out) {
+  for (size_t x = 0; x < n; ++x) {
+    const uint8_t h = hsv[3 * x], s = hsv[3 * x + 1], v = hsv[3 * x + 2];
+    uint8_t* o = out + 3 * x;
+    if (s == 0) {
+      o[0] = o[1] = o[2] = v;
+      continue;
+    }
+    int i = (int)floor((float)h * 6.0 / 255.0);
+    float f = (float)h * 6.0 / 255.0 - (float)i;
+    float fs = ((float)s) / 255.0;
+    int p = (int)round((float)v * (1.0 - fs));
+    int q = (int)round((float)v * (1.0 - fs * f));
+    int t = (int)round((float)v * (1.0 - fs * (1.0 - f)));
+    uint8_t up = (uint8_t)(p < 0 ? 0 : p > 255 ? 255 : p);
+    uint8_t uq = (uint8_t)(q < 0 ? 0 : q > 255 ? 255 : q);
+    uint8_t ut = (uint8_t)(t < 0 ? 0 : t > 255 ? 255 : t);
+    switch (i % 6) {
+      case 0: o[0] = v; o[1] = ut; o[2] = up; break;
+      case 1: o[0] = uq; o[1] = v; o[2] = up; break;
+      case 2: o[0] = up; o[1] = v; o[2] = ut; break;
+      case 3: o[0] = up; o[1] = uq; o[2] = v; break;
+      case 4: o[0] = ut; o[1] = up; o[2] = v; break;
+      case 5: o[0] = v; o[1] = up; o[2] = uq; break;
+    }
+  }
+}
+
 }  // extern "C"

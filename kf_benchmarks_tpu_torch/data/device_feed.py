@@ -55,11 +55,23 @@ def normalize(images: torch.Tensor, kind: Optional[str],
   elif kind == "channel_means":
     images = images.to(torch.float32).sub_(torch.as_tensor(
         preprocessing.CHANNEL_MEANS, device=images.device))
+  elif kind == "coco":
+    # SSD's normalize_image: x / 255, then ImageNet's mean and std.
+    images = images.to(torch.float32).div_(255.0).sub_(torch.as_tensor(
+        preprocessing.COCO_MEAN, device=images.device)).div_(
+            torch.as_tensor(preprocessing.COCO_STD, device=images.device))
   elif kind is not None:
     raise ValueError(f"unknown normalization {kind!r}")
   if images.dtype == torch.float32 and dtype != torch.float32:
     images = images.to(dtype)
   return images
+
+
+def _stack(items):
+  """``np.stack`` of a list of equal trees (arrays, or tuples of them)."""
+  if isinstance(items[0], tuple):
+    return tuple(_stack(list(parts)) for parts in zip(*items))
+  return np.stack(items)
 
 
 class DeviceFeeder:
@@ -119,14 +131,25 @@ class DeviceFeeder:
         break
     if not batches:
       return None
-    return tuple(np.stack(xs) for xs in zip(*batches))
+    return _stack(batches)
 
   def _to_device(self, batch):
-    images, labels = (np.ascontiguousarray(x) for x in batch)
-    labels = labels.astype(np.int64)
+    images, labels = batch
+    images = np.ascontiguousarray(images)
+    # The labels: one array, or a tuple of them (SSD's targets); integer
+    # arrays as int64, float arrays as they are.
+    label_arrays = [np.ascontiguousarray(
+        x.astype(np.int64) if np.issubdtype(x.dtype, np.integer) else x)
+                    for x in (labels if isinstance(labels, tuple)
+                              else (labels,))]
+
+    def tree(tensors):
+      return tuple(tensors) if isinstance(labels, tuple) else tensors[0]
+
     if not self._cuda:
       return (normalize(torch.from_numpy(images), self._normalization,
-                        self._dtype), torch.from_numpy(labels))
+                        self._dtype),
+              tree([torch.from_numpy(x) for x in label_arrays]))
     s = self._next_slot
     self._next_slot = (s + 1) % len(self._slots)
     event = self._slot_events[s]
@@ -134,7 +157,7 @@ class DeviceFeeder:
       event.synchronize()  # the slot's previous copy has left it
     pinned = self._slots[s]
     host = []
-    for i, arr in enumerate((images, labels)):
+    for i, arr in enumerate([images] + label_arrays):
       buf = pinned[i] if pinned is not None else None
       dtype = torch.from_numpy(arr).dtype
       if buf is None or buf.dtype != dtype or buf.numel() < arr.size:
@@ -145,7 +168,8 @@ class DeviceFeeder:
     self._slots[s] = [buf for buf, _ in host]
     with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
       dev_images = host[0][1].to(self._device, non_blocking=True)
-      dev_labels = host[1][1].to(self._device, non_blocking=True)
+      dev_labels = tree([view.to(self._device, non_blocking=True)
+                         for _, view in host[1:]])
       dev_images = normalize(dev_images, self._normalization, self._dtype)
       event = torch.cuda.Event()
       event.record(self._stream)
@@ -210,7 +234,8 @@ class DeviceFeeder:
       consumer = torch.cuda.current_stream(self._device)
       consumer.wait_event(event)
       images.record_stream(consumer)
-      labels.record_stream(consumer)
+      for t in (labels if isinstance(labels, tuple) else (labels,)):
+        t.record_stream(consumer)
       item = (images, labels)
     now = time.monotonic()
     waited = now - t0

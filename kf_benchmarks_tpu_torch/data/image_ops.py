@@ -3,7 +3,8 @@
 The JAX package's train and eval preprocessing (data/preprocessing.py
 there) crops, resizes, flips and colour-jitters PIL images. The machine with
 the card has no PIL, so the port does the same operations on numpy arrays:
-the arithmetic ones (resize, ``convert("L")``, the ImageEnhance enhancers)
+the arithmetic ones (resize, ``convert("L")``, the ImageEnhance enhancers,
+``convert("HSV")`` and back)
 in csrc/image_ops.cc, built with g++ at first use and called through ctypes
 (which releases the GIL), and the ones that only move bytes (crop, flip)
 here. Each gives PIL's result to the bit.
@@ -41,6 +42,9 @@ def library() -> ctypes.CDLL:
       lib.kfi_enhance.argtypes = [u8p, ctypes.c_size_t, ctypes.c_int,
                                   ctypes.c_double, u8p]
       lib.kfi_enhance.restype = ctypes.c_int
+      for name in ("kfi_rgb_to_hsv", "kfi_hsv_to_rgb"):
+        getattr(lib, name).argtypes = [u8p, ctypes.c_size_t, u8p]
+        getattr(lib, name).restype = None
       _lib = lib
   return _lib
 
@@ -121,3 +125,21 @@ def color(image: np.ndarray, factor: float) -> np.ndarray:
 def contrast(image: np.ndarray, factor: float) -> np.ndarray:
   """``ImageEnhance.Contrast(img).enhance(factor)``."""
   return _enhance(image, 2, factor)
+
+
+def rgb_to_hsv(image: np.ndarray) -> np.ndarray:
+  """``convert("HSV")`` of an RGB image: (H, W, 3) uint8 h, s, v."""
+  image = _rgb(image)
+  out = np.empty_like(image)
+  library().kfi_rgb_to_hsv(_u8(image), image.shape[0] * image.shape[1],
+                           _u8(out))
+  return out
+
+
+def hsv_to_rgb(image: np.ndarray) -> np.ndarray:
+  """``Image.fromarray(hsv, "HSV").convert("RGB")``."""
+  image = _rgb(image)
+  out = np.empty_like(image)
+  library().kfi_hsv_to_rgb(_u8(image), image.shape[0] * image.shape[1],
+                           _u8(out))
+  return out

@@ -13,7 +13,8 @@ One difference of form: the host side yields **uint8** HWC batches, as PIL
 hands them to ``np.asarray``, and each preprocessor names the normalisation
 that the JAX package applies on the host (``NORMALIZATION``: ``"unit"`` for
 ``x * (1 / 127.5) - 1``, ``"channel_means"`` for the official variant's
-``x - CHANNEL_MEANS``, None for batches that pass through as they are).
+``x - CHANNEL_MEANS``, ``"coco"`` for SSD's ``(x / 255 - mean) / std``,
+None for batches that pass through as they are).
 data/device_feed.py applies it once the batch is on its device, which
 quarters the bytes that cross PCIe; the values are the ones the JAX package
 computes on the host.
@@ -47,6 +48,8 @@ from kf_benchmarks_tpu_torch.data import example as example_lib
 from kf_benchmarks_tpu_torch.data import image_ops
 from kf_benchmarks_tpu_torch.data import jpeg
 from kf_benchmarks_tpu_torch.data import tfrecord
+from kf_benchmarks_tpu_torch.models import ssd_constants
+from kf_benchmarks_tpu_torch.models import ssd_dataloader
 
 # (ref: preprocessing.py:75-97 _RESIZE_METHOD_MAP + round_robin)
 _RESIZE_METHODS = ("nearest", "bilinear", "bicubic", "area")
@@ -55,6 +58,9 @@ _METHOD_IDS = {"nearest": image_ops.NEAREST, "bilinear": image_ops.BILINEAR,
 
 # The official variant's means, in [0, 255] (the official CHANNEL_MEANS).
 CHANNEL_MEANS = np.asarray([123.68, 116.779, 103.939], np.float32)
+# SSD's normalisation of [0, 1] pixels (ssd_constants).
+COCO_MEAN = np.asarray(ssd_constants.NORMALIZATION_MEAN, np.float32)
+COCO_STD = np.asarray(ssd_constants.NORMALIZATION_STD, np.float32)
 
 
 def get_image_resize_method(resize_method: str, batch_position: int = 0):
@@ -664,6 +670,196 @@ class Cifar10ImagePreprocessor(InputPreprocessor):
       yield np.ascontiguousarray(imgs), all_labels[idx].astype(np.int32)
 
 
+class COCOPreprocessor(InputPreprocessor):
+  """SSD's COCO detection pipeline (the JAX package's
+  data/preprocessing.py:662-874): the IoU-biased crop, the resize to
+  300x300, the flip, the optional colour jitter and the anchor-space label
+  encoding, from the same ``np.random.RandomState`` streams (seeded
+  ``seed + 7919 * i`` per batch position).
+
+  Train batches: (images, (encoded boxes [N, 8732, 4], classes [N, 8732],
+  matched anchors [N])). Eval batches: (images, (boxes [N, 200, 4],
+  classes [N, 200, 1], source ids [N], raw shapes [N, 3])), the boxes
+  trimmed or zero-padded to MAX_NUM_EVAL_BOXES and the last batch
+  partial. The images are uint8; ``NORMALIZATION`` "coco" is the JAX
+  package's ``(x / 255 - mean) / std``, applied on the device. Boxes are
+  (ymin, xmin, ymax, xmax), normalised, throughout."""
+
+  NORMALIZATION = "coco"
+
+  @staticmethod
+  def parse_coco_example(record: bytes):
+    """COCO Example -> (image bytes, boxes ltrb [N, 4], classes [N] in
+    1..80, source id). Raw 90-class COCO ids map through CLASS_MAP."""
+    feats = example_lib.parse_example(record)
+    image_buffer = feats["image/encoded"][0]
+
+    def _coords(key):
+      v = feats.get(key)
+      return (np.asarray(v, np.float32) if v is not None and len(v)
+              else np.zeros((0,), np.float32))
+
+    ymin, xmin = _coords("image/object/bbox/ymin"), _coords(
+        "image/object/bbox/xmin")
+    ymax, xmax = _coords("image/object/bbox/ymax"), _coords(
+        "image/object/bbox/xmax")
+    boxes = (np.stack([ymin, xmin, ymax, xmax], axis=-1) if len(ymin)
+             else np.zeros((0, 4), np.float32))
+    raw = feats.get("image/object/class/label")
+    raw = np.asarray(raw, np.int64) if raw is not None else np.zeros(
+        (0,), np.int64)
+    class_map = np.asarray(ssd_constants.CLASS_MAP, np.int32)
+    classes = np.where((raw >= 0) & (raw < len(class_map)),
+                       class_map[np.clip(raw, 0, len(class_map) - 1)],
+                       -1).astype(np.int32)
+    keep = classes > 0
+    sid = feats.get("image/source_id")
+    if sid is not None and len(sid):
+      s = sid[0]
+      source_id = int(s) if not isinstance(s, bytes) else int(
+          s.decode() or 0)
+    else:
+      source_id = 0
+    return image_buffer, boxes[keep], classes[keep], source_id
+
+  @staticmethod
+  def _ssd_crop(rng: np.random.RandomState, boxes: np.ndarray):
+    """(crop ltrb, box mask): per pass, the whole image with probability
+    P_NO_CROP_PER_PASS, else the highest-index of NUM_CROP_PASSES
+    candidate rects whose IoU with every box clears a drawn threshold and
+    which hold a box centre; 100 passes, then the whole image."""
+    whole = np.array([0.0, 0.0, 1.0, 1.0], np.float32)
+    all_mask = np.ones((len(boxes),), bool)
+    for _ in range(100):
+      if rng.uniform() < ssd_constants.P_NO_CROP_PER_PASS:
+        return whole, all_mask
+      n = ssd_constants.NUM_CROP_PASSES
+      h = rng.uniform(0.3, 1.0, size=n)
+      w = rng.uniform(0.3, 1.0, size=n)
+      top = rng.uniform(0, 1, size=n) * (1 - h)
+      left = rng.uniform(0, 1, size=n) * (1 - w)
+      rects = np.stack([top, left, top + h, left + w], axis=1)
+      min_iou = ssd_constants.CROP_MIN_IOU_CHOICES[
+          rng.randint(len(ssd_constants.CROP_MIN_IOU_CHOICES))]
+      ious = ssd_dataloader.calc_iou_matrix(rects.astype(np.float32), boxes)
+      yc = 0.5 * (boxes[:, 0] + boxes[:, 2])
+      xc = 0.5 * (boxes[:, 1] + boxes[:, 3])
+      centers_in = ((yc[None, :] > rects[:, 0:1]) &
+                    (yc[None, :] < rects[:, 2:3]) &
+                    (xc[None, :] > rects[:, 1:2]) &
+                    (xc[None, :] < rects[:, 3:4]))
+      valid_aspect = (h / w < 2) & (w / h < 2)
+      valid = (valid_aspect & np.all(ious > min_iou, axis=1) &
+               np.any(centers_in, axis=1))
+      if np.any(valid):
+        i = int(np.max(np.nonzero(valid)[0]))
+        return rects[i].astype(np.float32), centers_in[i]
+    return whole, all_mask
+
+  @staticmethod
+  def _color_jitter(img: np.ndarray, rng: np.random.RandomState
+                    ) -> np.ndarray:
+    """Brightness 0.125, contrast 0.5, saturation 0.5, then a hue shift of
+    up to 0.05 of the circle on PIL's HSV plane."""
+    img = image_ops.brightness(img, 1.0 + rng.uniform(-0.125, 0.125))
+    img = image_ops.contrast(img, rng.uniform(0.5, 1.5))
+    img = image_ops.color(img, rng.uniform(0.5, 1.5))
+    hsv = image_ops.rgb_to_hsv(img).astype(np.int16)
+    hsv[..., 0] = (hsv[..., 0] +
+                   int(rng.uniform(-0.05, 0.05) * 255)) % 256
+    return image_ops.hsv_to_rgb(hsv.astype(np.uint8))
+
+  def _preprocess_train(self, parsed, rng: np.random.RandomState):
+    image_buffer, boxes, classes, _ = parsed
+    img = jpeg.decode(image_buffer)
+    crop, mask = self._ssd_crop(rng, boxes)
+    ih, iw = img.shape[:2]
+    y0, x0, y1, x1 = crop
+    img = image_ops.crop(img, (int(x0 * iw), int(y0 * ih),
+                               max(int(x1 * iw), int(x0 * iw) + 1),
+                               max(int(y1 * ih), int(y0 * ih) + 1)))
+    img = image_ops.resize(img, (self.width, self.height), image_ops.BILINEAR)
+    boxes, classes = boxes[mask], classes[mask]
+    # The surviving boxes clipped to the crop, in its coordinates.
+    ch, cw = max(y1 - y0, 1e-6), max(x1 - x0, 1e-6)
+    boxes = np.stack([
+        (np.clip(boxes[:, 0], y0, y1) - y0) / ch,
+        (np.clip(boxes[:, 1], x0, x1) - x0) / cw,
+        (np.clip(boxes[:, 2], y0, y1) - y0) / ch,
+        (np.clip(boxes[:, 3], x0, x1) - x0) / cw,
+    ], axis=1) if len(boxes) else boxes
+    if rng.uniform() < 0.5:  # the flip, image and boxes
+      img = image_ops.flip_left_right(img)
+      if len(boxes):
+        boxes = np.stack([boxes[:, 0], 1.0 - boxes[:, 3],
+                          boxes[:, 2], 1.0 - boxes[:, 1]], axis=1)
+    if self.distortions:
+      img = self._color_jitter(img, rng)
+    encoded, enc_classes, num_matched = ssd_dataloader.encode_labels(
+        boxes.astype(np.float32), classes)
+    return img, encoded, enc_classes, np.float32(num_matched)
+
+  def _preprocess_eval(self, parsed):
+    image_buffer, boxes, classes, source_id = parsed
+    img = jpeg.decode(image_buffer)
+    ih, iw = img.shape[:2]
+    img = image_ops.resize(img, (self.width, self.height), image_ops.BILINEAR)
+    m = ssd_constants.MAX_NUM_EVAL_BOXES
+
+    def trim_and_pad(arr, width):
+      arr = arr[:m]
+      out = np.zeros((m, width), np.float32)
+      if len(arr):
+        out[:len(arr)] = arr.reshape(len(arr), width)
+      return out
+
+    return (img, trim_and_pad(boxes, 4),
+            trim_and_pad(classes.astype(np.float32), 1),
+            np.int32(source_id), np.asarray([ih, iw, 3], np.int32))
+
+  def minibatches(self, dataset, subset: str):
+    stream = self._record_stream(dataset, subset)
+    pool = concurrent.futures.ThreadPoolExecutor(self.num_threads)
+    rngs = [np.random.RandomState(self.seed + 7919 * i)
+            for i in range(self.batch_size)]
+    try:
+      exhausted = False
+      while not exhausted:
+        batch_parsed = []
+        for record in stream:
+          parsed = self.parse_coco_example(record)
+          # Training skips examples without boxes; eval keeps them (every
+          # validation image counts in the mAP's recall).
+          if self.train and not len(parsed[1]):
+            continue
+          batch_parsed.append(parsed)
+          if len(batch_parsed) == self.batch_size:
+            break
+        if len(batch_parsed) < self.batch_size:
+          exhausted = True  # eval: the final partial batch still goes
+          if not batch_parsed:
+            return
+        if self.train:
+          results = [f.result() for f in [
+              pool.submit(self._preprocess_train, parsed, rngs[i])
+              for i, parsed in enumerate(batch_parsed)]]
+          yield (np.stack([r[0] for r in results]),
+                 (np.stack([r[1] for r in results]),
+                  np.stack([r[2] for r in results]),
+                  np.asarray([r[3] for r in results], np.float32)))
+        else:
+          results = [f.result() for f in [
+              pool.submit(self._preprocess_eval, parsed)
+              for parsed in batch_parsed]]
+          yield (np.stack([r[0] for r in results]),
+                 (np.stack([r[1] for r in results]),
+                  np.stack([r[2] for r in results]),
+                  np.asarray([r[3] for r in results], np.int32),
+                  np.stack([r[4] for r in results])))
+    finally:
+      pool.shutdown(wait=False)
+
+
 class TestImagePreprocessor(InputPreprocessor):
   """Injects fake numpy data as "real" input (ref:
   preprocessing.py:896-975). ``set_fake_data`` then iterate. The batches
@@ -699,13 +895,13 @@ class TestImagePreprocessor(InputPreprocessor):
 _PREPROCESSORS = {
     "imagenet": RecordInputImagePreprocessor,
     "cifar10": Cifar10ImagePreprocessor,
+    "coco": COCOPreprocessor,
     "test": TestImagePreprocessor,
 }
 
 # Preprocessors of the JAX package that the port does not run yet, with the
 # ROADMAP Queue 1 item that brings each.
 _NOT_PORTED = {
-    "coco": ("the COCO (ssd) preprocessor", "7b"),
     "librispeech": ("the LibriSpeech (deepspeech) preprocessor", "7b"),
 }
 

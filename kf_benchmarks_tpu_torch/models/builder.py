@@ -298,14 +298,57 @@ def lrn(x: torch.Tensor, depth_radius: int, bias: float, alpha: float,
   return (accum(x) / (bias + alpha * sums.squeeze(1)).pow(beta)).to(x.dtype)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+  """x * c mod 2^32 of a value in [0, 2^32) (an int64 tensor or a Python
+  int) by a 32-bit constant, in two 16-bit halves so that no int64
+  product overflows."""
+  return ((((x * (c >> 16)) & 0xFFFF) << 16) + x * (c & 0xFFFF)) & _M32
+
+
+def _mix32(x):
+  """A 32-bit integer hash (lowbias32) of a value in [0, 2^32)."""
+  x = x ^ (x >> 16)
+  x = _mul32(x, 0x7FEB352D)
+  x = x ^ (x >> 15)
+  x = _mul32(x, 0x846CA68B)
+  return x ^ (x >> 16)
+
+
+# The mantissa bits of a uniform draw in each dtype: a draw is a multiple of
+# 2^-bits below 1, exact in that dtype (as jax.random.uniform's).
+_MANTISSA_BITS = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
+
+
+def counter_uniform(shape, seed: int, step: torch.Tensor, stream: int,
+                    device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+  """Uniforms in [0, 1) of ``shape`` and ``dtype``, a function of (seed, the step
+  counter's value, stream, element) alone: a counter-based draw, so a
+  step captured as a CUDA graph draws fresh values at each replay (the
+  graph reads the counter the step advances on the device), as the JAX
+  package's ``fold_in(fold_in(rng, step), replica)`` streams do. ``step``
+  is a 0-d int64 tensor; ``stream`` (a Python int below 2^32) tells the
+  draws of one step apart."""
+  key = _mix32(_mix32((seed & _M32) ^ _mix32(seed >> 32 & _M32)) ^ stream)
+  step_key = _mix32((step.to(device) & _M32) ^ key)
+  n = math.prod(shape)
+  h = _mix32(_mix32(torch.arange(n, device=device) ^ step_key) ^
+             _mix32(key ^ 0x9E3779B9))
+  bits = _MANTISSA_BITS[dtype]
+  return ((h >> (32 - bits)).to(torch.float32) * 2.0 ** -bits).to(
+      dtype).reshape(shape)
+
+
 def dropout(x: torch.Tensor, keep_prob: float,
-            generator: torch.Generator) -> torch.Tensor:
+            uniform: torch.Tensor) -> torch.Tensor:
   """Inverted dropout (flax ``nn.Dropout(rate=1 - keep_prob)``): keep each
-  element with probability ``keep_prob`` (a uniform draw from
-  ``generator`` below it) and scale the kept ones by 1 / keep_prob."""
-  keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-  return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                      device=x.device))
+  element whose ``uniform`` draw is below ``keep_prob`` and scale the kept
+  ones by 1 / keep_prob."""
+  return torch.where(uniform < keep_prob, x / keep_prob,
+                     torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def fusable_conv3x3(cin: int, cout: int, k, stride, mode: str,
@@ -353,24 +396,46 @@ class _Step:
 
 
 class SeededDropout:
-  """Mixin of a network with dropout: its masks come from a generator of
-  its own on the input's device, seeded with ``dropout_seed`` (drawn from
-  the build's generator, so from the run's seed)."""
+  """Mixin of a network that draws random numbers in training (dropout,
+  NASNet's drop path): each draw is ``counter_uniform`` of
+  ``dropout_seed`` (drawn from the build's generator, so from the run's
+  seed) and of the step counter ``rng_step`` (a 0-d int64 device tensor
+  the train step binds and advances; 0 when none is bound), in a stream
+  of its own for the replica ``rng_replica``, the microbatch
+  ``rng_microbatch`` and the draw's place in the forward. ``total_steps``
+  is the run's length, which NASNet's drop-path schedule reads (0: no
+  schedule over the run)."""
 
   dropout_seed = 0
-  _dropout_gen: Optional[torch.Generator] = None
+  rng_step: Optional[torch.Tensor] = None
+  rng_replica = 0
+  rng_microbatch = 0
+  total_steps = 0
+  _draws = 0
 
   def seed_dropout(self, generator: Optional[torch.Generator]) -> None:
     if generator is not None:
       self.dropout_seed = int(torch.randint(
           0, 2 ** 62, (1,), generator=generator, device=generator.device))
 
-  def dropout_generator(self, device: torch.device) -> torch.Generator:
-    g = self._dropout_gen
-    if g is None or g.device != device:
-      g = torch.Generator(device=device).manual_seed(self.dropout_seed)
-      self._dropout_gen = g
-    return g
+  def begin_draws(self) -> None:
+    """Called at the start of each forward: the draws restart at place 0."""
+    self._draws = 0
+
+  def step_counter(self, device: torch.device) -> torch.Tensor:
+    if self.rng_step is None:
+      return torch.zeros((), dtype=torch.int64, device=device)
+    return self.rng_step
+
+  def uniform(self, shape, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The next draw of this forward."""
+    place = self._draws
+    self._draws += 1
+    stream = _mix32((_mix32(self.rng_replica) ^ self.rng_microbatch) +
+                    place & _M32)
+    return counter_uniform(tuple(shape), self.dropout_seed,
+                           self.step_counter(device), stream, device, dtype)
 
 
 class GraphNet(SeededDropout, nn.Module):
@@ -400,6 +465,7 @@ class GraphNet(SeededDropout, nn.Module):
     self.fuse = True
 
   def forward(self, images: torch.Tensor):
+    self.begin_draws()
     vals: Dict[int, object] = {0: model.to_model_input(images, self.dtype)}
     for step in self.steps:
       vals[step.dst] = getattr(self, "_" + step.kind)(step, vals)
@@ -465,7 +531,7 @@ class GraphNet(SeededDropout, nn.Module):
     if not self.training or step.args["keep_prob"] >= 1.0:
       return x
     return dropout(x, step.args["keep_prob"],
-                   self.dropout_generator(x.device))
+                   self.uniform(x.shape, x.device))
 
 
 class ConvNetBuilder:
@@ -739,7 +805,3 @@ class BuilderModel(model.CNNModel):
   def bf16_kernels(self) -> str:
     """The fused unit's kernels when some conv of the network takes them."""
     return FUSED_UNIT_KERNELS if self._meta_net().fused else ""
-
-  def draws_dropout(self) -> bool:
-    return any(step.kind == "dropout" and step.args["keep_prob"] < 1.0
-               for step in self._meta_net().steps)

@@ -135,6 +135,7 @@ class MobilenetV2(builder.SeededDropout, nn.Module):
                             activation)
 
   def forward(self, images: torch.Tensor) -> torch.Tensor:
+    self.begin_draws()
     x = model_lib.to_model_input(images, self.dtype)
     for kind, layers, residual in self.plan:
       if kind == "conv":
@@ -147,7 +148,7 @@ class MobilenetV2(builder.SeededDropout, nn.Module):
       x = h + x if residual else h
     x = builder.spatial_mean(x)
     if self.training and self.keep_prob < 1.0:
-      x = builder.dropout(x, self.keep_prob, self.dropout_generator(x.device))
+      x = builder.dropout(x, self.keep_prob, self.uniform(x.shape, x.device))
     w = self.Dense_0.weight.to(x.dtype)
     return accum(torch.nn.functional.linear(x, w,
                                             self.Dense_0.bias.to(x.dtype)))
@@ -164,9 +165,6 @@ class MobilenetModel(model_lib.CNNModel):
     return MobilenetV2(nclass, dtype, generator,
                        self.depth_multiplier).to(
                            memory_format=torch.channels_last)
-
-  def draws_dropout(self) -> bool:
-    return True
 
 
 def create_mobilenet_model(params=None):

@@ -57,11 +57,6 @@ class Model:
   def bf16_kernels(self) -> str:
     return ""
 
-  def draws_dropout(self) -> bool:
-    """Whether the training step draws dropout masks (from a generator of
-    the network's own, which a captured step cannot replay yet)."""
-    return False
-
   def get_input_shapes(self, subset: str) -> List[List[int]]:
     raise NotImplementedError
 

@@ -2,9 +2,9 @@
 package's names (kf_benchmarks_tpu/models/model_config.py:31-84).
 
 ``_MODELS`` is the ImageNet map (also synthetic ImageNet), ``_CIFAR_MODELS``
-the CIFAR-10 map. The JAX package's names the port does not run yet --
-NASNet, NCF, and the COCO and LibriSpeech maps (SSD300, DeepSpeech2) --
-raise a ParamError naming their ROADMAP item. Each entry is called with the
+the CIFAR-10 map, ``_COCO_MODELS`` the COCO map (SSD300). The JAX
+package's names the port does not run yet -- DeepSpeech2 and the
+LibriSpeech map -- raise a ParamError naming their ROADMAP item. Each entry is called with the
 run's Params (or None), as in the JAX package.
 """
 
@@ -18,9 +18,12 @@ from kf_benchmarks_tpu_torch.models import googlenet_model
 from kf_benchmarks_tpu_torch.models import inception_model
 from kf_benchmarks_tpu_torch.models import lenet_model
 from kf_benchmarks_tpu_torch.models import mobilenet_v2
+from kf_benchmarks_tpu_torch.models import nasnet_model
+from kf_benchmarks_tpu_torch.models import official_ncf_model
 from kf_benchmarks_tpu_torch.models import official_resnet_model
 from kf_benchmarks_tpu_torch.models import overfeat_model
 from kf_benchmarks_tpu_torch.models import resnet_model
+from kf_benchmarks_tpu_torch.models import ssd_model
 from kf_benchmarks_tpu_torch.models import transformer_lm
 from kf_benchmarks_tpu_torch.models import trivial_model
 from kf_benchmarks_tpu_torch.models import vgg_model
@@ -37,6 +40,9 @@ _MODELS: Dict[str, Callable] = {
     "inception3": inception_model.Inceptionv3Model,
     "inception4": inception_model.Inceptionv4Model,
     "mobilenet": mobilenet_v2.create_mobilenet_model,
+    "nasnet": nasnet_model.create_nasnet_model,
+    "nasnetlarge": nasnet_model.create_nasnetlarge_model,
+    "ncf": official_ncf_model.create_ncf_model,
     "transformer_lm": transformer_lm.create_transformer_lm_model,
     "resnet50": resnet_model.create_resnet50_model,
     "resnet50_v1.5": resnet_model.create_resnet50_v15_model,
@@ -61,6 +67,7 @@ _MODELS: Dict[str, Callable] = {
 _CIFAR_MODELS: Dict[str, Callable] = {
     "alexnet": alexnet_model.AlexnetCifar10Model,
     "trivial": trivial_model.TrivialCifar10Model,
+    "nasnet": nasnet_model.create_nasnet_cifar_model,
     "densenet40_k12": densenet_model.create_densenet40_k12_model,
     "densenet100_k12": densenet_model.create_densenet100_k12_model,
     "densenet100_k24": densenet_model.create_densenet100_k24_model,
@@ -76,16 +83,15 @@ _CIFAR_MODELS: Dict[str, Callable] = {
     "resnet110_v2": resnet_model.create_resnet110_v2_cifar_model,
 }
 
+_COCO_MODELS: Dict[str, Callable] = {
+    "ssd300": ssd_model.create_ssd300_model,
+}
+
 # The JAX package's names that wait for ROADMAP Queue 1 item 7b.
 NOT_PORTED = {
-    "nasnet": "NASNet",
-    "nasnetlarge": "NASNet-A large",
-    "ncf": "NCF",
-    "ssd300": "SSD300 with the COCO input path",
     "deepspeech2": "DeepSpeech2 with the LibriSpeech input path",
 }
 NOT_PORTED_DATASETS = {
-    "coco": "SSD300 and the COCO input path",
     "librispeech": "DeepSpeech2 and the LibriSpeech input path",
 }
 NOT_PORTED_ITEM = "7b"
@@ -109,6 +115,8 @@ def not_ported_error(model_name: str, dataset_name: Optional[str]
 def _model_map(dataset_name: Optional[str]) -> Dict[str, Callable]:
   if dataset_name == "cifar10":
     return _CIFAR_MODELS
+  if dataset_name == "coco":
+    return _COCO_MODELS
   if dataset_name in ("imagenet", "synthetic", None):
     return _MODELS
   raise ValueError(f"Invalid dataset name: {dataset_name}")

@@ -460,6 +460,10 @@ flags.DEFINE_string("data_dir", None,
 flags.DEFINE_string("data_name", None,
                     "Dataset name, sniffed from data_dir if empty "
                     "(ref :191-194).")
+flags.DEFINE_string("backbone_model_path", None,
+                    "Warm-start checkpoint of the port (SSD300's backbone; "
+                    "ref :613-614): the variables whose names and shapes "
+                    "match are loaded before training; skipped on resume.")
 flags.DEFINE_boolean("distortions", False,
                      "Enable full image distortions (ref :199-202; reference "
                      "default True, flipped off here: synthetic-first).")

@@ -204,6 +204,30 @@ def _mean_vec_over_ranks(vec: torch.Tensor) -> torch.Tensor:
   return vec
 
 
+def tree_map(fn, tree):
+  """``fn`` of each tensor of ``tree``: a tensor, or a tuple of trees (the
+  labels of a detection model: boxes, classes, matched counts)."""
+  if isinstance(tree, tuple):
+    return tuple(tree_map(fn, t) for t in tree)
+  return fn(tree)
+
+
+def tree_copy_(dst, src) -> None:
+  """Each tensor of the tree ``dst`` <- its counterpart in ``src``."""
+  if isinstance(dst, tuple):
+    for d, s in zip(dst, src):
+      tree_copy_(d, s)
+  else:
+    dst.copy_(src)
+
+
+def _microbatches(tree, m: int) -> list:
+  """The tree cut into ``m`` trees along the batch axis."""
+  if isinstance(tree, tuple):
+    return list(zip(*[_microbatches(t, m) for t in tree]))
+  return list(tree.chunk(m))
+
+
 def _select_(finite: torch.Tensor, tensors: List[torch.Tensor],
              before: List[torch.Tensor]) -> None:
   """Each tensor <- itself where ``finite``, else its value ``before``:
@@ -271,8 +295,17 @@ class TrainStep:
           "reassociated -- total_loss is not bit-identical to the "
           "replicated-param L2 on this model (pass --weight_decay=0 for "
           "bit-exact A/Bs)")
-    self.global_step = 0
     device = next(module.parameters()).device
+    # The count of steps taken on the device: the networks' dropout and
+    # drop-path draws read it (builder.SeededDropout), so a captured step
+    # draws a step's own values at each replay.
+    self._step = torch.zeros((), dtype=torch.int64, device=device)
+    self._global_step = 0
+    self._rng_nets = [m for m in module.modules()
+                      if isinstance(m, builder.SeededDropout)]
+    for net in self._rng_nets:
+      net.rng_step = self._step
+      net.rng_replica = mesh.rank() if mesh.is_distributed() else 0
     self._update_count = torch.zeros((), dtype=torch.int64, device=device)
     self._loss_scale = torch.tensor(loss_scale, dtype=torch.float32,
                                     device=device)
@@ -295,6 +328,21 @@ class TrainStep:
     self._health_parts = None
     if self.health:
       optimizer.track_update(*self._health_split)
+
+  @property
+  def global_step(self) -> int:
+    """The count of steps taken (its device copy follows a set)."""
+    return self._global_step
+
+  @global_step.setter
+  def global_step(self, value: int) -> None:
+    self._global_step = int(value)
+    self._step.fill_(self._global_step)
+
+  def note_step(self) -> None:
+    """The host's count of one more step that ``run`` took (``run``
+    advances the device's)."""
+    self._global_step += 1
 
   @property
   def update_count(self) -> int:
@@ -347,7 +395,7 @@ class TrainStep:
   def __call__(self, images: torch.Tensor,
                labels: torch.Tensor) -> Dict[str, torch.Tensor]:
     metrics = self.run(images, labels)
-    self.global_step += 1
+    self.note_step()
     return metrics
 
   def _state_tensors(self) -> List[torch.Tensor]:
@@ -403,11 +451,13 @@ class TrainStep:
     m = self.num_grad_accum
     sums = None
     acc_keys = []
-    parts = (zip(images.chunk(m), labels.chunk(m)) if m > 1
+    parts = (zip(images.chunk(m), _microbatches(labels, m)) if m > 1
              else [(images, labels)])
     with (self.sharding.step_params(self.module) if self.sharding is not None
           else contextlib.nullcontext()):
-      for x, y in parts:
+      for i, (x, y) in enumerate(parts):
+        for net in self._rng_nets:
+          net.rng_microbatch = i
         logits = self.module(x)
         base_loss = self.model.loss_function(logits, y)
         total_loss = base_loss
@@ -454,6 +504,7 @@ class TrainStep:
         self._next_loss_scale(finite)
       if self.sharding is not None:
         self.sharding.after_update()
+      self._step.add_(1)
       # The health partials ride the losses' all-reduce: one collective
       # either way (JAX train_step.py:799-845).
       vec = torch.stack([v.float() for v in sums])
@@ -639,7 +690,7 @@ class TrainChunk:
     def batch(j):
       if offset is None:
         return images, labels
-      return images[offset + j], labels[offset + j]
+      return images[offset + j], tree_map(lambda t: t[offset + j], labels)
 
     if images.device.type != "cuda":
       rows = [self.step(*batch(j)) for j in range(d)]
@@ -650,7 +701,7 @@ class TrainChunk:
       first = graphs.on_side_stream(lambda: self.step(*batch(0)))
       self.keys = tuple(first)
       self._shapes = {key: tuple(first[key].shape) for key in self.keys}
-      self._inputs = tuple(x.clone() for x in batch(0))
+      self._inputs = tree_map(torch.clone, batch(0))
       dev = images.device
       width = sum(first[key].numel() for key in self.keys)
       self._rows = torch.zeros(self.k, width, dtype=torch.float32,
@@ -658,8 +709,7 @@ class TrainChunk:
       self._row = torch.zeros(1, dtype=torch.int64, device=dev)
       j0 = 1
     elif offset is None:
-      self._inputs[0].copy_(images)
-      self._inputs[1].copy_(labels)
+      tree_copy_(self._inputs, (images, labels))
     d -= j0
     if self._next_row + d > self.k:
       self._row.zero_()
@@ -667,11 +717,9 @@ class TrainChunk:
     start = self._next_row
     for j in range(j0, j0 + d):
       if offset is not None:
-        step_images, step_labels = batch(j)
-        self._inputs[0].copy_(step_images)
-        self._inputs[1].copy_(step_labels)
+        tree_copy_(self._inputs, batch(j))
       self._graph(self.step.step_class()).replay()
-      self.step.global_step += 1
+      self.step.note_step()
     self._next_row += d
     out, off = {}, 0
     for key in self.keys:

@@ -134,11 +134,6 @@ def validate_cross_flags(params) -> None:
       raise ParamError(
           f"--device=gpu needs --use_fp16 for --model={params.model}: "
           f"{kernels} have no f32 variant yet")
-    if (params.steps_per_dispatch or 1) > 1 and model.draws_dropout():
-      raise ParamError(
-          f"--steps_per_dispatch > 1 captures the training step on the "
-          f"card; --model={params.model} draws dropout masks from a "
-          "generator of its own, which the capture does not register yet")
 
 
 def validate_serving_flags(p) -> None:

@@ -56,7 +56,7 @@ def test_module_entry_point_exits_nonzero_without_cuda():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"model": "nasnet", "device": "cpu"}, "not ported yet"),
+    ({"model": "deepspeech2", "device": "cpu"}, "not ported yet"),
     # Data parallel runs one rank per card: more ranks than cards is
     # refused (no shared card, no gloo fallback).
     ({"num_devices": 64, "device": "gpu"}, "one device"),

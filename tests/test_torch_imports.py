@@ -49,7 +49,7 @@ def _check(planted=""):
 def test_no_module_of_the_port_loads_jax_or_the_jax_package():
   proc = _check()
   assert proc.returncode == 0, proc.stdout + proc.stderr
-  assert int(proc.stdout.split()[0]) >= 70, proc.stdout
+  assert int(proc.stdout.split()[0]) >= 77, proc.stdout
 
 
 @pytest.mark.parametrize("planted", ["import jax",
@@ -98,3 +98,41 @@ def test_quantization_and_aot_alone_load_neither_jax_nor_pil(module):
   with open(os.path.join(REPO, *module.split(".")) + ".py") as f:
     src = f.read()
   assert "kf_benchmarks_tpu." not in src.replace("kf_benchmarks_tpu/", "")
+
+
+NEW_MODULES = ("models.nasnet_model", "models.official_ncf_model",
+               "models.ssd_model", "models.ssd_dataloader",
+               "models.ssd_constants", "coco_metric",
+               "data.coco_record_generator")
+
+
+@pytest.mark.parametrize("mod", NEW_MODULES)
+def test_the_walk_covers_nasnet_ncf_and_the_coco_path(mod):
+  """NASNet, NCF, SSD300 and the COCO path are among the modules the
+  check imports, and each keeps its own copy of what it needs from the
+  JAX package (ssd_constants, ssd_dataloader and coco_metric are numpy
+  there, and still not imported)."""
+  import pkgutil
+  import kf_benchmarks_tpu_torch as pkg
+  names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                 pkg.__name__ + ".")}
+  assert f"kf_benchmarks_tpu_torch.{mod}" in names
+  with open(os.path.join(REPO, "kf_benchmarks_tpu_torch",
+                         *mod.split(".")) + ".py") as f:
+    src = f.read()
+  assert "import jax" not in src and "from jax" not in src
+  assert "kf_benchmarks_tpu." not in src.replace("kf_benchmarks_tpu/", "")
+
+
+def test_the_input_path_still_imports_no_torch():
+  """data/preprocessing.py, which the decode pool's workers import, now
+  holds the COCO preprocessor (and through it ssd_dataloader): still no
+  torch."""
+  env = {k: v for k, v in os.environ.items()
+         if k not in ("PYTHONPATH", "JAX_PLATFORMS")}
+  proc = subprocess.run(
+      [sys.executable, "-c", "import sys; sys.path.insert(0, %r); "
+       "import kf_benchmarks_tpu_torch.data.preprocessing; "
+       "sys.exit('torch' in sys.modules)" % REPO],
+      capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
+  assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -324,8 +324,9 @@ def test_record_streams_match_jax(tmp_path, case):
 # -- refusals ----------------------------------------------------------------
 
 @pytest.mark.parametrize("name,kind,item", [
-    ("coco", "default", "7"), ("librispeech", "default", "7"),
-    ("coco", "multiprocess", "7b")])
+    ("librispeech", "default", "7"),
+    ("librispeech", "official_models_imagenet", "7b"),
+    ("librispeech", "multiprocess", "7b")])
 def test_unported_preprocessors_are_refused(name, kind, item):
   with pytest.raises(validation.ParamError,
                      match=f"ROADMAP Queue 1 item {item}"):
@@ -335,6 +336,9 @@ def test_unported_preprocessors_are_refused(name, kind, item):
 def test_preprocessor_map_matches_jax_where_ported():
   assert pre.get_preprocessor("imagenet") is pre.RecordInputImagePreprocessor
   assert pre.get_preprocessor("cifar10") is pre.Cifar10ImagePreprocessor
+  assert pre.get_preprocessor("coco") is pre.COCOPreprocessor
+  with pytest.raises(ValueError, match="applies to the imagenet dataset"):
+    pre.get_preprocessor("coco", "multiprocess")
   assert pre.get_preprocessor("imagenet", "official_models_imagenet") is \
       pre.OfficialImagenetPreprocessor
   assert pre.get_preprocessor("cifar10", "test") is pre.TestImagePreprocessor

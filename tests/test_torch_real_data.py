@@ -274,10 +274,10 @@ def test_two_gloo_ranks_read_their_shifted_streams(records, tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (dict(use_datasets=False), "--use_datasets=false is unsupported"),
-    (dict(data_dir="/x/coco2017"), "ROADMAP Queue 1 item 7"),
+    (dict(data_dir="/x/librispeech2017"), "ROADMAP Queue 1 item 7"),
     (dict(data_dir="/x/records", data_name="librispeech"),
      "ROADMAP Queue 1 item 7"),
-    (dict(data_dir="/x/coco", input_preprocessor="multiprocess"),
+    (dict(data_dir="/x/librispeech", input_preprocessor="multiprocess"),
      "ROADMAP Queue 1 item 7b"),
     (dict(data_dir="/x/imagenet", input_preprocessor="bogus"),
      "Unknown input preprocessor"),

@@ -3,11 +3,12 @@ GoogLeNet, Inception-v4 and Inception-v3's auxiliary head, MobileNet v2,
 the official ResNets, the CIFAR-10 ResNets, DenseNet) against the JAX
 package's, on the CPU in f32.
 
-* Registry: the port's ImageNet and CIFAR-10 maps hold the JAX package's
-  names less those of ROADMAP Queue 1 item 7b, which raise a ParamError
-  naming it; each model's name, image size, default batch and rate
-  schedule (host form at several steps, and the device form) are the JAX
-  package's.
+* Registry: the port's ImageNet, CIFAR-10 and COCO maps hold the JAX
+  package's names; DeepSpeech2 and the LibriSpeech map (the rest of
+  ROADMAP Queue 1 item 7b) raise a ParamError naming it; each image
+  model's name, image size, default batch and rate schedule (host form at
+  several steps, and the device form) are the JAX package's (NASNet's
+  numbers: tests/test_torch_nasnet.py; NCF: tests/test_torch_ncf.py).
 * Structure, every model at full width: tests/test_torch_zoo_structure.py.
 * Numbers: both frameworks hold one flax init (through convert.py) and get
   one numpy batch. Forward logits within max(1e-4 of the largest logit,
@@ -81,8 +82,8 @@ LOGIT_TOL = 1e-4
 GRAD_TOL = 2e-3
 BN_BIAS_TOL = 5e-2
 STAT_TOL = 1e-4
-ITEM_7B = {"imagenet": {"nasnet", "nasnetlarge", "ncf"},
-           "cifar10": {"nasnet"}}
+# NCF is no image classifier: tests/test_torch_ncf.py holds it.
+OWN_FILE = {"imagenet": {"ncf"}, "cifar10": set()}
 
 
 def _batch(n, size, seed, depth=3):
@@ -221,24 +222,23 @@ def _model_pair(jmodel, pmodel, train=True):
 
 # -- the registry ------------------------------------------------------------
 
-@pytest.mark.parametrize("dataset", ["imagenet", "cifar10"])
+@pytest.mark.parametrize("dataset", ["imagenet", "cifar10", "coco"])
 def test_registry_names_are_the_jax_packages_less_item_7b(dataset):
-  jax_names = set(jax_model_config.list_models(dataset))
+  """Every name of the JAX package's ImageNet, CIFAR-10 and COCO maps; the
+  rest of item 7b (DeepSpeech2, the LibriSpeech map) is refused naming
+  it."""
   assert set(model_config.list_models(dataset)) == \
-      jax_names - ITEM_7B[dataset]
-  for name in ITEM_7B[dataset]:
-    with pytest.raises(validation.ParamError,
-                       match="ROADMAP Queue 1 item 7b"):
-      model_config.get_model_config(name, None, dataset)
-  for dataset_7b in ("coco", "librispeech"):
-    name = jax_model_config.list_models(dataset_7b)[0]
-    with pytest.raises(validation.ParamError,
-                       match="ROADMAP Queue 1 item 7b"):
-      model_config.get_model_config(name, None, dataset_7b)
+      set(jax_model_config.list_models(dataset))
+  for name in ("deepspeech2",) + tuple(
+      jax_model_config.list_models("librispeech")):
+    for data in (dataset, "librispeech"):
+      with pytest.raises(validation.ParamError,
+                         match="ROADMAP Queue 1 item 7b"):
+        model_config.get_model_config(name, None, data)
 
 
 _ZOO = [(d, n) for d in ("imagenet", "cifar10")
-        for n in sorted(set(jax_model_config.list_models(d)) - ITEM_7B[d])
+        for n in sorted(set(jax_model_config.list_models(d)) - OWN_FILE[d])
         if n != "transformer_lm"]
 
 
@@ -539,6 +539,9 @@ def test_lrn_matches_the_jax_builder():
 
 
 def test_dropout_mask_comes_from_the_runs_generator_and_keeps_its_share():
+  """The mask is a function of the run's seed and the step counter alone:
+  the same seed and step give the same mask, another seed or another step
+  another; it keeps its share and scales the kept values."""
   def net(seed):
     pmodel = _PortNet(_vgg_layers, 16)
     return pmodel.make_module(
@@ -555,13 +558,17 @@ def test_dropout_mask_comes_from_the_runs_generator_and_keeps_its_share():
   ya, yb, yc = a(images), b(images), c(images)
   torch.testing.assert_close(ya, yb, rtol=0, atol=0)
   assert not torch.equal(ya, yc)
+  # Again at the same step: the same mask; at another step: another.
+  torch.testing.assert_close(a(images), ya, rtol=0, atol=0)
+  b.rng_step = torch.tensor(1)
+  assert not torch.equal(b(images), ya)
   a.eval()
   b.eval()
   torch.testing.assert_close(a(images), b(images), rtol=0, atol=0)
   # The share kept, and the kept values scaled by 1 / keep_prob.
   x = torch.ones(400, 500)
-  g = torch.Generator().manual_seed(3)
-  y = builder.dropout(x, 0.8, g)
+  u = builder.counter_uniform(x.shape, 3, torch.tensor(0), 0, x.device)
+  y = builder.dropout(x, 0.8, u)
   kept = (y != 0).float().mean().item()
   assert abs(kept - 0.8) < 0.005
   assert torch.all((y == 0) | (y == 1.0 / 0.8))
@@ -655,21 +662,26 @@ def test_cli_refuses_a_model_of_another_dataset(capsys):
   assert cli.main(["--device=cpu", "--model=vgg16",
                    "--data_name=cifar10"]) == 1
   assert "not a model of the cifar10 dataset" in capsys.readouterr().err
-  assert cli.main(["--device=cpu", "--model=ncf"]) == 1
+  assert cli.main(["--device=cpu", "--model=deepspeech2"]) == 1
   assert "ROADMAP Queue 1 item 7b" in capsys.readouterr().err
 
 
 
 def test_captured_training_of_a_dropout_model_is_refused_on_the_card(
     monkeypatch):
-  """--steps_per_dispatch > 1 captures the step on the card, which does
-  not register the networks' own dropout generators yet."""
+  """--steps_per_dispatch > 1 captures the step on the card. The dropout
+  networks' draws read the step counter on the device, so they are
+  admitted; what the card still refuses at K > 1 is a network the port
+  does not run (DeepSpeech2, ROADMAP Queue 1 item 7b)."""
   from kf_benchmarks_tpu_torch import params as params_lib  # noqa: PLC0415
   monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
   monkeypatch.setattr(validation.mesh, "device_count_error", lambda *a: None)
   flags = dict(device="gpu", use_fp16=True, steps_per_dispatch=2)
-  with pytest.raises(validation.ParamError, match="dropout"):
+  with pytest.raises(validation.ParamError, match="item 7b"):
     validation.validate_cross_flags(params_lib.make_params(
-        model="vgg16", **flags))
+        model="deepspeech2", **flags))
+  for model in ("vgg16", "alexnet", "overfeat", "mobilenet", "nasnet"):
+    validation.validate_cross_flags(params_lib.make_params(
+        model=model, **flags))
   validation.validate_cross_flags(params_lib.make_params(
       model="resnet20", data_name="cifar10", **flags))
