@@ -180,7 +180,12 @@ the run with a non-zero exit and no result line:
                 dispatch_overhead_s, peak memory, and the busy share of 4
                 more steps of each arm, as torch.profiler's kernel time
                 and as the card's time for them queued behind a spin
-                kernel (the host's share hidden), over their wall;
+                kernel (the host's share hidden), over their wall; then
+                ResNet-50 under --variable_update=parameter_server
+                --staged_vars and under --variable_consistency=relaxed,
+                4 warmup + 8 timed steps at K = 1 and K = 8: bitwise
+                equal, K-A and K-B 13 + 13 a step, images/sec beside
+                the plain step's;
  20. accum   -- --num_grad_accum: ResNet-50 (batch 256) at M = 1 and at
                 M = 4 under K = 1 and K = 4 (losses bitwise equal between
                 the two, peak memory below M = 1's, K-A and K-B 4 x 13 a
@@ -258,7 +263,7 @@ the run with a non-zero exit and no result line:
                 that --input_preprocessor=multiprocess's first batch is
                 bitwise the host's serial decode of the same records on
                 the same streams; trains ResNet-50 (batch 256, bf16,
-                momentum) on the records through BenchmarkCNN, 8 warmup +
+                momentum) on the records through BenchmarkCNN, 4 warmup +
                 8 timed steps at K = 1 and K = 8 (losses bitwise equal,
                 13 + 13 launches a step), at K = 8 with
                 --datasets_repeat_cached_sample, and through the process
@@ -305,7 +310,7 @@ the run with a non-zero exit and no result line:
                 cache and the flash forward on the composed arm's own
                 verify rows (B 64 x 2048) against their plain versions.
  28. models  -- the image-classification zoo through BenchmarkCNN, bf16
-                (--use_fp16), 3 warmup + 10 timed steps each at its
+                (--use_fp16), 2 warmup + 3 timed steps each at its
                 published image size and default batch: vgg16 (224, 64),
                 alexnet (227, 512), overfeat (231, 32), lenet (28, 32),
                 googlenet (224, 32), inception4 (299, 32), mobilenet (224,
@@ -338,9 +343,30 @@ the run with a non-zero exit and no result line:
                 per-image predictions, NMS and the COCO mAP through the
                 numpy evaluator (near 0 on untrained weights; the check is
                 that the path runs end to end), K-B 13 a batch.
+ 30. speech  -- DeepSpeech2 (models/deepspeech.py) at its published sizes
+                through BenchmarkCNN: batch 128, 3494 x 161 frames, five
+                bidirectional LSTM layers of 800, bf16, 2 warmup + 5
+                timed steps on the synthetic batch: examples/sec, peak
+                memory, a finite loss, no kernel of ours launched, one
+                step and the CTC loss's forward and backward by CUDA
+                events (its share of the step), and the recurrence's
+                kernels in torch.profiler (cuDNN's bf16 cell kernels,
+                no fallback); the bf16 and f32 card forwards against the
+                port's f32 CPU forward (batch 2, the full frames; cosine
+                floors of phase models); the eager step twice from one
+                state (bitwise) and 8 steps at K = 8 against 8 single
+                steps at batch 16 (bitwise: cuDNN's RNN and the CTC
+                recursion captured); then 384 + 128 utterances from the
+                port's generator (data/librispeech_record_generator.py),
+                3 steps at batch 128 (examples/sec, feed_stall_fraction,
+                the losses of optax's log-epsilon path) and one eval
+                batch.
 
 Every process it starts shares one bytecode cache under build/pycache
-(``_use_bytecode_cache``). Before the last line it prints the card's name
+(``_use_bytecode_cache``). When phase elastic is in the run, phases
+parity, lm_parity and serve_parity, which time nothing, run in this
+process while elastic waits for its launches (BESIDE_ELASTIC), not in
+their own place. Before the last line it prints the card's name
 and power limit and one JSON line with every kernel's error, time, bound
 and library time. The
 last line is {"ok": true, "device": {...}}. ``--phases=build,conv`` runs a
@@ -348,8 +374,11 @@ subset (the result line is printed only when every phase ran);
 ``--phases=build,profile`` traces three ResNet-50 training steps with
 torch.profiler and prints the kernel-time table, ``--phases=build,
 lm_profile`` three transformer_lm steps, ``--phases=build,serve_profile``
-20 serving decode steps at bucket 64, and ``--phases=build,conv_tiles``
-times K-A and K-B at every tile shape of theirs at every STAGES shape.
+20 serving decode steps at bucket 64, ``--phases=build,conv_tiles``
+times K-A and K-B at every tile shape of theirs at every STAGES shape, and
+``--phases=build,first_steps`` times NASNet-A's and MobileNet's build and
+first training step in fresh processes, with the depthwise convs through
+cuDNN and through torch's own kernel.
 """
 
 from __future__ import annotations
@@ -396,8 +425,9 @@ ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
               "optim", "dispatch", "accum", "serve_graph", "fp16_vars",
               "health", "faults", "input", "aot", "serve_variants",
-              "models", "detect")
-EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles")
+              "models", "detect", "speech")
+EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles",
+                "first_steps")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -2364,6 +2394,12 @@ def phase_zoo(res):
 # the consuming phase removes).
 EARLY = {}
 
+# Phases that time nothing, run by phase elastic in this process while it
+# waits for its launches (when both are in the run), not in their own
+# place: their card work is small beside the workers' and their checks
+# are numeric, so sharing the card and the host's cores changes no check.
+BESIDE_ELASTIC = ("parity", "lm_parity", "serve_parity")
+
 
 def timed_waits(waits):
   """{name: zero-argument function waiting for a process} -> {name:
@@ -2507,19 +2543,30 @@ def phase_elastic(res):
   # Four ResNet-152 checkpoints of 460 MiB: removed when read.
   with tempfile.TemporaryDirectory(prefix="elastic_") as root:
     half = ELASTIC_STEPS // 2
-    # The two uninterrupted runs and the first arc share the card (three
-    # workers of 19 GiB at their peak); the second arc resumes beside the
-    # early launches (EARLY).
-    started = [elastic_start(root, "whole_a", ELASTIC_STEPS),
-               elastic_start(root, "whole_b", ELASTIC_STEPS),
-               elastic_start(root, "arcs", half)]
-    logs = dict(zip(("whole_a", "whole_b", "arc_1"),
-                    [elastic_finish(s) for s in started]))
-    arc_2 = elastic_start(root, "arcs", half)
-    waits = {"arc_2": lambda: elastic_finish(arc_2),
-             **early_waits(res.get("phases", ()))}
-    done = timed_waits(waits)
-    logs["arc_2"] = done.pop("arc_2")[0]
+
+    def launches():
+      """The two uninterrupted runs and the first arc share the card (three
+      workers of 19 GiB at their peak); the second arc resumes beside the
+      early launches (EARLY)."""
+      started = [elastic_start(root, "whole_a", ELASTIC_STEPS),
+                 elastic_start(root, "whole_b", ELASTIC_STEPS),
+                 elastic_start(root, "arcs", half)]
+      logs = dict(zip(("whole_a", "whole_b", "arc_1"),
+                      [elastic_finish(s) for s in started]))
+      arc_2 = elastic_start(root, "arcs", half)
+      done = timed_waits({"arc_2": lambda: elastic_finish(arc_2),
+                          **early_waits(res.get("phases", ()))})
+      logs["arc_2"] = done.pop("arc_2")[0]
+      return logs, done
+
+    # This process waits on the launches' thread; meanwhile it runs the
+    # untimed phases of BESIDE_ELASTIC.
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+      future = pool.submit(launches)
+      for name in res.get("beside_elastic", ()):
+        run_phase(name, res)
+      logs, done = future.result()
     store_early(done)
     if done:
       log(f"elastic: the second arc ran beside {', '.join(done)} (phases "
@@ -3126,6 +3173,13 @@ BUSY_STEPS = 4
 RESNET_LAUNCHES = {"conv3x3_same": 13, "bn_relu_conv3x3_stats": 13}
 LM_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 6,
                "flash_attention_bwd_dq": 6}
+# The step's stale modes in phase dispatch: (label, flags), each at K = 1
+# and K = 8 for STALE_WARMUP + STALE_STEPS steps.
+STALE_ARMS = (("staged_vars", dict(variable_update="parameter_server",
+                                   staged_vars=True)),
+              ("relaxed", dict(variable_update="replicated",
+                               variable_consistency="relaxed")))
+STALE_WARMUP, STALE_STEPS = 4, 8
 
 
 def resnet_train_params(**kw):
@@ -3232,6 +3286,41 @@ def phase_dispatch(res):
     for arm in arms.values():
       del arm["weights"]
     res["dispatch"][model] = arms
+    torch.cuda.empty_cache()
+  # The stale modes (ROADMAP Queue 1 item 12) on ResNet-50: K = 8 bitwise 8
+  # single steps, K-A and K-B 13 + 13 a step, the rate beside the plain
+  # step's.
+  plain = res["dispatch"]["resnet50"]
+  for label, flags in STALE_ARMS:
+    arms = {}
+    for k in (1, DISPATCH_K):
+      bench, stats, counts, peak = bench_arm(resnet_train_params(
+          num_batches=STALE_STEPS, num_warmup_batches=STALE_WARMUP,
+          display_every=STALE_STEPS, steps_per_dispatch=k, **flags))
+      res.setdefault("counts_by_path", {})[f"dispatch_{label}_k{k}"] = \
+          counts
+      check_launches(f"dispatch: {label} K={k}", counts, RESNET_LAUNCHES,
+                     stats["steps_run"])
+      arms[k] = dict(losses=stats["losses"], rate=stats["images_per_sec"],
+                     peak_gib=peak, weights=[
+                         q.detach().clone()
+                         for q in bench.final["module"].parameters()])
+      del bench
+    one, many = arms[1], arms[DISPATCH_K]
+    same = (one["losses"] == many["losses"] and all(
+        torch.equal(a, b) for a, b in zip(one["weights"], many["weights"])))
+    check(same, f"dispatch {label}: K={DISPATCH_K} differs from K=1")
+    log(f"dispatch: resnet50 {label} ({flags}): {STALE_WARMUP} warmup + "
+        f"{STALE_STEPS} timed steps; K={DISPATCH_K} bitwise K=1 (losses and "
+        f"weights), K-A / K-B 13 + 13 a step; images/sec K=1 "
+        f"{one['rate']:.2f} (plain step {plain[1]['rate']:.2f}), "
+        f"K={DISPATCH_K} {many['rate']:.2f} (plain step "
+        f"{plain[DISPATCH_K]['rate']:.2f}); peak memory "
+        f"{one['peak_gib']:.2f} / {many['peak_gib']:.2f} GiB (plain "
+        f"{plain[1]['peak_gib']:.2f} / {plain[DISPATCH_K]['peak_gib']:.2f})")
+    for arm in arms.values():
+      del arm["weights"]
+    res["dispatch"][label] = arms
     torch.cuda.empty_cache()
 
 
@@ -4035,7 +4124,7 @@ def phase_faults(res):
 
 # Phase input: the records it writes and the steps of each run.
 INPUT_TRAIN, INPUT_VALIDATION, INPUT_DISTINCT = 1024, 256, 64
-INPUT_WARMUP, INPUT_STEPS = 8, 8
+INPUT_WARMUP, INPUT_STEPS = 4, 8
 # The decode of jpeg.encode(textured_image(RandomState(0)), quality=90)
 # (kf_benchmarks_tpu_torch/data; tests/test_torch_jpeg.py pins it too).
 PINNED_DECODE_SHA256 = (
@@ -4299,7 +4388,7 @@ MODELS_RUNS = (
     ("ncf", "ncf", "imagenet", None, 2048, 0, {}),
     ("ssd300", "ssd300", "coco", 300, 32, 13, {}),
 )
-MODELS_WARMUP, MODELS_STEPS = 3, 10
+MODELS_WARMUP, MODELS_STEPS = 2, 3
 MODELS_COSINE_BATCH = 8
 # The bf16 card forward against the f32 CPU forward, and the f32 card
 # forward (every conv plain) against the same. bf16 rounding grows through
@@ -4330,11 +4419,11 @@ def models_params(model, data_name, batch, **flags):
       **kw)
 
 
-def models_cosine(model, nclass, seed):
+def models_cosine(model, nclass, seed, batch=MODELS_COSINE_BATCH):
   """{"bf16", "f32"}: the cosine of the card's bf16 forward's logits, and
   of its f32 forward's (every conv plain: the kernels are bf16), against
-  the port's own f32 CPU forward at the same weights and images (batch
-  8): the batch norms on batch statistics, dropout off."""
+  the port's own f32 CPU forward at the same weights and images (``batch``
+  of them): the batch norms on batch statistics, dropout off."""
   from kf_benchmarks_tpu_torch.models import builder
   gen = torch.Generator(device="cuda").manual_seed(seed)
   with torch.device("cuda"):
@@ -4347,7 +4436,7 @@ def models_cosine(model, nclass, seed):
   if isinstance(card32, builder.GraphNet):
     card32.fuse = False
   old = model.get_batch_size()
-  model.set_batch_size(MODELS_COSINE_BATCH)
+  model.set_batch_size(batch)
   images, _ = model.get_synthetic_inputs(gen, nclass, torch.device("cuda"))
   model.set_batch_size(old)
   outs = []
@@ -4483,6 +4572,61 @@ def phase_models(res):
         seed += 1
 
 
+
+# The first training step of the depthwise networks, each run in a fresh
+# process (cuDNN's plans live in the process): as the port runs them, and
+# with the depthwise convs through torch's own CUDA kernel (NCHW in and
+# out) in place of cuDNN's NHWC one. The second "cudnn" run of each asks
+# whether anything of the first outlives its process.
+FIRST_STEP_RUNS = (("nasnet", "cudnn"), ("nasnet", "cudnn"),
+                   ("nasnet", "native"), ("mobilenet", "cudnn"),
+                   ("mobilenet", "native"))
+_FIRST_STEP_CODE = """
+import sys
+import torch
+import torch.nn.functional as F
+from kf_benchmarks_tpu_torch import cli
+from kf_benchmarks_tpu_torch.models import builder
+if sys.argv[1] == "native":
+  cudnn_forward = builder.Conv.forward
+  def forward(self, x):
+    if self.groups == 1 or not x.is_cuda:
+      return cudnn_forward(self, x)
+    t, b, l, r = self.pads(x.shape[2], x.shape[3])
+    x = F.pad(x.contiguous(), (l, r, t, b))
+    w = self.weight.to(x.dtype).contiguous()
+    bias = None if self.bias is None else self.bias.to(x.dtype)
+    y = F.conv2d(x, w, bias, stride=self.stride, groups=self.groups)
+    return y.contiguous(memory_format=torch.channels_last)
+  builder.Conv.forward = forward
+sys.exit(cli.main(sys.argv[2:]))
+"""
+
+
+def phase_first_steps(res):
+  """Build + first step and the rate of the next 5 steps, FIRST_STEP_RUNS
+  one process at a time."""
+  out = res["first_steps"] = []
+  for model, route in FIRST_STEP_RUNS:
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", _FIRST_STEP_CODE, route, f"--model={model}",
+         "--batch_size=32", "--use_fp16", "--num_warmup_batches=1",
+         "--num_batches=5", "--display_every=5", "--device=gpu"],
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"first_steps {model} {route}: "
+          f"{proc.stderr[-3000:]}")
+    first = float(re.search(r"Build \+ warmup \(1 steps\): ([\d.]+) s",
+                            proc.stdout).group(1))
+    rate = float(re.search(r"total images/sec: ([\d.]+)",
+                           proc.stdout).group(1))
+    out.append(dict(model=model, route=route, first_s=first,
+                    images_per_sec=rate, process_s=time.time() - t0))
+    log(f"first_steps {model} ({route} depthwise): build + first step "
+        f"{first:.1f} s, then {rate:.2f} images/sec over 5 steps, process "
+        f"{time.time() - t0:.1f} s")
+
+
 # -- detect: SSD300 on generated COCO records ----------------------------------
 
 DETECT_RECORDS = (384, 64)  # train, validation
@@ -4568,6 +4712,215 @@ def phase_detect(res):
              steps=steps, launches=counts, eval_launches=eval_counts,
              coco_ap=results["COCO/AP"], coco_ap50=results["COCO/AP50"],
              evaluator=results.get("coco_evaluator"), peak_gib=peak)
+
+
+# -- speech: DeepSpeech2 and the LibriSpeech path -----------------------------
+
+SPEECH_BATCH = 128
+SPEECH_WARMUP, SPEECH_STEPS = 2, 5
+# Forward cosines at the full 3494 frames, batch 2: the card's bf16 and
+# f32 forwards against the port's f32 CPU forward from one init.
+SPEECH_COSINE_BATCH = 2
+# K = 8 against 8 single steps at a batch that keeps the phase short.
+SPEECH_CAPTURED_BATCH = 16
+# Generated records (train, validation) and steps on them.
+SPEECH_RECORDS = (384, 128)
+SPEECH_RECORD_STEPS = 3
+
+
+def speech_params(batch=SPEECH_BATCH, **kw):
+  from kf_benchmarks_tpu_torch import params as params_lib
+  return params_lib.make_params(
+      model="deepspeech2", data_name="librispeech", batch_size=batch,
+      use_fp16=True, device="gpu", **kw)
+
+
+def speech_recurrence_kernels(module, images):
+  """The CUDA kernel names of one eval-mode forward whose name marks an RNN
+  kernel, by torch.profiler: cuDNN's carry the cell and the dtype."""
+  from torch.profiler import ProfilerActivity, profile
+  module.eval()
+  try:
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as p:
+      module(images)
+      torch.cuda.synchronize()
+  finally:
+    module.train()
+  return sorted({e.key for e in p.key_averages()
+                 if "rnn" in e.key.lower() or "lstm" in e.key.lower()})
+
+
+def speech_events_ms(fn):
+  """ms of one call of fn() (warm already) by CUDA events."""
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  torch.cuda.synchronize()
+  start.record()
+  fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end)
+
+
+def phase_speech(res):
+  """DeepSpeech2 and the LibriSpeech path: see the module docstring, item
+  30."""
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch.data import librispeech_record_generator
+  from kf_benchmarks_tpu_torch.models import deepspeech
+  out = res["speech"] = {}
+  # (a) Synthetic, at the published sizes.
+  bench, stats, counts, peak = bench_arm(speech_params(
+      num_batches=SPEECH_STEPS, num_warmup_batches=SPEECH_WARMUP,
+      display_every=SPEECH_STEPS))
+  model = bench.model
+  check(model.rnn_hidden_size == 800 and model.num_rnn_layers == 5 and
+        model.max_time_steps == 3494 and bench.batch_size == SPEECH_BATCH,
+        "speech: not the published DeepSpeech2 sizes")
+  check(np.isfinite(stats["last_average_loss"]), "speech: loss not finite")
+  check_launches("speech", counts, {}, stats["steps_run"])
+  final = bench.final
+  module, step = final["module"], final["step"]
+  images, labels = final["images"], final["labels"]
+  step_ms = speech_events_ms(lambda: step(images, labels))
+  with torch.no_grad():
+    logits = module(images)
+  x = logits.detach().requires_grad_()
+  ctc_ms = speech_events_ms(
+      lambda: model.loss_function(x, labels).backward())
+  kernels = speech_recurrence_kernels(module, images)
+  check(any("bfloat16" in k for k in kernels) and
+        not any("thnn" in k for k in kernels),
+        f"speech: the bf16 recurrence is not cuDNN's: {kernels}")
+  res.setdefault("counts_by_path", {})["speech"] = counts
+  out.update(examples_per_sec=stats["images_per_sec"], peak_gib=peak,
+             loss=stats["last_average_loss"], step_ms=step_ms, ctc_ms=ctc_ms,
+             ctc_share=ctc_ms / step_ms, launches=counts,
+             recurrence_kernels=kernels)
+  log(f"speech: DeepSpeech2 (5 bidirectional LSTM layers of 800, 3494 x "
+      f"161 frames, batch {SPEECH_BATCH}, bf16), {SPEECH_WARMUP} warmup + "
+      f"{SPEECH_STEPS} timed steps: {stats['images_per_sec']:.2f} "
+      f"examples/sec, peak memory {peak:.2f} GiB, loss "
+      f"{stats['last_average_loss']:.4f}, launches {counts}; one step "
+      f"{step_ms:.1f} ms by CUDA events, the CTC loss's forward and "
+      f"backward {ctc_ms:.1f} ms of it (share {ctc_ms / step_ms:.3f}); the "
+      f"bf16 recurrence's kernels: {kernels}")
+  del bench, final, module, step, logits, x
+  gc.collect()
+  torch.cuda.empty_cache()
+  # (b) Forward cosines against the f32 CPU forward.
+  t0 = time.time()
+  cos = models_cosine(deepspeech.DeepSpeech2Model(), 29, 31,
+                      batch=SPEECH_COSINE_BATCH)
+  out["forward_cosine"] = cos
+  for kind, floor in MODELS_COSINE_MIN.items():
+    check(cos[kind] >= floor, f"speech: {kind} card forward's cosine "
+          f"{cos[kind]:.6f} against the f32 CPU forward, want >= {floor}")
+  log(f"speech: card forward against the f32 CPU forward (batch "
+      f"{SPEECH_COSINE_BATCH}, 3494 frames, same weights; "
+      f"{time.time() - t0:.1f} s): cosine bf16 {cos['bf16']:.6f}, f32 "
+      f"{cos['f32']:.8f}")
+  gc.collect()
+  torch.cuda.empty_cache()
+  # (c) From one state: the eager step twice, 8 single steps, and 8 steps
+  # of the step captured (train_step.TrainChunk at K = 8, as
+  # --steps_per_dispatch=8 runs it).
+  from kf_benchmarks_tpu_torch import train_step as train_step_lib
+  b = benchmark.BenchmarkCNN(speech_params(SPEECH_CAPTURED_BATCH))
+  m, st, im, lb = b.build()
+  held = list(m.parameters()) + train_step_lib.batch_stats(m)
+  state = [t.detach().clone() for t in held]
+
+  def run(steps):
+    """Losses and weights of ``steps()`` from the held state, and its ms by
+    CUDA events."""
+    with torch.no_grad():
+      for t, v in zip(held, state):
+        t.copy_(v)
+    st.global_step, st.update_count = 0, 0
+    got = []
+    ms = speech_events_ms(lambda: got.extend(steps()))
+    return ([float(v) for v in got],
+            [q.detach().clone() for q in m.parameters()], ms)
+
+  after_one = []
+
+  def singles():
+    losses = []
+    for _ in range(DISPATCH_K):
+      losses.append(st(im, lb)["total_loss"])
+      if not after_one:
+        after_one.append([q.detach().clone() for q in m.parameters()])
+    return losses
+
+  first = run(lambda: [st(im, lb)["total_loss"]])
+  single = run(singles)
+  check(first[0][0] == single[0][0] and all(
+      torch.equal(x, y) for x, y in zip(first[1], after_one[0])),
+      "speech: two eager steps from one state differ")
+  chunk = train_step_lib.TrainChunk(st, DISPATCH_K)
+  # The first call captures; the second only replays, and is timed.
+  captured, replayed = (
+      run(lambda: chunk(im, lb, DISPATCH_K)["total_loss"].tolist())
+      for _ in range(2))
+  for got in (captured, replayed):
+    check(single[0] == got[0] and all(
+        torch.equal(x, y) for x, y in zip(single[1], got[1])),
+        f"speech: K = {DISPATCH_K} captured steps differ from {DISPATCH_K} "
+        f"single steps ({single[0]} / {got[0]})")
+  eager_ms, graph_ms = single[2] / DISPATCH_K, replayed[2] / DISPATCH_K
+  out["captured"] = dict(batch=SPEECH_CAPTURED_BATCH, k=DISPATCH_K,
+                         losses=single[0], bitwise=True,
+                         eager_repeat_bitwise=True, eager_step_ms=eager_ms,
+                         captured_step_ms=graph_ms)
+  log(f"speech: the eager step twice from one state (batch "
+      f"{SPEECH_CAPTURED_BATCH}): bitwise equal; {DISPATCH_K} steps at K = "
+      f"{DISPATCH_K} (cuDNN's RNN and the CTC recursion captured as one "
+      f"CUDA graph), captured and replayed, bitwise {DISPATCH_K} single "
+      f"steps: losses {[round(v, 4) for v in single[0]]}; a step by CUDA "
+      f"events {eager_ms:.1f} ms eager, {graph_ms:.1f} ms replayed "
+      f"({SPEECH_CAPTURED_BATCH * 1000 / eager_ms:.2f} and "
+      f"{SPEECH_CAPTURED_BATCH * 1000 / graph_ms:.2f} examples/sec)")
+  del b, m, st, im, lb, held, state, chunk, first, after_one, single
+  del captured, replayed
+  gc.collect()
+  torch.cuda.empty_cache()
+  # (d) Generated LibriSpeech records.
+  with tempfile.TemporaryDirectory() as root:
+    t0 = time.time()
+    librispeech_record_generator.write_fake_librispeech(
+        root, num_train=SPEECH_RECORDS[0], num_validation=SPEECH_RECORDS[1])
+    gen_s = time.time() - t0
+    bench, stats, counts, peak = bench_arm(speech_params(
+        data_dir=root, num_batches=SPEECH_RECORD_STEPS,
+        num_warmup_batches=0, display_every=SPEECH_RECORD_STEPS))
+    check(np.isfinite(stats["last_average_loss"]),
+          "speech records: loss not finite")
+    check_launches("speech records", counts, {}, stats["steps_run"])
+    stall = stats["feed_stall_fraction"]
+    del bench
+    ev = benchmark.BenchmarkCNN(speech_params(
+        data_dir=root, eval=True, num_eval_batches=1))
+    results = ev.run()
+    check(results.get("num_eval_batches") == 1 and
+          np.isfinite(results["base_loss"]),
+          f"speech records: eval gave {results}")
+    del ev
+  out["records"] = dict(examples_per_sec=stats["images_per_sec"],
+                        feed_stall=stall, loss=stats["last_average_loss"],
+                        losses=list(stats["losses"]), peak_gib=peak,
+                        eval_loss=results["base_loss"],
+                        eval_top_1=results["top_1_accuracy"],
+                        generate_s=gen_s)
+  log(f"speech records: {SPEECH_RECORDS[0]} + {SPEECH_RECORDS[1]} generated "
+      f"utterances ({gen_s:.1f} s to write), batch {SPEECH_BATCH}, "
+      f"{stats['steps_run']} steps: {stats['images_per_sec']:.2f} "
+      f"examples/sec, feed_stall_fraction "
+      f"{stall if stall is None else round(stall, 4)}, losses "
+      f"{[round(v, 2) for v in stats['losses']]} (optax's log-epsilon path "
+      f"for the utterances whose labels outnumber their CTC frames), peak "
+      f"memory {peak:.2f} GiB; one eval batch: loss "
+      f"{results['base_loss']:.2f}, non-blank frame share "
+      f"{results['top_1_accuracy']:.4f}")
 
 
 # -- the frozen forward and the serving variants ----------------------------------
@@ -5083,6 +5436,38 @@ def kernels_line(res, counts):
   return {"kernels": rows}
 
 
+PHASES = {"build": phase_build, "conv": phase_conv, "unit": phase_unit,
+          "train": phase_train, "parity": phase_parity,
+          "flash": phase_flash, "flash_grad": phase_flash_grad,
+          "lm_train": phase_lm_train, "lm_parity": phase_lm_parity,
+          "decode": phase_decode, "serve": phase_serve,
+          "serve_parity": phase_serve_parity, "dp": phase_dp,
+          "zoo": phase_zoo, "elastic": phase_elastic,
+          "infer": phase_infer, "eval": phase_eval, "optim": phase_optim,
+          "dispatch": phase_dispatch, "accum": phase_accum,
+          "serve_graph": phase_serve_graph,
+          "fp16_vars": phase_fp16_vars, "health": phase_health,
+          "faults": phase_faults, "input": phase_input,
+          "aot": phase_aot, "serve_variants": phase_serve_variants,
+          "models": phase_models, "detect": phase_detect,
+          "speech": phase_speech,
+          "serve_profile": phase_serve_profile,
+          "conv_tiles": phase_conv_tiles,
+          "first_steps": phase_first_steps,
+          "profile": phase_profile, "lm_profile": phase_lm_profile}
+
+
+def run_phase(name, res):
+  t0 = time.time()
+  log(f"== phase {name}")
+  PHASES[name](res)
+  # What a phase kept alive -- CUDA graphs' private pools, engines'
+  # rings -- goes before the next one.
+  gc.collect()
+  torch.cuda.empty_cache()
+  log(f"== phase {name} done in {time.time() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -5101,34 +5486,13 @@ def main(argv=None) -> int:
   torch.backends.cudnn.allow_tf32 = False
   log(f"chip_smoke: torch {torch.__version__}, CUDA {torch.version.cuda}, "
       f"{torch.cuda.get_device_name(0)}")
-  res = {"counts": {}, "phases": phases}
-  table = {"build": phase_build, "conv": phase_conv, "unit": phase_unit,
-           "train": phase_train, "parity": phase_parity,
-           "flash": phase_flash, "flash_grad": phase_flash_grad,
-           "lm_train": phase_lm_train, "lm_parity": phase_lm_parity,
-           "decode": phase_decode, "serve": phase_serve,
-           "serve_parity": phase_serve_parity, "dp": phase_dp,
-           "zoo": phase_zoo, "elastic": phase_elastic,
-           "infer": phase_infer, "eval": phase_eval, "optim": phase_optim,
-           "dispatch": phase_dispatch, "accum": phase_accum,
-           "serve_graph": phase_serve_graph,
-           "fp16_vars": phase_fp16_vars, "health": phase_health,
-           "faults": phase_faults, "input": phase_input,
-           "aot": phase_aot, "serve_variants": phase_serve_variants,
-           "models": phase_models, "detect": phase_detect,
-           "serve_profile": phase_serve_profile,
-           "conv_tiles": phase_conv_tiles,
-           "profile": phase_profile, "lm_profile": phase_lm_profile}
+  res = {"counts": {}, "phases": phases,
+         "beside_elastic": [p for p in BESIDE_ELASTIC
+                            if p in phases and "elastic" in phases]}
   try:
     for name in phases:
-      t0 = time.time()
-      log(f"== phase {name}")
-      table[name](res)
-      # What a phase kept alive -- CUDA graphs' private pools, engines'
-      # rings -- goes before the next one.
-      gc.collect()
-      torch.cuda.empty_cache()
-      log(f"== phase {name} done in {time.time() - t0:.1f} s")
+      if name not in res["beside_elastic"]:
+        run_phase(name, res)
   finally:
     drop_early()
   log(device_line())

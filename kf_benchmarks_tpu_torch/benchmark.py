@@ -465,7 +465,9 @@ class BenchmarkCNN:
           print_accuracy=p.print_training_accuracy,
           single_l2_loss_op=p.single_l2_loss_op,
           num_grad_accum=self.num_grad_accum, sharding=sharding,
-          overlap=overlap.build(p), health_stats=bool(p.health_stats))
+          overlap=overlap.build(p), health_stats=bool(p.health_stats),
+          staged_vars=p.staged_vars,
+          relaxed=p.variable_consistency == "relaxed")
     restored_step = None
     if t_restore is not None:
       t_restore = time.time() - load_s  # the load and the restore alone
@@ -475,6 +477,7 @@ class BenchmarkCNN:
       else:
         step.global_step = restored_step = checkpoint.restore_state(
             module, step.optimizer, snapshot, step.sharding)
+        checkpoint.reseed_staged(step.staged, module)
         step.restore_counters(snapshot)
       _sync(self.device)
     if t_restore is not None:
@@ -557,6 +560,11 @@ class BenchmarkCNN:
                      or p.input_preprocessing_parallelism or 8),
         repeat_cached_sample=bool(p.datasets_repeat_cached_sample),
         use_caching=bool(p.datasets_use_caching), **pool)
+    if hasattr(pre, "max_label_length"):
+      # Speech: the labels pad to the model's static label slot (JAX
+      # benchmark.py:643-646).
+      pre.max_label_length = getattr(self.model, "max_label_length",
+                                     pre.max_label_length)
     self.preprocessor = pre
     self._feeder = device_feed.DeviceFeeder(
         pre.minibatches(self.dataset, subset), self.device,

@@ -41,7 +41,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -275,6 +275,18 @@ def restore_state(module: nn.Module, optimizer: torch.optim.Optimizer,
       for i, st in snapshot["optimizer"]["state"].items()}
   optimizer.load_state_dict(opt)
   return int(snapshot["step"])
+
+
+def reseed_staged(staged: Optional[List[torch.Tensor]],
+                  module: nn.Module) -> None:
+  """The train step's --staged_vars copy (in module order; None without
+  the flag) <- the module's weights, after a restore, so the first resumed
+  forward does not read the fresh init (the JAX package's
+  ``_reseed_staged``, checkpoint.py:255-263). The relaxed-consistency
+  bank is not saved and restarts at zero, as there."""
+  if staged is not None:
+    with torch.no_grad():
+      torch._foreach_copy_(staged, [p.detach() for p in module.parameters()])
 
 
 def _reshard(stack: torch.Tensor, n: int, k: int) -> torch.Tensor:

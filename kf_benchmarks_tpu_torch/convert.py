@@ -13,7 +13,10 @@ its layers under the JAX builder's names in its counter order
 (``conv<n>`` / ``conv<n>_bn``, ``batchnorm<n>``, ``resblk<k>_a``,
 ``affine<n>``), and MobileNet and NASNet under flax's own (``Conv_<i>``,
 ``BatchNorm_<i>``, ``Dense_<i>``), so those map name for name; NCF's
-embeddings keep flax's names and their ``embedding`` leaf as is. Leaves:
+embeddings keep flax's names and their ``embedding`` leaf as is.
+DeepSpeech2 (``flax_nested``) keeps flax's names too, its cells' gate
+layers one level down (``OptimizedLSTMCell_0.ii.weight`` ->
+``params/OptimizedLSTMCell_0/ii/kernel``). Leaves:
 
   conv   ``kernel`` HWIO       -> ``weight`` OIHW (a depthwise conv's
          [kh, kw, 1, C] -> [C, 1, kh, kw]); ``bias`` as is
@@ -133,6 +136,8 @@ def flax_source(key: str, tensor: torch.Tensor,
     return lm_leaf_of(key, module.scan_layers)
   collection, layer, leaf, kind = leaf_of(
       key, tensor, getattr(module, "block_prefix", "resnet_v1"))
+  if getattr(module, "flax_nested", False):
+    return (collection,) + tuple(layer.split(".")) + (leaf,), kind, None
   return (collection, layer, leaf), kind, None
 
 

@@ -24,8 +24,8 @@ decodes in spawned worker processes, out of the GIL's way. This module is
 what a worker imports: it and its imports (the codec, the image operations,
 the record and Example readers, numpy) must never import torch, which would
 cost each worker seconds and hundreds of MiB and touch CUDA; the one torch
-import, validation's, is made lazily in ``_refuse`` and the logger's in the
-pool's constructor, both in the parent.
+import, the logger's, is made lazily in the pool's constructor, in the
+parent.
 """
 
 from __future__ import annotations
@@ -860,6 +860,63 @@ class COCOPreprocessor(InputPreprocessor):
       pool.shutdown(wait=False)
 
 
+class LibrispeechPreprocessor(InputPreprocessor):
+  """The LibriSpeech pipeline (the JAX package's data/preprocessing.py:
+  877-954): SequenceExample records of precomputed spectrogram frames
+  (sequence feature ``features``, [T, 161] f32) with context ``labels``
+  (varlen int64), ``input_length`` and ``label_length``. Every utterance
+  pads with zeros to the model's ``max_time_steps`` frames and
+  ``max_label_length`` labels (``output_shape`` carries (max_time_steps,
+  bins, 1); the benchmark sets ``max_label_length`` from the model); an
+  over-long one is truncated and its lengths clamped.
+
+  Batches: (spectrogram [n, max_T, bins, 1] f32, (labels [n, max_labels],
+  input_lengths [n], label_lengths [n])), int32; the spectrogram is not
+  normalised (``NORMALIZATION`` None) and the feeder casts it to the
+  compute dtype on the device. Training streams replay endlessly; eval
+  makes one pass and drops a last partial batch, as the JAX package's."""
+
+  NORMALIZATION = None
+
+  def __init__(self, *args, max_label_length: int = 576, **kwargs):
+    super().__init__(*args, **kwargs)
+    self.max_time_steps = self.height
+    self.num_feature_bins = self.width
+    self.max_label_length = max_label_length
+
+  def _parse_utterance(self, record: bytes):
+    context, seqs = example_lib.parse_sequence_example(record)
+    frames = seqs.get("features", [])
+    feats = (np.stack([np.asarray(f, np.float32) for f in frames])
+             if frames else np.zeros((0, self.num_feature_bins),
+                                     np.float32))
+    labels = np.asarray(context.get("labels", []), np.int64)
+    t = min(len(feats), self.max_time_steps)
+    n = min(len(labels), self.max_label_length)
+    spec = np.zeros((self.max_time_steps, self.num_feature_bins, 1),
+                    np.float32)
+    spec[:t, :, 0] = feats[:t, :self.num_feature_bins]
+    lab = np.zeros((self.max_label_length,), np.int32)
+    lab[:n] = labels[:n]
+    return spec, lab, np.int32(t), np.int32(n)
+
+  def minibatches(self, dataset, subset: str):
+    stream = self._record_stream(dataset, subset)
+    pool = concurrent.futures.ThreadPoolExecutor(self.num_threads)
+    try:
+      while True:
+        records = list(itertools.islice(stream, self.batch_size))
+        if len(records) < self.batch_size:
+          return
+        results = list(pool.map(self._parse_utterance, records))
+        yield (np.stack([r[0] for r in results]),
+               (np.stack([r[1] for r in results]),
+                np.asarray([r[2] for r in results], np.int32),
+                np.asarray([r[3] for r in results], np.int32)))
+    finally:
+      pool.shutdown(wait=False)
+
+
 class TestImagePreprocessor(InputPreprocessor):
   """Injects fake numpy data as "real" input (ref:
   preprocessing.py:896-975). ``set_fake_data`` then iterate. The batches
@@ -896,29 +953,15 @@ _PREPROCESSORS = {
     "imagenet": RecordInputImagePreprocessor,
     "cifar10": Cifar10ImagePreprocessor,
     "coco": COCOPreprocessor,
+    "librispeech": LibrispeechPreprocessor,
     "test": TestImagePreprocessor,
 }
-
-# Preprocessors of the JAX package that the port does not run yet, with the
-# ROADMAP Queue 1 item that brings each.
-_NOT_PORTED = {
-    "librispeech": ("the LibriSpeech (deepspeech) preprocessor", "7b"),
-}
-
-
-def _refuse(key: str):
-  from kf_benchmarks_tpu_torch import validation  # noqa: PLC0415
-  what, item = _NOT_PORTED[key]
-  raise validation.ParamError(
-      f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def get_preprocessor(dataset_name: str, kind: str = "default"):
   """Name -> preprocessor class (ref: datasets.py:208-229 maps)."""
   if kind == "test":
     return TestImagePreprocessor
-  if dataset_name in _NOT_PORTED:
-    _refuse(dataset_name)
   if kind == "official_models_imagenet":
     if dataset_name != "imagenet":
       raise ValueError("official_models_imagenet preprocessing applies "

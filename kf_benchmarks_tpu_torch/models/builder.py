@@ -88,12 +88,16 @@ class CompactBatchNorm(nn.Module):
     ``(x - mean) * (inv*scale) + bias``.
   * ``sums`` lets a caller hand in ``[sum x, sum x^2]`` computed elsewhere
     (the fused conv kernel's epilogue) instead of reducing x again.
+  * ``features_last``: the input is (..., features) contiguous (a
+    sequence model's (batch, time, features)) instead of an NCHW-shaped
+    tensor; the statistics reduce over every axis but the last, as flax's.
   """
 
   def __init__(self, features: int, momentum: float, epsilon: float,
-               use_scale: bool = True):
+               use_scale: bool = True, features_last: bool = False):
     super().__init__()
     self.features = features
+    self.features_last = features_last
     self.momentum = momentum
     self.epsilon = epsilon
     self.scale = nn.Parameter(torch.ones(features)) if use_scale else None
@@ -108,7 +112,7 @@ class CompactBatchNorm(nn.Module):
     if not self.training:
       return self.mean, self.var
     if sums is None:
-      sums = channel_sums(nhwc(x))
+      sums = channel_sums(x if self.features_last else nhwc(x))
     n = x.numel() // self.features
     mean = sums[0] / n
     var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
@@ -123,7 +127,7 @@ class CompactBatchNorm(nn.Module):
     bias = accum(self.bias)
     a = self._scaled(torch.rsqrt(var + self.epsilon))
     dt = x.dtype
-    shape = (1, -1, 1, 1)
+    shape = (-1,) if self.features_last else (1, -1, 1, 1)
     return ((x - mean.to(dt).view(shape)) * a.to(dt).view(shape) +
             bias.to(dt).view(shape))
 

@@ -2,10 +2,9 @@
 package's names (kf_benchmarks_tpu/models/model_config.py:31-84).
 
 ``_MODELS`` is the ImageNet map (also synthetic ImageNet), ``_CIFAR_MODELS``
-the CIFAR-10 map, ``_COCO_MODELS`` the COCO map (SSD300). The JAX
-package's names the port does not run yet -- DeepSpeech2 and the
-LibriSpeech map -- raise a ParamError naming their ROADMAP item. Each entry is called with the
-run's Params (or None), as in the JAX package.
+the CIFAR-10 map, ``_COCO_MODELS`` the COCO map (SSD300), ``_SPEECH_MODELS``
+the LibriSpeech map (DeepSpeech2). Each entry is called with the run's
+Params (or None), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 from kf_benchmarks_tpu_torch.models import alexnet_model
+from kf_benchmarks_tpu_torch.models import deepspeech
 from kf_benchmarks_tpu_torch.models import densenet_model
 from kf_benchmarks_tpu_torch.models import googlenet_model
 from kf_benchmarks_tpu_torch.models import inception_model
@@ -87,29 +87,9 @@ _COCO_MODELS: Dict[str, Callable] = {
     "ssd300": ssd_model.create_ssd300_model,
 }
 
-# The JAX package's names that wait for ROADMAP Queue 1 item 7b.
-NOT_PORTED = {
-    "deepspeech2": "DeepSpeech2 with the LibriSpeech input path",
+_SPEECH_MODELS: Dict[str, Callable] = {
+    "deepspeech2": deepspeech.create_deepspeech2_model,
 }
-NOT_PORTED_DATASETS = {
-    "librispeech": "DeepSpeech2 and the LibriSpeech input path",
-}
-NOT_PORTED_ITEM = "7b"
-
-
-def not_ported_error(model_name: str, dataset_name: Optional[str]
-                     ) -> Optional[str]:
-  """Why the port does not run ``model_name`` on ``dataset_name``, when
-  the JAX package's model or dataset waits for a later slice (None
-  otherwise)."""
-  if dataset_name in NOT_PORTED_DATASETS:
-    return (f"--data_name={dataset_name} "
-            f"({NOT_PORTED_DATASETS[dataset_name]}) is not ported yet "
-            f"(ROADMAP Queue 1 item {NOT_PORTED_ITEM})")
-  if model_name in NOT_PORTED:
-    return (f"--model={model_name} ({NOT_PORTED[model_name]}) is not "
-            f"ported yet (ROADMAP Queue 1 item {NOT_PORTED_ITEM})")
-  return None
 
 
 def _model_map(dataset_name: Optional[str]) -> Dict[str, Callable]:
@@ -117,6 +97,8 @@ def _model_map(dataset_name: Optional[str]) -> Dict[str, Callable]:
     return _CIFAR_MODELS
   if dataset_name == "coco":
     return _COCO_MODELS
+  if dataset_name == "librispeech":
+    return _SPEECH_MODELS
   if dataset_name in ("imagenet", "synthetic", None):
     return _MODELS
   raise ValueError(f"Invalid dataset name: {dataset_name}")
@@ -126,10 +108,6 @@ def get_model_config(model_name: str, params=None,
                      dataset_name: Optional[str] = None):
   """The model ``model_name`` of ``dataset_name``'s map (ImageNet when
   None)."""
-  reason = not_ported_error(model_name, dataset_name)
-  if reason:
-    from kf_benchmarks_tpu_torch import validation  # noqa: PLC0415
-    raise validation.ParamError(reason)
   model_map = _model_map(dataset_name)
   if model_name not in model_map:
     raise ValueError(f"Invalid model name '{model_name}' for dataset "

@@ -198,6 +198,15 @@ flags.DEFINE_boolean("hierarchical_copy", False,
 flags.DEFINE_boolean("cross_replica_sync", True,
                      "Synchronous data-parallel updates; false with "
                      "parameter_server is the async parameter server.")
+flags.DEFINE_enum("variable_consistency", "strong", ("strong", "relaxed"),
+                  "relaxed applies one-step-stale gradients (double-"
+                  "buffered in the step carry; ref :242, "
+                  "batch_allreduce.py:353-388 deferred StagingArea "
+                  "gradients).")
+flags.DEFINE_boolean("staged_vars", False,
+                     "Forward/backward read one-step-stale weights while "
+                     "updates land on the live ones (ref :406, "
+                     "variable_mgr.py:246-274 StagedVariableGetter).")
 flags.DEFINE_boolean("use_fp16", False,
                      "bf16 activations and gradients over f32 parameters.")
 flags.DEFINE_boolean("fp16_vars", False,

@@ -71,6 +71,21 @@ one all-reduce that already averages the losses: the step issues as many
 collectives as without them. Not under sharded state or the sequential
 apply, where no full update exists on one rank.
 
+Stale modes (train_step.py:285-286, :391-397, :423-427, :687-699,
+:763-770, :818-820 and :921-924 of the JAX package). ``staged_vars``
+(--staged_vars): the forward, the backward and the L2 term read a staged
+copy of the weights, which starts as the initial weights and after each
+step takes that step's weights from before its update; the gradients
+apply to the live weights, and the batch-norm averages stay live.
+``relaxed`` (--variable_consistency=relaxed): the step applies the reduced
+gradients banked by the previous step (zeros at the first) and banks its
+own; under the auto loss scale a non-finite fresh gradient is not banked
+(the old bank stays), the weights and the optimizer's state are not rolled
+back (the bank holds finite gradients only, so the applied update always
+lands) and the health stats' ``suppressed`` is 0. The staged copy and the
+bank are device tensors of the step, written in place, so a captured step
+carries them from replay to replay.
+
 ``TrainChunk`` runs up to K steps a dispatch (--steps_per_dispatch): on a
 CUDA device the step captured as a CUDA graph and replayed.
 
@@ -266,7 +281,8 @@ class TrainStep:
                num_grad_accum: int = 1,
                sharding: Optional[sharded_lib.ShardedState] = None,
                overlap: Optional[overlap_lib.OverlapSpec] = None,
-               health_stats: bool = False):
+               health_stats: bool = False, staged_vars: bool = False,
+               relaxed: bool = False):
     self.model = model
     self.module = module
     self.optimizer = optimizer
@@ -315,6 +331,17 @@ class TrainStep:
     self._lr = torch.zeros((), dtype=torch.float32, device=device)
     optimizers.init_state(self.optimizer)
     self._kept = None  # the auto loss scale's copies of the state
+    weights = [p.detach() for p in module.parameters()]
+    # --staged_vars: the weights the forward reads (the initial weights at
+    # first; checkpoint.reseed_staged after a restore), and the live weights'
+    # place while it does.
+    self.staged = ([w.clone() for w in weights] if staged_vars else None)
+    self._live = ([torch.empty_like(w) for w in weights] if staged_vars
+                  else None)
+    # --variable_consistency=relaxed: the gradients the next step applies.
+    self._bank = ([torch.zeros_like(w) for w in weights] if relaxed
+                  else None)
+    self._swap = None
     # The health stats (JAX train_step.py:309-321): not where no full
     # update exists on one rank.
     self.health = bool(health_stats and sharding is None and not (
@@ -401,7 +428,10 @@ class TrainStep:
   def _state_tensors(self) -> List[torch.Tensor]:
     """What a skipped step keeps: the weights (this rank's shards under
     sharded state), the optimizer's state and the batch-norm running
-    averages."""
+    averages; under relaxed consistency the averages and the gradient bank
+    (the applied update lands either way)."""
+    if self._bank is not None:
+      return batch_stats(self.module) + self._bank
     weights = [p for g in self.optimizer.param_groups for p in g["params"]]
     opt_state = [v for p in weights for v in self.optimizer.state[p].values()
                  if isinstance(v, torch.Tensor)]
@@ -448,6 +478,12 @@ class TrainStep:
     strategy = self.strategy if mesh.is_distributed() else None
     if self._reducer is not None and strategy is not None:
       self._reducer.begin()
+    weights = None
+    if self.staged is not None:
+      # The forward and the backward read the staged copy.
+      weights = [p.detach() for p in self.module.parameters()]
+      torch._foreach_copy_(self._live, weights)
+      torch._foreach_copy_(weights, self.staged)
     m = self.num_grad_accum
     sums = None
     acc_keys = []
@@ -477,6 +513,11 @@ class TrainStep:
         del logits
         sums = (values if sums is None
                 else [a + b for a, b in zip(sums, values)])
+    if weights is not None:
+      # The live weights back for the update; the next step reads this
+      # step's weights from before it.
+      torch._foreach_copy_(weights, self._live)
+      torch._foreach_copy_(self.staged, self._live)
     if m > 1:
       # The means over the microbatches (JAX train_step.py:510-615).
       sums = [v / m for v in sums]
@@ -500,7 +541,10 @@ class TrainStep:
         self._update_count.add_(1)
       else:
         _select_(finite, self._state_tensors(), kept)
-        self._update_count.add_(finite.long())
+        # Under relaxed consistency the optimizer's count advances with its
+        # state, which no skip rolls back.
+        self._update_count.add_(1 if self._bank is not None
+                                else finite.long())
         self._next_loss_scale(finite)
       if self.sharding is not None:
         self.sharding.after_update()
@@ -520,8 +564,10 @@ class TrainStep:
       if health_vec is not None:
         skipped = (torch.zeros((), device=vec.device) if finite is None
                    else 1.0 - finite.float())
+        suppressed = (torch.zeros_like(skipped) if self._bank is not None
+                      else skipped)
         metrics["health"] = telemetry.health_finalize(
-            vec[len(sums):], self._loss_scale, skipped, skipped)
+            vec[len(sums):], self._loss_scale, skipped, suppressed)
     return metrics
 
   def _update(self, strategy, metrics, batch_size) -> Optional[torch.Tensor]:
@@ -560,6 +606,8 @@ class TrainStep:
     finite = None
     if self.auto_loss_scale:
       finite = self._all_finite(grads, strategy is not None)
+    if self._bank is not None:
+      self._apply_bank(params, grads)
     weights = [p.detach() for p in params]
     if self.health:
       # The applied gradients (before the clip, which is the optimizer's
@@ -577,6 +625,20 @@ class TrainStep:
       strategy.post_update(weights, step)
       strategy.sync_batch_stats(batch_stats(self.module))
     return finite
+
+  def _apply_bank(self, params, grads: List[torch.Tensor]) -> None:
+    """Relaxed consistency: the gradients <- the bank, the bank <- the
+    fresh gradients, by device copies (a captured step replays them on the
+    same buffers). A non-finite fresh gradient's banking is undone with the
+    skipped step (``_state_tensors``)."""
+    with_grad = {id(p) for p in params}
+    bank = [b for p, b in zip(self.module.parameters(), self._bank)
+            if id(p) in with_grad]
+    if self._swap is None or len(self._swap) != len(bank):
+      self._swap = [torch.empty_like(b) for b in bank]
+    torch._foreach_copy_(self._swap, bank)
+    torch._foreach_copy_(bank, grads)
+    torch._foreach_copy_(grads, self._swap)
 
   def _apply(self, grads: List[torch.Tensor]) -> None:
     if self.gradient_clip is not None:

@@ -83,11 +83,10 @@ def run_dataset_name(params) -> Optional[str]:
 
 def validate_cross_flags(params) -> None:
   data_name = run_dataset_name(params)
-  reason = model_config.not_ported_error(params.model, data_name)
-  if reason:
-    raise ParamError(reason)
   if params.model not in model_config.list_models(data_name):
     raise ParamError(
+        f"Invalid model name '{params.model}' for dataset "
+        f"'{data_name or 'imagenet'}': "
         f"--model={params.model} is not a model of the "
         f"{data_name or 'imagenet'} dataset (as in the JAX package's "
         "registry); the port runs "
@@ -431,6 +430,15 @@ def validate_dispatch_flags(p) -> None:
           f"{p.batch_size}: the step splits each per-device batch into "
           "M equal microbatches (a ragged tail microbatch would change "
           "the gradient weighting silently)")
+    if p.staged_vars:
+      raise ParamError(
+          "--num_grad_accum > 1 cannot be combined with --staged_vars: "
+          "staged reads hand the forward one-step-stale weights from a "
+          "single staging slot per step (variable_mgr.py:246-274); "
+          "microbatches would all read the same stale copy while the "
+          "accumulated update lands once, making the effective "
+          "staleness M-dependent in a way the reference semantics "
+          "never defined")
     if p.variable_update == "parameter_server" and not p.cross_replica_sync:
       raise ParamError(
           "--num_grad_accum > 1 cannot be combined with async "
@@ -498,6 +506,23 @@ def validate_data_parallel_flags(p) -> None:
         f"capped at {ASYNC_PS_SEQUENTIAL_MAX_DEVICES} devices. Use "
         "--optimizer=sgd (exact single-update collapse) or a "
         "synchronous --variable_update at this scale")
+  if p.staged_vars and p.variable_update != "parameter_server":
+    raise ParamError("--staged_vars is only supported with "
+                     "--variable_update=parameter_server (ref :1478-1479)")
+  if p.staged_vars and p.fp16_enable_auto_loss_scale:
+    raise ParamError("Automatic loss scaling is not supported with "
+                     "--staged_vars (ref :1304-1305)")
+  if p.staged_vars and eval_during_training_enabled(p):
+    raise ParamError("--eval_during_training_* is not compatible with "
+                     "--staged_vars (ref :1335-1336)")
+  if p.variable_consistency == "relaxed" and p.variable_update not in (
+      "replicated", "distributed_replicated", "parameter_server",
+      "collective_all_reduce", "distributed_all_reduce"):
+    raise ParamError(
+        "--variable_consistency=relaxed requires a replicated-family "
+        "--variable_update (the deferral lives in the batched all-reduce, "
+        "ref: batch_allreduce.py:32-153; independent/kungfu/horovod "
+        "reduce outside it)")
   if p.hierarchical_copy and world_size_of(p) <= 1:
     raise ParamError("--hierarchical_copy requires more than one device "
                      "(ref :1310-1311)")
@@ -634,6 +659,19 @@ def validate_sharded_flags(p) -> None:
           "param/update norms, and the flat 1/n shard cuts across "
           "layer boundaries. Every other stock optimizer updates "
           "elementwise, so the shard apply stays exact")
+    if p.staged_vars:
+      raise ParamError(
+          "--shard_optimizer_state cannot be combined with "
+          "--staged_vars: staged reads keep a second full weight copy "
+          "per device (variable_mgr.py:246-274), the exact footprint "
+          "sharded state exists to retire")
+    if p.variable_consistency == "relaxed":
+      raise ParamError(
+          "--shard_optimizer_state cannot be combined with "
+          "--variable_consistency=relaxed: the deferred-gradient bank "
+          "stores a full gradient tree per device "
+          "(train_step.py buffers); banking shards instead would "
+          "change the staleness semantics silently")
     if p.adaptive_batch_size or p.track_grad_noise_scale:
       raise ParamError(
           "--shard_optimizer_state cannot be combined with "

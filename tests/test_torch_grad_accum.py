@@ -5,7 +5,8 @@ port, and the port against the JAX package:
 
 * validation: train-only, divisibility (of an explicit --batch_size and of
   a model-default batch), async parameter_server and adaptive batch, with
-  the JAX package's messages. (The port has no --staged_vars.)
+  the JAX package's messages, and --staged_vars (whose other rules
+  tests/test_torch_stale_modes.py holds).
 * One step at M = 2 and 4 against the JAX package's step at the same M,
   from one converted init and one numpy batch, plain SGD at a fixed rate
   with weight decay: the losses (the means over the microbatches) and each
@@ -103,6 +104,8 @@ def _messages(flags):
     dict(num_grad_accum=2, variable_update="parameter_server",
          cross_replica_sync=False),
     dict(num_grad_accum=2, adaptive_batch_size=True),
+    dict(num_grad_accum=2, staged_vars=True,
+         variable_update="parameter_server"),
 ])
 def test_rules_refuse_with_the_jax_message(flags):
   got, want = _messages(flags)

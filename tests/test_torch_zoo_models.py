@@ -3,9 +3,10 @@ GoogLeNet, Inception-v4 and Inception-v3's auxiliary head, MobileNet v2,
 the official ResNets, the CIFAR-10 ResNets, DenseNet) against the JAX
 package's, on the CPU in f32.
 
-* Registry: the port's ImageNet, CIFAR-10 and COCO maps hold the JAX
-  package's names; DeepSpeech2 and the LibriSpeech map (the rest of
-  ROADMAP Queue 1 item 7b) raise a ParamError naming it; each image
+* Registry: the port's ImageNet, CIFAR-10, COCO and LibriSpeech maps
+  hold the JAX package's names; DeepSpeech2 asked of an image dataset is
+  refused with the JAX package's message (its numbers:
+  tests/test_torch_deepspeech.py); each image
   model's name, image size, default batch and rate schedule (host form at
   several steps, and the device form) are the JAX package's (NASNet's
   numbers: tests/test_torch_nasnet.py; NCF: tests/test_torch_ncf.py).
@@ -224,17 +225,25 @@ def _model_pair(jmodel, pmodel, train=True):
 
 @pytest.mark.parametrize("dataset", ["imagenet", "cifar10", "coco"])
 def test_registry_names_are_the_jax_packages_less_item_7b(dataset):
-  """Every name of the JAX package's ImageNet, CIFAR-10 and COCO maps; the
-  rest of item 7b (DeepSpeech2, the LibriSpeech map) is refused naming
-  it."""
+  """Every name of the JAX package's ImageNet, CIFAR-10 and COCO maps and
+  of its LibriSpeech map (DeepSpeech2, the rest of item 7b); a name of the
+  LibriSpeech map asked of another dataset is refused with the JAX
+  package's message."""
+  from kf_benchmarks_tpu_torch import params as params_lib  # noqa: PLC0415
   assert set(model_config.list_models(dataset)) == \
       set(jax_model_config.list_models(dataset))
-  for name in ("deepspeech2",) + tuple(
-      jax_model_config.list_models("librispeech")):
-    for data in (dataset, "librispeech"):
-      with pytest.raises(validation.ParamError,
-                         match="ROADMAP Queue 1 item 7b"):
-        model_config.get_model_config(name, None, data)
+  assert set(model_config.list_models("librispeech")) == \
+      set(jax_model_config.list_models("librispeech")) == {"deepspeech2"}
+  assert model_config.get_model_config(
+      "deepspeech2", None, "librispeech").get_name() == "deepspeech2"
+  message = f"Invalid model name 'deepspeech2' for dataset '{dataset}'"
+  with pytest.raises(ValueError, match=message):
+    jax_model_config.get_model_config("deepspeech2", dataset)
+  with pytest.raises(ValueError, match=message):
+    model_config.get_model_config("deepspeech2", None, dataset)
+  with pytest.raises(validation.ParamError, match=message):
+    validation.validate_cross_flags(params_lib.make_params(
+        model="deepspeech2", data_name=dataset, device="cpu"))
 
 
 _ZOO = [(d, n) for d in ("imagenet", "cifar10")
@@ -663,7 +672,8 @@ def test_cli_refuses_a_model_of_another_dataset(capsys):
                    "--data_name=cifar10"]) == 1
   assert "not a model of the cifar10 dataset" in capsys.readouterr().err
   assert cli.main(["--device=cpu", "--model=deepspeech2"]) == 1
-  assert "ROADMAP Queue 1 item 7b" in capsys.readouterr().err
+  assert ("Invalid model name 'deepspeech2' for dataset 'imagenet'" in
+          capsys.readouterr().err)
 
 
 
@@ -671,15 +681,19 @@ def test_captured_training_of_a_dropout_model_is_refused_on_the_card(
     monkeypatch):
   """--steps_per_dispatch > 1 captures the step on the card. The dropout
   networks' draws read the step counter on the device, so they are
-  admitted; what the card still refuses at K > 1 is a network the port
-  does not run (DeepSpeech2, ROADMAP Queue 1 item 7b)."""
+  admitted, and so is DeepSpeech2 on LibriSpeech, whose cuDNN recurrence
+  and CTC recursion capture (phase speech of chip_smoke.py); DeepSpeech2
+  on an image dataset is refused with the JAX package's message."""
   from kf_benchmarks_tpu_torch import params as params_lib  # noqa: PLC0415
   monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
   monkeypatch.setattr(validation.mesh, "device_count_error", lambda *a: None)
   flags = dict(device="gpu", use_fp16=True, steps_per_dispatch=2)
-  with pytest.raises(validation.ParamError, match="item 7b"):
+  with pytest.raises(validation.ParamError,
+                     match="Invalid model name 'deepspeech2'"):
     validation.validate_cross_flags(params_lib.make_params(
         model="deepspeech2", **flags))
+  validation.validate_cross_flags(params_lib.make_params(
+      model="deepspeech2", data_name="librispeech", **flags))
   for model in ("vgg16", "alexnet", "overfeat", "mobilenet", "nasnet"):
     validation.validate_cross_flags(params_lib.make_params(
         model=model, **flags))
