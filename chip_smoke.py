@@ -172,7 +172,7 @@ the run with a non-zero exit and no result line:
                 it is skipped with the momentum buffers unchanged;
  19. dispatch -- --steps_per_dispatch through BenchmarkCNN: ResNet-50
                 (batch 256, bf16, momentum) and transformer_lm (batch 8,
-                flash), 8 warmup + 12 timed steps each at K = 1 (eager
+                flash), 16 warmup + 12 timed steps each at K = 1 (eager
                 steps) and K = 8 (the step captured as a CUDA graph and
                 replayed, train_step.TrainChunk) from one seed: per-step
                 losses and final weights bitwise equal, equal launches a
@@ -361,6 +361,27 @@ the run with a non-zero exit and no result line:
                 3 steps at batch 128 (examples/sec, feed_stall_fraction,
                 the losses of optax's log-epsilon path) and one eval
                 batch.
+ 31. observe -- the observability flags through BenchmarkCNN: ResNet-50 at
+                batch 256, bf16, momentum, K = 8, 16 warmup + 12 timed
+                steps, once with --trace_file, --tfprof_file,
+                --graph_file, --partitioned_graph_file_prefix,
+                --trace_events_file, --benchmark_log_dir, the summaries
+                (--summary_verbosity=1, --save_summaries_steps=4,
+                --train_dir), --run_store_dir, --metrics_port and
+                --compilation_cache_dir and once without them (phase
+                dispatch's ResNet-50 K = 8 arm when it ran; the health
+                stats off in both), the counts set to 0 just before each
+                run and read just after: losses and final weights bitwise
+                equal, K-A / K-B 13 + 13 a step in both, the traced
+                dispatch (the last warmup one) a CUDA-graph replay, a
+                mid-run /metrics scrape valid Prometheus text carrying the
+                live lanes and /healthz answering, the span timeline a
+                valid Chrome trace, the run record valid with platform
+                gpu, 13 K-B nodes in the torch.export program text; then
+                the traced replay's measured per-op table
+                (observability.measured_per_op_table), K-A's and K-B's
+                shares of its kernel time and its busy share, the counted
+                FLOPs a step, the MFU and both runs' images/sec.
 
 Every process it starts shares one bytecode cache under build/pycache
 (``_use_bytecode_cache``). When phase elastic is in the run, phases
@@ -372,13 +393,17 @@ and library time. The
 last line is {"ok": true, "device": {...}}. ``--phases=build,conv`` runs a
 subset (the result line is printed only when every phase ran);
 ``--phases=build,profile`` traces three ResNet-50 training steps with
-torch.profiler and prints the kernel-time table, ``--phases=build,
-lm_profile`` three transformer_lm steps, ``--phases=build,serve_profile``
+torch.profiler and prints the measured per-op table of their Chrome trace
+(observability.measured_per_op_table, as phase observe does) with the
+hand-written kernels' shares, ``--phases=build,lm_profile`` one dispatch
+of three captured transformer_lm steps, ``--phases=build,serve_profile``
 20 serving decode steps at bucket 64, ``--phases=build,conv_tiles``
 times K-A and K-B at every tile shape of theirs at every STAGES shape, and
 ``--phases=build,first_steps`` times NASNet-A's and MobileNet's build and
 first training step in fresh processes, with the depthwise convs through
-cuDNN and through torch's own kernel.
+cuDNN and through torch's own kernel, and ``--phases=build,observe_pairs``
+runs phase observe's ResNet-50 with the observability flags off, on, and
+on but --trace_file, twice each in mirrored order (images/sec of each).
 """
 
 from __future__ import annotations
@@ -425,9 +450,9 @@ ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
               "optim", "dispatch", "accum", "serve_graph", "fp16_vars",
               "health", "faults", "input", "aot", "serve_variants",
-              "models", "detect", "speech")
+              "models", "detect", "speech", "observe")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles",
-                "first_steps")
+                "first_steps", "observe_pairs")
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -985,18 +1010,67 @@ def spin_share(device_s, hidden, wall_s):
       "" if hidden else " (upper bound: the host queued past the spin)")
 
 
-def profile_steps(label, step, n=3):
-  """torch.profiler over n calls of step() after n warm ones, printed as a
-  table of kernel time by name, with the busy share against the wall time
-  of the same n calls run without the profiler."""
-  wall, device_s, prof = profile_window(step, n)
-  table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=40)
-  log(f"{label}: {n} steps, wall without the profiler {wall * 1e3:.1f} ms, "
-      f"kernel time under it {device_s * 1e3:.1f} ms (busy share "
-      f"{device_s / wall:.3f})")
-  for line in table.splitlines():
+def kernel_of(symbol: str):
+  """The hand-written kernel a CUDA kernel symbol of a trace belongs to,
+  or None. K-A and K-B are one template (csrc/conv3x3_sm90.cuh) with the
+  Identity and the BnRelu prologue; K-B's partial sums finish in
+  reduce_partials_kernel."""
+  if "conv3x3_wgmma_kernel" in symbol:
+    return ("bn_relu_conv3x3_stats" if "BnRelu" in symbol
+            else "conv3x3_same")
+  for part, name in (("reduce_partials_kernel", "bn_relu_conv3x3_stats"),
+                     ("flash_fwd_kernel", "flash_attention_fwd"),
+                     ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
+                     ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
+                     ("flash_decode_kernel", "flash_decode")):
+    if part in symbol:
+      return name
+  return None
+
+
+def kernel_report(label, trace_path, top_n=40):
+  """Prints the measured per-op table of the torch.profiler Chrome trace at
+  trace_path (observability.measured_per_op_table: the table --tfprof_file
+  writes) and each hand-written kernel's share of its kernel time; returns
+  {kernel_s: summed kernel time, extent_s: first kernel's start to last
+  kernel's end, shares: {kernel: share}}."""
+  from kf_benchmarks_tpu_torch import observability
+  kind, events = observability.load_trace_op_events(trace_path)
+  check(kind == "kernel", f"{label}: the trace holds no kernel event")
+  for line in observability.measured_per_op_table(
+      trace_path, top_n=top_n).splitlines():
     log(f"{label}: " + line)
+  total = sum(float(e["dur"]) for e in events)
+  extent = (max(float(e["ts"]) + float(e["dur"]) for e in events) -
+            min(float(e["ts"]) for e in events))
+  ours = {}
+  for e in events:
+    name = kernel_of(e["name"])
+    if name:
+      ours[name] = ours.get(name, 0.0) + float(e["dur"])
+  shares = {k: v / total for k, v in sorted(ours.items())}
+  log(f"{label}: kernel time {total / 1e3:.3f} ms over a {extent / 1e3:.3f} "
+      "ms extent (busy share of the extent "
+      f"{total / max(extent, 1e-9):.4f}); shares of kernel time: " +
+      ", ".join(f"{k} {v:.4f} ({ours[k] / 1e3:.3f} ms)"
+                for k, v in shares.items()))
+  return {"kernel_s": total / 1e6, "extent_s": extent / 1e6,
+          "shares": shares}
+
+
+def profile_steps(label, step, n=3):
+  """torch.profiler over n calls of step() after n warm ones, its Chrome
+  trace printed as kernel_report's table, with the busy share against the
+  wall time of the same n calls run without the profiler."""
+  wall, _, prof = profile_window(step, n)
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    rep = kernel_report(label, path)
+  log(f"{label}: {n} calls, wall without the profiler {wall * 1e3:.1f} ms, "
+      f"kernel time under it {rep['kernel_s'] * 1e3:.1f} ms (busy share "
+      f"{rep['kernel_s'] / wall:.3f})")
+  return rep
 
 
 def phase_profile(res):
@@ -1593,12 +1667,17 @@ def phase_decode(res):
 
 
 def phase_lm_profile(res):
-  """Not in the default run: torch.profiler over 3 LM training steps
-  (flash attention), printed as a table of kernel time by name."""
+  """Not in the default run: torch.profiler over one dispatch of 3 captured
+  LM training steps (flash attention; train_step.TrainChunk replays), the
+  table of kernel time by name and the flash kernels' shares."""
   from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import train_step as train_step_lib
   with lm_attention("flash"):
     _, step, tokens, labels = benchmark.BenchmarkCNN(lm_params()).build()
-  profile_steps("lm_profile", lambda: step(tokens, labels))
+    chunk = train_step_lib.TrainChunk(step, 3)
+    chunk(tokens, labels, 3)  # the capture
+    res["lm_profile"] = profile_steps(
+        "lm_profile", lambda: chunk(tokens, labels, 3), n=1)
 
 
 
@@ -3165,7 +3244,9 @@ def loss_scale_overflow():
 # -- multi-step dispatch, accumulation, captured serving programs -------------
 
 DISPATCH_K = 8
-DISPATCH_WARMUP, DISPATCH_STEPS = 8, 12
+# Two warmup dispatches at K = 8: phase observe's twin run is the ResNet-50
+# K = 8 arm, whose last warmup dispatch is then a replay.
+DISPATCH_WARMUP, DISPATCH_STEPS = 2 * DISPATCH_K, 12
 # The busy share's window: this many steps of each arm (one dispatch of
 # them at K = 8), profiled after as many warm and as many timed.
 BUSY_STEPS = 4
@@ -3212,7 +3293,7 @@ def check_launches(label, counts, per_step, steps):
 
 def phase_dispatch(res):
   """--steps_per_dispatch through BenchmarkCNN: ResNet-50 (batch 256, bf16,
-  momentum) and transformer_lm (batch 8, flash), each 8 warmup + 12 timed
+  momentum) and transformer_lm (batch 8, flash), each 16 warmup + 12 timed
   steps at K = 1 (eager steps) and at K = 8 (one CUDA graph replayed a
   step) from the same seed; losses and final weights bitwise equal, equal
   launches a step; the rate, compile_s, dispatch_overhead_s, peak memory
@@ -3264,6 +3345,11 @@ def phase_dispatch(res):
             f"behind a spin {dev * 1e3:.1f} ms (share "
             f"{spin_share(dev, hidden, wall)})")
         log(f"{label}: losses {stats['losses']}")
+        if (model == "resnet50" and k == DISPATCH_K and
+            "observe" in res.get("phases", ())):
+          # Phase observe's flags-off twin, when it runs.
+          res["observe_twin"] = dict(stats=stats, counts=counts,
+                                     weights=weights)
         del bench, final
     one, many = arms[1], arms[DISPATCH_K]
     same_weights = all(torch.equal(a, b) for a, b in
@@ -3322,6 +3408,201 @@ def phase_dispatch(res):
       del arm["weights"]
     res["dispatch"][label] = arms
     torch.cuda.empty_cache()
+
+
+# Phase observe: ResNet-50 at phase dispatch's K = 8 arm with every
+# observability flag on, against that arm (or, when phase dispatch is not in
+# the run, the same run made here). Two warmup dispatches, so that the last,
+# which --trace_file profiles, is a replay outside the timed window.
+OBSERVE_SUMMARY_EVERY = 4
+
+
+def free_port() -> int:
+  import socket
+  with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    return sock.getsockname()[1]
+
+
+def scrape_while(port, stop, out):
+  """Polls /metrics on 127.0.0.1:port until a scrape carries the live
+  training lanes (kf_step), then reads /healthz once; files both in
+  out. Ends when ``stop`` is set."""
+  import urllib.request
+  while not stop.is_set():
+    try:
+      with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                  timeout=2) as r:
+        text = r.read().decode()
+      if "\nkf_step " in "\n" + text:
+        out["metrics"] = text
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=2) as r:
+          out["healthz"] = json.loads(r.read().decode())
+        return
+    except OSError:
+      pass
+    stop.wait(0.05)
+
+
+def observe_flags(root, port):
+  """Every observability flag, its files under root."""
+  from kf_benchmarks_tpu_torch.ops import _build
+  f = lambda name: os.path.join(root, name)
+  return dict(trace_file=f("step_trace.json"), tfprof_file=f("tfprof.json"),
+              graph_file=f("graph.txt"),
+              partitioned_graph_file_prefix=f("partitioned"),
+              trace_events_file=f("events.json"),
+              benchmark_log_dir=f("benchmark_log"), train_dir=f("train"),
+              summary_verbosity=1,
+              save_summaries_steps=OBSERVE_SUMMARY_EVERY,
+              run_store_dir=f("store"), metrics_port=port,
+              compilation_cache_dir=_build.build_root(),
+              # Off as in the twin (the --train_dir would turn them on).
+              health_stats=False)
+
+
+# Phase observe_pairs: the arms, run in this order and then in reverse.
+OBSERVE_PAIR_ARMS = ("off", "on", "on_without_trace_file")
+
+
+def phase_observe_pairs(res):
+  """Not in the default run: phase observe's ResNet-50 run (K = 8, 16
+  warmup + 12 timed steps) with every observability flag off, all on, and
+  all on but --trace_file, in the order off, on, on without the trace,
+  then the reverse, nothing scraping /metrics: each run's images/sec, so
+  that the flags' own cost can be told from the spread between runs."""
+  import shutil
+  common = dict(num_batches=DISPATCH_STEPS,
+                num_warmup_batches=DISPATCH_WARMUP,
+                display_every=DISPATCH_STEPS, steps_per_dispatch=DISPATCH_K)
+  rates = {}
+  for arm in OBSERVE_PAIR_ARMS + OBSERVE_PAIR_ARMS[::-1]:
+    root = tempfile.mkdtemp(prefix="observe_pairs_")
+    try:
+      flags = {} if arm == "off" else observe_flags(root, free_port())
+      if arm == "on_without_trace_file":
+        del flags["trace_file"]
+      _, stats, counts, _ = bench_arm(resnet_train_params(**common, **flags))
+      check_launches(f"observe_pairs ({arm})", counts, RESNET_LAUNCHES,
+                     stats["steps_run"])
+      rates.setdefault(arm, []).append(stats["images_per_sec"])
+      log(f"observe_pairs: {arm}: {stats['images_per_sec']:.2f} images/sec")
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+  log("observe_pairs: images/sec by arm (first pass, second pass): " +
+      "; ".join(f"{arm} " + ", ".join(f"{r:.2f}" for r in rates[arm])
+                for arm in OBSERVE_PAIR_ARMS))
+  res["observe_pairs"] = rates
+
+
+def phase_observe(res):
+  """The observability flags through BenchmarkCNN: ResNet-50 (batch 256,
+  bf16, momentum) at K = 8, 16 warmup + 12 timed steps, once with
+  --trace_file, --tfprof_file, --graph_file,
+  --partitioned_graph_file_prefix, --trace_events_file,
+  --benchmark_log_dir, --summary_verbosity=1 --save_summaries_steps=4 (with
+  the --train_dir that needs), --run_store_dir, --metrics_port and
+  --compilation_cache_dir on and once with them all off (phase dispatch's
+  K = 8 arm when it ran), the health stats off in both: losses and final weights bitwise equal, 13 + 13 K-A / K-B
+  launches a step in both, the traced dispatch a replay outside the timed
+  window, a mid-run /metrics scrape valid Prometheus text with the live
+  lanes and /healthz answering, the span timeline a valid Chrome trace,
+  the run record valid with platform gpu, 13 K-B nodes in the program
+  text; then the traced replay's measured per-op table, K-A's and K-B's
+  shares of its kernel time, the counted FLOPs a step, the MFU and both
+  runs' images/sec."""
+  import threading
+  from kf_benchmarks_tpu_torch import metrics as metrics_lib
+  from kf_benchmarks_tpu_torch import observability
+  from kf_benchmarks_tpu_torch import tracing
+  common = dict(num_batches=DISPATCH_STEPS,
+                num_warmup_batches=DISPATCH_WARMUP,
+                display_every=DISPATCH_STEPS, steps_per_dispatch=DISPATCH_K)
+  arms = {"off": res.pop("observe_twin", None)}
+  if arms["off"] is None:
+    bench, stats, counts, _ = bench_arm(resnet_train_params(**common))
+    arms["off"] = dict(stats=stats, counts=counts, weights=[
+        q.detach().clone() for q in bench.final["module"].parameters()])
+    del bench
+  root = tempfile.mkdtemp(prefix="observe_")
+  try:
+    port = free_port()
+    on = observe_flags(root, port)
+    scraped, stop = {}, threading.Event()
+    scraper = threading.Thread(target=scrape_while,
+                               args=(port, stop, scraped), daemon=True)
+    scraper.start()
+    try:
+      bench, stats, counts, _ = bench_arm(resnet_train_params(**common,
+                                                              **on))
+    finally:
+      stop.set()
+      scraper.join(timeout=10)
+    arms["on"] = dict(stats=stats, counts=counts, weights=[
+        q.detach().clone() for q in bench.final["module"].parameters()])
+    del bench
+    for arm in ("off", "on"):
+      a = arms[arm]
+      res.setdefault("counts_by_path", {})[
+          "observe" if arm == "on" else "observe_off"] = a["counts"]
+      check_launches(f"observe ({arm})", a["counts"], RESNET_LAUNCHES,
+                     a["stats"]["steps_run"])
+    off, on_ = arms["off"], arms["on"]
+    same = (off["stats"]["losses"] == on_["stats"]["losses"] and all(
+        torch.equal(a, b) for a, b in zip(off["weights"], on_["weights"])))
+    check(same, "observe: the flags-on run's losses or weights differ")
+    traced = on_["stats"]["traced_dispatch"]
+    check(bool(traced) and traced["replay"] and not traced["timed"],
+          f"observe: the traced dispatch {traced} is not an untimed replay")
+    check("metrics" in scraped, "observe: no mid-run /metrics scrape "
+          "carried the live lanes")
+    problems = metrics_lib.validate_prometheus_text(scraped["metrics"])
+    check(not problems, f"observe: /metrics: {problems[:3]}")
+    check(scraped["healthz"].get("status") == "ok",
+          f"observe: /healthz {scraped['healthz']}")
+    with open(on["trace_events_file"]) as fh:
+      timeline = json.load(fh)
+    problems = tracing.validate_chrome_trace(timeline)
+    check(not problems, f"observe: span timeline: {problems[:3]}")
+    lanes = sorted({e.get("cat") for e in timeline["traceEvents"]
+                    if e.get("ph") != "M"})
+    records = metrics_lib.RunStore(on["run_store_dir"]).records()
+    check(len(records) == 1 and not metrics_lib.validate_record(records[0])
+          and records[0]["platform"] == "gpu",
+          f"observe: run store {records}")
+    with open(on["graph_file"]) as fh:
+      kb_nodes = fh.read().count("torch.ops.kf_torch.bn_relu_conv3x3_stats"
+                                 ".default(")
+    check(kb_nodes == RESNET_LAUNCHES["bn_relu_conv3x3_stats"],
+          f"observe: {kb_nodes} K-B nodes in the program text, want 13")
+    rep = kernel_report("observe", on["trace_file"])
+    flops = on_["stats"]["step_flops"]
+    rates = {arm: arms[arm]["stats"]["images_per_sec"] for arm in arms}
+    ledger = on_["stats"]["compile_ledger"]
+    log(f"observe: losses and final weights bitwise equal flags on and off; "
+        f"K-A / K-B 13 + 13 a step in both; traced dispatch {traced} (a "
+        f"replay of {traced['steps']} steps, outside the timed window); "
+        f"/metrics scrape {len(scraped['metrics'])} bytes, valid, "
+        f"/healthz {scraped['healthz'].get('status')}; span lanes {lanes}; "
+        f"run record valid (platform gpu, {records[0]['device_name']}); "
+        f"{kb_nodes} K-B nodes in the program text; compile ledger "
+        f"{ledger['shapes']} shape(s), {ledger['total_compile_s']:.3f} s, "
+        f"cache_hit {[e.get('cache_hit') for e in ledger['entries']]}")
+    log(f"observe: counted FLOPs a step {flops:.4e}; "
+        + observability.mfu_line(flops, 256 / rates["on"], source="measured"))
+    log(f"observe: images/sec flags off {rates['off']:.2f}, flags on "
+        f"{rates['on']:.2f} ({rates['on'] / rates['off']:.4f}x); traced "
+        f"replay: kernel time {rep['kernel_s'] * 1e3:.3f} ms, busy share of "
+        f"its extent {rep['kernel_s'] / rep['extent_s']:.4f}; K-A share "
+        f"{rep['shares'].get('conv3x3_same', 0.0):.4f}, K-B share "
+        f"{rep['shares'].get('bn_relu_conv3x3_stats', 0.0):.4f}")
+    res["observe"] = dict(rates=rates, flops=flops, traced=traced,
+                          shares=rep["shares"], kernel_s=rep["kernel_s"],
+                          extent_s=rep["extent_s"])
+  finally:
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
 
 
 ACCUM_WARMUP, ACCUM_STEPS = 4, 8
@@ -5450,7 +5731,8 @@ PHASES = {"build": phase_build, "conv": phase_conv, "unit": phase_unit,
           "faults": phase_faults, "input": phase_input,
           "aot": phase_aot, "serve_variants": phase_serve_variants,
           "models": phase_models, "detect": phase_detect,
-          "speech": phase_speech,
+          "speech": phase_speech, "observe": phase_observe,
+          "observe_pairs": phase_observe_pairs,
           "serve_profile": phase_serve_profile,
           "conv_tiles": phase_conv_tiles,
           "first_steps": phase_first_steps,

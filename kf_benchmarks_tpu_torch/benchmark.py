@@ -93,6 +93,22 @@ chunk (``RealInput``), and a K-step dispatch runs only over a whole chunk.
 --eval reads the validation shards once and stops at their end; the
 stats carry the feeder's ``stats()`` and its feed_stall_fraction.
 
+Observability (tracing.py, observability.py, metrics.py; JAX
+benchmark.py:775-910, :1186-1375, :1895-2100): every training run has a
+run trace (spans with --trace_events_file), a metric registry (served live
+with --metrics_port) and the kernels' build directory
+(--compilation_cache_dir). After the build come the benchmark logger, the
+summary writer and the dumps (--graph_file, --tfprof_file,
+--partitioned_graph_file_prefix: fake-tensor passes, no launch); every
+dispatch goes through ``run_dispatch`` (its span, compile_s, the compile
+ledger's first call, and the one --trace_file profile: the last warmup
+dispatch, a replay at K > 1); each resolved dispatch feeds the live lanes,
+its device span and the chunk-wall samples. At run end: the measured
+per-op table, the MFU line, the latency and ledger lines, the stats'
+percentiles and ledger, their publication and (rank 0, --run_store_dir)
+the run record. The eval passes write --eval_dir's summaries and the
+logger's eval rows.
+
 Timing: the device runs asynchronously. The warmup ends in a
 ``torch.cuda.synchronize()``; in the timed loop each dispatch's metrics are
 read two dispatches later through utils/pipeline.py, whose read-arrival
@@ -104,6 +120,7 @@ intervals are the step times (a K-step dispatch's interval split K ways).
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -114,18 +131,22 @@ from kf_benchmarks_tpu_torch import checkpoint
 from kf_benchmarks_tpu_torch import elastic
 from kf_benchmarks_tpu_torch import faults as faults_lib
 from kf_benchmarks_tpu_torch import learning_rate
+from kf_benchmarks_tpu_torch import metrics as metrics_lib
+from kf_benchmarks_tpu_torch import observability
 from kf_benchmarks_tpu_torch import optimizers
 from kf_benchmarks_tpu_torch import params as params_lib
 from kf_benchmarks_tpu_torch import telemetry
 from kf_benchmarks_tpu_torch import tracing
 from kf_benchmarks_tpu_torch import train_step as train_step_lib
 from kf_benchmarks_tpu_torch import validation
+from kf_benchmarks_tpu_torch.analysis import baseline
 from kf_benchmarks_tpu_torch.data import datasets
 from kf_benchmarks_tpu_torch.data import device_feed
 from kf_benchmarks_tpu_torch.data import preprocessing
 from kf_benchmarks_tpu_torch.models import builder
 from kf_benchmarks_tpu_torch.models import model as model_lib
 from kf_benchmarks_tpu_torch.models import model_config
+from kf_benchmarks_tpu_torch.ops import _build
 from kf_benchmarks_tpu_torch.ops import conv_bn
 from kf_benchmarks_tpu_torch.ops import flash_attention
 from kf_benchmarks_tpu_torch.ops import graphs
@@ -482,6 +503,11 @@ class BenchmarkCNN:
       _sync(self.device)
     if t_restore is not None:
       self.checkpoint_restore_s = time.time() - t_restore
+      trace = tracing.active()
+      trace.add_span("checkpoint", "restore",
+                     trace.now() - self.checkpoint_restore_s,
+                     self.checkpoint_restore_s,
+                     {"global_step": restored_step})
       log_fn(f"Restored checkpoint at global step {restored_step} in "
              f"{self.checkpoint_restore_s:.3f} s")
       if self.input_incarnation:
@@ -525,7 +551,14 @@ class BenchmarkCNN:
                                  self.input_incarnation + incarnation_bump,
                                  step.counters(), step.sharding),
         self.params.max_ckpts_to_keep)
-    self.checkpoint_save_s.append(time.time() - t0)
+    dur = time.time() - t0
+    self.checkpoint_save_s.append(dur)
+    # The one place a save's wall enters the run trace and the registry.
+    trace = tracing.active()
+    trace.add_span("checkpoint", "save", trace.now() - dur, dur,
+                   {"incarnation_bump": incarnation_bump})
+    trace.add_sample("checkpoint_save", dur)
+    metrics_lib.active().observe("checkpoint_save_s", dur)
     log_fn(f"Saved checkpoint at global step {step.global_step} in "
            f"{self.checkpoint_save_s[-1]:.3f} s")
 
@@ -613,7 +646,6 @@ class BenchmarkCNN:
     """--aot_save_path: the built module's frozen forward, at --trt_mode's
     precision (JAX benchmark.py:1160-1184)."""
     from kf_benchmarks_tpu_torch import aot
-    from kf_benchmarks_tpu_torch.serving import engine as engine_lib
     p = self.params
     trt_mode = (p.trt_mode or "").upper()
     export_dtype = {"FP32": torch.float32, "FP16": torch.bfloat16,
@@ -621,8 +653,8 @@ class BenchmarkCNN:
     nbytes = aot.export_forward(
         self.model, module.state_dict(), self.batch_size, p.aot_save_path,
         nclass=self.nclass, dtype=export_dtype, quantize=trt_mode == "INT8",
-        fingerprint=engine_lib.config_fingerprint_key(p._asdict(),
-                                                      "aot_forward"),
+        fingerprint=baseline.config_fingerprint_key(p._asdict(),
+                                                    "aot_forward"),
         device=self.device)
     log_fn(f"Exported frozen forward program to {p.aot_save_path} "
            f"({nbytes} bytes"
@@ -717,8 +749,8 @@ class BenchmarkCNN:
 
   # -- evaluation ---------------------------------------------------------
 
-  def _eval_once(self, eval_step, images, labels,
-                 next_batch=None) -> Dict[str, Any]:
+  def _eval_once(self, eval_step, images, labels, next_batch=None,
+                 global_step: int = 0) -> Dict[str, Any]:
     """--num_eval_batches (or --num_eval_epochs, else --num_batches)
     evaluations, averaged (the JAX package's _eval_once,
     benchmark.py:2049-2083): of the synthetic batch, or of the batches of
@@ -749,9 +781,26 @@ class BenchmarkCNN:
     if any(launches.values()):
       log_fn("Kernel launches: " + ", ".join(
           f"{k} {v}" for k, v in launches.items() if v))
+    eval_ips = examples / max(elapsed, 1e-9)
+    if p.eval and p.eval_dir:
+      # The eval summary stream (ref: --eval_dir, benchmark_cnn.py:585-586,
+      # :1770-1772).
+      observability.SummaryWriter(p.eval_dir, 1).write_scalars(
+          global_step, {"eval_top_1_accuracy": top1,
+                        "eval_top_5_accuracy": top5,
+                        "eval_images_per_sec": eval_ips})
+    if p.benchmark_log_dir:
+      # The eval rows (ref: benchmark_cnn.py:1915-1922), at the scored
+      # checkpoint's step.
+      logger = observability.BenchmarkLogger(p.benchmark_log_dir,
+                                             self._platform())
+      logger.log_metric("eval_top_1_accuracy", top1, global_step=global_step)
+      logger.log_metric("eval_top_5_accuracy", top5, global_step=global_step)
+      logger.log_metric("eval_images_per_sec", eval_ips, unit="examples/sec",
+                        global_step=global_step)
     return {"top_1_accuracy": top1, "top_5_accuracy": top5,
             "base_loss": loss,
-            "eval_images_per_sec": examples / max(elapsed, 1e-9),
+            "eval_images_per_sec": eval_ips,
             "num_eval_batches": len(accs), "kernel_launches": launches}
 
   def _run_eval(self) -> Dict[str, Any]:
@@ -799,12 +848,14 @@ class BenchmarkCNN:
           results.get("coco_evaluator"), n))
     return results
 
-  def _eval_pass(self, eval_step, images, labels) -> Dict[str, Any]:
+  def _eval_pass(self, eval_step, images, labels,
+                 global_step: int = 0) -> Dict[str, Any]:
     """One scoring: the synthetic batch, or a fresh one-pass validation
     stream, so that every checkpoint is scored on the same data (JAX
     benchmark.py:2133-2149)."""
     if self.synthetic:
-      return self._eval_once(eval_step, images, labels)
+      return self._eval_once(eval_step, images, labels,
+                             global_step=global_step)
     next_batch = self._open_input("validation")
     try:
       try:
@@ -815,7 +866,8 @@ class BenchmarkCNN:
         return {"top_1_accuracy": 0.0, "top_5_accuracy": 0.0,
                 "base_loss": float("nan"), "eval_images_per_sec": 0.0,
                 "num_eval_batches": 0, "kernel_launches": {}}
-      return self._eval_once(eval_step, images, labels, next_batch)
+      return self._eval_once(eval_step, images, labels, next_batch,
+                             global_step=global_step)
     finally:
       self._stop_input()
 
@@ -857,7 +909,7 @@ class BenchmarkCNN:
           continue
         checkpoint.restore_model(module, snapshot)
         log_fn(f"Evaluating checkpoint at global step {ckpt_step}")
-        results = self._eval_pass(eval_step, images, labels)
+        results = self._eval_pass(eval_step, images, labels, ckpt_step)
         results["global_step"] = ckpt_step
         last_evaluated_step = ckpt_step
         stale_polls = 0
@@ -926,19 +978,121 @@ class BenchmarkCNN:
     return train_step_lib.TrainChunk(step, self.steps_per_dispatch)
 
   def _benchmark_train(self) -> Dict[str, Any]:
-    """The training run inside its telemetry session (the flight recorder
-    and watchdog span the build, the warmup and the loop)."""
+    """The training run inside its sessions (JAX benchmark.py:775-910): the
+    run trace (always: its percentiles and ledger ride the stats; spans
+    are kept and exported with --trace_events_file), the metric registry
+    (always) and its endpoint (--metrics_port, port + rank), the kernels'
+    build directory (--compilation_cache_dir) and the telemetry session
+    (the flight recorder and watchdog span the build, the warmup and the
+    loop). A raise anywhere still tears them down and exports the
+    trace."""
+    p = self.params
     if self.health_note:
       log_fn(self.health_note)
-    tele = telemetry.TelemetrySession.create(
-        self.params, rank=mesh.rank(), log_fn=lambda s: log_fn(s),
-        num_ranks=self.world_size, run_id=self.run_id)
+    rank = mesh.rank()
+    # Under kfrun the launcher's world counts every worker of the job.
+    world = int(os.environ.get("KFCOORD_WORLD") or 0) or self.world_size
+    self._trace = tracing.activate(tracing.RunTrace(
+        path=p.trace_events_file, rank=rank, num_ranks=world,
+        run_id=self.run_id, chrome_format=bool(p.use_chrome_trace_format),
+        log_fn=lambda s: log_fn(s)))
+    self._registry = metrics_lib.activate(metrics_lib.MetricRegistry())
+    self._registry.set("run_id", self.run_id)
+    self._metrics_server = None
+    if p.metrics_port:
+      port = metrics_lib.resolve_port(p.metrics_port, rank)
+      try:
+        self._metrics_server = metrics_lib.MetricsServer(
+            self._registry, port, healthz_fn=self._healthz_payload)
+        log_fn("metrics endpoint: http://127.0.0.1:%d/metrics"
+               % self._metrics_server.port)
+      except (OSError, OverflowError) as e:
+        # A taken port must not cost the run (OverflowError: port + rank
+        # past 65535).
+        log_fn(f"metrics endpoint: bind to port {port} failed ({e}); "
+               "serving disabled for this run")
+    # Set (or cleared) before the first launch builds or loads a kernel.
+    _build.set_build_root(p.compilation_cache_dir)
+    if p.compilation_cache_dir:
+      log_fn(f"Kernel build cache: {p.compilation_cache_dir}")
+    self._telemetry = None
     try:
-      return self._train(tele)
+      self._telemetry = telemetry.TelemetrySession.create(
+          p, rank=rank, log_fn=lambda s: log_fn(s), num_ranks=world,
+          run_id=self.run_id)
+      return self._train(self._telemetry)
     finally:
       self._stop_input()
-      if tele is not None:
-        tele.close()
+      if self._telemetry is not None:
+        self._telemetry.close()
+        self._telemetry = None
+      # The endpoint down, then the sessions, then the export (the
+      # per-rank file and rank 0's merge).
+      if self._metrics_server is not None:
+        self._metrics_server.close()
+        self._metrics_server = None
+      metrics_lib.deactivate()
+      tracing.deactivate()
+      try:
+        self._trace.export()
+      except Exception as e:  # an export failure must not eat the run
+        log_fn(f"trace export failed (non-fatal): {e!r}")
+
+  def _healthz_payload(self) -> Dict[str, Any]:
+    """The /healthz body (the endpoint's thread calls it): the telemetry
+    session's watchdog and recorder state when one is live, a liveness
+    ack otherwise."""
+    payload: Dict[str, Any] = {"status": "ok", "run_id": self.run_id}
+    tele = getattr(self, "_telemetry", None)
+    if tele is not None:
+      payload.update(tele.healthz())
+    return payload
+
+  def _platform(self) -> str:
+    return "gpu" if self.device.type == "cuda" else "cpu"
+
+  def _observability_sinks(self, step, images, labels):
+    """(benchmark logger, summary writer), each None when its flags are
+    off, after the dumps of --graph_file, --tfprof_file and
+    --partitioned_graph_file_prefix (JAX benchmark.py:1186-1235). The
+    dumps trace and count on fake tensors: nothing runs on the card and no
+    state moves."""
+    p = self.params
+    bench_logger = None
+    if p.benchmark_log_dir:
+      bench_logger = observability.BenchmarkLogger(p.benchmark_log_dir,
+                                                    self._platform())
+      bench_logger.log_run_info(p, self.model.get_name(), self.dataset.name,
+                                self.world_size, self.batch_size)
+    summary_writer = None
+    if p.train_dir and p.save_summaries_steps and p.summary_verbosity:
+      summary_writer = observability.SummaryWriter(p.train_dir,
+                                                   p.summary_verbosity)
+    training = not p.forward_only
+    if p.graph_file:
+      observability.dump_program_text(step, images, labels, p.graph_file,
+                                      training=training)
+      log_fn(f"Wrote program text to {p.graph_file}")
+    if p.tfprof_file:
+      report = observability.dump_cost_analysis(
+          step, images, labels, p.tfprof_file, device=self.device,
+          training=training)
+      log_fn(f"Wrote cost analysis to {p.tfprof_file}")
+      if "flop_count_error" in report:
+        log_fn(f"FLOP count failed: {report['flop_count_error']}")
+      else:
+        self._step_flops = report["flops"]
+        table = observability.dump_per_op_profile(
+            report, p.tfprof_file + ".ops.txt")
+        for line in table.splitlines():
+          log_fn(line)
+      log_fn(observability.hbm_breakdown_line(report["memory"]))
+    if p.partitioned_graph_file_prefix and training:
+      path = p.partitioned_graph_file_prefix + ".txt"
+      observability.dump_partitioned_text(step, self.strategy, mesh.rank(),
+                                          self.world_size, path)
+      log_fn(f"Wrote partitioned plan to {path}")
+    return bench_logger, summary_writer
 
   def _train(self, tele) -> Dict[str, Any]:
     p = self.params
@@ -960,13 +1114,74 @@ class BenchmarkCNN:
              f"{self.num_grad_accum}x per step; not numerically "
              "equivalent to the monolithic step (BN-free models are)")
 
+    trace = tracing.active()
+    self._step_flops = None
+    bench_logger, summary_writer = self._observability_sinks(
+        step, *((images, labels) if real is None else real.current()))
+
     # Host time of each dispatch call (the call alone, no wait for the
     # device): the first is compile_s -- kernel builds, and under K > 1 the
     # eager warm-up step and the graph capture; the timed ones average to
     # dispatch_overhead_s (JAX benchmark.py:1267-1320, :1965-1975).
     dispatch_stats = {"compile_s": None, "call_times": []}
+    # Each program's first call is its compile episode in the ledger,
+    # keyed on the program-shape fingerprint (analysis/baseline.py).
+    compiled = set()
+    label = ("eval_step" if p.forward_only else
+             "train_chunk" if chunk is not None else "train_step")
+    # --trace_file profiles one dispatch (JAX benchmark.py:1298-1327): the
+    # last warmup dispatch, where it is a replay. A chunk's first call
+    # captures its graphs (and runs an eager step): with fewer than two
+    # warmup dispatches the first timed replay is traced instead.
+    q, r = divmod(self.num_warmup_batches, K)
+    if chunk is None:
+      trace_at = max(q + r - 1, 0)
+    else:
+      trace_at = q + r - 1 if q + r >= 2 else 1
+    traced = {}
+    # Each rank profiles into its own file (rank 0's is --trace_file).
+    self._trace_path = (tracing.rank_path(p.trace_file, mesh.rank())
+                        if p.trace_file else None)
+    # What lies at that path already is an earlier run's, never this one's.
+    self._stale_traces = observability.list_profile_runs(self._trace_path)
+    dispatch_count = [0]
+    # Each timed dispatch's issue time, in dispatch order: the device span
+    # of a dispatch resolving in handle() carries its own.
+    issue_walls = []
 
-    def run_dispatch(n: int) -> Dict[str, Any]:
+    def note_compile(name: str, wall_s: float) -> None:
+      compiled.add(name)
+      trace.note_compile(
+          baseline.config_fingerprint_key(p._asdict(), name), name, wall_s,
+          model=self.model.get_name(), num_devices=self.world_size,
+          # The kernels were loaded from --compilation_cache_dir, none
+          # built in this process.
+          cache_hit=bool(p.compilation_cache_dir and
+                         _build.loaded_from_cache()))
+
+    def run_dispatch(n: int, timed: bool = False) -> Dict[str, Any]:
+      """One dispatch: its issue span, compile_s, the ledger's first
+      call, and the one traced dispatch."""
+      idx = dispatch_count[0]
+      dispatch_count[0] += 1
+      replay = chunk is not None and chunk.captured
+      with observability.maybe_trace_step(self._trace_path, idx, trace_at,
+                                          device=self.device) as traced_now:
+        t0 = trace.now()
+        metrics, dt = dispatch(n)
+        first = label not in compiled
+        trace.add_span("dispatch", label, t0, trace.now() - t0,
+                       {"step": idx, "first_call": first})
+        if first:
+          note_compile(label, dt)
+        if traced_now:
+          traced.update(index=idx, label=label, replay=replay, timed=timed,
+                        steps=n)
+      if timed:
+        issue_walls.append(dt)
+      return metrics
+
+    def dispatch(n: int):
       t_call = time.monotonic()
       if chunk is not None:
         if real is None:
@@ -986,18 +1201,20 @@ class BenchmarkCNN:
       if dispatch_stats["compile_s"] is None:
         dispatch_stats["compile_s"] = dt
       dispatch_stats["call_times"].append(dt)
-      return metrics
+      return metrics, dt
 
     log_fn("Running warm up")
+    t0_warm = trace.now()
     # Exactly num_warmup_batches warmup steps at every K: q whole K-step
     # dispatches, then r single steps, so the warmed-up state is the K = 1
     # loop's (JAX benchmark.py:1330-1360).
-    q, r = divmod(self.num_warmup_batches, K)
     for _ in range(q):
       run_dispatch(K)  # on real data a whole staged chunk each
     for _ in range(r):
       run_dispatch(1)
     _sync(self.device)
+    trace.add_span("run", "warmup", t0_warm, trace.now() - t0_warm,
+                   {"steps": self.num_warmup_batches})
     log_fn("Build + warmup (%d steps): %.1f s" %
            (self.num_warmup_batches, time.time() - t0))
     header = "Step\tImg/sec\ttotal_loss"
@@ -1016,6 +1233,10 @@ class BenchmarkCNN:
     reshape_events = []
     num_dispatches = 0
     losses = []
+    chunk_times = []  # the wall of each K-step dispatch
+    # The device span of the dispatch resolving in handle(): opened at its
+    # first step, closed at its last.
+    dispatch_span = {"id": None}
 
     def handle(done) -> None:
       nonlocal loss, last_display_len
@@ -1023,6 +1244,33 @@ class BenchmarkCNN:
       m = done.metrics
       loss = float(m["total_loss"])
       losses.append(loss)
+      # The live lanes the /metrics scrape serves while the run trains.
+      registry = metrics_lib.active()
+      registry.set("step", start_step + done.index)
+      registry.set("loss", loss)
+      if "learning_rate" in m:
+        registry.set("learning_rate", float(m["learning_rate"]))
+      health = telemetry.health_scalars(m)
+      for name, value in health.items():
+        registry.set(name, value)
+      if dispatch_span["id"] is None:
+        # The dispatch's device completion is its pipeline arrival
+        # interval; its own host issue time rides in the args.
+        issue_s = issue_walls.pop(0) if issue_walls else None
+        dispatch_span["id"] = trace.add_span(
+            "device", "chunk" if done.chunk_len > 1 else "step",
+            trace.now() - done.chunk_interval, done.chunk_interval,
+            {"steps": done.chunk_len,
+             "end_step": start_step + done.index + done.chunk_len - 1
+             if not done.chunk_end else start_step + done.index,
+             "issue_ms": (round(issue_s * 1e3, 3)
+                          if issue_s is not None else None)})
+      if done.chunk_end:
+        trace.add_sample("chunk_wall", done.chunk_interval)
+        registry.observe("chunk_wall_s", done.chunk_interval)
+        if done.chunk_len > 1:
+          chunk_times.append(done.chunk_interval)
+        dispatch_span["id"] = None
       if tele is not None:
         # One recorder row a step; one heartbeat a resolved dispatch, with
         # its wall interval (JAX benchmark.py:1459-1476).
@@ -1042,10 +1290,27 @@ class BenchmarkCNN:
         if "top_1_accuracy" in m:
           top1 = float(m["top_1_accuracy"])
           top5 = float(m["top_5_accuracy"])
+        window = step_train_times[last_display_len:]
         log_fn(log_util.format_step_line(
-            i1, self.batch_size * self.world_size,
-            step_train_times[last_display_len:], loss, top1, top5))
+            i1, self.batch_size * self.world_size, window, loss, top1, top5))
+        rate = (self.batch_size * self.world_size /
+                max(sum(window) / max(len(window), 1), 1e-9))
+        registry.set("step_images_per_sec", rate)
+        if bench_logger is not None:
+          # Per-step metric rows (ref: benchmark_cnn.py:847-854).
+          bench_logger.log_metric("current_examples_per_sec", rate,
+                                  unit="examples/sec",
+                                  global_step=start_step + i1)
+          bench_logger.log_metric("total_loss", loss,
+                                  global_step=start_step + i1)
         last_display_len = len(step_train_times)
+      if summary_writer is not None and i1 % p.save_summaries_steps == 0:
+        scalars = {k: v for k, v in m.items() if np.ndim(v) == 0}
+        scalars.update(health)
+        summary_writer.write_scalars(start_step + i1, scalars)
+        if summary_writer.verbosity >= 2:
+          summary_writer.write_histograms(
+              start_step + i1, module.named_parameters(), "params")
 
     # Step-keyed schedule predicates: the same functions feed the dispatch
     # planner and the due flags after each dispatch, so a dispatch never
@@ -1081,6 +1346,7 @@ class BenchmarkCNN:
     start_step = 0 if p.forward_only else step.global_step
     drop_next_poll = False
     dispatch_stats["call_times"].clear()
+    issue_walls.clear()
     loop_start = time.time()
     last_save = loop_start
     pipe.reset_clock()
@@ -1091,7 +1357,7 @@ class BenchmarkCNN:
       # chunk (JAX benchmark.py:1590-1592).
       if (chunk is not None and n == K and
           (real is None or real.whole_chunk(K))):
-        metrics = run_dispatch(K)
+        metrics = run_dispatch(K, timed=True)
         i += K
         images_processed += K * self.batch_size * self.world_size
         num_dispatches += 1
@@ -1101,7 +1367,7 @@ class BenchmarkCNN:
         # The short remainder before an event, or the end, runs as single
         # steps (one-step dispatches under K > 1).
         for _ in range(n):
-          metrics = run_dispatch(1)
+          metrics = run_dispatch(1, timed=True)
           i += 1
           images_processed += self.batch_size * self.world_size
           num_dispatches += 1
@@ -1138,10 +1404,15 @@ class BenchmarkCNN:
       if eval_due:
         # Mid-training eval and the early stop (JAX benchmark.py:
         # 1655-1672; ref: benchmark_cnn.py:2310-2324).
+        t_eval = trace.now()
         acc = train_step_lib.EvalStep(
             self.model, module, full_params=step.full_params)(
                 *(real.current() if real is not None else (images, labels)))
+        if "eval_step" not in compiled:
+          note_compile("eval_step", trace.now() - t_eval)
         top1 = float(acc["top_1_accuracy"])
+        trace.add_span("eval", "mid_train_eval", t_eval,
+                       trace.now() - t_eval, {"step": i})
         top5 = float(acc["top_5_accuracy"])
         eval_results.append({"step": i, "top_1_accuracy": top1,
                              "top_5_accuracy": top5})
@@ -1184,6 +1455,8 @@ class BenchmarkCNN:
             if tele is not None:
               tele.elastic_event(controller.generation(), self.world_size,
                                  restart_np, step.global_step)
+            trace.instant("elastic", "checkpoint_restart", step=i,
+                          workers=restart_np)
             restart_requested = restart_np
             break
         if batch_policy is not None and noise_ema is not None:
@@ -1202,8 +1475,10 @@ class BenchmarkCNN:
               # On disk before the rebuild: a run preempted during it
               # resumes at this seam, with the new batch.
               self._save_checkpoint(module, step, incarnation_bump=1)
-            module, step, images, labels = self._rebuild(module, step,
-                                                         proposed)
+            with trace.span("elastic", "rebuild", step=i,
+                            batch_size_per_device=proposed):
+              module, step, images, labels = self._rebuild(module, step,
+                                                           proposed)
             chunk = self._make_chunk(step)
             real = self._open_train_input()
             # Epoch-based eval schedules count examples: re-anchored at
@@ -1220,6 +1495,8 @@ class BenchmarkCNN:
     for done in pipe.flush():
       handle(done)
     total_time = time.time() - loop_start - aux_time
+    trace.add_span("run", "timed_loop", trace.now() - total_time,
+                   total_time, {"steps": len(step_train_times)})
     if p.train_dir and not p.forward_only and restart_requested is None:
       # Final checkpoint (ref: benchmark_cnn.py:2374-2378).
       self._save_checkpoint(module, step)
@@ -1231,11 +1508,27 @@ class BenchmarkCNN:
     log_fn("-" * 64)
     log_fn(log_util.format_total_line(images_per_sec))
     log_fn("-" * 64)
+    if chunk_times:
+      for line in observability.chunk_timing_rows(
+          K, chunk_times, self.batch_size * self.world_size):
+        log_fn(line)
     launches = {k: v - launches_before[k]
                 for k, v in kernel_launches().items()}
     if any(launches.values()):
       log_fn("Kernel launches: " + ", ".join(
           f"{k} {v}" for k, v in launches.items() if v))
+    self._profile_lines(num_steps, total_time, dispatch_stats, traced)
+    if bench_logger is not None:
+      # The final throughput rows (ref: _log_benchmark_run).
+      bench_logger.log_metric("average_examples_per_sec", images_per_sec,
+                              unit="examples/sec",
+                              global_step=start_step + num_steps)
+      if chunk_times:
+        bench_logger.log_metric(
+            "chunk_wall_time_mean", sum(chunk_times) / len(chunk_times),
+            unit="seconds", global_step=start_step + num_steps,
+            extras={"steps_per_dispatch": K,
+                    "num_chunks": len(chunk_times)})
     feed_stats = self._feeder.stats() if self._feeder is not None else None
     if feed_stats is not None and feed_stats["fetches"]:
       stall = feed_stats["feed_stall_fraction"]
@@ -1258,12 +1551,28 @@ class BenchmarkCNN:
     # The run-health summary (None without a telemetry session): what
     # bench_torch.py's health record carries beside the rate.
     health_summary = tele.summary() if tele is not None else None
+    if bench_logger is not None and health_summary and \
+        health_summary.get("max_grad_norm") is not None:
+      bench_logger.log_metric(
+          "max_grad_norm", health_summary["max_grad_norm"],
+          global_step=start_step + num_steps,
+          extras={"nonfinite_steps": health_summary["nonfinite_steps"],
+                  "watchdog_stalls": health_summary["watchdog_stalls"]})
+    # The latency percentiles and the compile ledger, after the final
+    # save so the counts match the stats; the ledger persists into
+    # train_dir.
+    for line in trace.latency_lines() + trace.ledger_lines():
+      log_fn(line)
+    if p.train_dir:
+      trace.write_ledger(p.train_dir)
     if p.sync_on_finish and restart_requested is None:
       # --sync_on_finish is launch-wide (one command line for every
       # worker), so every rank meets this barrier or none does.
       kungfu.run_barrier()
     call_times = dispatch_stats["call_times"]
-    return {
+    memory = (observability.memory_report(step, self.device)
+              if not p.forward_only else {})
+    stats = {
         "num_workers": self.world_size,
         "num_steps": num_steps,
         "average_wall_time": total_time / max(num_steps, 1),
@@ -1295,4 +1604,73 @@ class BenchmarkCNN:
         "feed_stall_fraction": (feed_stats["feed_stall_fraction"]
                                 if feed_stats else None),
         "feed_stats": feed_stats,
+        "num_chunks": len(chunk_times),
+        "opt_state_bytes_per_device": memory.get("opt_state_bytes"),
+        "param_bytes_per_device": memory.get("param_bytes"),
+        # The run trace's aggregates: <key>_p50/p90/p99 seconds and the
+        # compile ledger (bench_torch.py forwards both).
+        "latency_percentiles": trace.percentile_fields() or None,
+        "compile_ledger": trace.compile_ledger(),
+        "run_id": self.run_id,
+        # Which dispatch --trace_file profiled (None without it), and one
+        # step's FLOPs (--tfprof_file).
+        "traced_dispatch": dict(traced) or None,
+        "step_flops": self._step_flops,
     }
+    # The final publication the endpoint serves until teardown, and the
+    # run record (rank 0: the record describes the job).
+    metrics_lib.publish_stats(metrics_lib.active(), stats)
+    if p.run_store_dir and mesh.rank() == 0:
+      self._append_run_record(stats)
+    return stats
+
+  def _profile_lines(self, num_steps, total_time, dispatch_stats,
+                     traced) -> None:
+    """--tfprof_file's run-end lines: the measured MFU and the dispatch
+    overhead against the counted FLOPs, and with --trace_file the measured
+    per-op table of the traced dispatch (JAX benchmark.py:1895-1924).
+    Best-effort: a profile failure must not cost a finished run its
+    checkpoint."""
+    p = self.params
+    if not p.tfprof_file:
+      return
+    if self._step_flops and num_steps:
+      step_s = total_time / num_steps
+      log_fn(observability.mfu_line(self._step_flops, step_s,
+                                    source="measured"))
+      call_times = dispatch_stats["call_times"]
+      if call_times:
+        log_fn(observability.dispatch_overhead_line(
+            self._step_flops / observability.H100_PEAK_FLOPS,
+            self.steps_per_dispatch, sum(call_times) / len(call_times)))
+    measured_path = p.tfprof_file + ".measured_ops.txt"
+    try:
+      if p.trace_file and traced:
+        table = observability.dump_measured_op_profile(
+            self._trace_path, measured_path, exclude=self._stale_traces)
+        for line in (table or "").splitlines():
+          log_fn(line)
+      elif os.path.exists(measured_path):
+        os.unlink(measured_path)
+    except Exception as e:  # noqa: BLE001
+      log_fn(f"measured per-op profile failed (non-fatal): {e!r}")
+
+  def _append_run_record(self, stats) -> None:
+    """One record of this run in --run_store_dir's store."""
+    p = self.params
+    try:
+      record = metrics_lib.run_record(
+          metric="images_per_sec", value=stats["images_per_sec"],
+          unit="images/sec",
+          fingerprint=baseline.config_fingerprint_key(p._asdict(), "train"),
+          run_id=self.run_id, platform=self._platform(),
+          git_rev=metrics_lib.git_revision(),
+          torch_version=torch.__version__,
+          device_name=(torch.cuda.get_device_name(self.device)
+                       if self.device.type == "cuda" else "cpu"),
+          snapshot=metrics_lib.flatten_stats(stats))
+      store = metrics_lib.RunStore(p.run_store_dir)
+      store.append(record)
+      log_fn("run record appended: %s" % store.path)
+    except (OSError, ValueError) as e:
+      log_fn(f"run record append failed (non-fatal): {e}")

@@ -26,8 +26,8 @@ whole chunks). A stream that ends mid-chunk yields a final short chunk.
 ``stats()`` has the JAX feeder's keys: whether the prefetch hides the host's
 work behind the step (``feed_stall_fraction`` ~0) or the loop is input-bound
 (~1). The feed spans and the wait samples go to the active run trace
-(tracing.py); the live Prometheus lanes wait for the port's /metrics
-endpoint (ROADMAP Queue 1 item 10).
+(tracing.py), and each fetch's count, queue depth and wait to the active
+metric registry (metrics.py), which the /metrics endpoint serves live.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from kf_benchmarks_tpu_torch import metrics as metrics_lib
 from kf_benchmarks_tpu_torch import tracing
 from kf_benchmarks_tpu_torch.data import preprocessing
 
@@ -245,6 +246,11 @@ class DeviceFeeder:
     trace.add_span("feed", "wait", t0_trace, trace.now() - t0_trace,
                    {"queue_depth": depth * self._chunk})
     trace.add_sample("feed_wait", waited)
+    # The live lanes (a no-op sink without a registry session).
+    registry = metrics_lib.active()
+    registry.inc("fetches")
+    registry.set("queue_depth", depth * self._chunk)
+    registry.observe("feed_wait_s", waited)
     # Queue depth in BATCH units (the queue holds chunks when chunk > 1).
     self._depth_sum += depth * self._chunk
     self._depth_max = max(self._depth_max, depth * self._chunk)

@@ -16,7 +16,7 @@ from typing import Any, Optional
 
 class ParamSpec:
   """One benchmark parameter: type, default, help and constraints
-  (enum_values, lower_bound)."""
+  (enum_values, lower_bound, upper_bound)."""
 
   __slots__ = ("name", "flag_type", "default_value", "description", "kwargs")
 
@@ -52,8 +52,10 @@ def DEFINE_boolean(name, default, help):  # noqa: N802
   _define(name, "boolean", default, help)
 
 
-def DEFINE_integer(name, default, help, lower_bound=None):  # noqa: N802
-  _define(name, "integer", default, help, lower_bound=lower_bound)
+def DEFINE_integer(name, default, help, lower_bound=None,  # noqa: N802
+                   upper_bound=None):
+  _define(name, "integer", default, help, lower_bound=lower_bound,
+          upper_bound=upper_bound)
 
 
 def DEFINE_float(name, default, help, lower_bound=None):  # noqa: N802
@@ -111,6 +113,9 @@ def check_value(spec: ParamSpec, value: Any) -> None:
   lo = spec.kwargs.get("lower_bound")
   if lo is not None and value < lo:
     raise ValueError(f"Param {spec.name}={value} is below lower bound {lo}")
+  hi = spec.kwargs.get("upper_bound")
+  if hi is not None and value > hi:
+    raise ValueError(f"Param {spec.name}={value} is above upper bound {hi}")
 
 
 def add_to_parser(parser: argparse.ArgumentParser) -> None:

@@ -153,6 +153,21 @@ def launch(np_: int, command: List[str], logdir: str = ".",
     # One run id for the whole job: the workers inherit it.
     extra_env = dict(extra_env or {})
     extra_env.setdefault("KF_RUN_ID", tracing.resolve_run_id())
+    # A worker command with --metrics_port binds base + rank: the job's
+    # scrape targets, printed once (loopback: the endpoint binds
+    # 127.0.0.1). Both spellings of the flag are read.
+    metrics_base = None
+    for i, tok in enumerate(command):
+      if tok.startswith("--metrics_port="):
+        metrics_base = tok.partition("=")[2]
+      elif tok == "--metrics_port" and i + 1 < len(command):
+        metrics_base = command[i + 1]
+    if metrics_base and metrics_base.isdigit():
+      targets = ", ".join(
+          f"http://127.0.0.1:{int(metrics_base) + r}/metrics"
+          for r in range(np_))
+      print(f"kfrun: metrics endpoints: {targets}", file=sys.stderr,
+            flush=True)
     for _ in range(MAX_RESTARTS + 1):
       code, restart = _run_generation(server, gen_np, command, logdir,
                                       host, extra_env,

@@ -116,10 +116,11 @@ class CompactBatchNorm(nn.Module):
     n = x.numel() // self.features
     mean = sums[0] / n
     var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
-    with torch.no_grad():
-      m = self.momentum
-      self.mean.copy_(m * self.mean + (1 - m) * mean)
-      self.var.copy_(m * self.var + (1 - m) * var)
+    # The running averages from detached moments: no autograd record, and
+    # no grad-mode region for torch.export to split the program at.
+    m = self.momentum
+    self.mean.copy_(m * self.mean + (1 - m) * mean.detach())
+    self.var.copy_(m * self.var + (1 - m) * var.detach())
     return mean, var
 
   def forward(self, x: torch.Tensor, sums: Optional[torch.Tensor] = None):

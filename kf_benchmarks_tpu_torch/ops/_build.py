@@ -6,9 +6,12 @@ started together) into a shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
 
-The libraries go to ``build/kernels/<hash>/`` at the repository root, where
-``<hash>`` covers every source under ``csrc/`` and the flags, so an edited
-kernel is rebuilt and an unchanged one is loaded as it is. ``nvcc`` is
+The libraries go to ``build/kernels/<hash>/`` at the repository root (or
+under the directory ``set_build_root`` names: --compilation_cache_dir),
+where ``<hash>`` covers every source under ``csrc/`` and the flags, so an
+edited kernel is rebuilt and an unchanged one is loaded as it is.
+``loaded_from_cache()`` says whether this process loaded libraries and
+built none. ``nvcc`` is
 needed only here, when a kernel is first launched; importing the package
 never needs it.
 
@@ -88,6 +91,25 @@ _SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# The kernels' build root when one is set (--compilation_cache_dir), and
+# the libraries this process built.
+_root = None
+_built: List[str] = []
+
+
+def set_build_root(path) -> None:
+  """Build and load the kernels under ``path`` (None: build/kernels)."""
+  global _root
+  _root = os.path.abspath(path) if path else None
+
+
+def build_root() -> str:
+  return _root or BUILD_ROOT
+
+
+def loaded_from_cache() -> bool:
+  """Whether this process loaded kernel libraries and built none."""
+  return bool(_loaded) and not _built
 
 
 def _sources() -> List[str]:
@@ -126,7 +148,7 @@ def build_all() -> str:
   directory, all ``nvcc`` processes in parallel, each leaving its output
   (ptxas -v: registers, shared memory, spills) in ``<name>.log`` there.
   Returns the directory."""
-  out_dir = os.path.join(BUILD_ROOT, _source_hash())
+  out_dir = os.path.join(build_root(), _source_hash())
   os.makedirs(out_dir, exist_ok=True)
   with open(os.path.join(out_dir, ".lock"), "w") as lock:
     fcntl.flock(lock, fcntl.LOCK_EX)
@@ -184,6 +206,7 @@ def _build_missing(out_dir: str) -> None:
         failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
       else:
         os.replace(tmp, os.path.join(out_dir, name + ".so"))
+        _built.append(name)
     if failed:
       raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
 

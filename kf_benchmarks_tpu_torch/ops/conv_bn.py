@@ -23,7 +23,10 @@ implementation is the plain PyTorch version (below), its CUDA
 implementation launches the hand-written kernel or raises, and its fake
 gives the output shapes, so ``torch.export`` (aot.py) records the op itself
 rather than tracing its plain decomposition, and a loaded program runs
-the kernel on the card. There is no fallback from one to the other.
+the kernel on the card. There is no fallback from one to the other. Each op
+has a FLOP formula (``torch.utils.flop_counter``), 2*N*H*W*C*CO*9 as the
+plain version's products count, so ``FlopCounterMode`` (the per-op tables
+and the MFU line of observability.py) counts the kernels' work.
 ``LAUNCHES`` counts kernel launches per kernel, inside the op's CUDA
 implementation (so a loaded exported program's launches count too), and
 a run can show that its path went through the kernels.
@@ -41,6 +44,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from kf_benchmarks_tpu_torch.ops import _build
 
@@ -272,6 +276,19 @@ def _conv3x3_same_cuda(x: torch.Tensor, w_k: torch.Tensor) -> torch.Tensor:
   return y
 
 
+def conv3x3_flops(x_shape, co: int) -> int:
+  """Multiply-adds of a 3x3 SAME stride-1 conv of x [N,H,W,C] to CO
+  channels, as 2 FLOPs each (the plain version's nine matmuls)."""
+  n, h, w, c = x_shape
+  return 2 * n * h * w * c * co * 9
+
+
+@register_flop_formula(torch.ops.kf_torch.conv3x3_same)
+def _conv3x3_same_flop(x_shape, w_shape, *args, out_shape=None,
+                       **kwargs) -> int:
+  return conv3x3_flops(x_shape, w_shape[0])
+
+
 def conv3x3_same_kmajor(x: torch.Tensor, w_k: torch.Tensor) -> torch.Tensor:
   """K-A on K-major weights: y[N,H,W,CO] = conv3x3_SAME(x[N,H,W,C], w)
   with w_k[o,dy,dx,c] = w[dy,dx,c,o]."""
@@ -347,6 +364,13 @@ def _bn_relu_conv3x3_stats_cuda(x: torch.Tensor, sc: torch.Tensor,
   _raise_on_error(name, err)
   LAUNCHES[name] += 1
   return y, stats
+
+
+@register_flop_formula(torch.ops.kf_torch.bn_relu_conv3x3_stats)
+def _bn_relu_conv3x3_stats_flop(x_shape, sc_shape, sh_shape, w_shape, *args,
+                                out_shape=None, **kwargs) -> int:
+  # The prologue and the statistics are elementwise: the products alone.
+  return conv3x3_flops(x_shape, w_shape[0])
 
 
 # -- autograd unit -------------------------------------------------------------

@@ -28,11 +28,13 @@ and lse = +inf.
 
 Each wrapper computes its plain PyTorch version (below it) on a CPU tensor
 and launches its kernel on a CUDA tensor or raises; there is no fallback
-from one to the other. The forward and the decode kernel are
-``torch.library.custom_op``s (``torch.ops.kf_torch.flash_attention_fwd``
-and ``flash_decode``): CPU implementation the plain version, CUDA
+from one to the other. Each kernel's entry is a
+``torch.library.custom_op`` (``torch.ops.kf_torch.flash_attention_fwd``,
+``flash_attention_bwd_dkv``, ``flash_attention_bwd_dq`` and
+``flash_decode``): CPU implementation the plain version, CUDA
 implementation the launch, a fake for the shapes, so an exported program
-(aot.py) records the op and runs the kernel on the card. ``LAUNCHES``
+(aot.py) records the op and runs the kernel on the card, and a FLOP
+formula, so ``FlopCounterMode`` counts the kernels' work. ``LAUNCHES``
 counts kernel launches per kernel, where the kernel is enqueued.
 ``FlashAttention`` is the autograd Function: forward by the forward kernel
 (saving lse), backward by the two backward kernels.
@@ -44,6 +46,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from kf_benchmarks_tpu_torch.ops import _build
 from kf_benchmarks_tpu_torch.ops.conv_bn import _sm_count, accum
@@ -367,9 +370,35 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, causal: bool = False,
   """(dK, dV), each (B, Lk, H, D), from the forward's lse and
   di = rowsum(o * dO) (B, H, Lq) f32."""
   scale = default_scale(q) if scale is None else scale
-  if q.device.type == "cpu":
-    return flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal, scale,
+  if q.device.type != "cpu":
+    _check_scale("flash_attention_bwd_dkv", scale)
+  _check_device("flash_attention_bwd_dkv", q)
+  return torch.ops.kf_torch.flash_attention_bwd_dkv(
+      q, k, v, do, lse, di, bool(causal), float(scale), q_seg, kv_seg)
+
+
+@torch.library.custom_op("kf_torch::flash_attention_bwd_dkv",
+                         mutates_args=(), device_types="cpu")
+def _flash_attention_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, do: torch.Tensor,
+                                lse: torch.Tensor, di: torch.Tensor,
+                                causal: bool, scale: float,
+                                q_seg: Optional[torch.Tensor],
+                                kv_seg: Optional[torch.Tensor]
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+  dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal, scale,
                                          q_seg, kv_seg)
+  return dk.contiguous(), dv.contiguous()
+
+
+@_flash_attention_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, di, causal, scale, q_seg, kv_seg):
+  return (k.new_empty(k.shape), v.new_empty(v.shape))
+
+
+@_flash_attention_bwd_dkv_op.register_kernel("cuda")
+def _flash_attention_bwd_dkv_cuda(q, k, v, do, lse, di, causal, scale, q_seg,
+                                  kv_seg):
   q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
   _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, di, q_seg, kv_seg,
              scale)
@@ -391,9 +420,33 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, causal: bool = False,
                            kv_seg=None) -> torch.Tensor:
   """dQ (B, Lq, H, D) from the forward's lse and di."""
   scale = default_scale(q) if scale is None else scale
-  if q.device.type == "cpu":
-    return flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal, scale,
-                                        q_seg, kv_seg)
+  if q.device.type != "cpu":
+    _check_scale("flash_attention_bwd_dq", scale)
+  _check_device("flash_attention_bwd_dq", q)
+  return torch.ops.kf_torch.flash_attention_bwd_dq(
+      q, k, v, do, lse, di, bool(causal), float(scale), q_seg, kv_seg)
+
+
+@torch.library.custom_op("kf_torch::flash_attention_bwd_dq", mutates_args=(),
+                         device_types="cpu")
+def _flash_attention_bwd_dq_op(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, do: torch.Tensor,
+                               lse: torch.Tensor, di: torch.Tensor,
+                               causal: bool, scale: float,
+                               q_seg: Optional[torch.Tensor],
+                               kv_seg: Optional[torch.Tensor]) -> torch.Tensor:
+  return flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal, scale,
+                                      q_seg, kv_seg).contiguous()
+
+
+@_flash_attention_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, di, causal, scale, q_seg, kv_seg):
+  return q.new_empty(q.shape)
+
+
+@_flash_attention_bwd_dq_op.register_kernel("cuda")
+def _flash_attention_bwd_dq_cuda(q, k, v, do, lse, di, causal, scale, q_seg,
+                                 kv_seg):
   q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
   _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, di, q_seg, kv_seg,
              scale)
@@ -407,6 +460,50 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, causal: bool = False,
   _raise_on_error("flash_attention_bwd_dq", err)
   LAUNCHES["flash_attention_bwd_dq"] += 1
   return dq
+
+
+# -- FLOP formulas ---------------------------------------------------------------
+# The products of each op as its plain version counts them (2 FLOPs a
+# multiply-add), over the admissible pairs of a causal mask (the causal
+# half; segment ids, which only the data sets, are not counted out).
+
+def admissible_pairs(lq: int, lk: int, causal: bool) -> int:
+  """(query, key) pairs of one (batch, head) that take part: all of them,
+  or under ``causal`` those with key c <= query row r."""
+  if not causal:
+    return lq * lk
+  m = min(lq, lk)
+  return m * (m + 1) // 2 + max(lq - lk, 0) * lk
+
+
+def _pairs(q_shape, k_shape, causal) -> int:
+  return q_shape[0] * q_shape[2] * admissible_pairs(q_shape[1], k_shape[1],
+                                                    bool(causal))
+
+
+@register_flop_formula(torch.ops.kf_torch.flash_attention_fwd)
+def _flash_attention_fwd_flop(q_shape, k_shape, v_shape, causal=False, *args,
+                              out_shape=None, **kwargs) -> int:
+  # S = Q K^T and O = P V.
+  return 2 * _pairs(q_shape, k_shape, causal) * (q_shape[3] + v_shape[3])
+
+
+@register_flop_formula(torch.ops.kf_torch.flash_attention_bwd_dkv)
+def _flash_attention_bwd_dkv_flop(q_shape, k_shape, v_shape, do_shape,
+                                  lse_shape, di_shape, causal=False, *args,
+                                  out_shape=None, **kwargs) -> int:
+  # S and dP = dO V^T recomputed, dV = P^T dO, dK = dS^T Q.
+  d, dv = q_shape[3], v_shape[3]
+  return 2 * _pairs(q_shape, k_shape, causal) * (2 * d + 2 * dv)
+
+
+@register_flop_formula(torch.ops.kf_torch.flash_attention_bwd_dq)
+def _flash_attention_bwd_dq_flop(q_shape, k_shape, v_shape, do_shape,
+                                 lse_shape, di_shape, causal=False, *args,
+                                 out_shape=None, **kwargs) -> int:
+  # S and dP recomputed, dQ = dS K.
+  d, dv = q_shape[3], v_shape[3]
+  return 2 * _pairs(q_shape, k_shape, causal) * (2 * d + dv)
 
 
 # -- autograd ------------------------------------------------------------------
@@ -595,3 +692,10 @@ def _flash_decode_cuda(q, k, v, pos, scale):
   _raise_on_error("flash_decode", err)
   LAUNCHES["flash_decode"] += 1
   return o
+
+
+@register_flop_formula(torch.ops.kf_torch.flash_decode)
+def _flash_decode_flop(q_shape, k_shape, v_shape, *args, out_shape=None,
+                       **kwargs) -> int:
+  # One query row against the whole ring, as the plain version computes it.
+  return 2 * q_shape[0] * q_shape[2] * k_shape[1] * (q_shape[3] + v_shape[3])

@@ -9,8 +9,9 @@ data-parallel over torch.distributed (spawned ranks, or kfrun workers
 joined through --worker_hosts; optionally with sharded optimizer state,
 sharded parameters or the overlapped reduction), in f32 or bf16
 parameters (--fp16_vars), with checkpoints, elastic resize and the
-adaptive batch size, training-health telemetry and fault injection, and the
-transformer_lm serving bench (serving/bench.py) with its INT8, paged-KV
+adaptive batch size, training-health telemetry and fault injection, the
+trace export, profiles, program dumps, the /metrics endpoint, the run store
+and the benchmark logger, and the transformer_lm serving bench (serving/bench.py) with its INT8, paged-KV
 and speculative variants, and the frozen forward export (aot.py). Names,
 defaults and meanings follow the JAX package (the serving bench's
 ``--serving_requests``,
@@ -280,6 +281,109 @@ flags.DEFINE_integer("save_model_steps", 0,
                      "Checkpoint cadence in steps (ref :602-605).")
 flags.DEFINE_integer("max_ckpts_to_keep", 5,
                      "Max checkpoints kept (ref :606-608).")
+# Observability (tracing.py, observability.py, metrics.py; ref :270-296,
+# :585-597, :1594-1608).
+flags.DEFINE_string("trace_file", None,
+                    "Profiler trace output path (ref :270-275): the "
+                    "torch.profiler Chrome trace of one dispatch (the last "
+                    "warmup dispatch, a CUDA-graph replay under "
+                    "--steps_per_dispatch, else the first that is one), "
+                    "written to this file; the JAX package's jax.profiler "
+                    "writes a run directory beside it instead. On the CPU "
+                    "the capture takes the CPU activity alone.")
+flags.DEFINE_string("trace_events_file", None,
+                    "Whole-run host-side span timeline (tracing.py; the "
+                    "run-wide successor of the reference's one-step "
+                    "timeline, ref :806-817): DeviceFeeder fetches/waits, "
+                    "dispatch issue + per-chunk device completion, "
+                    "first calls of a program, checkpoint save/restore, "
+                    "eval, elastic seams and fault injections, exported as "
+                    "Chrome trace-event JSON (loads in Perfetto / "
+                    "chrome://tracing; pid=rank, tid=subsystem; "
+                    "--use_chrome_trace_format=false writes the raw span "
+                    "JSONL instead). Host-only: the step launches the same "
+                    "kernels and its losses are bitwise those of a run "
+                    "without it. Per-rank files under kfrun, rank 0 merges "
+                    "at exit. Independent of the torch.profiler "
+                    "--trace_file capture. Training runs only "
+                    "(validation.py).")
+flags.DEFINE_boolean("use_chrome_trace_format", True,
+                     "Export --trace_events_file as Chrome trace-event "
+                     "JSON (the reference's timeline.Timeline toggle, "
+                     "ref :271-275, wired to the run-trace exporter in "
+                     "tracing.py); false writes the raw span records as "
+                     "JSONL instead. The torch.profiler --trace_file "
+                     "capture is unaffected (it writes its own format).")
+flags.DEFINE_string("tfprof_file", None,
+                    "Per-op profile output (ref tfprof_file :276-289): one "
+                    "step's FLOPs by op and by module (FlopCounterMode, the "
+                    "kernels counted by their own formulas) and the card's "
+                    "memory as JSON, the static per-op table at the H100's "
+                    "peaks in <file>.ops.txt and, with --trace_file, the "
+                    "measured per-op table of the traced dispatch in "
+                    "<file>.measured_ops.txt.")
+flags.DEFINE_string("graph_file", None,
+                    "Dump the program text to this path (ref :2142-2148 "
+                    "GraphDef dump): the torch.export program of the "
+                    "step's training-mode forward and loss, the kernels as "
+                    "torch.ops.kf_torch.* nodes.")
+flags.DEFINE_string("partitioned_graph_file_prefix", None,
+                    "Dump this rank's plan to <prefix>.txt (ref :293-296 "
+                    "per-device GraphDef dumps): the strategy, each leaf's "
+                    "gradient reduction a step and its shard under sharded "
+                    "state (the JAX package writes the compiled "
+                    "per-device program).")
+flags.DEFINE_string("run_store_dir", None,
+                    "Append one schema-versioned run record (config "
+                    "fingerprint, git rev, torch version, the card's name, "
+                    "platform, full metric snapshot) to the append-only "
+                    "JSONL run store in this directory at run end "
+                    "(metrics.py RunStore; rank 0 only) -- the cross-run "
+                    "history the regression sentinel (bench_torch.py "
+                    "--check-regression) compares against. Unset = no "
+                    "record; nothing defaults to the repository root. "
+                    "Training runs only (validation.py).")
+flags.DEFINE_string("benchmark_log_dir", None,
+                    "Structured JSON benchmark-log directory "
+                    "(ref :1594-1608).")
+flags.DEFINE_string("benchmark_test_id", None,
+                    "Test id attached to the benchmark-log run info "
+                    "(wired; ref :344-348).")
+flags.DEFINE_string("eval_dir", None,
+                    "Directory for eval summaries (ref :585-586): --eval "
+                    "writes each pass's top-1, top-5 and images/sec as "
+                    "scalars to events.jsonl there. The JAX package "
+                    "defaults it to /tmp/tf_cnn_benchmarks/eval; the port "
+                    "writes none unless it is given, so a run writes only "
+                    "where it is told to.")
+flags.DEFINE_integer("save_summaries_steps", 0,
+                     "Summary cadence, 0 = off (ref :594-597).")
+flags.DEFINE_integer("summary_verbosity", 0,
+                     "0-3: none / scalars / grad histograms / everything "
+                     "(ref :589-593).", lower_bound=0, upper_bound=3)
+flags.DEFINE_string("compilation_cache_dir", None,
+                    "Build directory of the hand-written kernels (ops/"
+                    "_build.py; default build/kernels in the checkout): a "
+                    "second run with the same directory builds nothing, "
+                    "and the compile ledger's cache_hit column "
+                    "(tracing.py) records the runs that loaded every "
+                    "library from it. CUDA-graph captures and cuDNN's "
+                    "plans are per process and are made anew each run. "
+                    "The JAX package's XLA cache has no counterpart.")
+flags.DEFINE_integer("metrics_port", None,
+                     "Serve a live scrape endpoint from the metric "
+                     "registry (metrics.py) on this port: /metrics in "
+                     "Prometheus text format, /healthz from watchdog + "
+                     "flight-recorder state. Under kfrun each rank "
+                     "binds port + rank, so every worker of a "
+                     "single-host job gets its own scrape target. "
+                     "Host-side only: the step launches the same kernels "
+                     "as without it. Unset = no socket is ever bound. "
+                     "Training runs and the serving bench only "
+                     "(validation.py). No reference analog -- its "
+                     "results ship post-hoc (BenchmarkLogger / BigQuery "
+                     "upload, ref: benchmark_cnn.py:1594-1608).",
+                     lower_bound=1, upper_bound=65535)
 # Elastic resize and the adaptive batch size (elastic.py).
 flags.DEFINE_boolean("track_grad_noise_scale", False,
                      "Measure the gradient noise scale in the train step "

@@ -8,7 +8,9 @@ line.
 The port's counterpart of the JAX package's ``bench.py --serving``
 (bench.py:288-440), with its decode-cost variants (--serving_quantize,
 --serving_kv_page_size, --serving_speculative_k with
---serving_draft_layers; bench.py:318-333) and without the run store. On
+--serving_draft_layers; bench.py:318-333) and its ``--metrics_port`` (the
+engine's registry served at /metrics and its state at /healthz for the
+replay), without the run store. On
 the card (the default ``--device=gpu``, which fails without one; there is
 no CPU fallback) it serves the zoo transformer_lm at full size, 128
 requests at 16 requests/s with 32 new tokens each; ``--device=cpu`` serves a
@@ -36,8 +38,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
-import subprocess
 import sys
 from typing import Any, Dict, Optional, Sequence
 
@@ -53,9 +53,6 @@ from kf_benchmarks_tpu_torch.serving import decode as decode_lib
 from kf_benchmarks_tpu_torch.serving import engine as engine_lib
 from kf_benchmarks_tpu_torch.serving.decode import LMSpec
 
-_REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-
 
 def parse_params(argv: Optional[Sequence[str]] = None):
   parser = argparse.ArgumentParser(
@@ -67,18 +64,6 @@ def parse_params(argv: Optional[Sequence[str]] = None):
   overrides = {k: v for k, v in vars(ns).items() if v is not None}
   overrides.setdefault("model", "transformer_lm")
   return params_lib.make_params(**overrides)
-
-
-def git_revision() -> Optional[str]:
-  """HEAD of the checkout this module lives in, or None outside git."""
-  try:
-    out = subprocess.run(["git", "rev-parse", "HEAD"], cwd=_REPO_DIR,
-                         capture_output=True, text=True, timeout=10)
-  except (OSError, subprocess.SubprocessError):
-    return None
-  if out.returncode != 0:
-    return None
-  return out.stdout.strip() or None
 
 
 def _round(v):
@@ -151,15 +136,24 @@ def run(params) -> Dict[str, Any]:
       cfg = dataclasses.replace(cfg, spec=spec)
 
   trace = tracing.activate(tracing.RunTrace())
-  metrics_lib.activate(metrics_lib.MetricRegistry())
+  registry = metrics_lib.activate(metrics_lib.MetricRegistry())
+  server = None
   try:
     engine = engine_lib.ServingEngine(cfg, variables=variables, device=device)
+    if params.metrics_port:
+      # The serving registry, served live for the replay (bench.py:91).
+      server = metrics_lib.MetricsServer(registry, params.metrics_port,
+                                         healthz_fn=engine.healthz)
+      print(f"serving /metrics + /healthz on 127.0.0.1:{server.port}",
+            file=sys.stderr, flush=True)
     n_warm = engine.warm()
     print(f"serving bench: {n_warm} program(s) prepared across ladder "
           f"{cfg.bucket_ladder}", file=sys.stderr, flush=True)
     engine.replay(workload)
     stats = engine.stats()
   finally:
+    if server is not None:
+      server.close()
     tracing.deactivate()
     metrics_lib.deactivate()
   ledger = trace.compile_ledger()
@@ -187,7 +181,7 @@ def run(params) -> Dict[str, Any]:
                   for t, block in (stats.get("serving_tenants") or {}).items()}
   if tenant_block:
     record["serving_tenants"] = tenant_block
-  record["git_rev"] = git_revision()
+  record["git_rev"] = metrics_lib.git_revision()
   record["platform"] = "gpu" if on_gpu else "cpu"
   record["device"] = (torch.cuda.get_device_name(0) if on_gpu else "cpu")
   return record

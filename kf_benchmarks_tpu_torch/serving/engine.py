@@ -64,8 +64,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import hashlib
-import json
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -75,6 +73,7 @@ import torch
 from kf_benchmarks_tpu_torch import metrics as metrics_lib
 from kf_benchmarks_tpu_torch import quantization
 from kf_benchmarks_tpu_torch import tracing as tracing_lib
+from kf_benchmarks_tpu_torch.analysis import baseline
 from kf_benchmarks_tpu_torch.data import packing as packing_lib
 from kf_benchmarks_tpu_torch.ops import graphs
 from kf_benchmarks_tpu_torch.serving import decode as decode_lib
@@ -92,15 +91,12 @@ def bucket_for(n: int, ladder: Sequence[int]) -> int:
 
 def config_fingerprint_key(config: Dict[str, Any],
                            program: str = "serving_decode") -> str:
-  """Short stable key (sha256 hex, 16 chars) of a program shape: the
-  config's non-None fields, the program name and the torch version (a new
-  torch may run other kernels). The local counterpart of the JAX package's
-  analysis/baseline.config_fingerprint_key, which keys on the jax
-  version."""
+  """Short stable key (analysis/baseline.fingerprint_key) of a serving
+  program's shape: the config's non-None fields, the program name and the
+  torch version (a new torch may run other kernels)."""
   shape = {k: v for k, v in config.items() if v is not None}
-  payload = {"config": shape, "program": program, "torch": torch.__version__}
-  canon = json.dumps(payload, sort_keys=True, default=str)
-  return hashlib.sha256(canon.encode("utf-8")).hexdigest()[:16]
+  return baseline.fingerprint_key({"config": shape, "program": program,
+                                   "torch": torch.__version__})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -178,7 +178,8 @@ def resolve_health_stats(params, strategy=None):
   Auto turns the stats ON for training runs that (a) reduce gradients
   replica-synchronously (``strategy.cross_replica``; replicated family /
   kungfu sync_sgd) and (b) have a telemetry sink (``--train_dir`` for the
-  flight-recorder files). Gossip/async modes auto-off with a one-line
+  flight-recorder files, ``--benchmark_log_dir`` for the health metric
+  row). Gossip/async modes auto-off with a one-line
   note (their per-rank gradients diverge, so a "global" norm would be
   rank-local); sink-less runs auto-off quietly. Explicit ``--health_stats``
   always engages (the window stays in memory and anomalies still dump to
@@ -195,7 +196,8 @@ def resolve_health_stats(params, strategy=None):
                                         False))):
     # The sharded apply runs on 1/n flat shards (ops/sharded.py): the
     # full update the stats read never exists on one rank.
-    if getattr(params, "train_dir", None):
+    if getattr(params, "train_dir", None) or getattr(
+        params, "benchmark_log_dir", None):
       return False, (
           "health_stats: --shard_optimizer_state applies the optimizer "
           "on per-device state shards; the full-tree in-step stats are "
@@ -216,7 +218,8 @@ def resolve_health_stats(params, strategy=None):
         "trees (no replica-synchronous reduction); in-step health stats "
         "disabled -- pass --health_stats with a replicated-family mode "
         "to enable them" % params.variable_update)
-  if v is None and not getattr(params, "train_dir", None):
+  if v is None and not (getattr(params, "train_dir", None) or
+                        getattr(params, "benchmark_log_dir", None)):
     return False, None
   return True, None
 
@@ -690,6 +693,17 @@ class TelemetrySession:
     s = self.recorder.summary()
     s["watchdog_stalls"] = self.watchdog.stalls
     return s
+
+  def healthz(self) -> Dict[str, Any]:
+    """This session's half of the /healthz payload (metrics.py serves
+    it): "stalled" while the watchdog is inside a stall episode, the
+    health summary, and the last recorded step."""
+    payload = {"status": "stalled" if self.watchdog._stalled else "ok"}
+    payload.update(self.summary())
+    last = self.recorder.tail(1)
+    if last:
+      payload["last_step"] = last[0].get("step")
+    return payload
 
   def close(self, reason: str = "run end") -> None:
     if self._closed:

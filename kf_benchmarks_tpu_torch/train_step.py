@@ -740,6 +740,12 @@ class TrainChunk:
     self._row = None        # (1,) int64: the row the next replay writes
     self._next_row = 0      # its host mirror
 
+  @property
+  def captured(self) -> bool:
+    """Whether a call replays graphs (the first call on a card captures
+    them; on the CPU there are none)."""
+    return bool(self._graphs)
+
   def __call__(self, images: torch.Tensor, labels: torch.Tensor,
                d: int, offset: Optional[int] = None
                ) -> Dict[str, torch.Tensor]:

@@ -36,7 +36,8 @@ _UNPORTED_FLAGS = {
     "mesh_shape": ("the named 2-D device mesh", "8"),
     "serving_model_shards": ("tensor-parallel serving across cards, on "
                              "parallel/tensor.py of item 8", "11"),
-    "metrics_port": ("the live /metrics and /healthz endpoint", "10"),
+    "autotuned_config": ("the tuned-config table of analysis/autotune.py",
+                         "10"),
 }
 
 
@@ -98,6 +99,7 @@ def validate_cross_flags(params) -> None:
   validate_elastic_flags(params)
   validate_dispatch_flags(params)
   validate_telemetry_flags(params)
+  validate_observability_flags(params)
   validate_input_flags(params)
   validate_serving_flags(params)
   validate_aot_flags(params)
@@ -726,6 +728,39 @@ def validate_sharded_flags(p) -> None:
         "removes. Add --shard_optimizer_state (which also brings its "
         "exclusion matrix: elementwise optimizers only, synchronous "
         "replicated/parameter_server only, no --staged_vars)")
+  if p.shard_params and (p.summary_verbosity or 0) >= 2:
+    raise ParamError(
+        "--summary_verbosity >= 2 cannot be combined with "
+        "--shard_params: the tier-2 parameter histograms read the "
+        "replica-0 FULL parameter tree (observability.py "
+        "write_histograms), which the FSDP layout stores as 1/n "
+        "flat shards -- the histograms would silently describe one "
+        "shard. Use verbosity 1 (scalars) or drop --shard_params "
+        "for histogram debugging")
+
+
+def validate_observability_flags(p) -> None:
+  """The training-only sinks (the JAX package's validation.py:765-792,
+  with its messages, the profiler named as the port's)."""
+  if p.trace_events_file and (p.eval or p.forward_only):
+    raise ParamError(
+        "--trace_events_file instruments training runs only (the span "
+        "timeline covers the train loop's feed/dispatch/compile/"
+        "checkpoint/elastic boundaries, tracing.py); it cannot be "
+        "combined with --eval or --forward_only. The torch.profiler "
+        "--trace_file capture works in every mode")
+  if p.metrics_port and (p.eval or p.forward_only):
+    raise ParamError(
+        "--metrics_port serves the training loop's metric registry "
+        "(metrics.py); it cannot be combined with --eval or "
+        "--forward_only")
+  if p.run_store_dir and (p.eval or p.forward_only):
+    raise ParamError(
+        "--run_store_dir appends the TRAINING run's record to the "
+        "run store (metrics.py RunStore, written at train-loop end); "
+        "it cannot be combined with --eval or --forward_only. The "
+        "bench records come from bench_torch.py, which owns its own "
+        "store path")
 
 
 def validate_telemetry_flags(p) -> None:
