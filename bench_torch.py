@@ -162,6 +162,7 @@ def main(argv=None) -> int:
       },
       "compile_ledger": {"shapes": ledger.get("shapes", 0),
                          "total_compile_s": ledger.get("total_compile_s")},
+      "tuned_config": stats.get("tuned_config"),
       "git_rev": metrics_lib.git_revision(),
       "platform": "gpu" if args.device == "gpu" else "cpu",
   }

@@ -326,7 +326,8 @@ the run with a non-zero exit and no result line:
                 card forward against the port's f32 CPU forward at the
                 same weights (batch 8, batch norms on batch statistics,
                 dropout off; cosine >= 0.9, and the card's f32 forward
-                with plain convs >= 0.9999); then K-A and K-B against
+                with plain convs >= 0.9999: phase models_cosines, beside
+                phase elastic in a full run); then K-A and K-B against
                 their plain versions at every shape the runs gave them.
                 Also NASNet-A mobile (224, 32), large (331, 16) and CIFAR
                 (32, 32), NCF (ids, 2048) and SSD300 (300, 32, on
@@ -345,7 +346,7 @@ the run with a non-zero exit and no result line:
                 that the path runs end to end), K-B 13 a batch.
  30. speech  -- DeepSpeech2 (models/deepspeech.py) at its published sizes
                 through BenchmarkCNN: batch 128, 3494 x 161 frames, five
-                bidirectional LSTM layers of 800, bf16, 2 warmup + 5
+                bidirectional LSTM layers of 800, bf16, 2 warmup + 3
                 timed steps on the synthetic batch: examples/sec, peak
                 memory, a finite loss, no kernel of ours launched, one
                 step and the CTC loss's forward and backward by CUDA
@@ -382,12 +383,36 @@ the run with a non-zero exit and no result line:
                 (observability.measured_per_op_table), K-A's and K-B's
                 shares of its kernel time and its busy share, the counted
                 FLOPs a step, the MFU and both runs' images/sec.
+ 32. audit   -- every golden contract of the port (analysis/
+                contracts.py: the step traced on fake tensors in a fake
+                process group, with this machine's torch) through every
+                rule of analysis/audit.py: 0 violations, 0 golden diffs,
+                no schedule drift. Untimed, on the CPU: in a full run a
+                process of its own started beside phase elastic.
+ 33. tune    -- the autotuner (analysis/autotune.py) on ResNet-50 at
+                batch 256, bf16, world 1: a seeded 12-candidate grid over
+                K, M and the prefetch depth, each distinct step traced and
+                pruned against the card's memory, ranked by the cost
+                model, the default and the top 2 probed (the differential
+                pair of windows, twice; images/sec of each beside the
+                default's), the table written to a temporary directory;
+                then 12 steps under --autotuned_config: the table's knobs
+                applied, the stats' and the run record's provenance, and
+                the contract's K-A / K-B calls a step times the steps
+                launched (13 + 13 a microbatch).
+ 34. allreduce -- all_reduce_benchmark.py over NCCL at world 1: ResNet-50's
+                161 gradient shapes through the per-tensor mean and
+                psum:32k:rsag (values held, ms a reduction), and a sweep
+                (psum, reduce_scatter, all_gather at 256 KiB and 4 MiB).
+                At world 1 a row times NCCL's own call, not a wire.
 
 Every process it starts shares one bytecode cache under build/pycache
 (``_use_bytecode_cache``). When phase elastic is in the run, phases
 parity, lm_parity and serve_parity, which time nothing, run in this
 process while elastic waits for its launches (BESIDE_ELASTIC), not in
-their own place. Before the last line it prints the card's name
+their own place, and neither does models_cosines; phase audit runs in a
+process of its own started there. Before the last line it prints the
+card's name
 and power limit and one JSON line with every kernel's error, time, bound
 and library time. The
 last line is {"ok": true, "device": {...}}. ``--phases=build,conv`` runs a
@@ -450,7 +475,8 @@ ALL_PHASES = ("build", "conv", "unit", "train", "parity", "flash",
               "serve_parity", "dp", "zoo", "elastic", "infer", "eval",
               "optim", "dispatch", "accum", "serve_graph", "fp16_vars",
               "health", "faults", "input", "aot", "serve_variants",
-              "models", "detect", "speech", "observe")
+              "models", "models_cosines", "detect", "speech", "observe",
+              "audit", "tune", "allreduce")
 EXTRA_PHASES = ("profile", "lm_profile", "serve_profile", "conv_tiles",
                 "first_steps", "observe_pairs")
 
@@ -2477,7 +2503,7 @@ EARLY = {}
 # waits for its launches (when both are in the run), not in their own
 # place: their card work is small beside the workers' and their checks
 # are numeric, so sharing the card and the host's cores changes no check.
-BESIDE_ELASTIC = ("parity", "lm_parity", "serve_parity")
+BESIDE_ELASTIC = ("parity", "lm_parity", "serve_parity", "models_cosines")
 
 
 def timed_waits(waits):
@@ -2626,15 +2652,20 @@ def phase_elastic(res):
     def launches():
       """The two uninterrupted runs and the first arc share the card (three
       workers of 19 GiB at their peak); the second arc resumes beside the
-      early launches (EARLY)."""
+      early launches (EARLY). Phase audit's process (host CPU alone) runs
+      beside both rounds."""
+      audit = audit_start() if "audit" in res.get("phases", ()) else None
       started = [elastic_start(root, "whole_a", ELASTIC_STEPS),
                  elastic_start(root, "whole_b", ELASTIC_STEPS),
                  elastic_start(root, "arcs", half)]
       logs = dict(zip(("whole_a", "whole_b", "arc_1"),
                       [elastic_finish(s) for s in started]))
       arc_2 = elastic_start(root, "arcs", half)
-      done = timed_waits({"arc_2": lambda: elastic_finish(arc_2),
-                          **early_waits(res.get("phases", ()))})
+      waits = {"arc_2": lambda: elastic_finish(arc_2),
+               **early_waits(res.get("phases", ()))}
+      if audit is not None:
+        waits["audit"] = lambda: audit_finish(audit)
+      done = timed_waits(waits)
       logs["arc_2"] = done.pop("arc_2")[0]
       return logs, done
 
@@ -2648,8 +2679,8 @@ def phase_elastic(res):
       logs, done = future.result()
     store_early(done)
     if done:
-      log(f"elastic: the second arc ran beside {', '.join(done)} (phases "
-          f"faults and aot, made early): " + ", ".join(
+      log(f"elastic: the second arc ran beside {', '.join(done)} (made "
+          f"early): " + ", ".join(
               f"{k} {v:.1f} s" for k, (_, v) in done.items()))
     # The port runs this path in the workers: their counts, each from 0.
     from kf_benchmarks_tpu_torch import benchmark
@@ -4768,6 +4799,29 @@ def models_captured(label, model, data_name, batch):
   return {"k": k, "losses": list(s1["losses"]), "bitwise": True}
 
 
+def phase_models_cosines(res):
+  """Each MODELS_RUNS network's bf16 and f32 card forward against the f32
+  CPU forward at batch MODELS_COSINE_BATCH, from the same weights (seeded
+  70 + its index): untimed, so it runs beside phase elastic."""
+  from kf_benchmarks_tpu_torch.data import datasets
+  from kf_benchmarks_tpu_torch.models import model_config
+  out = res.setdefault("models_cosines", {})
+  for i, (label, model, data_name, *_rest) in enumerate(MODELS_RUNS):
+    m = model_config.get_model_config(model, None, data_name)
+    cos = models_cosine(m, datasets.create_dataset(None, data_name)
+                        .num_classes, 70 + i)
+    out[label] = cos
+    for kind, floor in MODELS_COSINE_MIN.items():
+      check(cos[kind] >= floor,
+            f"models {label}: {kind} card forward's cosine {cos[kind]:.6f} "
+            f"against the f32 CPU forward, want >= {floor}")
+    log(f"models {label}: card forward against the f32 CPU forward "
+        f"(batch {MODELS_COSINE_BATCH}, same weights): cosine bf16 "
+        f"{cos['bf16']:.6f}, f32 (plain convs) {cos['f32']:.8f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_models(res):
   """The image-classification zoo (ROADMAP Queue 1 item 7a): see the
   module docstring, item 28."""
@@ -4821,24 +4875,10 @@ def phase_models(res):
       benchmark.kernel_launches()
   for label, model, data_name, batch in MODELS_CAPTURED:
     out[label]["captured"] = models_captured(label, model, data_name, batch)
-  # Outside the counted window: the forward cosines and the kernels at the
-  # new shapes.
-  from kf_benchmarks_tpu_torch.data import datasets
-  from kf_benchmarks_tpu_torch.models import model_config
-  for i, (label, model, data_name, *_rest) in enumerate(MODELS_RUNS):
-    m = model_config.get_model_config(model, None, data_name)
-    cos = models_cosine(m, datasets.create_dataset(None, data_name)
-                        .num_classes, 70 + i)
-    out[label]["forward_cosine"] = cos
-    for kind, floor in MODELS_COSINE_MIN.items():
-      check(cos[kind] >= floor,
-            f"models {label}: {kind} card forward's cosine {cos[kind]:.6f} "
-            f"against the f32 CPU forward, want >= {floor}")
-    log(f"models {label}: card forward against the f32 CPU forward "
-        f"(batch {MODELS_COSINE_BATCH}, same weights): cosine bf16 "
-        f"{cos['bf16']:.6f}, f32 (plain convs) {cos['f32']:.8f}")
-    gc.collect()
-    torch.cuda.empty_cache()
+  # Outside the counted window: the kernels at the new shapes (the forward
+  # cosines are phase models_cosines).
+  if "models_cosines" not in res.get("phases", ()):
+    phase_models_cosines(res)
   seed = 90
   for label, *_ in MODELS_RUNS:
     noted = shapes[label]
@@ -4998,7 +5038,7 @@ def phase_detect(res):
 # -- speech: DeepSpeech2 and the LibriSpeech path -----------------------------
 
 SPEECH_BATCH = 128
-SPEECH_WARMUP, SPEECH_STEPS = 2, 5
+SPEECH_WARMUP, SPEECH_STEPS = 2, 3
 # Forward cosines at the full 3494 frames, batch 2: the card's bf16 and
 # f32 forwards against the port's f32 CPU forward from one init.
 SPEECH_COSINE_BATCH = 2
@@ -5717,6 +5757,243 @@ def kernels_line(res, counts):
   return {"kernels": rows}
 
 
+# -- phases tune, allreduce and audit (item 10's second half) -----------------
+
+# The tune phase's search: ResNet-50 at batch 256, bf16, world 1, over K, M
+# and the prefetch depth, seeded, at most TUNE_CANDIDATES candidates and
+# TUNE_TOP_K probed beside the default; each probe's short window is
+# TUNE_PROBE_STEPS steps (probe_steps), so every K probes the same work.
+TUNE_BASE = dict(model="resnet50", batch_size=256, use_fp16=True,
+                 optimizer="momentum", device="gpu")
+TUNE_AXES = (("steps_per_dispatch", (1, 2, 4, 8)),
+             ("num_grad_accum", (1, 2)),
+             ("input_prefetch_depth", (None, 2, 4)))
+TUNE_CANDIDATES, TUNE_TOP_K, TUNE_PROBE_STEPS = 12, 2, 8
+TUNE_WARMUP, TUNE_STEPS = 2, 10  # the tuned run: 12 steps
+
+
+def phase_tune(res):
+  """The autotuner (analysis/autotune.py) behind --autotuned_config:
+  enumerate TUNE_AXES through the port's validation, trace each distinct
+  step on fake tensors (the contract's peak live bytes against the card's
+  memory less a reserve, its kernel calls and FLOPs), rank by the cost
+  model, probe the default and the top TUNE_TOP_K on the card (the
+  differential pair of windows, twice), write the table to a temporary
+  directory; then 12 steps of ResNet-50 under --autotuned_config: the
+  applied knobs, the record's provenance and the launches a step the
+  contract predicts (13 + 13 K-A / K-B a microbatch)."""
+  import collections
+  from kf_benchmarks_tpu_torch import benchmark
+  from kf_benchmarks_tpu_torch import metrics as metrics_lib
+  from kf_benchmarks_tpu_torch import params as params_lib
+  from kf_benchmarks_tpu_torch.analysis import autotune
+  from kf_benchmarks_tpu_torch.analysis.__main__ import card_info
+  out = res["tune"] = {}
+  budget = autotune.hbm_budget_bytes()
+  tracer = autotune.make_tracer(world=1)
+  t0 = time.time()
+  lines = []
+  with tempfile.TemporaryDirectory(prefix="tune_") as root:
+    path = os.path.join(root, autotune.TABLE_FILENAME)
+    table = autotune.autotune_configs(
+        [TUNE_BASE], out=path, seed=0, axes=collections.OrderedDict(
+            TUNE_AXES), max_candidates=TUNE_CANDIDATES, top_k=TUNE_TOP_K,
+        probe_steps=TUNE_PROBE_STEPS, hbm_budget=budget, tracer=tracer,
+        card=card_info(), log=lambda m: (lines.append(m), log("tune: " + m)))
+    search_s = time.time() - t0
+    (key, entry), = table["entries"].items()
+    problems, warnings = autotune.validate_table(
+        autotune.load_table(path))
+    check(not problems, f"tune: the written table has problems {problems}")
+    probes = entry["probes"]
+    check(entry["probed"] == len(probes) and 2 <= len(probes) <=
+          TUNE_TOP_K + 1, f"tune: {entry['probed']} probes")
+    check(entry["tuned_images_per_sec"] >= entry["default_images_per_sec"],
+          "tune: the pick measured below the default")
+    for p in probes:
+      log(f"tune: probe {json.dumps(p['knobs'], sort_keys=True)}: "
+          f"{p['images_per_sec']:.2f} images/sec (spread "
+          f"{100 * p['spread']:.1f}%) beside the default's "
+          f"{entry['default_images_per_sec']:.2f}")
+    log(f"tune: {entry['candidates']} candidates, {entry['invalid']} "
+        f"invalid, {entry['pruned']} pruned, {entry['probed']} probed in "
+        f"{search_s:.1f} s; pick {json.dumps(entry['tuned'], sort_keys=True)}"
+        f" at {entry['tuned_images_per_sec']:.2f} images/sec (default "
+        f"{entry['default_images_per_sec']:.2f}, probe spread "
+        f"{100 * entry['probe_spread']:.1f}%, dispatch "
+        f"{entry['dispatch_overhead_s']} s), HBM budget {budget} B, "
+        f"{entry['device_name']}, {entry['power_limit']}")
+    # The tuned run: the table's knobs over the base flags.
+    store = os.path.join(root, "store")
+    params = params_lib.make_params(
+        **TUNE_BASE, autotuned_config=path, num_batches=TUNE_STEPS,
+        num_warmup_batches=TUNE_WARMUP, display_every=5,
+        run_store_dir=store)
+    bench = benchmark.BenchmarkCNN(params)
+    tuned = {k: getattr(bench.params, k) for k in entry["tuned"]}
+    check(tuned == {k: v if v is not None else getattr(
+        params_lib.make_params(), k) for k, v in entry["tuned"].items()},
+          f"tune: applied {tuned}, the table says {entry['tuned']}")
+    check(bench.tuned_provenance == {"path": path, "entry": key},
+          f"tune: provenance {bench.tuned_provenance}")
+    contract = tracer(autotune.static_overrides(autotune.merged_overrides(
+        TUNE_BASE, entry["tuned"])), "train_step")
+    reset_launches()
+    stats = bench.run()
+    counts = benchmark.kernel_launches()
+    res.setdefault("counts_by_path", {})["tune"] = counts
+    steps = stats["steps_run"]
+    check(steps == TUNE_WARMUP + TUNE_STEPS, f"tune: ran {steps} steps")
+    for name in ("conv3x3_same", "bn_relu_conv3x3_stats"):
+      want = contract.kernel_calls.get(name, 0)
+      check(counts[name] == want * steps,
+            f"tune: {name} launched {counts[name]} times in {steps} steps, "
+            f"the contract calls it {want} times a step")
+    check(stats["tuned_config"] == {"path": path, "entry": key},
+          f"tune: stats provenance {stats['tuned_config']}")
+    (record,) = metrics_lib.RunStore(store).records()
+    snap = record["snapshot"]
+    check(snap.get("tuned_config_path") == path and
+          snap.get("tuned_config_entry") == key,
+          f"tune: the run record's provenance {snap}")
+    check(np.isfinite(stats["last_average_loss"]), "tune: loss not finite")
+  out.update(entry=entry, search_s=search_s, tuned_run_images_per_sec=stats[
+      "images_per_sec"], launches=counts, steps=steps,
+      contract_kernel_calls=contract.kernel_calls,
+      contract_flops=contract.aux.get("flops"),
+      contract_peak_live_bytes=contract.peak_live_bytes)
+  log(f"tune: tuned run {steps} steps at {json.dumps(tuned, sort_keys=True)}"
+      f": {stats['images_per_sec']:.2f} images/sec, launches {counts} "
+      f"({contract.kernel_calls} a step by the contract), record provenance "
+      f"entry {key}; contract FLOPs a step {contract.aux.get('flops'):.4e}, "
+      f"peak live {contract.peak_live_bytes / 2**30:.2f} GiB")
+
+
+ALLREDUCE_SPECS = (None, "psum:32k:rsag")
+ALLREDUCE_ITERS, ALLREDUCE_STEPS = 5, 10
+
+
+def phase_allreduce(res):
+  """all_reduce_benchmark.py over NCCL at world 1 (one card): ResNet-50's
+  161 gradient shapes through the per-tensor all-reduce mean and one
+  packed spec, five chained reductions a step, the reduced values held to
+  the inputs (a world-1 mean is the identity plus the chain's 1e-6
+  steps); then a short sweep (psum, reduce_scatter, all_gather at 256 KiB
+  and 4 MiB). At world 1 each row times NCCL's own call, not a wire."""
+  import torch.distributed as dist
+  from kf_benchmarks_tpu_torch import all_reduce_benchmark as arb
+  from kf_benchmarks_tpu_torch import params as params_lib
+  from kf_benchmarks_tpu_torch.models import model_config
+  from kf_benchmarks_tpu_torch.parallel import mesh
+  out = res["allreduce"] = {}
+  check(not dist.is_initialized(), "allreduce: a process group is alive")
+  mesh.init_process_group("gpu", 1, 0, mesh.local_init_method())
+  try:
+    shapes = arb.get_var_shapes(model_config.get_model_config(
+        "resnet50", params_lib.make_params(), "imagenet"))
+    check(len(shapes) == 161, f"allreduce: {len(shapes)} ResNet-50 shapes")
+    for spec in ALLREDUCE_SPECS:
+      params = params_lib.make_params(
+          model="resnet50", device="gpu", num_batches=ALLREDUCE_STEPS,
+          num_warmup_batches=2, all_reduce_spec=spec)
+      reduce = arb.make_reduce(params)
+      g = torch.Generator(device="cuda").manual_seed(0)
+      xs = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+      ys = arb.chained_reduce([x.clone() for x in xs], ALLREDUCE_ITERS,
+                              reduce)
+      err = max(float((y - x).abs().max()) for x, y in zip(xs, ys))
+      check(err <= ALLREDUCE_ITERS * 1e-6 + 1e-6,
+            f"allreduce {spec}: a world-1 mean moved a value by {err}")
+      stats = arb.run_benchmark(params, ALLREDUCE_ITERS)
+      label = spec or "per_tensor"
+      out[label] = dict(stats, max_abs_err=err)
+      log(f"allreduce [{label}]: {stats['num_tensors']} tensors, "
+          f"{stats['bytes_per_replica'] / 1e6:.2f} MB, world "
+          f"{stats['world']}: {stats['average_all_reduce_time'] * 1e3:.4f} "
+          f"ms a reduction ({stats['average_time_per_step'] * 1e3:.4f} ms a "
+          f"step of {ALLREDUCE_ITERS}); max abs err {err:.3g}; "
+          f"{arb.wire_note()}")
+    rows = arb.run_sweep(params_lib.make_params(
+        device="gpu", num_batches=ALLREDUCE_STEPS, num_warmup_batches=2),
+        ALLREDUCE_ITERS, "psum,reduce_scatter,all_gather", "256k,4m")
+    check(len(rows) == 6 and all(r["step_ms"] > 0 for r in rows),
+          f"allreduce: sweep rows {rows}")
+    out["sweep"] = rows
+  finally:
+    mesh.destroy_process_group()
+
+
+def audit_start():
+  """Phase audit in a process of its own (``--phases=audit``), started
+  beside phase elastic; ``audit_finish`` waits for it."""
+  root = tempfile.mkdtemp(prefix="audit_early_")
+  proc = subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), "--phases=audit"],
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+  return root, proc
+
+
+def audit_finish(started):
+  root, proc = started
+  try:
+    out, err = proc.communicate(timeout=600)
+  except subprocess.TimeoutExpired:
+    proc.kill()
+    out, err = proc.communicate()
+  check(proc.returncode == 0, f"audit: its process exited "
+        f"{proc.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+  return dict(text=out, root=root)
+
+
+def phase_audit(res):
+  """The audit's result: from its own process when phase elastic started
+  it (EARLY), else the audit run here (``audit_here``)."""
+  early = EARLY.pop("audit", None)
+  if early is None:
+    audit_here(res)
+    return
+  import shutil
+  shutil.rmtree(early["root"], ignore_errors=True)
+  lines = [line for line in early["text"].splitlines()
+           if line.startswith("audit: ")]
+  check(len(lines) == 1 and " 0 violations, 0 golden diffs, no schedule "
+        "drift" in lines[0], f"audit: {early['text'][-2000:]}")
+  res["audit"] = {"seconds": early["seconds"], "line": lines[0]}
+  log(f"{lines[0]}; its own process beside phase elastic, "
+      f"{early['seconds']:.1f} s")
+
+
+def audit_here(res):
+  """Every golden contract of the port through every rule, on the CPU
+  (fake process group, fake tensors: nothing runs on the card) with the
+  card's torch: 0 violations, 0 golden diffs, no schedule drift. (The
+  sharded goldens at worlds 2, 4 and 8 are the CPU tests' and the CLI's:
+  another 40 s of host CPU.) Untimed: in a full run its own process runs
+  it beside phase elastic."""
+  from kf_benchmarks_tpu_torch.analysis import audit, baseline, contracts
+  from kf_benchmarks_tpu_torch.analysis import spmd
+  t0 = time.time()
+  known = dict(contracts.GOLDEN_CONFIGS)
+  known.update(contracts.SERVING_GOLDEN_CONFIGS)
+  tracer = audit.make_memo_tracer()
+  report = audit.audit_configs(known, tracer=tracer)
+  bad = {n: e["violations"] for n, e in report["configs"].items()
+         if e["violations"]}
+  check(not bad, f"audit: rule violations {bad}")
+  diffs = {n: baseline.check_against_golden(
+      n, tracer(dict(c), audit.program_of(c))) for n, c in known.items()}
+  diffs = {n: d for n, d in diffs.items() if d}
+  check(not diffs, f"audit: golden diffs {diffs}")
+  drift = {n: spmd.schedule_drift(n, tracer(dict(c), audit.program_of(c)))
+           for n, c in known.items()}
+  drift = {n: d for n, d in drift.items() if d}
+  check(not drift, f"audit: schedule drift {drift}")
+  res["audit"] = {"configs": len(known), "seconds": time.time() - t0}
+  log(f"audit: {len(known)} golden contracts, {len(audit.RULES)} rules: 0 "
+      f"violations, 0 golden diffs, no schedule drift "
+      f"({time.time() - t0:.1f} s on the CPU)")
+
+
 PHASES = {"build": phase_build, "conv": phase_conv, "unit": phase_unit,
           "train": phase_train, "parity": phase_parity,
           "flash": phase_flash, "flash_grad": phase_flash_grad,
@@ -5732,6 +6009,8 @@ PHASES = {"build": phase_build, "conv": phase_conv, "unit": phase_unit,
           "aot": phase_aot, "serve_variants": phase_serve_variants,
           "models": phase_models, "detect": phase_detect,
           "speech": phase_speech, "observe": phase_observe,
+          "tune": phase_tune, "allreduce": phase_allreduce,
+          "audit": phase_audit, "models_cosines": phase_models_cosines,
           "observe_pairs": phase_observe_pairs,
           "serve_profile": phase_serve_profile,
           "conv_tiles": phase_conv_tiles,

@@ -139,6 +139,8 @@ from kf_benchmarks_tpu_torch import telemetry
 from kf_benchmarks_tpu_torch import tracing
 from kf_benchmarks_tpu_torch import train_step as train_step_lib
 from kf_benchmarks_tpu_torch import validation
+from kf_benchmarks_tpu_torch.analysis import audit
+from kf_benchmarks_tpu_torch.analysis import autotune
 from kf_benchmarks_tpu_torch.analysis import baseline
 from kf_benchmarks_tpu_torch.data import datasets
 from kf_benchmarks_tpu_torch.data import device_feed
@@ -305,6 +307,13 @@ class BenchmarkCNN:
   def __init__(self, params):
     params_lib.validate_params(params)
     validation.validate_cross_flags(params)
+    # --autotuned_config: the table's knobs over the flag values, before
+    # anything reads them (JAX benchmark.py:281-290); the provenance goes
+    # into the stats and the run record.
+    params, self.tuned_provenance = autotune.apply_tuned_config(
+        params, log_fn=lambda s: log_fn(s))
+    if self.tuned_provenance is not None:
+      validation.validate_cross_flags(params)
     if params.adaptive_batch_size and not params.track_grad_noise_scale:
       # The adaptive-batch policy keys on the measured noise scale.
       params = params._replace(track_grad_noise_scale=True)
@@ -498,6 +507,12 @@ class BenchmarkCNN:
       else:
         step.global_step = restored_step = checkpoint.restore_state(
             module, step.optimizer, snapshot, step.sharding)
+        # The resumed shards re-verified against this world (a ZeRO
+        # rescale re-slices them; JAX benchmark.py's seam check).
+        problems = audit.check_resumed_state(step, self.world_size)
+        if problems:
+          raise RuntimeError("resumed state breaks its contract: "
+                             + "; ".join(problems))
         checkpoint.reseed_staged(step.staged, module)
         step.restore_counters(snapshot)
       _sync(self.device)
@@ -1611,6 +1626,9 @@ class BenchmarkCNN:
         # compile ledger (bench_torch.py forwards both).
         "latency_percentiles": trace.percentile_fields() or None,
         "compile_ledger": trace.compile_ledger(),
+        # The tuned table's path and matched entry (None without
+        # --autotuned_config; entry None when the table had no row).
+        "tuned_config": self.tuned_provenance,
         "run_id": self.run_id,
         # Which dispatch --trace_file profiled (None without it), and one
         # step's FLOPs (--tfprof_file).

@@ -275,8 +275,31 @@ _info("git_rev", "Git revision the run was built from")
 _info("platform", "Execution platform (gpu | cpu)")
 _info("metric", "Headline metric name")
 _info("unit", "Headline metric unit")
+# Tuned-config provenance (--autotuned_config, analysis/autotune.py):
+# flatten_stats expands the stats' ``tuned_config`` onto these, so a
+# record says which table row shaped its run.
+_info("tuned_config_path", "Tuned-config table the run applied")
+_info("tuned_config_entry", "Matched tuned-table entry fingerprint")
 
 _PROM_NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
+
+
+# Stats / bench-record keys that are bookkeeping, not metrics: the schema
+# audit accepts them from the emitters without registration.
+NON_METRIC_KEYS = frozenset({
+    "state", "stopped_early", "restart_for_resize", "reshape_events",
+    "aot_load_path", "value", "entries", "health", "latency_percentiles",
+    "compile_ledger", "tuned_config", "decode_variant", "quantize_gate",
+    "serving_tenants", "losses", "feed_stats", "traced_dispatch",
+    "checkpoint_save_s", "vs_baseline",
+    # The port's run identity and counts (the schema is the JAX
+    # package's; these ride the stats and the bench line, not /metrics).
+    "device", "world_size", "kernel_launches", "steps_run",
+    "eval_results", "global_step", "batch_size_per_device",
+    "num_grad_accum", "num_dispatches", "health_stats", "step_flops",
+    "checkpoint_restore_s", "shard_optimizer_state", "shard_params",
+    "overlap_gradient_reduction",
+})
 
 
 def prometheus_name(key: str) -> str:
@@ -632,6 +655,12 @@ def flatten_stats(stats: Dict[str, Any]) -> Dict[str, Any]:
       for lk, lv in value.items():
         if lk in SCHEMA and lv is not None:
           out[lk] = float(lv)
+      continue
+    if key == "tuned_config" and isinstance(value, dict):
+      if value.get("path"):
+        out["tuned_config_path"] = str(value["path"])
+      if value.get("entry"):
+        out["tuned_config_entry"] = str(value["entry"])
       continue
     if key == "compile_ledger" and isinstance(value, dict):
       for ck in ("shapes", "total_compile_s"):
@@ -1088,7 +1117,8 @@ def check_regression(history: List[Dict[str, Any]],
   history with a noise-aware bar.
 
   Comparable = same fingerprint, same metric name, same fallback
-  status, excluding the fresh run itself. The bar is
+  status, same platform (an H100 run is never held against a backfilled
+  TPU row), excluding the fresh run itself. The bar is
   ``max(mad_factor * 1.4826 * MAD, rel_floor * |median|)``: the MAD leg
   adapts to the config's measured run-to-run noise, the relative floor
   keeps a noise-free history from flagging epsilon jitter.
@@ -1097,6 +1127,7 @@ def check_regression(history: List[Dict[str, Any]],
           if r.get("fingerprint") == fresh.get("fingerprint")
           and r.get("metric") == fresh.get("metric")
           and bool(r.get("fallback")) == bool(fresh.get("fallback"))
+          and r.get("platform") == fresh.get("platform")
           and r.get("run_id") != fresh.get("run_id")]
   rows.sort(key=lambda r: r.get("t_wall", 0.0))
   tail = rows[-max(1, int(window)):]
@@ -1218,6 +1249,223 @@ def git_revision(repo_dir: Optional[str] = None) -> Optional[str]:
   return rev if out.returncode == 0 and rev else None
 
 
+# -- backfill of the TPU-era bench history ------------------------------------------
+
+# The platform of the committed BENCH_*.json rows: the JAX package's
+# bench.py on a TPU (its _CPU_FALLBACK rows ran on the host's CPU).
+BACKFILL_PLATFORM = "tpu"
+
+
+def bench_params_kwargs() -> Dict[str, Any]:
+  """The headline bench config of bench_torch.py (ResNet-50, batch 256,
+  bf16, momentum, the health stats on): one copy, so a record and a
+  fresh bench run key the same fingerprint."""
+  return dict(model="resnet50", batch_size=256, device="gpu",
+              num_devices=1, variable_update="replicated", use_fp16=True,
+              optimizer="momentum", display_every=10, health_stats=True)
+
+
+def bench_rows(path: str) -> List[Dict[str, Any]]:
+  """The bench record(s) in one ``BENCH_*.json``: the harness's wrapper
+  (one object whose ``parsed`` holds bench.py's line) or raw JSONL (one
+  record a line). Anything else yields nothing."""
+  try:
+    text = open(path, encoding="utf-8").read()
+  except OSError:
+    return []
+  try:
+    obj = json.loads(text)
+  except ValueError:
+    obj = None
+  if isinstance(obj, dict):
+    row = obj.get("parsed") if isinstance(obj.get("parsed"), dict) else obj
+    return [row] if "metric" in row else []
+  out = []
+  for line in text.splitlines():
+    try:
+      row = json.loads(line)
+    except ValueError:
+      continue
+    if isinstance(row, dict) and "metric" in row:
+      out.append(row)
+  return out
+
+
+def _backfill_ordinal(name: str, line: int) -> int:
+  """A backfilled row's t_wall: the file name's first 16 bytes as a
+  big-endian integer (monotone in name order, stable under later
+  insertions), far below any wall clock so history sorts first."""
+  prefix = name.encode("utf-8", "replace")[:16].ljust(16, b"\0")
+  return int.from_bytes(prefix, "big") * 4096 + int(line) - 2 ** 141
+
+
+def backfill_fingerprint(metric: str, platform: str) -> str:
+  """The key a backfilled row trends under: its platform and metric name.
+  No port run keys a ``{"source": ...}`` payload, so a TPU row never
+  shares a fingerprint with an H100 run."""
+  from kf_benchmarks_tpu_torch.analysis import baseline as baseline_lib
+  return baseline_lib.fingerprint_key({"source": "BENCH_*.json",
+                                       "platform": platform,
+                                       "metric": metric})
+
+
+def backfill(repo_dir: str, store_dir: Optional[str] = None,
+             pattern: str = r"BENCH_.*\.json$",
+             log: Callable[[str], None] = print) -> Tuple[int, int]:
+  """The committed ``BENCH_*.json`` history into the run store, each row
+  tagged with the platform it ran on (``tpu``; a ``_CPU_FALLBACK`` row
+  ``cpu`` and ``fallback``), never baseline. Idempotent (a row already
+  in the store by run id and metric is skipped). (ingested, skipped)."""
+  store = RunStore(store_dir or repo_dir)
+  rx = re.compile(pattern)
+  ingested = skipped = 0
+  for name in sorted(n for n in os.listdir(repo_dir) if rx.match(n)):
+    rows = bench_rows(os.path.join(repo_dir, name))
+    if not rows:
+      log(f"backfill: no bench record in {name}; skipped")
+      continue
+    stem = os.path.splitext(name)[0]
+    for i, row in enumerate(rows):
+      if row.get("value") is None:
+        skipped += 1
+        continue
+      metric = str(row["metric"])
+      fallback = "_CPU_FALLBACK" in metric
+      platform = "cpu" if fallback else BACKFILL_PLATFORM
+      run_id = f"backfill-{stem}" + (f"-{i + 1}" if len(rows) > 1 else "")
+      if store.has_run(run_id, metric):
+        skipped += 1
+        continue
+      rec = run_record(
+          metric=metric, value=float(row["value"]),
+          unit=str(row.get("unit") or "1"),
+          fingerprint=backfill_fingerprint(metric, platform),
+          run_id=run_id, platform=platform, fallback=fallback,
+          git_rev=row.get("git_rev"), snapshot=flatten_stats(row))
+      rec["t_wall"] = _backfill_ordinal(name, i)
+      store.append(rec)
+      ingested += 1
+      log(f"backfill: {name} -> {metric} = {row['value']} [{platform}"
+          + (", fallback]" if fallback else "]"))
+  log(f"backfill: {ingested} record(s) ingested, {skipped} skipped -> "
+      f"{store.path}")
+  return ingested, skipped
+
+
+# -- schema audit -------------------------------------------------------------------
+
+def _ast_emitted_keys(path: str) -> List[Tuple[str, int]]:
+  """Literal keys of the metric-emitting dicts of a source file: a dict
+  literal with an ``images_per_sec`` key (the stats) or both ``metric``
+  and ``value`` (the bench record), and ``record["..."] =``
+  assignments."""
+  import ast
+  try:
+    tree = ast.parse(open(path, encoding="utf-8").read())
+  except (OSError, SyntaxError):
+    return []
+  out = []
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Dict):
+      keys = [k.value for k in node.keys
+              if isinstance(k, ast.Constant) and isinstance(k.value, str)]
+      if "images_per_sec" in keys or {"metric", "value"} <= set(keys):
+        out.extend((k, node.lineno) for k in keys)
+    elif (isinstance(node, ast.Assign) and len(node.targets) == 1
+          and isinstance(node.targets[0], ast.Subscript)
+          and isinstance(node.targets[0].value, ast.Name)
+          and node.targets[0].value.id == "record"
+          and isinstance(node.targets[0].slice, ast.Constant)
+          and isinstance(node.targets[0].slice.value, str)):
+      out.append((node.targets[0].slice.value, node.lineno))
+  return out
+
+
+def schema_audit(repo_dir: str, store_dir: Optional[str] = None
+                 ) -> List[str]:
+  """The metric schema against what the port emits: distinct Prometheus
+  names, every health and tracing key registered with its histogram twin,
+  declared labels and directions, every literal key of the stats and the
+  bench record registered or bookkeeping (NON_METRIC_KEYS), every
+  BENCH_*.json row flattening onto registered keys, the store's records
+  valid (``store_dir``), and a fully populated registry rendering valid
+  Prometheus text. Problem strings (empty = clean)."""
+  problems: List[str] = []
+  prom: Dict[str, str] = {}
+  for name in SCHEMA:
+    p = prometheus_name(name)
+    if p in prom:
+      problems.append(f"schema: {name!r} and {prom[p]!r} both render as {p}")
+    prom[p] = name
+  for k in HEALTH_KEYS + HEALTH_SUMMARY_KEYS:
+    if health_key(k) not in SCHEMA:
+      problems.append(f"schema: telemetry key {health_key(k)!r} is not "
+                      "registered")
+  for key in _tracing.SAMPLE_KEYS:
+    for q in _tracing.QUANTILES:
+      if f"{key}_p{q}" not in SCHEMA:
+        problems.append(f"schema: tracing percentile field "
+                        f"{key}_p{q!r} is not registered")
+    twins = [key, key + "_s"]
+    if not any(SCHEMA.get(t) is not None and SCHEMA[t].kind == "histogram"
+               for t in twins):
+      problems.append(f"schema: tracing sample key {key!r} has no "
+                      f"histogram twin (looked for {twins})")
+  needs_direction = re.compile(r"_p(50|90|99)$")
+  for name, spec in SCHEMA.items():
+    for lab in spec.labels:
+      if lab not in LABEL_NAMES:
+        problems.append(f"schema: {name!r} declares label {lab!r} outside "
+                        f"LABEL_NAMES {LABEL_NAMES}")
+    if spec.kind == "gauge" and spec.higher_is_better is None and (
+        needs_direction.search(name) or "per_sec" in name
+        or "shed_fraction" in name or "_burn_" in name):
+      problems.append(f"schema: sentinel-judged gauge {name!r} has no "
+                      "higher_is_better direction")
+  for rel in ("kf_benchmarks_tpu_torch/benchmark.py", "bench_torch.py"):
+    for key, lineno in _ast_emitted_keys(os.path.join(repo_dir, rel)):
+      if key not in SCHEMA and key not in NON_METRIC_KEYS:
+        problems.append(f"{rel}:{lineno}: emitted key {key!r} is neither "
+                        "registered nor in NON_METRIC_KEYS")
+  for name in sorted(os.listdir(repo_dir)):
+    if not re.match(r"BENCH_.*\.json$", name):
+      continue
+    rows = bench_rows(os.path.join(repo_dir, name))
+    if not rows:
+      problems.append(f"{name}: no bench record found")
+    for row in rows:
+      for key, value in row.items():
+        if key in NON_METRIC_KEYS or value is None or key in SCHEMA:
+          continue
+        problems.append(f"{name}: bench key {key!r} is not in the metric "
+                        "schema")
+  if store_dir:
+    store = RunStore(store_dir)
+    for i, rec in enumerate(store.records()):
+      problems.extend(f"{store.path}: record {i}: {p}"
+                      for p in validate_record(rec))
+  reg = MetricRegistry()
+  for name, spec in SCHEMA.items():
+    labeled = {spec.labels[0]: "t0"} if spec.labels else None
+    if spec.kind == "info":
+      reg.set(name, "x")
+    elif spec.kind == "histogram":
+      reg.observe(name, 0.5)
+      if labeled:
+        reg.observe(name, 0.5, labels=labeled)
+    elif spec.kind == "counter":
+      reg.inc(name)
+      if labeled:
+        reg.inc(name, labels=labeled)
+    else:
+      reg.set(name, 1.5)
+      if labeled:
+        reg.set(name, 1.5, labels=labeled)
+  problems.extend("prometheus render: " + p
+                  for p in validate_prometheus_text(reg.render()))
+  return problems
+
+
 # -- fleet report ----------------------------------------------------------------
 
 def fleet_rows(records: List[Dict[str, Any]],
@@ -1310,14 +1558,122 @@ def format_fleet_report(rows: List[Dict[str, Any]]) -> str:
   return "\n".join(lines) + "\n"
 
 
+def _svg_sparkline(series: List[float], w: int = 220, h: int = 48) -> str:
+  """A self-contained inline-SVG sparkline (no script, no external
+  asset)."""
+  pad = 4.0
+  if not series:
+    return f'<svg width="{w}" height="{h}"></svg>'
+  lo, hi = min(series), max(series)
+  span = (hi - lo) or 1.0
+
+  def xy(i, v):
+    x = pad + (w - 2 * pad) * (i / max(1, len(series) - 1))
+    y = pad + (h - 2 * pad) * (1.0 - (v - lo) / span)
+    return f"{x:.1f},{y:.1f}"
+
+  if len(series) == 1:
+    x, y = xy(0, series[0]).split(",")
+    body = f'<circle cx="{x}" cy="{y}" r="3" fill="#36c"/>'
+  else:
+    pts = " ".join(xy(i, v) for i, v in enumerate(series))
+    body = (f'<polyline points="{pts}" fill="none" stroke="#36c" '
+            'stroke-width="1.5"/>')
+  return f'<svg width="{w}" height="{h}" viewBox="0 0 {w} {h}">{body}</svg>'
+
+
+_SERVING_CURVE_KEYS = ("serving/ttft_p50", "serving/ttft_p90",
+                       "serving/ttft_p99")
+_CURVE_COLORS = ("#2a9d5c", "#e0a426", "#d0453e")
+
+
+def fleet_report_html(rows: List[Dict[str, Any]]) -> str:
+  """One self-contained HTML page of ``fleet_rows``: a sparkline a trend
+  row and the serving TTFT curves where the snapshots carry them, in one
+  section per platform (the card's runs first, then backfilled TPU-era
+  rows, then CPU fallback probes, greyed), so no trend mixes machines."""
+  import html as _html
+
+  def row_html(r):
+    cells = [
+        f"<td><code>{_html.escape(r['fingerprint'][:16])}</code></td>",
+        f"<td>{_html.escape(r['metric'])}</td>",
+        f"<td>{r['n']}</td>",
+        f"<td>{r['last']:.3f} {_html.escape(str(r['unit'] or ''))}</td>",
+        f"<td>{'higher' if r['direction'] else 'lower'}</td>",
+        f"<td class=\"v-{_html.escape(r['verdict'])}\">"
+        f"{_html.escape(r['verdict'])}</td>",
+        f"<td>{_svg_sparkline(r['values'])}</td>",
+    ]
+    curves = []
+    for key, color in zip(_SERVING_CURVE_KEYS, _CURVE_COLORS):
+      series = [float(rec["snapshot"][key]) for rec in r["records"]
+                if isinstance((rec.get("snapshot") or {}).get(key),
+                              (int, float))]
+      if series:
+        curves.append(_svg_sparkline(series).replace("#36c", color))
+    cells.append("<td>" + "".join(curves) + "</td>")
+    return "<tr>" + "".join(cells) + "</tr>"
+
+  head = ("<tr><th>fingerprint</th><th>metric</th><th>n</th><th>last</th>"
+          "<th>better</th><th>verdict</th><th>trend</th>"
+          "<th>serving ttft p50/p90/p99</th></tr>")
+  groups = [
+      ("Card runs (gpu)", "",
+       [r for r in rows if r["platform"] == "gpu" and not r["fallback"]]),
+      ("CPU runs", "",
+       [r for r in rows if r["platform"] == "cpu" and not r["fallback"]]),
+      (f"Backfilled {BACKFILL_PLATFORM.upper()}-era rows (another machine; "
+       "never compared with a card run)", "other",
+       [r for r in rows if r["platform"] not in ("gpu", "cpu")
+        and not r["fallback"]]),
+      ("_CPU_FALLBACK probes (never baseline)", "fallback",
+       [r for r in rows if r["fallback"]]),
+  ]
+  sections = []
+  for title, css, group in groups:
+    if group:
+      sections.append(f'<div class="{css}"><h2>{_html.escape(title)}</h2>'
+                      f"<table>{head}"
+                      + "".join(row_html(r) for r in group)
+                      + "</table></div>")
+  if not sections:
+    sections.append("<p>No matching run records. Fill the store: a "
+                    "training run with <code>--run_store_dir</code>, or "
+                    "<code>python -m kf_benchmarks_tpu_torch.metrics "
+                    "backfill</code></p>")
+  return (
+      "<!doctype html><html><head><meta charset=\"utf-8\">"
+      "<title>kf_benchmarks_tpu_torch fleet report</title><style>"
+      "body{font-family:sans-serif;margin:24px}"
+      "table{border-collapse:collapse}"
+      "td,th{border:1px solid #ccc;padding:4px 8px;text-align:left}"
+      ".v-regression{color:#b00;font-weight:bold}"
+      ".v-ok{color:#080}.v-no_history{color:#888}"
+      ".other{opacity:0.8;margin-top:24px}"
+      ".fallback{opacity:0.55;filter:grayscale(1);margin-top:24px}"
+      "</style></head><body><h1>kf_benchmarks_tpu_torch fleet report</h1>"
+      + "".join(sections) + "</body></html>\n")
+
+
 # -- CLI ----------------------------------------------------------------------
 
 def main(argv=None) -> int:
   import argparse
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
   parser = argparse.ArgumentParser(
       prog="python -m kf_benchmarks_tpu_torch.metrics",
-      description="run-record store tools: the cross-run trend report")
+      description="run-record store tools: backfill the BENCH_*.json "
+                  "history, audit the metric schema, render the cross-run "
+                  "fleet report")
   sub = parser.add_subparsers(dest="cmd", required=True)
+  p_back = sub.add_parser("backfill", help="ingest the committed "
+                          "BENCH_*.json history, tagged with its platform")
+  p_back.add_argument("--repo_dir", default=repo)
+  p_back.add_argument("--run_store_dir", required=True)
+  p_aud = sub.add_parser("audit", help="the metric-schema audit")
+  p_aud.add_argument("--repo_dir", default=repo)
+  p_aud.add_argument("--run_store_dir", default=None)
   p_rep = sub.add_parser(
       "report", help="per-fingerprint trend table from the run store")
   p_rep.add_argument("--run_store_dir", required=True,
@@ -1330,11 +1686,27 @@ def main(argv=None) -> int:
   p_rep.add_argument("--fallback", default="all",
                      choices=("all", "only", "none"),
                      help="fallback probes: include, only, or drop")
+  p_rep.add_argument("--html", default=None,
+                     help="also write the self-contained HTML report here")
   args = parser.parse_args(argv)
+  if args.cmd == "backfill":
+    backfill(args.repo_dir, args.run_store_dir)
+    return 0
+  if args.cmd == "audit":
+    problems = schema_audit(args.repo_dir, args.run_store_dir)
+    for p in problems:
+      print(f"METRICS SCHEMA PROBLEM {p}")
+    print(f"metrics schema audit: {len(problems)} problem(s)")
+    return 1 if problems else 0
   rows = fleet_rows(RunStore(args.run_store_dir).records(),
                     fingerprint=args.fingerprint, metric=args.metric,
                     platform=args.platform, fallback=args.fallback)
   print(format_fleet_report(rows), end="")
+  if args.html:
+    os.makedirs(os.path.dirname(args.html) or ".", exist_ok=True)
+    with open(args.html, "w", encoding="utf-8") as f:
+      f.write(fleet_report_html(rows))
+    print(f"fleet report written: {args.html}")
   return 0
 
 

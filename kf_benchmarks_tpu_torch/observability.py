@@ -53,6 +53,8 @@ from kf_benchmarks_tpu_torch import metrics as metrics_lib
 H100_NAME = "NVIDIA H100 80GB HBM3"
 H100_PEAK_FLOPS = 989e12
 H100_PEAK_BYTES_PER_S = 3.35e12
+# NVLink 4 of the SXM part: 900 GB/s both ways, 450 GB/s a direction.
+H100_LINK_BYTES_PER_S = 4.5e11
 
 
 # -- one-dispatch trace (ref: benchmark_cnn.py:270-275) ---------------------
@@ -253,6 +255,45 @@ def dispatch_overhead_line(est_step_s: float, steps_per_dispatch: int,
           f"over {k} step(s)/dispatch "
           f"({per_dispatch_s * 1e6:.1f} us est device work/dispatch) "
           f"-> {100.0 * frac:.1f}% of dispatch wall at the roofline")
+
+
+def collective_overlap_stats(contract) -> Dict[str, Any]:
+  """The comm/compute overlap axis of a traced step (analysis/contracts.py
+  ProgramContract): a collective a hook issues inside the backward
+  (--overlap_gradient_reduction's buckets, the FSDP gather's backward)
+  can run beside the rest of the backward's compute; one issued after it
+  trails the compute. {num_collectives, comm_s, comm_in_backward_s,
+  overlap_fraction}, the times each collective's bytes at the H100's
+  NVLink rate (a ranking; the overlap measured across cards waits for a
+  multi-card host)."""
+  comm_s = in_bwd_s = 0.0
+  for c in contract.collectives:
+    est = c.nbytes / H100_LINK_BYTES_PER_S
+    comm_s += est
+    if c.in_backward:
+      in_bwd_s += est
+  return {
+      "num_collectives": len(contract.collectives),
+      "comm_s": comm_s,
+      "comm_in_backward_s": in_bwd_s,
+      "overlap_fraction": in_bwd_s / comm_s if comm_s else 0.0,
+  }
+
+
+def overlap_fraction_line(contract) -> str:
+  """One line for the comm/compute overlap axis: how much of the step's
+  collective time is issued inside the backward against trailing it."""
+  stats = collective_overlap_stats(contract)
+  if not stats["num_collectives"]:
+    return ("comm/compute overlap: no collectives in the step (one rank, "
+            "or an unreduced mode)")
+  return (f"comm/compute overlap: {stats['num_collectives']} collectives, "
+          f"~{stats['comm_s'] * 1e6:.1f} us est comm at NVLink's "
+          f"{H100_LINK_BYTES_PER_S / 1e9:.0f} GB/s; "
+          f"{100.0 * stats['overlap_fraction']:.1f}% issued inside the "
+          "backward (overlappable with compute), "
+          f"{(stats['comm_s'] - stats['comm_in_backward_s']) * 1e6:.1f} us "
+          "trailing it")
 
 
 def hbm_breakdown_line(mem: Dict[str, int]) -> str:

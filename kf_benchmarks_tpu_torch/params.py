@@ -183,6 +183,20 @@ flags.DEFINE_boolean("overlap_gradient_reduction", False,
                      "gradients; exclusive with the "
                      "spec/repacking/small-grad/hierarchical reducers "
                      "(validation.py).")
+flags.DEFINE_string("autotuned_config", None,
+                    "Path to a tuned-config table of the port "
+                    "(analysis/autotune.py, written by `python -m "
+                    "kf_benchmarks_tpu_torch.analysis autotune` on the "
+                    "card). At startup the entry matching this run's base "
+                    "fingerprint (analysis/baseline.base_fingerprint_key "
+                    "-- the config sans the tuned knobs) is applied over "
+                    "the flag values of --steps_per_dispatch, "
+                    "--num_grad_accum, --reduce_bucket_mb, "
+                    "--input_prefetch_depth and --attn_block, with a "
+                    "logged provenance line; no matching entry logs a "
+                    "note and runs with the flag values. A table of the "
+                    "JAX package is refused. Training runs only "
+                    "(validation.py).")
 flags.DEFINE_integer("reduce_bucket_mb", None,
                      "Gradient-reduction bucket bound in MiB for "
                      "--overlap_gradient_reduction, and the gather bucket "

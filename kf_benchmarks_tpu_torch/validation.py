@@ -36,9 +36,15 @@ _UNPORTED_FLAGS = {
     "mesh_shape": ("the named 2-D device mesh", "8"),
     "serving_model_shards": ("tensor-parallel serving across cards, on "
                              "parallel/tensor.py of item 8", "11"),
-    "autotuned_config": ("the tuned-config table of analysis/autotune.py",
-                         "10"),
 }
+
+
+# The JAX package's refusal of a tuned table outside training
+# (validation.py:334-345 there); autotune.apply_tuned_config re-checks.
+AUTOTUNED_EVAL_MESSAGE = (
+    "--autotuned_config tunes the training step's program-shaping knobs "
+    "(analysis/autotune.py); it cannot be combined with --eval or "
+    "--forward_only")
 
 
 class ParamError(ValueError):
@@ -741,7 +747,10 @@ def validate_sharded_flags(p) -> None:
 
 def validate_observability_flags(p) -> None:
   """The training-only sinks (the JAX package's validation.py:765-792,
-  with its messages, the profiler named as the port's)."""
+  with its messages, the profiler named as the port's), and the tuned
+  table (:334-345 there)."""
+  if p.autotuned_config and (p.eval or p.forward_only):
+    raise ParamError(AUTOTUNED_EVAL_MESSAGE)
   if p.trace_events_file and (p.eval or p.forward_only):
     raise ParamError(
         "--trace_events_file instruments training runs only (the span "

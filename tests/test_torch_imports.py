@@ -136,3 +136,17 @@ def test_the_input_path_still_imports_no_torch():
        "sys.exit('torch' in sys.modules)" % REPO],
       capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
   assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_walk_covers_the_analysis_and_all_reduce_modules():
+  """The contract, audit, schedule and autotune modules, the analysis CLI
+  and the all-reduce benchmark are among the modules the check imports
+  (the JAX package's counterparts of each import jax)."""
+  import pkgutil
+  import kf_benchmarks_tpu_torch as pkg
+  names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                 pkg.__name__ + ".")}
+  for mod in ("analysis.contracts", "analysis.audit", "analysis.spmd",
+              "analysis.autotune", "analysis.baseline", "analysis.__main__",
+              "all_reduce_benchmark"):
+    assert f"kf_benchmarks_tpu_torch.{mod}" in names, mod

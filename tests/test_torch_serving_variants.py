@@ -601,7 +601,7 @@ def test_cross_flag_refusals_match_jax_wording():
 
 
 @pytest.mark.parametrize("flag,item", [("serving_model_shards", "item 11"),
-                                       ("autotuned_config", "item 10")])
+                                       ("mesh_shape", "item 8")])
 def test_unported_serving_flags_name_their_item(flag, item):
   with pytest.raises(validation.ParamError, match=item):
     port_params.make_params(**{flag: 2})
